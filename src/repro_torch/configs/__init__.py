@@ -1,0 +1,31 @@
+"""Architecture config registry: ``--arch <id>`` resolution.
+
+Only the architectures the port serves are registered; the others stay
+in ``repro.configs`` until their model families are ported.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_ARCH_MODULES: Dict[str, str] = {
+    "olmo-1b": "olmo_1b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {list(ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    return _module(arch).reduced()

@@ -1,0 +1,76 @@
+"""`ModelConfig`: the single source of truth a model is built from.
+
+A copy of ``repro.configs.base.ModelConfig`` (that module imports JAX
+through ``repro.core.quant``), with the same fields and defaults.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch.core.quant import QuantConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | encoder | vlm
+    num_layers: int
+    d_model: int
+    n_heads: int                 # query heads (0 for attn-free)
+    n_kv_heads: int              # GQA kv heads
+    d_ff: int
+    vocab: int
+    head_dim: int = 0            # 0 → d_model // n_heads
+
+    # Block flavour
+    ffn: str = "swiglu"          # swiglu | relu2 | geglu | gelu
+    norm: str = "rmsnorm"        # rmsnorm | layernorm | nonparam_ln
+    causal: bool = True
+    rope_theta: float = 10000.0
+    attn_window: int = 0         # 0 = full attention; >0 = sliding window
+    attn_logit_softcap: float = 0.0
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_shard: str = "expert"
+
+    # Hybrid (recurrentgemma)
+    block_pattern: Tuple[str, ...] = ()
+    rnn_width: int = 0
+    conv_width: int = 4
+    local_window: int = 2048
+
+    # SSM (rwkv6)
+    rwkv_head_dim: int = 64
+    rwkv_decay_lora: int = 64
+
+    # Modality frontend stubs
+    num_prefix_embeds: int = 0
+    frontend: str = "none"       # none | patch_stub | frame_stub
+    frontend_dim: int = 0
+
+    # Numerics / technique integration
+    dtype: str = "bfloat16"
+    quant: Optional[QuantConfig] = None
+    remat: bool = True
+    scan_layers: bool = True
+    fsdp: bool = True
+    logits_softcap: float = 0.0
+
+    # Perf-iteration knobs
+    attn_q_chunk: int = 512
+    attn_kv_chunk: int = 1024
+    attn_shard: str = "heads"
+    rwkv_chunk: int = 64
+    kv_cache_quant: bool = False # int8 KV cache
+
+    def __post_init__(self):
+        if self.n_heads and self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.rnn_width == 0:
+            object.__setattr__(self, "rnn_width", self.d_model)

@@ -1,0 +1,150 @@
+// Paged chunked-prefill attention for Hopper.
+//
+// Replaces repro/kernels/paged_prefill.py::paged_prefill_attention
+// (_chunk_kernel): one row's chunk of Lc queries attends causally over
+// [pool-resident prefix ++ the chunk], and the chunk's K/V lands in its
+// destination pool blocks in place. An int8 pool is quantized on write
+// with kv_cache.quantize_kv's math (_quantize_tile): per (token, head)
+// scale = absmax * (1/127), codes = clamp(rint(x * (1/scale))), so the
+// pool bytes and scale planes match the plain version bitwise. Slots
+// outside [start, start + length) are never written, nor are blocks that
+// are not destinations; padded queries (i >= length) output zeros.
+//
+// The read/write race: a destination block is both attended and
+// rewritten. The TPU grid (NKV/bh, max_blocks) ran in order, merging the
+// chunk into each destination tile before attending it. Thread blocks on
+// the card run in no order, so the C entry writes the chunk first (one
+// warp per (token, KV head)) and attends after, in a second launch on
+// the same stream. The attention then reads the chunk's keys through the
+// pool's own representation — dequantize(quantize(k)) for an int8 pool —
+// exactly what the TPU kernel's merged tile held.
+//
+// Bound on the H100: at Lc = 32 the chunk reads the resident prefix once
+// per KV head and does 4*Lc flops per K/V element pair; for prompts of a
+// few hundred tokens it is bound by the pool bytes it streams. One thread
+// block per (KV head, tile of queries) walks the row's table in order with
+// the online-softmax state of the tile in shared memory.
+
+#include "paged_common.cuh"
+
+namespace {
+
+constexpr int kRowsMax = 16;   // query rows (tokens x heads of a group) per block
+
+template <typename QT, typename KT, bool QUANT>
+__global__ void chunk_write_kernel(const QT* __restrict__ k_new,
+                                   const QT* __restrict__ v_new, KT* __restrict__ pool_k,
+                                   KT* __restrict__ pool_v, float* __restrict__ k_scale,
+                                   float* __restrict__ v_scale,
+                                   const int* __restrict__ blocks, int mb, int NKV,
+                                   int H, int bs, int start, int length) {
+  const int lane = threadIdx.x & 31;
+  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (pair >= length * NKV) return;
+  const int i = pair / NKV, n = pair % NKV;
+  const int pos = start + i;
+  const int jb = pos / bs;
+  if (jb >= mb) return;
+  const int blk = blocks[jb];
+  if (blk < 0) return;
+  const long src = ((long)i * NKV + n) * H;
+  const long slot = (long)(blk * bs + pos % bs) * NKV + n;
+  const long dst = slot * H;
+  for (int which = 0; which < 2; ++which) {
+    const QT* x = which ? v_new : k_new;
+    KT* pool = which ? pool_v : pool_k;
+    if constexpr (QUANT) {
+      float mx = 0.f;
+      for (int h = lane; h < H; h += 32) mx = fmaxf(mx, fabsf(paged::to_f(x[src + h])));
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float s = __fmul_rn(mx, 1.0f / 127.0f);
+      const float inv = s > 0.f ? __fdiv_rn(1.0f, s) : 0.f;
+      for (int h = lane; h < H; h += 32) {
+        const float t = rintf(__fmul_rn(paged::to_f(x[src + h]), inv));
+        pool[dst + h] = (int8_t)(int)fminf(fmaxf(t, -128.f), 127.f);
+      }
+      if (lane == 0) (which ? v_scale : k_scale)[slot] = s;
+    } else {
+      for (int h = lane; h < H; h += 32) pool[dst + h] = (KT)x[src + h];
+    }
+  }
+}
+
+template <typename QT, typename KT, bool QUANT>
+__global__ void __launch_bounds__(paged::kThreads)
+chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ pool_k,
+                    const KT* __restrict__ pool_v, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale, const int* __restrict__ blocks,
+                    QT* __restrict__ out, int Lc, int NKV, int G, int H, int bs,
+                    int mb, int rows_tok, int start, int length, float scale,
+                    float softcap) {
+  extern __shared__ float smem[];
+  const int n = blockIdx.x;
+  const int i0 = blockIdx.y * rows_tok;
+  const int nI = min(rows_tok, Lc - i0);
+  const long ii_stride = (long)NKV * G * H;
+  const long base = (long)i0 * ii_stride + (long)n * G * H;
+  paged::attend_rows<QT, KT, QUANT>(
+      q + base, out + base, ii_stride, nI, G, H, /*pos0=*/start + i0,
+      /*pos_step=*/1, /*n_valid=*/length - i0, pool_k, pool_v, k_scale, v_scale,
+      blocks, mb, bs, NKV, n, scale, softcap, smem);
+}
+
+template <typename QT, typename KT, bool QUANT>
+int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
+           float* ks, float* vs, const int* blocks, void* out, int Lc, int NQ,
+           int NKV, int H, int bs, int mb, int start, int length, float scale,
+           float softcap, cudaStream_t st) {
+  const int G = NQ / NKV;
+  if (length > 0) {
+    const int warps = 4;
+    const int pairs = length * NKV;
+    chunk_write_kernel<QT, KT, QUANT><<<(pairs + warps - 1) / warps, 32 * warps, 0, st>>>(
+        (const QT*)kn, (const QT*)vn, (KT*)pk, (KT*)pv, ks, vs, blocks, mb, NKV, H,
+        bs, start, length);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int rows_tok = G >= kRowsMax ? 1 : kRowsMax / G;
+  const size_t smem = paged::attend_smem_floats(rows_tok * G, H, bs) * sizeof(float);
+  auto kern = chunk_attend_kernel<QT, KT, QUANT>;
+  cudaError_t e = paged::allow_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(NKV, (Lc + rows_tok - 1) / rows_tok);
+  kern<<<grid, paged::kThreads, smem, st>>>(
+      (const QT*)q, (const KT*)pk, (const KT*)pv, ks, vs, blocks, (QT*)out, Lc, NKV,
+      G, H, bs, mb, rows_tok, start, length, scale, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q/out (1, Lc, NQ, H); k_new/v_new (1, Lc, NKV, H) in q's dtype; pools
+// (num_blocks, bs, NKV, H), written in place; scales (num_blocks, bs,
+// NKV, 1) float32 for an int8 pool (quant = 1), else null; blocks (mb,)
+// int32. dtype: 0 = float32, 1 = bfloat16.
+extern "C" int paged_prefill(const void* q, const void* k_new, const void* v_new,
+                             void* pool_k, void* pool_v, float* k_scale, float* v_scale,
+                             const int* blocks, void* out, int Lc, int NQ, int NKV, int H,
+                             int bs, int mb, int start, int length, int dtype, int quant,
+                             float scale, float softcap, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Lc <= 0) return (int)cudaGetLastError();
+  if (dtype == 1) {
+    if (quant)
+      return launch<__nv_bfloat16, int8_t, true>(q, k_new, v_new, pool_k, pool_v,
+                                                 k_scale, v_scale, blocks, out, Lc, NQ,
+                                                 NKV, H, bs, mb, start, length, scale,
+                                                 softcap, st);
+    return launch<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k_new, v_new, pool_k, pool_v, k_scale, v_scale, blocks, out, Lc, NQ, NKV, H,
+        bs, mb, start, length, scale, softcap, st);
+  }
+  if (quant)
+    return launch<float, int8_t, true>(q, k_new, v_new, pool_k, pool_v, k_scale,
+                                       v_scale, blocks, out, Lc, NQ, NKV, H, bs, mb,
+                                       start, length, scale, softcap, st);
+  return launch<float, float, false>(q, k_new, v_new, pool_k, pool_v, k_scale, v_scale,
+                                     blocks, out, Lc, NQ, NKV, H, bs, mb, start, length,
+                                     scale, softcap, st);
+}

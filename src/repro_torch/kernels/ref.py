@@ -1,0 +1,121 @@
+"""Plain PyTorch versions of the three CUDA kernels of the serving path.
+
+Ported from ``repro.kernels.ref`` (``quantize_pack_ref`` +
+``bitplane_matmul_ref``, ``paged_attention_ref``, ``paged_prefill_ref``).
+They are the semantic specification: on the CPU the kernel entry points
+in :mod:`repro_torch.kernels.ops` run them, and on the card
+``chip_smoke.py`` holds each CUDA kernel against them. Integer outputs
+(accumulators, activation scales, int8 pool bytes and scale planes) are
+bitwise those of the JAX package; float outputs agree within the
+tolerances stated in ``tests/test_torch_kernels.py``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import bitplane
+from repro_torch.core.quant import reciprocal_f32
+
+
+def quantize_pack_ref(x: torch.Tensor, bits: int, signed: bool = True):
+    """Per-row absmax symmetric quantization of (M, K) float32 x: int32
+    codes and (M, 1) float32 scales, with the strength-reduced scale
+    ``absmax * (1/qhi)`` that the jitted JAX reference computes."""
+    qhi = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
+    qlo = -(1 << (bits - 1)) if signed else 0
+    absmax = x.abs().amax(dim=1, keepdim=True)
+    scale = absmax * reciprocal_f32(qhi)
+    inv = torch.where(scale > 0, torch.ones_like(scale) / scale,
+                      torch.zeros_like(scale))
+    q = torch.clamp(torch.round(x * inv), qlo, qhi).to(torch.int32)
+    return q, scale
+
+
+def fused_quantize_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
+                              w_bits: int = 8, a_bits: int = 8,
+                              act_signed: bool = True, w_plane_lo: int = 0,
+                              plane_bits: int = 2):
+    """(M, K) float32 × packed (K·w_bits/8, N) codes → ((M, N) int32,
+    (M, 1) float32): ``quantize_pack_ref`` then the exact integer product
+    of ``bitplane_matmul_ref``. The product runs in float64, exact here
+    (|acc| < 2**53), since PyTorch has no integer matmul on CUDA."""
+    q, s = quantize_pack_ref(x, a_bits, act_signed)
+    w = bitplane.unpack_weights(w_packed, w_bits, axis=0)
+    if w_plane_lo:
+        w = w >> (w_plane_lo * plane_bits)
+    acc = q.to(torch.float64) @ w.to(torch.float64)
+    return acc.to(torch.int32), s
+
+
+def _row_view(pool, tbl, n):
+    """Gather a row's blocks in table order: (n·bs, ...) values."""
+    return pool[tbl].reshape(n * pool.shape[1], *pool.shape[2:])
+
+
+def paged_attention_ref(q, pool_k, pool_v, block_table, q_pos,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Gather-then-attend: each row's blocks materialized in table order,
+    then ``models.common.decode_attention``'s masked softmax (int8 pools
+    rescaled per key and per value slot). Rows that see no key — freed
+    slots, whose tables are all -1 — output zeros, as the kernel does."""
+    from repro_torch.models.common import decode_attention
+    from repro_torch.models.kv_cache import paged_gather
+
+    k_rows, v_rows, kpos, ks_rows, vs_rows = paged_gather(
+        pool_k, pool_v, block_table, k_scale, v_scale)
+    out = decode_attention(q, k_rows, v_rows, kpos, q_pos, softcap=softcap,
+                           k_scale=ks_rows, v_scale=vs_rows)
+    pos = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+    seen = ((kpos >= 0) & (kpos <= pos.reshape(-1, 1))).any(dim=1)
+    return torch.where(seen.reshape(-1, 1, 1, 1), out, torch.zeros_like(out))
+
+
+def paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks, start, length,
+                      k_scale=None, v_scale=None, softcap: float = 0.0):
+    """Scatter-then-gather-attend: write the chunk into the pool with
+    ``kv_cache.paged_chunk_write`` (in place; int8 pools quantize on
+    write), gather the row's blocks in table order and run a full fp32
+    masked softmax — chunk query i sees allocated positions <= start + i,
+    padded queries (i >= length) see nothing and output zeros. Returns
+    (attn (1, Lc, NQ, H) in q's dtype, pool_k, pool_v, k_scale, v_scale)."""
+    from repro_torch.models.kv_cache import paged_chunk_write
+
+    _, Lc, NQ, H = q.shape
+    bs, NKV = pool_k.shape[1], pool_k.shape[2]
+    G = NQ // NKV
+    mb = blocks.shape[0]
+    start, length = int(start), int(length)
+    paged_chunk_write(pool_k, pool_v, blocks, k_new, v_new, start, length, bs,
+                      k_scale, v_scale)
+    tbl = blocks.clamp(min=0).long()
+    k_rows = _row_view(pool_k, tbl, mb).to(torch.float32)
+    v_rows = _row_view(pool_v, tbl, mb).to(torch.float32)
+    virt = torch.arange(mb * bs, dtype=torch.int32, device=q.device)
+    alloc = (blocks >= 0).repeat_interleave(bs)
+    kpos = torch.where(alloc, virt, torch.full_like(virt, -1))
+
+    qr = q.reshape(Lc, NKV, G, H).to(torch.float32)
+    s = torch.einsum("qngh,snh->nqgs", qr, k_rows)
+    if k_scale is not None:
+        ks = _row_view(k_scale, tbl, mb).reshape(mb * bs, NKV)
+        s = s * ks.T[:, None, None, :]
+    s = s * (H ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qi = torch.arange(Lc, dtype=torch.int32, device=q.device)
+    qpos = torch.where(qi < length, start + qi, torch.full_like(qi, -1))
+    valid = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
+    s = torch.where(valid[None, :, None, :], s,
+                    torch.tensor(torch.finfo(torch.float32).min, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid[None, :, None, :], p, torch.zeros_like(p))
+    if v_scale is not None:
+        vs = _row_view(v_scale, tbl, mb).reshape(mb * bs, NKV)
+        p = p * vs.T[:, None, None, :]
+    out = torch.einsum("nqgs,snh->qngh", p, v_rows)
+    attn = out.reshape(1, Lc, NQ, H).to(q.dtype)
+    return attn, pool_k, pool_v, k_scale, v_scale

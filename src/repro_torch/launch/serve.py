@@ -1,0 +1,165 @@
+"""Serving CLI: initialize a model from a seed, pack its weights, and
+serve a stream of synthetic requests through the continuous scheduler.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
+      --policy "w4a8;wo=w8a8" --continuous [--kv-int8] [--requests 8] \
+      [--max-new 16] [--max-batch 4] [--rate 20] [--block-size 16] \
+      [--pool-blocks N] [--prefill-budget 32] [--reduced] [--device cpu]
+
+Port of ``repro.launch.serve`` for the flags above; it prints what the
+JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
+given, serving with the hand-written kernels on the card and their plain
+PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
+--policy is a per-layer PrecisionPolicy spec matched against parameter
+paths. --continuous is required: this port serves through the
+continuous-batching scheduler on the paged KV pool with chunked prefill
+(--prefill-budget prompt tokens per step). One warmup pass runs first,
+so steady-state throughput and throughput including the warmup are
+reported separately.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--quant", default=None)
+    ap.add_argument("--policy", default=None,
+                    help="per-layer precision spec, e.g. 'w4a8;wo=w8a8'")
+    ap.add_argument("--kv-int8", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve via the continuous-batching scheduler")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate in requests/s (0 = all "
+                         "requests queued at t=0)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged KV cache block size (tokens per block)")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="shared KV pool size in blocks (default: the "
+                         "contiguous worst case max_batch * max_ctx)")
+    ap.add_argument("--prefill-budget", type=int, default=32,
+                    help="chunked prefill: max prompt tokens prefilled per "
+                         "scheduler step (the decode-stall bound)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "PyTorch versions of the kernels)")
+    return ap
+
+
+def synthetic_requests(cfg, args) -> list:
+    """The JAX serve CLI's request stream: prompts of 8-12 random tokens,
+    greedy and temperature-0.7 requests alternating, Poisson arrivals at
+    --rate. Every call reproduces the same stream."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab, 8 + (i % 5)).astype(np.int64),
+                    max_new_tokens=args.max_new,
+                    temperature=0.0 if i % 2 == 0 else 0.7)
+            for i in range(args.requests)]
+    if args.rate > 0:
+        t = 0.0
+        for r in reqs:
+            r.arrival_time = t
+            t += float(rng.exponential(1.0 / args.rate))
+    return reqs
+
+
+def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
+        params=None):
+    """Build the engine for `args` and serve `make_requests(cfg, args)`
+    twice (warmup, then timed). Returns (engine, done, report dict)."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core.precision import parse_policy_spec, parse_quant_token
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    if not args.continuous:
+        raise SystemExit("the port serves through the continuous-batching "
+                         "scheduler; add --continuous (the static batch "
+                         "baseline is not ported yet)")
+    if args.quant and args.policy:
+        raise SystemExit("--quant and --policy are mutually exclusive")
+    device = resolve_device(args.device)
+    make_requests = make_requests or synthetic_requests
+    cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_int8)
+    if params is None:
+        params = build_model(cfg).init(seed=0, device=device)
+        print("serving randomly initialized weights (no --ckpt)")
+    quant = None
+    if args.policy:
+        quant = parse_policy_spec(args.policy)
+        print(f"precision policy: {quant.describe()}")
+    elif args.quant and args.quant != "none":
+        quant = parse_quant_token(args.quant)
+    engine = ServingEngine(cfg, params, max_batch=args.max_batch, quant=quant,
+                           bucket=32, block_size=args.block_size,
+                           pool_blocks=args.pool_blocks,
+                           prefill_budget=args.prefill_budget, device=device)
+
+    def sync():
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    engine.generate(make_requests(cfg, args))
+    sync()
+    t_warm = time.perf_counter() - t0
+
+    reqs = make_requests(cfg, args)       # identical stream, warm caches
+    t1 = time.perf_counter()
+    done = engine.generate(reqs)
+    sync()
+    dt = time.perf_counter() - t1
+    total = sum(len(r.out_tokens or ()) for r in done)
+    print(f"{len(done)} requests, {total} tokens, {dt:.1f}s [continuous]")
+    print(f"  steady-state: {total/dt:.1f} tok/s | "
+          f"total incl. compile: {total/(t_warm + dt):.1f} tok/s "
+          f"(warmup {t_warm:.1f}s)")
+    lat = [r.t_done - r.arrival_time for r in done if r.t_done is not None]
+    print(f"  mean request latency: {np.mean(lat)*1e3:.0f} ms "
+          f"(rate={args.rate or 'inf'}/s)")
+    stats = engine.pool_stats()
+    print(f"  paged KV pool: {stats['peak_allocated_blocks']}/"
+          f"{stats['pool_blocks']} blocks peak "
+          f"(block_size={stats['block_size']}) — peak resident "
+          f"{stats['peak_resident_kv_bytes']/1e6:.2f} MB vs "
+          f"{stats['reserved_kv_bytes']/1e6:.2f} MB contiguous reservation")
+    print(f"  chunked prefill: {stats['prefill_chunks_run']} "
+          f"chunks (budget={stats['prefill_budget']}), "
+          f"{stats['decode_steps_stalled']} decode steps "
+          f"shared a step with a chunk, "
+          f"{stats['prefill_tokens_per_step']:.1f} prefill tok/step")
+    failed = [r for r in done if r.error]
+    for r in failed[:4]:
+        print(f"  req {r.rid} failed: {r.error}")
+    print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")
+    for r in sorted(done, key=lambda r: r.rid)[:4]:
+        print(f"  req {r.rid}: {(r.out_tokens or [])[:10]}")
+    report = {"requests": len(done), "tokens": total, "seconds": dt,
+              "tok_per_s": total / dt, "warmup_s": t_warm, "stats": stats}
+    return engine, done, report
+
+
+def main(argv=None):
+    run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

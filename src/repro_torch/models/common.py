@@ -1,0 +1,163 @@
+"""Shared model components: linear, norms, rotary embeddings, decode
+attention, FFN, embeddings and the logits head.
+
+Port of the parts of ``repro.models.common`` the dense serving path uses.
+Dtype rules follow the JAX code op by op (norms and softmax in float32,
+results cast back to the activation dtype), so a float32 model agrees
+with JAX to rounding and a bfloat16 model rounds at the same places.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import QuantConfig
+from repro_torch.core.quantized_linear import PackedWeight, qmatmul
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, device=None, layers: Optional[int] = None):
+    """N(0, 1/d_in) weights, (d_in, d_out) or stacked (layers, d_in, d_out)."""
+    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * (1.0 / d_in) ** 0.5).to(dtype)
+
+
+def linear(x: torch.Tensor, w, quant: Optional[QuantConfig] = None) -> torch.Tensor:
+    """Every model matmul. PackedWeight leaves carry their own per-layer
+    precision and always run the packed kernel path."""
+    if isinstance(w, PackedWeight):
+        return qmatmul(x, w, None)
+    return x @ w.to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype=torch.float32, device=None,
+              layers: Optional[int] = None) -> dict:
+    shape = (d,) if layers is None else (layers, d)
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
+    # nonparam_ln (olmo): no affine parameters at all
+    return y.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, n, h) rotated by per-position angles; positions (..., T)."""
+    h = x.shape[-1]
+    half = h // 2
+    idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    angles = positions.to(torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, kpos, q_pos, window: int = 0,
+                     softcap: float = 0.0, k_scale=None, v_scale=None):
+    """One-token attention over a (B, S, NKV, H) cache with per-row slot
+    positions kpos (B, S) (-1 = empty) and decode positions q_pos (B,).
+    For an int8 cache, scores are computed on codes and rescaled per key
+    slot, probabilities per value slot."""
+    B, _, NQ, H = q.shape
+    NKV = k_cache.shape[2]
+    G = NQ // NKV
+    q_pos = torch.as_tensor(q_pos, dtype=torch.int32, device=q.device)
+    q_pos = q_pos.reshape(-1).expand(B)
+    if kpos.ndim == 1:
+        kpos = kpos[None].expand(B, kpos.shape[0])
+    qr = q.reshape(B, NKV, G, H).to(torch.float32)
+    s = torch.einsum("bngh,bsnh->bngs", qr, k_cache.to(torch.float32))
+    if k_scale is not None:
+        s = s * k_scale[..., 0].movedim(-1, 1)[:, :, None, :]
+    s = s * (H ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = (kpos >= 0) & (kpos <= q_pos[:, None])
+    if window:
+        valid = valid & (kpos > q_pos[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.tensor(torch.finfo(torch.float32).min, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].movedim(-1, 1)[:, :, None, :]
+    out = torch.einsum("bngs,bsnh->bngh", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, NQ, H).to(q.dtype)
+
+
+def ffn_init(gen, cfg, d: int, f: int, dtype=torch.float32, device=None,
+             layers: Optional[int] = None) -> dict:
+    if cfg.ffn in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(gen, d, f, dtype, device, layers),
+                "w_up": dense_init(gen, d, f, dtype, device, layers),
+                "w_down": dense_init(gen, f, d, dtype, device, layers)}
+    return {"w_up": dense_init(gen, d, f, dtype, device, layers),
+            "w_down": dense_init(gen, f, d, dtype, device, layers)}
+
+
+def ffn_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.ffn == "swiglu":
+        h = F.silu(linear(x, params["w_gate"])) * linear(x, params["w_up"])
+    elif cfg.ffn == "geglu":
+        h = (F.gelu(linear(x, params["w_gate"]), approximate="tanh")
+             * linear(x, params["w_up"]))
+    elif cfg.ffn == "relu2":
+        h = torch.square(torch.relu(linear(x, params["w_up"])))
+    elif cfg.ffn == "gelu":
+        h = F.gelu(linear(x, params["w_up"]), approximate="tanh")
+    else:
+        raise ValueError(cfg.ffn)
+    return linear(h, params["w_down"])
+
+
+def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+def last_token_slice(x: torch.Tensor, lengths) -> torch.Tensor:
+    """(B, T, d) → (B, 1, d) at the last real token of each row."""
+    if lengths is None:
+        return x[:, -1:]
+    idx = (torch.as_tensor(lengths, device=x.device).long() - 1).clamp(min=0)
+    return x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor, scale: bool = False):
+    out = table[ids.long()]
+    if scale:
+        out = out * (table.shape[1] ** 0.5)
+    return out
+
+
+def logits_head(x: torch.Tensor, table_or_w: torch.Tensor, softcap: float = 0.0,
+                transpose: bool = False) -> torch.Tensor:
+    """A plain large product, left to torch.matmul (as JAX leaves it to
+    XLA), then float32 logits."""
+    w = table_or_w.to(x.dtype)
+    out = torch.matmul(x, w.T if transpose else w).to(torch.float32)
+    if softcap:
+        out = softcap * torch.tanh(out / softcap)
+    return out

@@ -1,0 +1,36 @@
+"""build_model(cfg) — the model surface the serving stack drives.
+
+Port of ``repro.models.model_zoo`` for the dense transformer:
+``init(seed, device)``, ``decode_step``, ``init_paged_cache`` and, behind
+the same eligibility gate as JAX (full attention, no MoE, token inputs),
+``prefill_chunk``.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def build_model(cfg: ModelConfig) -> SimpleNamespace:
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                         "(the port serves dense transformers)")
+    mod = transformer
+    ns = SimpleNamespace(
+        cfg=cfg,
+        init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
+        decode_step=lambda params, cache, tokens:
+            mod.decode_step(params, cfg, cache, tokens),
+        init_paged_cache=lambda batch, num_blocks, block_size, max_blocks,
+            device=None: mod.init_paged_cache(cfg, batch, num_blocks,
+                                              block_size, max_blocks, device),
+    )
+    if not cfg.attn_window and not cfg.moe_experts and cfg.frontend == "none":
+        # Chunked prefill straight into the paged pool: the chunked ≡
+        # whole-prompt contract needs full attention, per-row
+        # reproducible routing and token inputs.
+        ns.prefill_chunk = (lambda params, cache, batch:
+                            mod.prefill_chunk(params, cfg, cache, batch))
+    return ns

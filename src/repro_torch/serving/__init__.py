@@ -1,0 +1,2 @@
+from repro_torch.serving.engine import ServingEngine  # noqa: F401
+from repro_torch.serving.scheduler import ContinuousScheduler, Request  # noqa: F401

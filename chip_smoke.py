@@ -3,29 +3,46 @@
 
   python3 chip_smoke.py
 
-1. Builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``.
+1. Builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it: integers (accumulators, activation
-   scales, int8 pool bytes, scale planes) bitwise; float attention
-   outputs within atol = rtol = 2e-2 (bf16 outputs; summation order and
-   expf differ between a one-pass softmax and the online one).
+   shapes the serving path gives it: integers (codes, accumulators,
+   activation scales, int8 pool bytes, scale planes) bitwise; attention
+   outputs within atol = rtol = 2e-2 in bf16 (summation order and expf
+   differ between a one-pass softmax and the online one) and 1e-4 in
+   float32; the Table III mixed-group matmul within 1e-6 relative.
 3. Times each kernel, its plain version and one PyTorch library call on
-   the same inputs (CUDA events, median of 20, L2 flushed before each).
-4. Serves full-size olmo-1b (random weights from a seed, policy
-   "w4a8;wo=w8a8") through ``repro_torch.launch.serve`` with a bf16 and
-   an int8 KV pool: 8 requests with prompts of 64-320 tokens, 32 new
-   tokens each, 4 slots, 16-token blocks, 32-token prefill chunks. Every
-   kernel must have launched during those runs. Checks that a greedy
-   request served alone and the same request admitted mid-decode emit
-   identical tokens, and that a small float32 model gives the same
-   logits on the card (kernels) as on the CPU (plain versions).
+   the same inputs where one computes the same function (CUDA events,
+   median of 20, L2 flushed before each).
+4. Serves full-size olmo-1b (random weights from a seed) through
+   ``repro_torch.launch.serve``: 8 requests with prompts of 64-320
+   tokens, 32 new tokens each, 4 slots, in six runs — continuous with
+   chunked prefill on a bf16 pool (Table III policy "w4a6r25;wo=w8a8")
+   and an int8 pool ("w4a8;wo=w8a8"); (a) static, Table III policy;
+   (b) static, int8 cache; (c) continuous with solo whole-prompt
+   admission on the paged bf16 pool, Table III policy; (d) continuous
+   on the contiguous cache. Each run must launch the kernels of its
+   path, and each run's repeated pass must give identical greedy
+   tokens. First-token logits of chunked and batched prefill agree with
+   solo whole-prompt prefill within atol = rtol = 2e-2 when attention
+   runs its plain versions, and so do the static batch's with the
+   kernels; the kernels' chunked-vs-whole difference and the share of
+   greedy requests whose tokens agree across the paths are printed
+   (see ``compare_paths``). Also checks that a greedy request served alone and
+   admitted mid-decode emit identical tokens, and that a small float32
+   model gives the same logits on the card (kernels) as on the CPU
+   (plain versions), chunked and whole-prompt.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
 failed check raises, so the exit code is non-zero and no result prints.
 With ``CHIP_SMOKE_OUT=<dir>`` set, the detailed numbers are also
-written to ``<dir>/chip_smoke.json``. ``python3 chip_smoke.py profile``
-instead profiles one serve pass (see ``profile_serve``) and exits 3.
+written to ``<dir>/chip_smoke.json``. Partial runs, which print no
+result line and exit 3: ``python3 chip_smoke.py kernels`` stops after
+the kernel phase; ``python3 chip_smoke.py profile [run ...]`` profiles
+one serve pass per run (see ``profile_serve``); ``python3 chip_smoke.py
+paths`` measures how far the prefill paths' logits part (see
+``paths_diagnostic``).
 """
 from __future__ import annotations
 
@@ -43,17 +60,44 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12     # dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12      # float32 outside the tensor cores
 ATOL = RTOL = 2e-2
+F32_TOL = 1e-4
 POLICY = "w4a8;wo=w8a8"
+MIXED_POLICY = "w4a6r25;wo=w8a8"   # the paper's Table III setting
 REPLACES = {
     "fused_quantize_matmul": "src/repro/kernels/fused_matmul.py:114",
     "paged_attention": "src/repro/kernels/paged_attention.py:119",
     "paged_prefill": "src/repro/kernels/paged_prefill.py:172",
+    "quantize_rows": "src/repro/kernels/pack_quant.py:41",
+    "bitplane_matmul": "src/repro/kernels/bitplane_matmul.py:109",
+    "flash_attention": "src/repro/kernels/flash_attention.py:89",
 }
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "paged_prefill": "src/repro_torch/kernels/csrc/paged_prefill.cu",
+    "quantize_rows": "src/repro_torch/kernels/csrc/quantize_rows.cu",
+    "bitplane_matmul": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
+# Serve runs: name → (serve.py flags, policy, kernels its path must launch).
+SERVE_RUNS = {
+    "chunked-bf16": (["--continuous"], MIXED_POLICY,
+                     ("fused_quantize_matmul", "paged_attention", "paged_prefill",
+                      "quantize_rows", "bitplane_matmul")),
+    "chunked-int8": (["--continuous", "--kv-int8"], POLICY,
+                     ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
+    "a-static": (["--static"], MIXED_POLICY,
+                 ("flash_attention", "quantize_rows", "bitplane_matmul",
+                  "fused_quantize_matmul")),
+    "b-static-int8": (["--static", "--kv-int8"], POLICY,
+                      ("flash_attention", "fused_quantize_matmul")),
+    "c-solo-paged": (["--continuous", "--no-chunked-prefill"], MIXED_POLICY,
+                     ("flash_attention", "quantize_rows", "bitplane_matmul",
+                      "paged_attention", "fused_quantize_matmul")),
+    "d-contiguous": (["--continuous", "--no-paged"], POLICY,
+                     ("flash_attention", "fused_quantize_matmul")),
 }
 
 
@@ -154,11 +198,11 @@ def _pool(torch, dev, gen, nb, bs, nkv, H, quant):
     return kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None
 
 
-def _close(torch, got, want, what):
+def _close(torch, got, want, what, tol=ATOL):
     g, w = got.float(), want.float()
-    if not torch.allclose(g, w, atol=ATOL, rtol=RTOL):
+    if not torch.allclose(g, w, atol=tol, rtol=tol):
         err = (g - w).abs().max().item()
-        raise AssertionError(f"{what}: max |err| {err} beyond atol=rtol={ATOL}")
+        raise AssertionError(f"{what}: max |err| {err} beyond atol=rtol={tol}")
     return (g - w).abs().max().item()
 
 
@@ -278,6 +322,187 @@ def check_paged_prefill(torch, dev, timer):
             "shape": f"Lc={Lc} start={start} NQ=NKV={nkv} H={H} bs={bs} bf16"}
 
 
+def check_quantize_rows(torch, dev, timer):
+    from repro_torch.kernels import pack_quant, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    K = 2048
+    cases = 0
+    for M in (4, 1280):
+        x = torch.randn((M, K), generator=gen, device=dev) * 3
+        x[1] = 0                                  # an all-zero row
+        for bits in range(2, 9):
+            for signed in (True, False):
+                got = pack_quant.launch(x, bits=bits, signed=signed)
+                want = ref.quantize_rows_ref(x, bits, signed)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(
+                        f"quantize_rows M={M} bits={bits} signed={signed}: "
+                        f"{(got[0] != want[0]).sum().item()} code mismatches, "
+                        f"scales equal={torch.equal(got[1], want[1])}")
+                cases += 1
+    log(f"quantize_rows: {cases} cases (M in {{4, 1280}}, K={K}, bits 2..8, "
+        "signed and unsigned) bitwise equal to the plain version")
+
+    M, bits = 1280, 6              # static prefill of a w4a6r25 layer
+    x = torch.randn((M, K), generator=gen, device=dev)
+    ms = timer(lambda: pack_quant.launch(x, bits=bits, signed=True))
+    plain_ms = timer(lambda: ref.quantize_rows_ref(x, bits, True))
+    b_ms, b_by = bound_ms(M * K * 4 + M * K + M * 4, 6 * M * K, FP32_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "cases": cases, "shape": f"M={M} K={K} a{bits} signed"}
+
+
+OLMO_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 1536))
+
+
+def check_bitplane(torch, dev, timer):
+    from repro_torch.core.bitplane import pack_weights, unpack_weights
+    from repro_torch.kernels import bitplane_matmul, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = 0
+    for M in (4, 1280):
+        for K, N in OLMO_KN:
+            for w_bits in (2, 4, 8):
+                lo, hi = -(1 << (w_bits - 1)), (1 << (w_bits - 1))
+                codes = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
+                                      dtype=torch.int32)
+                packed = pack_weights(codes, w_bits, axis=0)
+                for a_bits in (2, 4, 6, 8):
+                    for signed in (True, False):
+                        alo, ahi = ((-(1 << (a_bits - 1)), 1 << (a_bits - 1))
+                                    if signed else (0, 1 << a_bits))
+                        xq = torch.randint(alo, ahi, (M, K), generator=gen,
+                                           device=dev, dtype=torch.int32).to(torch.int8)
+                        for plane_lo in ((0, 1) if w_bits == 8 else (0,)):
+                            kw = dict(w_bits=w_bits, a_bits=a_bits,
+                                      act_signed=signed, w_plane_lo=plane_lo)
+                            got = bitplane_matmul.launch(xq, packed, **kw)
+                            want = ref.bitplane_matmul_ref(xq, packed, a_bits, signed,
+                                                           plane_lo, w_bits=w_bits)
+                            torch.cuda.synchronize()
+                            if not torch.equal(got, want):
+                                raise AssertionError(
+                                    f"bitplane M={M} K={K} N={N} w{w_bits} a{a_bits} "
+                                    f"signed={signed} lo={plane_lo}: "
+                                    f"{(got != want).sum().item()} mismatches")
+                            cases += 1
+    log(f"bitplane_matmul: {cases} cases (M in {{4, 1280}}, (K, N) in {OLMO_KN}, "
+        "w2/w4/w8, a2/4/6/8 signed and unsigned, plane_lo 0/1 on w8) bitwise "
+        "equal to the plain version")
+
+    # Timing: the low group of a w4a6r25 w_up at static prefill (M = 4·320).
+    M, K, N = 1280, 2048, 6144
+    codes = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int32)
+    packed = pack_weights(codes, 4, axis=0)
+    xq = torch.randint(-32, 32, (M, K), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    kw = dict(w_bits=4, a_bits=6, act_signed=True, w_plane_lo=0)
+    ms = timer(lambda: bitplane_matmul.launch(xq, packed, **kw))
+    plain_ms = timer(lambda: ref.bitplane_matmul_ref(xq, packed, 6, True, 0, w_bits=4))
+    w8 = unpack_weights(packed, 4).to(torch.int8).contiguous()
+    lib_ms = timer(lambda: torch._int_mm(xq, w8))
+    b_ms, b_by = bound_ms(M * K + K * N // 2 + M * N * 4, 2 * M * K * N, INT8_OPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "cases": cases, "shape": f"M={M} K={K} N={N} w4a6"}
+
+
+def check_mixed_group(torch, dev):
+    """One full-size w4a6r25 leaf (w_up, 2048 → 8192) through
+    ops.mixed_group_matmul vs the plain version: within 1e-6 relative."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.quantized_linear import pack_weight
+    from repro_torch.core.bitplane import unpack_weights
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w = torch.randn((2048, 8192), generator=gen, device=dev) * 2048 ** -0.5
+    pw = pack_weight(w, QuantConfig(w_bits=4, a_bits=6, mixed_ratio_8b=0.25))
+    n8 = pw.n8
+    worst = 0.0
+    for M in (4, 1280):
+        x = torch.randn((M, 2048), generator=gen, device=dev)
+        got = ops.mixed_group_matmul(x, pw.packed8, pw.packed, pw.scale[:, :n8],
+                                     pw.scale[:, n8:], w_bits=4, a_bits=6)
+        want = ref.mixed_group_matmul_ref(x, pw.packed8, unpack_weights(pw.packed, 4),
+                                          pw.scale[:, :n8], pw.scale[:, n8:], 6)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel <= 1e-6:
+            raise AssertionError(f"mixed_group_matmul M={M}: relative error {rel}")
+        worst = max(worst, rel)
+    log(f"mixed_group_matmul (w4a6r25, 2048 -> 8192, n8={n8}): within 1e-6 "
+        f"relative of the plain version (max {worst:.3g})")
+    return worst
+
+
+def check_flash(torch, dev, timer):
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H = 4, 128
+    max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = 0
+    for nq, nkv in ((16, 16), (16, 4)):
+        for T in (37, 320):
+            for qd, kd in ((torch.bfloat16, torch.bfloat16),
+                           (torch.float32, torch.float32),
+                           (torch.bfloat16, torch.float32)):
+                for window in (0, 64):
+                    for q_off in (0, 16):
+                        Tk = T + q_off
+                        q = torch.randn((B, T, nq, H), generator=gen, device=dev).to(qd)
+                        k = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(kd)
+                        v = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(kd)
+                        kw = dict(causal=True, window=window, q_offset=q_off)
+                        got = flash_attention.launch(q, k, v, **kw)
+                        want = ref.flash_attention_gqa_ref(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                        tol = ATOL if qd == torch.bfloat16 else F32_TOL
+                        err = _close(torch, got, want, f"flash NQ={nq} NKV={nkv} "
+                                     f"T={T} {qd}/{kd} window={window} q_offset={q_off}",
+                                     tol)
+                        max_err[qd] = max(max_err[qd], err)
+                        cases += 1
+    # A row's result does not depend on the length its batch was padded to.
+    q = torch.randn((B, 64, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, 64, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, 64, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    full = flash_attention.launch(q, k, v, causal=True, window=0, q_offset=0)
+    cut = flash_attention.launch(q[:, :37].contiguous(), k[:, :37].contiguous(),
+                                 v[:, :37].contiguous(), causal=True, window=0,
+                                 q_offset=0)
+    if not torch.equal(full[:, :37], cut):
+        raise AssertionError("flash_attention: rows depend on the padded length")
+    log(f"flash_attention: {cases} cases (B*NQ=64, H=128, T in {{37, 320}}, MHA and "
+        "GQA, bf16 / f32 / bf16 q over f32 K/V, causal with and without a window, "
+        f"q_offset 0/16) within atol=rtol={ATOL} (bf16, max |err| "
+        f"{max_err[torch.bfloat16]:.3g}) and {F32_TOL} (f32, max |err| "
+        f"{max_err[torch.float32]:.3g}); rows bitwise independent of padding")
+
+    T = 320
+    q = torch.randn((B, T, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, T, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, T, 16, H), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, window=0, q_offset=0)
+    ms = timer(lambda: flash_attention.launch(q, k, v, **kw))
+    plain_ms = timer(lambda: ref.flash_attention_gqa_ref(q, k, v, **kw))
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    F = torch.nn.functional
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    nbytes = 4 * q.numel() * 2
+    flops = 4 * B * 16 * H * (T * (T + 1) // 2)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "cases": cases,
+            "max_abs_err": max(max_err.values()),
+            "shape": f"B*NQ={B * 16} T={T} H={H} bf16 causal"}
+
+
 # -- the serving path ---------------------------------------------------------
 
 def mixed_requests(cfg, args):
@@ -295,29 +520,218 @@ def mixed_requests(cfg, args):
             for i, n in enumerate(lens)]
 
 
-def serve_olmo(torch, params, kv_int8: bool):
+SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--max-new", "32",
+              "--max-batch", "4", "--block-size", "16", "--prefill-budget", "32",
+              "--device", "cuda"]
+
+
+def serve_run(torch, params, name):
+    """Serve the stream above in run `name` of SERVE_RUNS (a warmup pass,
+    then the timed pass). Checks the outputs, that the run launched every
+    kernel of its path, and that the two passes emit identical greedy
+    tokens. Returns (engine, report, launch counts, tokens by rid)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    argv = ["--arch", "olmo-1b", "--policy", POLICY, "--continuous",
-            "--requests", "8", "--max-new", "32", "--max-batch", "4",
-            "--block-size", "16", "--prefill-budget", "32", "--device", "cuda"]
-    if kv_int8:
-        argv.append("--kv-int8")
-    args = serve.build_parser().parse_args(argv)
+    flags, policy, needed = SERVE_RUNS[name]
+    args = serve.build_parser().parse_args(SERVE_ARGS + ["--policy", policy, *flags])
     ops.reset_launch_counts()
     engine, done, report = serve.run(args, mixed_requests, params=params)
     counts = ops.launch_counts()
     vocab = engine.cfg.vocab
     for r in done:
         if r.error or len(r.out_tokens) != 32 or not all(0 <= t < vocab for t in r.out_tokens):
-            raise AssertionError(f"request {r.rid}: bad output {r.error} {r.out_tokens}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched while serving (kv_int8={kv_int8})")
-    log(f"serve olmo-1b kv_int8={kv_int8}: {report['tok_per_s']:.1f} tok/s "
-        f"steady state, launches {counts}")
-    return engine, report, counts
+            raise AssertionError(f"{name}: request {r.rid}: bad output {r.error} "
+                                 f"{r.out_tokens}")
+    for k in needed:
+        if counts[k] <= 0:
+            raise AssertionError(f"{name}: {k} never launched while serving")
+    tokens = {r.rid: r.out_tokens for r in done}
+    warm = report["warmup_tokens"]
+    for r in done:
+        if r.temperature == 0 and warm[r.rid] != r.out_tokens:
+            raise AssertionError(f"{name}: the repeated pass changed greedy request "
+                                 f"{r.rid}: {warm[r.rid]} vs {r.out_tokens}")
+    same = sum(warm[rid] == t for rid, t in tokens.items())
+    log(f"serve olmo-1b [{name}] policy {policy}: {report['tok_per_s']:.1f} tok/s "
+        f"steady state; repeated pass: greedy identical, {same}/{len(done)} "
+        f"requests identical; launches {counts}")
+    return engine, report, counts, tokens
+
+
+def _greedy_share(a, b, rids):
+    return f"{sum(a[r] == b[r] for r in rids)}/{len(rids)}"
+
+
+def first_token_logits(torch, model, params, prompts):
+    """First-token logits (float32) of each prompt through three prefill
+    paths on the card: solo whole-prompt prefill, chunked prefill (32-token
+    chunks into a paged bf16/f32 pool of 16-token blocks) and static
+    batches of 4 right-padded prompts. Returns (solo, chunked, batch)."""
+    import numpy as np
+
+    bucket, bs, budget = 32, 16, 32
+
+    def prefill(batch):
+        L = max(-(-len(p) // bucket) * bucket for p in batch)
+        toks = np.zeros((len(batch), L), np.int64)
+        for i, p in enumerate(batch):
+            toks[i, :len(p)] = p
+        _, lg = model.prefill(params, {
+            "tokens": torch.from_numpy(toks).cuda(),
+            "lengths": torch.tensor([len(p) for p in batch], dtype=torch.int32)})
+        return lg[:, -1].float()
+
+    def chunked(p):
+        nb = -(-len(p) // bs)
+        cache = model.init_paged_cache(1, nb + 1, bs, nb, device="cuda")
+        blocks = torch.arange(1, nb + 1, dtype=torch.int32)
+        for start in range(0, len(p), budget):
+            t = min(budget, len(p) - start)
+            toks = np.zeros((1, budget), np.int64)
+            toks[0, :t] = p[start:start + t]
+            cache, lg = model.prefill_chunk(params, cache, {
+                "tokens": torch.from_numpy(toks).cuda(), "lengths": [t],
+                "start": start, "slot": 0,
+                "blocks": blocks[:-(-(start + t) // bs)]})
+        return lg[0, -1].float()
+
+    solo = torch.stack([prefill([p])[0] for p in prompts])
+    chunk = torch.stack([chunked(p) for p in prompts])
+    batch = torch.cat([prefill(prompts[i:i + 4]) for i in range(0, len(prompts), 4)])
+    return solo, chunk, batch
+
+
+def compare_paths(torch, engine, runs):
+    """Whole-prompt vs chunked prefill and the static batch of 4 vs solo
+    prefill, on engine (c)'s packed weights (Table III policy, bf16), by
+    the first-token logits of the 8 prompts.
+
+    Gated within atol = rtol = 2e-2: every path against solo whole-prompt
+    prefill with the attention kernels swapped for their plain versions
+    (the paths then compute one function), and the static batch against
+    solo with the kernels (no kernel lets a row depend on the batch).
+    Printed, not gated: chunked vs whole-prompt with the kernels, each
+    path's kernels vs its plain attention, and the share of greedy
+    requests whose tokens agree between the serve runs of those paths.
+    The two prefill paths attend with two kernels that sum in different
+    orders (a last-ulp difference, 1e-6 in float32), and the 6-bit
+    activation quantization of the Table III layers amplifies it over 16
+    layers (`chip_smoke.py paths` measures this in bf16 and float32)."""
+    import types
+
+    from repro_torch.serving import Request
+
+    reqs = mixed_requests(engine.cfg, types.SimpleNamespace(max_new=32))
+    prompts = [r.prompt for r in reqs]
+    solo, chunk, batch = first_token_logits(torch, engine.model, engine.params, prompts)
+    with plain_attention():
+        plain = first_token_logits(torch, engine.model, engine.params, prompts)
+    err_plain = max(_close(torch, plain[1], plain[0],
+                           "first-token logits, plain attention: chunked vs whole-prompt"),
+                    _close(torch, plain[2], plain[0],
+                           "first-token logits, plain attention: static batch vs solo"))
+    err_batch = _close(torch, batch, solo, "first-token logits, static batch vs solo")
+    err_chunk = (chunk - solo).abs().max().item()
+    argmax_same = int((chunk.argmax(-1) == solo.argmax(-1)).sum())
+    vs_plain = [(k - p).abs().max().item() for k, p in zip((solo, chunk), plain[:2])]
+    greedy = [r.rid for r in reqs if r.temperature == 0]
+    # Static solo: each greedy request alone through engine (a)'s static path.
+    eng_a = runs["a-static"][0]
+    static_solo = {r.rid: r.out_tokens for r in eng_a.generate_static(
+        [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=32) for r in reqs
+         if r.temperature == 0])}
+    toks = {name: run[3] for name, run in runs.items()}
+    shares = {
+        "whole_vs_chunked": _greedy_share(toks["c-solo-paged"], toks["chunked-bf16"], greedy),
+        "static_vs_continuous": _greedy_share(toks["a-static"], toks["c-solo-paged"], greedy),
+        "static_solo_vs_batch": _greedy_share(static_solo, toks["a-static"], greedy),
+    }
+    log(f"first-token logits (atol=rtol={ATOL}): plain attention, every path vs solo "
+        f"max |err| {err_plain:.3g}; kernels, static batch of 4 vs solo {err_batch:.3g}; "
+        f"kernels, chunked vs whole-prompt {err_chunk:.3g} (not gated; argmax equal "
+        f"for {argmax_same}/{len(reqs)} prompts; kernels vs plain attention: whole-"
+        f"prompt {vs_plain[0]:.3g}, chunked {vs_plain[1]:.3g})")
+    log(f"greedy requests with identical tokens: whole-prompt (c) vs chunked "
+        f"{shares['whole_vs_chunked']}, static (a) vs continuous (c) "
+        f"{shares['static_vs_continuous']}, static solo vs batch of 4 "
+        f"{shares['static_solo_vs_batch']}")
+    return {"logits_err_plain_paths": err_plain, "logits_err_batch_vs_solo": err_batch,
+            "logits_err_chunked_vs_whole": err_chunk, "argmax_chunked_eq_whole": argmax_same,
+            "logits_err_kernels_vs_plain": vs_plain, "greedy_shares": shares}
+
+
+class plain_attention:
+    """Within the block, the model's attention kernels (flash_attention,
+    paged_prefill) run their plain PyTorch versions on the card."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention, paged_prefill, ref
+
+        self.saved = [(m, m.launch) for m in (flash_attention, paged_prefill)]
+        flash_attention.launch = lambda q, k, v, **kw: ref.flash_attention_gqa_ref(q, k, v, **kw)
+        paged_prefill.launch = lambda *a, **kw: ref.paged_prefill_ref(*a, **kw)
+
+    def __exit__(self, *exc):
+        for m, fn in self.saved:
+            m.launch = fn
+
+
+def paths_diagnostic(torch):
+    """`chip_smoke.py paths`: how far the prefill paths' first-token logits
+    part at full size, and why. Full-size olmo-1b (seed 0) on the 8
+    prompts of the serve stream, per variant: bf16 under the Table III
+    policy with the kernels and with plain attention, bf16 unpacked
+    (no quantization), and a float32 model under the Table III policy.
+    Prints max |err| of chunked vs solo and batch vs solo, the argmax
+    agreement, the logits' spread, and kernel vs plain per path; writes
+    paths.json under $CHIP_SMOKE_OUT. Not part of the default run."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import parse_policy_spec
+    from repro_torch.core.quantized_linear import quantize_params_for_serving
+    from repro_torch.models import build_model
+
+    out = {}
+
+    def measure(name, model, params, prompts, plain=False):
+        if plain:
+            with plain_attention():
+                lg = first_token_logits(torch, model, params, prompts)
+        else:
+            lg = first_token_logits(torch, model, params, prompts)
+        solo, chunk, batch = lg
+        row = {"chunk_vs_solo": (chunk - solo).abs().max().item(),
+               "batch_vs_solo": (batch - solo).abs().max().item(),
+               "argmax_chunk_eq_solo": int((chunk.argmax(-1) == solo.argmax(-1)).sum()),
+               "argmax_batch_eq_solo": int((batch.argmax(-1) == solo.argmax(-1)).sum()),
+               "logit_std": solo.std().item(), "logit_absmax": solo.abs().max().item()}
+        out[name] = row
+        log(f"paths [{name}]: " + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
+                                             else f"{k} {v}" for k, v in row.items()))
+        return lg
+
+    cfg = get_config("olmo-1b")
+    prompts = [r.prompt for r in mixed_requests(cfg, types.SimpleNamespace(max_new=32))]
+    mixed = parse_policy_spec(MIXED_POLICY)
+    model = build_model(cfg)
+    raw = model.init(seed=0, device="cuda")
+    packed = quantize_params_for_serving(raw, mixed, min_size=1024)
+    kern = measure("bf16 w4a6r25 kernels", model, packed, prompts)
+    plain = measure("bf16 w4a6r25 plain attention", model, packed, prompts, plain=True)
+    for i, path in enumerate(("solo", "chunk", "batch")):
+        d = (kern[i] - plain[i]).abs().max().item()
+        out[f"kernel_vs_plain_{path}"] = d
+        log(f"paths: bf16 w4a6r25 {path}: kernels vs plain attention max |err| {d:.4g}")
+    measure("bf16 unquantized kernels", model, raw, prompts)
+    del raw, packed
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    p32 = quantize_params_for_serving(model32.init(seed=0, device="cuda"), mixed,
+                                      min_size=1024)
+    measure("f32 w4a6r25 kernels", model32, p32, prompts)
+    write_detail("paths.json", out)
 
 
 def solo_vs_mid_decode(engine):
@@ -354,9 +768,11 @@ def solo_vs_mid_decode(engine):
 
 
 def card_vs_cpu(torch):
-    """Reduced olmo-1b in float32: one prefill chunk and two decode steps
-    on the card (kernels) vs on the CPU (plain versions), logits within
-    1e-2 (a product within an ULP of a rounding boundary may quantize an
+    """Reduced olmo-1b in float32 under both serve policies: one prefill
+    chunk and two paged decode steps, and a whole-prompt prefill of two
+    right-padded prompts and two contiguous decode steps, on the card
+    (kernels) vs on the CPU (plain versions): logits within 1e-2 (a
+    product within an ULP of a rounding boundary may quantize an
     activation one code apart on the two devices)."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.precision import parse_policy_spec
@@ -365,29 +781,42 @@ def card_vs_cpu(torch):
 
     cfg = dataclasses.replace(get_reduced_config("olmo-1b"), dtype="float32")
     model = build_model(cfg)
-    params = quantize_params_for_serving(model.init(seed=0, device="cpu"),
-                                         parse_policy_spec(POLICY), min_size=1024)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        p = _to(params, dev)
-        cache = model.init_paged_cache(2, 9, 4, 4, device=dev)
-        cache.kv.block_table.copy_(torch.tensor([[1, 2, 3, 4], [5, 6, -1, -1]]))
-        toks = torch.arange(10, device=dev)[None] * 7 % cfg.vocab
-        cache, lg0 = model.prefill_chunk(p, cache, {
-            "tokens": toks, "lengths": [10], "start": 0, "slot": 0,
-            "blocks": torch.tensor([1, 2, 3])})
-        cache.pos[1] = 0
-        lgs = [lg0]
-        cur = torch.tensor([[3], [5]], device=dev)
-        for _ in range(2):
-            cache, lg = model.decode_step(p, cache, cur)
-            lgs.append(lg[:1])
+    worst = 0.0
+    for policy in (POLICY, MIXED_POLICY):
+        params = quantize_params_for_serving(model.init(seed=0, device="cpu"),
+                                             parse_policy_spec(policy), min_size=1024)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            cache = model.init_paged_cache(2, 9, 4, 4, device=dev)
+            cache.kv.block_table.copy_(torch.tensor([[1, 2, 3, 4], [5, 6, -1, -1]]))
+            toks = torch.arange(10, device=dev)[None] * 7 % cfg.vocab
+            cache, lg0 = model.prefill_chunk(p, cache, {
+                "tokens": toks, "lengths": [10], "start": 0, "slot": 0,
+                "blocks": torch.tensor([1, 2, 3])})
+            cache.pos[1] = 0
+            lgs = [lg0]
+            cur = torch.tensor([[3], [5]], device=dev)
+            for _ in range(2):
+                cache, lg = model.decode_step(p, cache, cur)
+                lgs.append(lg[:1])
+                cur = lg[:, -1].argmax(-1, keepdim=True)
+            toks = (torch.arange(2 * 24, device=dev).reshape(2, 24) * 11) % cfg.vocab
+            cache, lg = model.prefill(p, {"tokens": toks,
+                                          "lengths": torch.tensor([24, 13])})
+            lgs.append(lg)
             cur = lg[:, -1].argmax(-1, keepdim=True)
-        out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs]).cpu()
-    err = (out["cpu"] - out["cuda"]).abs().max().item()
-    if not err <= 1e-2:
-        raise AssertionError(f"reduced fp32 model: card vs CPU logits differ by {err}")
-    return err
+            for _ in range(2):
+                cache, lg = model.decode_step(p, cache, cur)
+                lgs.append(lg)
+                cur = lg[:, -1].argmax(-1, keepdim=True)
+            out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+        err = (out["cpu"] - out["cuda"]).abs().max().item()
+        if not err <= 1e-2:
+            raise AssertionError(f"reduced fp32 model ({policy}): card vs CPU "
+                                 f"logits differ by {err}")
+        worst = max(worst, err)
+    return worst
 
 
 def _to(tree, dev):
@@ -402,47 +831,44 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def profile_serve(torch, params):
-    """`chip_smoke.py profile`: one warm bf16 serve pass of the stream
-    above under torch.profiler. Prints device time by kernel name, the
-    device-busy share of the pass's wall time, and writes the table to
-    profile.json under $CHIP_SMOKE_OUT. Not part of the default run."""
+def profile_serve(torch, params, names=("chunked-bf16", "a-static")):
+    """`chip_smoke.py profile [run ...]`: one warm serve pass of the
+    stream above under torch.profiler, for each named run of SERVE_RUNS
+    (by default the chunked continuous run and the static run (a)). Prints device time by kernel name and the device-busy share
+    of each pass's wall time, and writes the tables to profile.json under
+    $CHIP_SMOKE_OUT. Not part of the default run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
 
-    argv = ["--arch", "olmo-1b", "--policy", POLICY, "--continuous",
-            "--requests", "8", "--max-new", "32", "--max-batch", "4",
-            "--block-size", "16", "--prefill-budget", "32", "--device", "cuda"]
-    args = serve.build_parser().parse_args(argv)
-    engine, _, report = serve.run(args, mixed_requests, params=params)
-    sched = engine.scheduler()
-    chunks0, steps0 = sched.prefill_chunks_run, sched.steps_run
-    reqs = mixed_requests(engine.cfg, args)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    # Kernel rows only: an operator's row repeats its kernels' time.
-    rows = sorted(((e.key, e.self_device_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e6
-    out = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
-           "tokens": sum(len(r.out_tokens) for r in reqs),
-           "decode_steps": sched.steps_run - steps0,
-           "prefill_chunks": sched.prefill_chunks_run - chunks0,
-           "untimed_pass_tok_per_s": report["tok_per_s"],
-           "kernels": [{"name": k, "device_ms": us / 1e3, "calls": n}
-                       for k, us, n in rows[:40]]}
-    log(f"profiled pass: wall {wall:.2f}s, device busy {busy:.2f}s "
-        f"({busy / wall:.0%}), {out['decode_steps']} decode steps, "
-        f"{out['prefill_chunks']} chunks")
-    for r in out["kernels"][:20]:
-        log(f"  {r['device_ms']:9.1f} ms  {r['calls']:6d}  {r['name'][:90]}")
+    out = {}
+    for name in names:
+        flags, policy, _ = SERVE_RUNS[name]
+        args = serve.build_parser().parse_args(SERVE_ARGS + ["--policy", policy, *flags])
+        engine, _, report = serve.run(args, mixed_requests, params=params)
+        reqs = mixed_requests(engine.cfg, args)
+        go = engine.generate if args.continuous else engine.generate_static
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            go(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # Kernel rows only: an operator's row repeats its kernels' time.
+        rows = sorted(((e.key, e.self_device_time_total, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows) / 1e6
+        out[name] = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+                     "tokens": sum(len(r.out_tokens) for r in reqs),
+                     "untimed_pass_tok_per_s": report["tok_per_s"],
+                     "kernels": [{"name": k, "device_ms": us / 1e3, "calls": n}
+                                 for k, us, n in rows[:40]]}
+        log(f"profiled pass [{name}]: wall {wall:.2f}s, device busy {busy:.2f}s "
+            f"({busy / wall:.0%}), untimed pass {report['tok_per_s']:.1f} tok/s")
+        for r in out[name]["kernels"][:20]:
+            log(f"  {r['device_ms']:9.1f} ms  {r['calls']:6d}  {r['name'][:90]}")
+        del engine
     write_detail("profile.json", out)
 
 
@@ -467,10 +893,14 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda")
-    if sys.argv[1:] == ["profile"]:
-        profile_serve(torch, build_model(get_config("olmo-1b")).init(seed=0, device=dev))
+    if sys.argv[1:] == ["paths"]:
+        paths_diagnostic(torch)
         return 3                 # a partial run: no result line
-    t0 = time.perf_counter()
+    if sys.argv[1:2] == ["profile"]:
+        profile_serve(torch, build_model(get_config("olmo-1b")).init(seed=0, device=dev),
+                      *([sys.argv[2:]] if sys.argv[2:] else []))
+        return 3                 # a partial run: no result line
+    t_start = t0 = time.perf_counter()
     paths = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
         f"(nvcc {build.build_seconds:.1f}s, parallel), libraries: "
@@ -485,32 +915,46 @@ def main() -> int:
         "fused_quantize_matmul": check_fused(torch, dev, timer),
         "paged_attention": check_paged_attention(torch, dev, timer),
         "paged_prefill": check_paged_prefill(torch, dev, timer),
+        "quantize_rows": check_quantize_rows(torch, dev, timer),
+        "bitplane_matmul": check_bitplane(torch, dev, timer),
+        "flash_attention": check_flash(torch, dev, timer),
     }
     results["fused_quantize_matmul"]["max_abs_err"] = 0.0
+    mixed_err = check_mixed_group(torch, dev)
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4g} ms"
+        log(f"  {name}: {r['shape']}: {r['ms']:.4g} ms (bound {r['bound_ms']:.3g} ms "
+            f"by {r['bound_by']}, plain {r['plain_ms']:.4g} ms, library {lib})")
+    log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
+    if sys.argv[1:] == ["kernels"]:
+        write_detail("chip_smoke.json", {"kernels": results})
+        return 3                 # a partial run: no result line
+
+    t0 = time.perf_counter()
     params = build_model(get_config("olmo-1b")).init(seed=0, device=dev)
     counts = {k: 0 for k in results}
-    serve_reports = {}
-    engines = {}
-    for kv_int8 in (False, True):
-        engine, report, c = serve_olmo(torch, params, kv_int8)
-        engines[kv_int8] = engine
-        serve_reports["int8" if kv_int8 else "bf16"] = report
+    runs = {}
+    for name in SERVE_RUNS:
+        runs[name] = serve_run(torch, params, name)
         for k in counts:
-            counts[k] += c[k]
+            counts[k] += runs[name][2][k]
     for k in results:
         results[k]["launches"] = counts[k]
-    for kv_int8, engine in engines.items():
-        toks = solo_vs_mid_decode(engine)
-        log(f"solo == mid-decode admission (kv_int8={kv_int8}): "
-            f"{len(toks)} greedy tokens identical")
+    for name in ("chunked-bf16", "chunked-int8"):
+        toks = solo_vs_mid_decode(runs[name][0])
+        log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
+            "identical")
+    paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
+    log(f"serve phase: {time.perf_counter() - t0:.1f}s")
     err = card_vs_cpu(torch)
     log(f"reduced fp32 model: card vs CPU logits max |err| {err:.3g}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    write_detail("chip_smoke.json", {"kernels": results, "serve": serve_reports,
-                                     "card_vs_cpu_max_err": err,
-                                     "nvidia_smi": smi})
+    write_detail("chip_smoke.json", {
+        "kernels": results, "mixed_group_rel_err": mixed_err,
+        "serve": {name: run[1] for name, run in runs.items()},
+        "paths": paths_cmp, "card_vs_cpu_max_err": err, "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": r["launches"],
@@ -518,6 +962,7 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in results.items()]}
+    log(f"total: {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

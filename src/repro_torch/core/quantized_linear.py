@@ -4,10 +4,13 @@ Port of ``repro.core.quantized_linear``. A :class:`PackedWeight` stores
 2/4/8-bit weight codes packed along K in int8 words
 (:mod:`repro_torch.core.bitplane`) plus per-output-channel scales, and
 carries the activation precision its layer was packed for. Every packed
-matmul runs the hand-written fused quantize→integer-matmul kernel
-(``kernels.ops.fused_quantize_matmul``) on the packed bytes themselves —
-the route ``repro`` takes with ``use_kernel=True``; the JAX model's
-dequant formula computes the same product in floats.
+matmul runs hand-written integer kernels on the packed bytes themselves:
+the fused quantize→integer-matmul kernel
+(``kernels.ops.fused_quantize_matmul``) — the route ``repro`` takes with
+``use_kernel=True`` — or, for a Table III mixed-group leaf, one shared
+row quantization and one integer matmul per filter group
+(``kernels.ops.mixed_group_matmul``). The JAX model's dequant formula
+computes the same product in floats.
 """
 from __future__ import annotations
 
@@ -123,13 +126,17 @@ def qmatmul(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
 
 def _serve_matmul(x: torch.Tensor, pw: PackedWeight,
                   cfg: Optional[QuantConfig]) -> torch.Tensor:
-    """Packed-weight matmul through ``ops.packed_matmul``: the fused
-    quantize→integer-matmul kernel (per-row activation scales from its
-    prologue, exact int32 accumulation against the packed codes), then
-    ``acc · xs · ws`` per element in that order. A Table III leaf
-    (``n8 > 0``) runs it twice on the same rows — the 8-bit group and the
-    low-bit group — and concatenates, per element the product
-    ``unpack_weight`` feeds the JAX kernel."""
+    """Packed-weight matmul, ``acc · xs · ws`` per element in that order.
+
+    A Table III leaf (``n8 > 0``) with signed activations and no plane
+    truncation — the case ``repro.kernels.ops.mixed_group_matmul`` covers
+    — runs ``ops.mixed_group_matmul``: the rows are quantized once and
+    each filter group has its own integer matmul. Every other leaf runs
+    ``ops.packed_matmul``, the fused quantize→integer-matmul kernel (per-
+    row activation scales from its prologue, exact int32 accumulation
+    against the packed codes); an unsigned or plane-truncated Table III
+    leaf runs it once per group on the same rows. Either way each element
+    is the product ``unpack_weight`` feeds the JAX kernel."""
     from repro_torch.kernels import ops
 
     a_bits = cfg.a_bits if cfg is not None else pw.a_bits
@@ -139,6 +146,11 @@ def _serve_matmul(x: torch.Tensor, pw: PackedWeight,
     if k != pw.k:
         raise ValueError(f"K mismatch: x has {k}, weight has {pw.k}")
     x2 = x.reshape(-1, k).to(torch.float32)
+    if pw.n8 and act_signed and not pw.plane_lo:
+        y = ops.mixed_group_matmul(x2, pw.packed8, pw.packed, pw.scale[..., :pw.n8],
+                                   pw.scale[..., pw.n8:], w_bits=pw.bits,
+                                   a_bits=a_bits)
+        return y.reshape(*lead, -1).to(x.dtype)
     kw = dict(a_bits=a_bits, act_signed=act_signed, w_plane_lo=pw.plane_lo)
     y = ops.packed_matmul(x2, pw.packed, pw.scale[..., pw.n8:], w_bits=pw.bits, **kw)
     if pw.n8:

@@ -1,0 +1,61 @@
+"""CUDA wrapper of the unfused integer matmul of activation codes by
+packed weight codes.
+
+Replaces ``repro/kernels/bitplane_matmul.py::bitplane_matmul``: (M, K)
+int8 activation codes × 2/4/8-bit weight codes read packed (``w_bits=8``:
+the (K, N) codes themselves) → the exact (M, N) int32 product
+(``csrc/bitplane_matmul.cu``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+#: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
+launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = build.load("bitplane_matmul").bitplane_matmul
+    fn.argtypes = ARGTYPES
+    fn.restype = _I
+    return fn
+
+
+def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
+           a_bits: int, act_signed: bool, w_plane_lo: int) -> torch.Tensor:
+    """(M, K) int8 CUDA codes × (K·w_bits/8, N) int8 packed codes →
+    (M, N) int32."""
+    global launches
+    if x_codes.dtype != torch.int8 or x_codes.ndim != 2:
+        raise ValueError(f"x_codes must be (M, K) int8, got {x_codes.dtype} "
+                         f"{tuple(x_codes.shape)}")
+    if w_packed.dtype != torch.int8 or w_packed.ndim != 2:
+        raise ValueError("w_packed must be (K*bits/8, N) int8")
+    if w_bits not in (2, 4, 8) or not 2 <= a_bits <= 8:
+        raise ValueError(f"unsupported precision w{w_bits}a{a_bits}")
+    m, k = x_codes.shape
+    if w_packed.shape[0] * 8 != k * w_bits:
+        raise ValueError(f"packed rows {w_packed.shape[0]} do not hold K={k} "
+                         f"codes at {w_bits} bits")
+    if not (x_codes.is_cuda and w_packed.device == x_codes.device):
+        raise ValueError("bitplane_matmul kernel needs CUDA tensors on one device")
+    x_codes = x_codes.contiguous()
+    w_packed = w_packed.contiguous()
+    n = w_packed.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.int32, device=x_codes.device)
+    rc = _fn()(x_codes.data_ptr(), w_packed.data_ptr(), m, k, n, w_bits, a_bits,
+               int(act_signed), w_plane_lo, acc.data_ptr(),
+               torch.cuda.current_stream(x_codes.device).cuda_stream)
+    build.check(rc, "bitplane_matmul")
+    launches += 1
+    return acc

@@ -11,12 +11,10 @@
 // K*N*bits/8 weight bytes and do 2*M*K*N integer operations, far below
 // the int8 ridge point, so the kernel is bound by the weight bytes. The
 // design spreads the weight stream over every SM: a block owns 128
-// output columns and one slice of K (split-K), each thread loads 32-bit
-// words holding 4 columns' bytes (a warp reads 128 contiguous bytes per
-// packed row), and the 8 warps of a block walk the slice's K quads.
-// Integer addition is exact and associative, so the split-K atomics give
-// bitwise the same accumulator in any order: a row's result never
-// depends on M, on the split or on the other rows.
+// output columns and one slice of K (split-K), and the 8 warps of a block
+// walk the slice's K quads (packed_matmul.cuh, shared with the unfused
+// bitplane_matmul.cu). Whole-prompt prefill runs it at M = B*L (up to
+// 1280 rows); the integer product is exact, so rows stay independent of M.
 //
 // Quantization is the JAX kernel's prologue: scale = absmax * (1/qhi)
 // (the strength-reduced form jitted XLA computes), inv = 1/scale with a
@@ -28,15 +26,13 @@
 // The contraction is dp4a on 4 consecutive K codes: signed activations
 // use dp4a.s32.s32, unsigned ones (codes up to 255) dp4a.u32.s32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed_matmul.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 128;        // output columns per block: 32 lanes x 4
-constexpr int kKBMax = 512;     // K elements per block (split-K slice)
+using pm::kBN;
+using pm::kKBMax;
+using pm::kThreads;
 
 __global__ void row_scale_kernel(const float* __restrict__ x, int K,
                                  float rq, float* __restrict__ scales) {
@@ -55,47 +51,22 @@ __global__ void row_scale_kernel(const float* __restrict__ x, int K,
   }
 }
 
-template <bool SIGNED>
-__device__ __forceinline__ int dot4(uint32_t a, uint32_t b, int c) {
-  int d;
-  if (SIGNED) {
-    asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  } else {
-    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  }
-  return d;
-}
-
-// Sign-extended `bits`-wide field at bit `pos` of w.
-template <int BITS>
-__device__ __forceinline__ int field(uint32_t w, int pos) {
-  return ((int)(w << (32 - pos - BITS))) >> (32 - BITS);
-}
-
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
-         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
-}
-
 template <int BITS, int BM, bool SIGNED>
 __global__ void __launch_bounds__(kThreads)
 fused_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ wp,
                     const float* __restrict__ scales, int M, int K, int N,
                     int kb, int qlo, int qhi, int shift, int vec_loads,
                     int32_t* __restrict__ acc) {
-  constexpr int RPQ = BITS / 2;     // packed rows per quad of K
-  constexpr int EPB = 8 / BITS;     // codes per byte
   __shared__ uint32_t xq[BM][kKBMax / 4];
   __shared__ int accs[BM][kBN];
   __shared__ float inv_s[BM];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN;
   const int k0 = blockIdx.y * kb;
   const int k1 = min(K, k0 + kb);
   const int m0 = blockIdx.z * BM;
   const int nq = (k1 - k0 + 3) / 4;
-  const int kp_rows = K * BITS / 8;
 
   if (tid < BM) {
     const int m = m0 + tid;
@@ -116,68 +87,12 @@ fused_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ wp,
       const float t = rintf(__fmul_rn(v, inv_s[r]));
       c[j] = (int)fminf(fmaxf(t, (float)qlo), (float)qhi);
     }
-    xq[r][w] = pack4(c[0], c[1], c[2], c[3]);
+    xq[r][w] = pm::pack4(c[0], c[1], c[2], c[3]);
   }
   __syncthreads();
 
-  int a[BM][4];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) a[m][c] = 0;
-
-  const int c0 = n0 + 4 * lane;
-  for (int q = warp; q < nq; q += kWarps) {
-    const int rb = (k0 + 4 * q) * BITS / 8;
-    uint32_t W[RPQ];
-#pragma unroll
-    for (int r = 0; r < RPQ; ++r) {
-      const int row = rb + r;
-      uint32_t w = 0;
-      if (row < kp_rows) {
-        const int8_t* p = wp + (size_t)row * N + c0;
-        if (vec_loads && c0 + 3 < N) {
-          w = *reinterpret_cast<const uint32_t*>(p);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c0 + c < N) w |= (uint32_t)(uint8_t)p[c] << (8 * c);
-        }
-      }
-      W[r] = w;
-    }
-    uint32_t wv[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int code[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        code[kk] = field<BITS>(W[kk / EPB], 8 * c + (kk % EPB) * BITS) >> shift;
-      wv[c] = pack4(code[0], code[1], code[2], code[3]);
-    }
-#pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      const uint32_t xa = xq[m][q];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[m][c] = dot4<SIGNED>(xa, wv[c], a[m][c]);
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) atomicAdd(&accs[m][4 * lane + c], a[m][c]);
-  __syncthreads();
-
-  const bool split = gridDim.y > 1;
-  for (int i = tid; i < BM * kBN; i += kThreads) {
-    const int m = m0 + i / kBN, n = n0 + i % kBN;
-    if (m < M && n < N) {
-      int32_t* dst = acc + (size_t)m * N + n;
-      if (split) atomicAdd(dst, accs[i / kBN][i % kBN]);
-      else *dst = accs[i / kBN][i % kBN];
-    }
-  }
+  pm::contract_tile<BITS, BM, SIGNED>(xq, accs, wp, M, K, N, k0, nq, n0, m0,
+                                      shift, vec_loads, acc);
 }
 
 template <int BITS, int BM>
@@ -220,30 +135,16 @@ extern "C" int fused_quantize_matmul(const float* x, const int8_t* wp, int M,
   const float rq = 1.0f / (float)qhi;
   row_scale_kernel<<<M, 256, 0, st>>>(x, K, rq, scales);
 
-  const int bm = M <= 4 ? 4 : (M <= 8 ? 8 : 16);
-  const int n_tiles = (N + kBN - 1) / kBN;
-  const int m_tiles = (M + bm - 1) / bm;
-  // Split K until ~2 blocks per SM are in flight, each slice >= 256 K.
-  const int target = 2 * 132;
-  int ksplit = (target + n_tiles * m_tiles - 1) / (n_tiles * m_tiles);
-  const int max_split = (K + 255) / 256;
-  if (ksplit > max_split) ksplit = max_split;
-  if (ksplit < 1) ksplit = 1;
-  int kb = (K + ksplit - 1) / ksplit;
-  kb = (kb + 15) / 16 * 16;
-  if (kb > kKBMax) kb = kKBMax;
-  if (kb < 16) kb = 16;
-  ksplit = (K + kb - 1) / kb;
-  const dim3 grid(n_tiles, ksplit, m_tiles);
+  const pm::Plan p = pm::plan(M, K, N);
   const int shift = 2 * w_plane_lo;
   const int vec = (N % 4 == 0) ? 1 : 0;
   const bool sgn = act_signed != 0;
   if (bits == 8)
-    launch_bits<8>(bm, grid, sgn, st, x, wp, scales, M, K, N, kb, qlo, qhi, shift, vec, acc);
+    launch_bits<8>(p.bm, p.grid, sgn, st, x, wp, scales, M, K, N, p.kb, qlo, qhi, shift, vec, acc);
   else if (bits == 4)
-    launch_bits<4>(bm, grid, sgn, st, x, wp, scales, M, K, N, kb, qlo, qhi, shift, vec, acc);
+    launch_bits<4>(p.bm, p.grid, sgn, st, x, wp, scales, M, K, N, p.kb, qlo, qhi, shift, vec, acc);
   else if (bits == 2)
-    launch_bits<2>(bm, grid, sgn, st, x, wp, scales, M, K, N, kb, qlo, qhi, shift, vec, acc);
+    launch_bits<2>(p.bm, p.grid, sgn, st, x, wp, scales, M, K, N, p.kb, qlo, qhi, shift, vec, acc);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,0 +1,62 @@
+"""CUDA wrapper of the flash-attention forward of whole-prompt prefill.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` together
+with the GQA dispatch of ``repro/kernels/ops.py::flash_attention``: q
+(B, Tq, NQ, H) attends k/v (B, Tk, NKV, H) under causal / window masks
+and a query-position offset (``csrc/flash_attention.cu``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+#: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
+launches = 0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P] * 4 + [_I] * 11 + [_F, _P]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_H_MAX = 128
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = build.load("flash_attention").flash_attention
+    fn.argtypes = ARGTYPES
+    fn.restype = _I
+    return fn
+
+
+def launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor:
+    """q (B, Tq, NQ, H), k/v (B, Tk, NKV, H) on one CUDA device, float32
+    or bfloat16 each → (B, Tq, NQ, H) in q's dtype."""
+    global launches
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention expects q (B, T, NQ, H) and k/v "
+                         "(B, S, NKV, H) of one shape")
+    B, Tq, NQ, H = q.shape
+    _, Tk, NKV, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != H or NQ % NKV:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not match "
+                         "(NQ must be a multiple of NKV)")
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"q and k/v must be float32 or bfloat16, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if H > _H_MAX:
+        raise ValueError(f"head dim {H} exceeds the kernel's {_H_MAX}")
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention kernel needs CUDA tensors on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
+               NQ, NKV, H, _DTYPES[q.dtype], _DTYPES[k.dtype], int(causal),
+               int(window), int(q_offset), H ** -0.5,
+               torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash_attention")
+    launches += 1
+    return out

@@ -18,12 +18,14 @@ from repro_torch.kernels import build
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("fused_matmul").fused_quantize_matmul
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 

@@ -17,13 +17,15 @@ from repro_torch.kernels import build
 launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("paged_attention").paged_attention
-    fn.argtypes = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
+    fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 

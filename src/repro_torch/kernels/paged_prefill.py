@@ -20,12 +20,14 @@ from repro_torch.kernels.paged_attention import _DTYPES, check_pool
 launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P]
 
 
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = build.load("paged_prefill").paged_prefill
-    fn.argtypes = [_P] * 9 + [_I] * 10 + [_F, _F, _P]
+    fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 

@@ -1,13 +1,15 @@
-"""Plain PyTorch versions of the three CUDA kernels of the serving path.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
-Ported from ``repro.kernels.ref`` (``quantize_pack_ref`` +
-``bitplane_matmul_ref``, ``paged_attention_ref``, ``paged_prefill_ref``).
+Ported from ``repro.kernels.ref`` (``quantize_pack_ref``,
+``bitplane_matmul_ref``, ``mixed_group_matmul_ref``,
+``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``).
 They are the semantic specification: on the CPU the kernel entry points
 in :mod:`repro_torch.kernels.ops` run them, and on the card
 ``chip_smoke.py`` holds each CUDA kernel against them. Integer outputs
-(accumulators, activation scales, int8 pool bytes and scale planes) are
-bitwise those of the JAX package; float outputs agree within the
-tolerances stated in ``tests/test_torch_kernels.py``.
+(codes, accumulators, activation scales, int8 pool bytes and scale
+planes) are bitwise those of the JAX package; float outputs agree within
+the tolerances stated in ``tests/test_torch_kernels.py``,
+``tests/test_torch_mixed_matmul.py`` and ``tests/test_torch_flash.py``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 
 from repro_torch.core import bitplane
 from repro_torch.core.quant import reciprocal_f32
+
+_TILE = 64      # flash_attention_ref's padding granularity (see there)
 
 
 def quantize_pack_ref(x: torch.Tensor, bits: int, signed: bool = True):
@@ -33,20 +37,101 @@ def quantize_pack_ref(x: torch.Tensor, bits: int, signed: bool = True):
     return q, scale
 
 
+def quantize_rows_ref(x: torch.Tensor, bits: int, signed: bool = True):
+    """``quantize_pack_ref`` with the codes stored as int8: the int32 →
+    int8 narrowing wraps, so an unsigned 8-bit code 255 is stored as -1
+    (its bit pattern), as ``repro/kernels/pack_quant.py`` stores it."""
+    q, s = quantize_pack_ref(x.to(torch.float32), bits, signed)
+    return q.to(torch.int8), s
+
+
+def bitplane_matmul_ref(x_codes: torch.Tensor, w: torch.Tensor, a_bits: int,
+                        act_signed: bool = True, w_plane_lo: int = 0,
+                        plane_bits: int = 2, w_bits: int = 8) -> torch.Tensor:
+    """(M, K) int activation codes × weight codes → (M, N) int32, exact.
+    ``w`` is (K, N) codes for ``w_bits=8`` and the packed (K·w_bits/8, N)
+    bytes otherwise. Unsigned codes may arrive wrapped (255 as -1): they
+    are read mod 2**a_bits. ``w_plane_lo`` shifts the weight codes before
+    the product (keep planes [lo:]). The product runs in float64, exact
+    here (|acc| < 2**53), since PyTorch has no integer matmul on CUDA."""
+    x = x_codes.to(torch.int32)
+    if not act_signed:
+        x = x & ((1 << a_bits) - 1)
+    w = bitplane.unpack_weights(w, w_bits, axis=0)
+    if w_plane_lo:
+        w = w >> (w_plane_lo * plane_bits)
+    return (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+
+
+def mixed_group_matmul_ref(x, w8_codes, wl_codes, scale8, scalel, a_bits: int):
+    """Table III intra-layer mixing: x (M, K) float quantized once per row
+    at ``a_bits`` (signed), an 8-bit group (K, N8) and a low-bit group
+    (K, NL) of codes, each dequantized with its own per-channel scales;
+    returns the float32 concatenation [y8, yl]."""
+    q, s = quantize_pack_ref(x.to(torch.float32), a_bits)
+    acc8 = bitplane_matmul_ref(q, w8_codes, a_bits)
+    accl = bitplane_matmul_ref(q, wl_codes, a_bits)
+    y8 = acc8.to(torch.float32) * s * scale8.reshape(1, -1)
+    yl = accl.to(torch.float32) * s * scalel.reshape(1, -1)
+    return torch.cat([y8, yl], dim=1)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Naive float32 softmax attention over (BH, T, D): key j is visible
+    to query i iff j < Tk, j <= q_offset + i (causal) and j > q_offset +
+    i - window (window > 0). A query that sees no key outputs zeros.
+
+    Queries and keys are zero-padded to a multiple of ``_TILE`` (the tail
+    masked) before the products: CPU kernels take another summation path
+    for rows shorter than a vector, so padding to a fixed granularity
+    keeps a row's result independent of the length its batch was padded
+    to — bucketed prefill is bitwise exact-length prefill."""
+    BH, Tq, D = q.shape
+    Tk = k.shape[1]
+    tq, tk = -(-Tq // _TILE) * _TILE, -(-Tk // _TILE) * _TILE
+    qf = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, tq - Tq))
+    kf = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, tk - Tk))
+    vf = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, tk - Tk))
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * (D ** -0.5)
+    qpos = (q_offset + torch.arange(tq, device=q.device))[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = (kpos < Tk).expand(tq, tk)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask[None], s, torch.tensor(float("-inf"), device=q.device))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask[None], p, torch.zeros_like(p))
+    return torch.einsum("bqk,bkd->bqd", p, vf)[:, :Tq]
+
+
+def flash_attention_gqa_ref(q, k, v, causal: bool = True, window: int = 0,
+                            q_offset: int = 0) -> torch.Tensor:
+    """``flash_attention_ref`` in the model layout with the GQA dispatch of
+    ``repro.kernels.ops.flash_attention``: q (B, T, NQ, H), k/v (B, S,
+    NKV, H), KV heads repeated to the query heads. Returns (B, T, NQ, H)
+    in q's dtype."""
+    B, T, NQ, H = q.shape
+    G = NQ // k.shape[2]
+    qf = q.transpose(1, 2).reshape(B * NQ, T, H)
+    kf = k.transpose(1, 2).repeat_interleave(G, dim=1).reshape(B * NQ, -1, H)
+    vf = v.transpose(1, 2).repeat_interleave(G, dim=1).reshape(B * NQ, -1, H)
+    out = flash_attention_ref(qf, kf, vf, causal, window, q_offset)
+    return out.reshape(B, NQ, T, H).transpose(1, 2).to(q.dtype)
+
+
 def fused_quantize_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
                               w_bits: int = 8, a_bits: int = 8,
                               act_signed: bool = True, w_plane_lo: int = 0,
                               plane_bits: int = 2):
     """(M, K) float32 × packed (K·w_bits/8, N) codes → ((M, N) int32,
     (M, 1) float32): ``quantize_pack_ref`` then the exact integer product
-    of ``bitplane_matmul_ref``. The product runs in float64, exact here
-    (|acc| < 2**53), since PyTorch has no integer matmul on CUDA."""
+    of ``bitplane_matmul_ref``."""
     q, s = quantize_pack_ref(x, a_bits, act_signed)
-    w = bitplane.unpack_weights(w_packed, w_bits, axis=0)
-    if w_plane_lo:
-        w = w >> (w_plane_lo * plane_bits)
-    acc = q.to(torch.float64) @ w.to(torch.float64)
-    return acc.to(torch.int32), s
+    return bitplane_matmul_ref(q, w_packed, a_bits, act_signed, w_plane_lo,
+                               plane_bits, w_bits), s
 
 
 def _row_view(pool, tbl, n):

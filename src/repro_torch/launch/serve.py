@@ -1,21 +1,28 @@
 """Serving CLI: initialize a model from a seed, pack its weights, and
-serve a stream of synthetic requests through the continuous scheduler.
+serve a stream of synthetic requests, as a static batch or through the
+continuous scheduler.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
-      --policy "w4a8;wo=w8a8" --continuous [--kv-int8] [--requests 8] \
-      [--max-new 16] [--max-batch 4] [--rate 20] [--block-size 16] \
-      [--pool-blocks N] [--prefill-budget 32] [--reduced] [--device cpu]
+      --policy "w4a8;wo=w8a8" [--static | --continuous] [--kv-int8] \
+      [--requests 8] [--max-new 16] [--max-batch 4] [--rate 20] \
+      [--block-size 16] [--pool-blocks N] [--no-paged] \
+      [--prefill-budget 32] [--no-chunked-prefill] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
 given, serving with the hand-written kernels on the card and their plain
 PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
-paths. --continuous is required: this port serves through the
-continuous-batching scheduler on the paged KV pool with chunked prefill
-(--prefill-budget prompt tokens per step). One warmup pass runs first,
-so steady-state throughput and throughput including the warmup are
-reported separately.
+paths (a wXaYrZZ token packs Table III mixed-group layers).
+
+Without --continuous (or with --static) the engine serves static batches
+of --max-batch requests: whole-prompt prefill, then a decode loop on the
+contiguous cache. --continuous serves through the continuous-batching
+scheduler: on the paged KV pool with chunked prefill (--prefill-budget
+prompt tokens per step) by default, with solo whole-prompt admission
+under --no-chunked-prefill, on the contiguous per-slot cache under
+--no-paged. One warmup pass runs first, so steady-state throughput and
+throughput including the warmup are reported separately.
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--continuous", action="store_true",
                     help="serve via the continuous-batching scheduler")
+    ap.add_argument("--static", action="store_true",
+                    help="serve static batches (the default without "
+                         "--continuous)")
     ap.add_argument("--rate", type=float, default=0.0,
                     help="Poisson arrival rate in requests/s (0 = all "
                          "requests queued at t=0)")
@@ -48,9 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pool-blocks", type=int, default=None,
                     help="shared KV pool size in blocks (default: the "
                          "contiguous worst case max_batch * max_ctx)")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="continuous scheduler on the contiguous per-slot "
+                         "max_ctx cache instead of the paged pool")
     ap.add_argument("--prefill-budget", type=int, default=32,
                     help="chunked prefill: max prompt tokens prefilled per "
                          "scheduler step (the decode-stall bound)")
+    ap.add_argument("--no-chunked-prefill", dest="chunked_prefill",
+                    action="store_false", default=None,
+                    help="admit by solo whole-prompt prefill instead of "
+                         "chunked prefill")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -87,10 +104,8 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
 
-    if not args.continuous:
-        raise SystemExit("the port serves through the continuous-batching "
-                         "scheduler; add --continuous (the static batch "
-                         "baseline is not ported yet)")
+    if args.continuous and args.static:
+        raise SystemExit("--continuous and --static are mutually exclusive")
     if args.quant and args.policy:
         raise SystemExit("--quant and --policy are mutually exclusive")
     device = resolve_device(args.device)
@@ -107,9 +122,12 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     elif args.quant and args.quant != "none":
         quant = parse_quant_token(args.quant)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch, quant=quant,
-                           bucket=32, block_size=args.block_size,
+                           bucket=32, paged=False if args.no_paged else None,
+                           block_size=args.block_size,
                            pool_blocks=args.pool_blocks,
+                           chunked_prefill=args.chunked_prefill,
                            prefill_budget=args.prefill_budget, device=device)
+    serve = engine.generate if args.continuous else engine.generate_static
 
     def sync():
         if device.type == "cuda":
@@ -118,42 +136,52 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    engine.generate(make_requests(cfg, args))
+    warm = serve(make_requests(cfg, args))
     sync()
     t_warm = time.perf_counter() - t0
 
     reqs = make_requests(cfg, args)       # identical stream, warm caches
     t1 = time.perf_counter()
-    done = engine.generate(reqs)
+    done = serve(reqs)
     sync()
     dt = time.perf_counter() - t1
     total = sum(len(r.out_tokens or ()) for r in done)
-    print(f"{len(done)} requests, {total} tokens, {dt:.1f}s [continuous]")
+    mode = "continuous" if args.continuous else "static"
+    print(f"{len(done)} requests, {total} tokens, {dt:.1f}s [{mode}]")
     print(f"  steady-state: {total/dt:.1f} tok/s | "
           f"total incl. compile: {total/(t_warm + dt):.1f} tok/s "
           f"(warmup {t_warm:.1f}s)")
-    lat = [r.t_done - r.arrival_time for r in done if r.t_done is not None]
-    print(f"  mean request latency: {np.mean(lat)*1e3:.0f} ms "
-          f"(rate={args.rate or 'inf'}/s)")
-    stats = engine.pool_stats()
-    print(f"  paged KV pool: {stats['peak_allocated_blocks']}/"
-          f"{stats['pool_blocks']} blocks peak "
-          f"(block_size={stats['block_size']}) — peak resident "
-          f"{stats['peak_resident_kv_bytes']/1e6:.2f} MB vs "
-          f"{stats['reserved_kv_bytes']/1e6:.2f} MB contiguous reservation")
-    print(f"  chunked prefill: {stats['prefill_chunks_run']} "
-          f"chunks (budget={stats['prefill_budget']}), "
-          f"{stats['decode_steps_stalled']} decode steps "
-          f"shared a step with a chunk, "
-          f"{stats['prefill_tokens_per_step']:.1f} prefill tok/step")
-    failed = [r for r in done if r.error]
-    for r in failed[:4]:
-        print(f"  req {r.rid} failed: {r.error}")
+    stats = None
+    if args.continuous:
+        lat = [r.t_done - r.arrival_time for r in done if r.t_done is not None]
+        print(f"  mean request latency: {np.mean(lat)*1e3:.0f} ms "
+              f"(rate={args.rate or 'inf'}/s)")
+        stats = engine.pool_stats()
+        if stats["paged"]:
+            print(f"  paged KV pool: {stats['peak_allocated_blocks']}/"
+                  f"{stats['pool_blocks']} blocks peak "
+                  f"(block_size={stats['block_size']}) — peak resident "
+                  f"{stats['peak_resident_kv_bytes']/1e6:.2f} MB vs "
+                  f"{stats['reserved_kv_bytes']/1e6:.2f} MB contiguous "
+                  "reservation")
+        else:
+            print(f"  contiguous KV cache: "
+                  f"{stats['resident_kv_bytes']/1e6:.2f} MB resident "
+                  "(full per-slot reservation)")
+        if stats["chunked_prefill"]:
+            print(f"  chunked prefill: {stats['prefill_chunks_run']} "
+                  f"chunks (budget={stats['prefill_budget']}), "
+                  f"{stats['decode_steps_stalled']} decode steps "
+                  f"shared a step with a chunk, "
+                  f"{stats['prefill_tokens_per_step']:.1f} prefill tok/step")
+        for r in [r for r in done if r.error][:4]:
+            print(f"  req {r.rid} failed: {r.error}")
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {(r.out_tokens or [])[:10]}")
     report = {"requests": len(done), "tokens": total, "seconds": dt,
-              "tok_per_s": total / dt, "warmup_s": t_warm, "stats": stats}
+              "tok_per_s": total / dt, "warmup_s": t_warm, "stats": stats,
+              "warmup_tokens": {r.rid: r.out_tokens for r in warm}}
     return engine, done, report
 
 

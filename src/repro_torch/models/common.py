@@ -1,5 +1,5 @@
-"""Shared model components: linear, norms, rotary embeddings, decode
-attention, FFN, embeddings and the logits head.
+"""Shared model components: linear, norms, rotary embeddings, whole-
+sequence and decode attention, FFN, embeddings and the logits head.
 
 Port of the parts of ``repro.models.common`` the dense serving path uses.
 Dtype rules follow the JAX code op by op (norms and softmax in float32,
@@ -8,6 +8,7 @@ with JAX to rounding and a bfloat16 model rounds at the same places.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -73,6 +74,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnMask:
+    causal: bool = True
+    window: int = 0        # >0: key j visible iff q_pos - window < j <= q_pos
+    prefix_len: int = 0    # >0: positions < prefix_len attend bidirectionally
+
+
+def chunked_attention(q, k, v, mask: AttnMask, *, q_offset: int = 0,
+                      softcap: float = 0.0, kpos=None) -> torch.Tensor:
+    """Whole-sequence attention: q (B, T, NQ, H) over k/v (B, S, NKV, H),
+    GQA, causal / sliding-window masks at query positions q_offset + i;
+    key slot s holds absolute position s. The function of
+    ``repro.models.common.chunked_attention``, computed by
+    ``ops.flash_attention`` (the kernel on a CUDA tensor, its plain
+    version on the CPU). Explicit key positions (``kpos``), prefix-LM
+    masks and a logit softcap — the prefix-cache and gemma paths — are
+    not ported yet and raise on every device alike."""
+    from repro_torch.kernels import ops
+
+    if kpos is not None:
+        raise ValueError("chunked_attention: explicit key positions (kpos) are "
+                         "not ported yet (the prefix-cache path)")
+    if mask.prefix_len:
+        raise ValueError("chunked_attention: prefix-LM masks are not ported yet")
+    if softcap:
+        raise ValueError("chunked_attention: a logit softcap is not ported yet")
+    return ops.flash_attention(q, k, v, causal=mask.causal, window=mask.window,
+                               q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, kpos, q_pos, window: int = 0,

@@ -1,24 +1,78 @@
-"""Decode-time state: the paged KV pool and the decode carry.
+"""Decode-time state: the contiguous KV cache, the paged KV pool and the
+decode carry.
 
-Port of the paged half of ``repro.models.kv_cache``. The pool is
-``(L, num_blocks, block_size, NKV, H)`` shared by every batch slot, with a
-``(B, max_blocks)`` block table per slot (-1 = unallocated). Pool block 0
-is the reserved trash block: writes from free slots and unallocated
-virtual blocks land there and are never read.
+Port of the full-attention half of ``repro.models.kv_cache`` (ring
+buffers — ``ring_align`` — come with the windowed families). The
+contiguous cache is ``(L, B, S, NKV, H)`` with per-row slot positions
+(slot == absolute position, -1 = empty). The pool is ``(L, num_blocks,
+block_size, NKV, H)`` shared by every batch slot, with a ``(B,
+max_blocks)`` block table per slot (-1 = unallocated). Pool block 0 is
+the reserved trash block: writes from free slots and unallocated virtual
+blocks land there and are never read.
 
-Unlike the JAX arrays, the port's pool is written IN PLACE: a decode
-step's one-token write and a prefill chunk's kernel epilogue update the
-pool tensors they are given, and the cache object is mutated rather than
-rebuilt — one resident copy of the pool, as the donated JAX buffers had.
+Unlike the JAX arrays, the port's caches are written IN PLACE: a decode
+step's one-token write, a prefill chunk's kernel epilogue and an
+admission's scatter update the tensors they are given, and the cache
+object is mutated rather than rebuilt — one resident copy, as the donated
+JAX buffers had. Only ``grow_cache`` builds new (larger) tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.core.quant import reciprocal_f32
+
+
+@dataclasses.dataclass
+class KVCache:
+    """k/v: (L, B, S, NKV, H); slot_pos: (L, B, S) absolute position of each
+    cache slot per batch row (-1 = empty); length: (B,) tokens written per
+    row; k_scale/v_scale (L, B, S, NKV, 1) float32 for an int8 cache.
+    Every batch row advances independently, so the continuous scheduler
+    holds rows at different depths and admission rewrites one row."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    slot_pos: torch.Tensor
+    length: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    window: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def layer(self, i: int):
+        """Layer `i`'s (k, v, slot_pos, k_scale, v_scale) views."""
+        if self.quantized:
+            return (self.k[i], self.v[i], self.slot_pos[i], self.k_scale[i],
+                    self.v_scale[i])
+        return self.k[i], self.v[i], self.slot_pos[i], None, None
+
+    @staticmethod
+    def init(layers: int, batch: int, size: int, n_kv: int, head_dim: int,
+             window: int = 0, dtype=torch.bfloat16, quantized: bool = False,
+             device=None) -> "KVCache":
+        if window:
+            raise ValueError("ring-buffer (windowed) caches are not ported yet")
+        kd = torch.int8 if quantized else dtype
+        shape = (layers, batch, size, n_kv, head_dim)
+        sshape = (layers, batch, size, n_kv, 1)
+        return KVCache(
+            k=torch.zeros(shape, dtype=kd, device=device),
+            v=torch.zeros(shape, dtype=kd, device=device),
+            slot_pos=torch.full((layers, batch, size), -1, dtype=torch.int32,
+                                device=device),
+            length=torch.zeros((batch,), dtype=torch.int32, device=device),
+            k_scale=(torch.zeros(sshape, dtype=torch.float32, device=device)
+                     if quantized else None),
+            v_scale=(torch.zeros(sshape, dtype=torch.float32, device=device)
+                     if quantized else None),
+        )
 
 
 @dataclasses.dataclass
@@ -70,10 +124,10 @@ class PagedKVCache:
 @dataclasses.dataclass
 class DecodeCache:
     """Top-level decode carry: pos (B,) int32, the absolute position each
-    batch slot decodes at, plus the paged KV pool."""
+    batch slot decodes at, plus the contiguous cache or the paged pool."""
 
     pos: torch.Tensor
-    kv: Optional[PagedKVCache] = None
+    kv: Optional[Union[KVCache, PagedKVCache]] = None
 
 
 def quantize_kv(x: torch.Tensor):
@@ -91,6 +145,46 @@ def quantize_kv(x: torch.Tensor):
 
 def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return codes.to(torch.float32) * scale
+
+
+def full_slot_pos(layers: int, batch: int, size: int, lengths,
+                  device=None) -> torch.Tensor:
+    """slot_pos (layers, batch, size) of a full (non-ring) cache, where
+    slot == absolute position; slots at or past a row's length (right-pad
+    slots, decode headroom) are empty (-1)."""
+    s = torch.arange(size, dtype=torch.int32, device=device)
+    if lengths is None:
+        sp = s[None, :].expand(batch, size)
+    else:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+        sp = torch.where(s[None, :] < lengths[:, None], s[None, :],
+                         torch.full_like(s, -1)[None, :])
+    return sp[None].expand(layers, batch, size).contiguous()
+
+
+def write_slot(pos, size: int, window: int):
+    """Cache slot of absolute position(s) `pos`: pos itself (clamped to
+    the last slot) for a full cache, pos % size for a ring buffer."""
+    return pos % size if window > 0 else torch.clamp(pos, max=size - 1)
+
+
+def row_write(cache, new, slot):
+    """Per-row slot write, in place: cache (B, S, ...), new (B, 1, ...),
+    slot (B,) — row b writes its own slot."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long()] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_write(k_cache, v_cache, slot_pos, k_new, v_new, pos, window: int):
+    """Write one token's k/v (B, 1, NKV, H) at per-row absolute positions
+    `pos` (B,), in place (one layer's (B, S, ...) views). Returns
+    (k_cache, v_cache, slot_pos)."""
+    slot = write_slot(pos, k_cache.shape[1], window)
+    row_write(k_cache, k_new, slot)
+    row_write(v_cache, v_new, slot)
+    row_write(slot_pos, pos[:, None].to(torch.int32), slot)
+    return k_cache, v_cache, slot_pos
 
 
 def paged_slot(block_table, pos, block_size: int):
@@ -162,3 +256,85 @@ def paged_gather(pool_k, pool_v, block_table, k_scale=None, v_scale=None,
         ks_rows = k_scale[tbl].reshape(B, n_blocks * bs, *k_scale.shape[2:])
         vs_rows = v_scale[tbl].reshape(B, n_blocks * bs, *v_scale.shape[2:])
     return k_rows, v_rows, kpos, ks_rows, vs_rows
+
+
+def scatter_into_slot(batch: DecodeCache, solo: DecodeCache, slot: int) -> DecodeCache:
+    """Admit a solo-prefilled request (batch axis of size 1) into row
+    `slot` of a live contiguous decode cache, in place. Only row `slot`
+    changes: its slots past the solo cache's are emptied, every other
+    row's KV and position is untouched."""
+    big, small = batch.kv, solo.kv
+    size, s = big.k.shape[2], small.k.shape[2]
+    if s > size:
+        raise ValueError(f"prefilled cache ({s} slots) exceeds batch cache "
+                         f"capacity ({size}); raise the scheduler's max_ctx")
+    pairs = [(big.k, small.k, 0), (big.v, small.v, 0),
+             (big.slot_pos, small.slot_pos, -1)]
+    if big.quantized:
+        pairs += [(big.k_scale, small.k_scale, 0.0), (big.v_scale, small.v_scale, 0.0)]
+    for dst, src, fill in pairs:
+        dst[:, slot, :s] = src[:, 0].to(dst.dtype)
+        dst[:, slot, s:] = fill
+    big.length[slot] = small.length[0]
+    batch.pos[slot] = solo.pos[0]
+    return batch
+
+
+def scatter_into_paged(batch: DecodeCache, solo: DecodeCache, slot: int,
+                       row_blocks) -> DecodeCache:
+    """Admit a solo-prefilled request into the paged pool, in place.
+    `solo` carries a contiguous full cache (right-padded: slot ==
+    absolute position); its virtual block j goes to pool block
+    row_blocks[j]. Entries past the allocated prompt blocks are -1 and
+    land in the trash block (they hold only right-pad / headroom slots).
+    Also writes the row's block table, length and position."""
+    kv: PagedKVCache = batch.kv
+    bs = kv.block_size
+    s_solo = solo.kv.k.shape[2]
+    nb = -(-s_solo // bs)
+    pad = nb * bs - s_solo
+    row_blocks = torch.as_tensor(row_blocks, dtype=torch.int32).to(kv.k.device)
+
+    def as_blocks(a):
+        a = a[:, 0]
+        if pad:
+            a = torch.nn.functional.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+        return a.reshape(a.shape[0], nb, bs, *a.shape[2:])
+
+    dst = torch.full((nb,), -1, dtype=torch.long, device=kv.k.device)
+    n = min(nb, row_blocks.shape[0])
+    dst[:n] = row_blocks[:n].long()
+    dst = dst.clamp(min=0)
+    kv.k[:, dst] = as_blocks(solo.kv.k).to(kv.k.dtype)
+    kv.v[:, dst] = as_blocks(solo.kv.v).to(kv.v.dtype)
+    if kv.quantized:
+        kv.k_scale[:, dst] = as_blocks(solo.kv.k_scale)
+        kv.v_scale[:, dst] = as_blocks(solo.kv.v_scale)
+    mb = kv.block_table.shape[1]
+    kv.block_table[slot] = row_blocks[:mb]
+    kv.length[slot] = solo.kv.length[0]
+    batch.pos[slot] = solo.pos[0]
+    return batch
+
+
+def grow_cache(cache: DecodeCache, size: int) -> DecodeCache:
+    """Extend a full-attention contiguous cache's slot axis to at least
+    `size` empty slots, so the static engine decodes past the prefill
+    headroom instead of rewriting the last slot through write_slot's
+    clamp. Other caches pass through untouched."""
+    kv = cache.kv
+    if not isinstance(kv, KVCache) or kv.window or kv.k.shape[2] >= size:
+        return cache
+    pad = size - kv.k.shape[2]
+
+    def grow(a, fill):
+        ext = torch.full((*a.shape[:2], pad, *a.shape[3:]), fill, dtype=a.dtype,
+                         device=a.device)
+        return torch.cat([a, ext], dim=2)
+
+    return dataclasses.replace(cache, kv=KVCache(
+        k=grow(kv.k, 0), v=grow(kv.v, 0), slot_pos=grow(kv.slot_pos, -1),
+        length=kv.length,
+        k_scale=grow(kv.k_scale, 0.0) if kv.quantized else None,
+        v_scale=grow(kv.v_scale, 0.0) if kv.quantized else None,
+        window=kv.window))

@@ -1,9 +1,9 @@
 """build_model(cfg) — the model surface the serving stack drives.
 
 Port of ``repro.models.model_zoo`` for the dense transformer:
-``init(seed, device)``, ``decode_step``, ``init_paged_cache`` and, behind
-the same eligibility gate as JAX (full attention, no MoE, token inputs),
-``prefill_chunk``.
+``init(seed, device)``, ``prefill``, ``decode_step``, ``init_cache``,
+``init_paged_cache`` and, behind the same eligibility gate as JAX (full
+attention, no MoE, token inputs), ``prefill_chunk``.
 """
 from __future__ import annotations
 
@@ -21,8 +21,11 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
+        prefill=lambda params, batch: mod.prefill(params, cfg, batch),
         decode_step=lambda params, cache, tokens:
             mod.decode_step(params, cfg, cache, tokens),
+        init_cache=lambda batch, seq_len, device=None:
+            mod.init_cache(cfg, batch, seq_len, device),
         init_paged_cache=lambda batch, num_blocks, block_size, max_blocks,
             device=None: mod.init_paged_cache(cfg, batch, num_blocks,
                                               block_size, max_blocks, device),

@@ -1,12 +1,15 @@
-"""Dense decoder transformer on the paged KV pool: init, chunked prefill
-and the paged decode step.
+"""Dense decoder transformer: init, whole-prompt and chunked prefill,
+and the decode step on the contiguous cache or the paged pool.
 
 Port of the dense serving path of ``repro.models.transformer``. Params
 are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 (``embed``, ``blocks/wq``, ``blocks/ffn/w_up``, ``final_norm``, …); a
-Python loop over layers replaces ``lax.scan``. Attention runs the paged
-kernels through :mod:`repro_torch.kernels.ops`: ``paged_prefill`` for
-every chunk of a prompt, ``paged_attention`` for every decode step.
+Python loop over layers replaces ``lax.scan``. Attention runs the
+kernels through :mod:`repro_torch.kernels.ops`: ``flash_attention`` for
+a whole prompt (``prefill``), ``paged_prefill`` for every chunk of a
+prompt, ``paged_attention`` for a paged decode step. The contiguous
+decode step attends in plain PyTorch (``common.decode_attention``), as
+the JAX package computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -17,7 +20,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantized_linear import PackedWeight
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
-from repro_torch.models.kv_cache import DecodeCache, PagedKVCache, paged_cache_write
+from repro_torch.models.kv_cache import (
+    DecodeCache,
+    KVCache,
+    PagedKVCache,
+    cache_write,
+    dequantize_kv,
+    full_slot_pos,
+    paged_cache_write,
+    quantize_kv,
+    row_write,
+    write_slot,
+)
+
+# Free cache slots appended after a whole-prompt prefill for the tokens
+# decoded next (the static engine grows the cache past them).
+DECODE_HEADROOM = 8
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,6 +111,51 @@ def _block_post_attn(p: dict, cfg: ModelConfig, x, attn):
     return x + cm.ffn_apply(p["ffn"], h2, cfg)
 
 
+def _kv_attn_view(k, v, kv_quant_attn: bool):
+    """The K/V values whole-prompt attention reads. With an int8 cache the
+    prefill reads its own K/V through the quantizer
+    (``dequantize_kv(quantize_kv(kv))``, float32), exactly what a later
+    read of the cached codes sees; otherwise the identity."""
+    if not kv_quant_attn:
+        return k, v
+    return dequantize_kv(*quantize_kv(k)), dequantize_kv(*quantize_kv(v))
+
+
+def block_apply(p: dict, cfg: ModelConfig, x, positions, mask: cm.AttnMask,
+                kv_quant_attn: bool = False):
+    """Full-sequence block (prefill). Returns (x, k, v); the returned k/v
+    are unquantized (the cache quantizes them once, at the end of
+    prefill, with the same ``quantize_kv``)."""
+    h = cm.apply_norm(x, p["ln1"], cfg.norm)
+    q, k, v = _attention_qkv(p, cfg, h, positions)
+    k_att, v_att = _kv_attn_view(k, v, kv_quant_attn)
+    attn = cm.chunked_attention(q, k_att, v_att, mask,
+                                softcap=cfg.attn_logit_softcap)
+    return _block_post_attn(p, cfg, x, attn), k, v
+
+
+def block_decode(p: dict, cfg: ModelConfig, x, pos, k_cache, v_cache, slot_pos,
+                 k_scale=None, v_scale=None):
+    """Single-token block against one layer's slice of the contiguous
+    cache: every row writes its new k/v (int8 codes and scales for a
+    quantized cache) at its own position, in place, then attends through
+    ``common.decode_attention``."""
+    h = cm.apply_norm(x, p["ln1"], cfg.norm)
+    q, k, v = _attention_qkv(p, cfg, h, pos[:, None])
+    if k_scale is not None:
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        slot = write_slot(pos, k_cache.shape[1], cfg.attn_window)
+        row_write(k_scale, ks, slot)
+        row_write(v_scale, vs, slot)
+    cache_write(k_cache, v_cache, slot_pos, k, v, pos, cfg.attn_window)
+    attn = cm.decode_attention(q, k_cache, v_cache, slot_pos, pos,
+                               window=cfg.attn_window,
+                               softcap=cfg.attn_logit_softcap,
+                               k_scale=k_scale, v_scale=v_scale)
+    return _block_post_attn(p, cfg, x, attn)
+
+
 def block_decode_paged(p: dict, cfg: ModelConfig, x, pos, pool_k, pool_v,
                        block_table, block_size: int, k_scale=None, v_scale=None):
     """Single-token block against one layer's slice of the paged pool:
@@ -113,6 +176,83 @@ def compute_logits(params, cfg: ModelConfig, hidden):
         return cm.logits_head(hidden, params["embed"],
                               softcap=cfg.logits_softcap, transpose=True)
     return cm.logits_head(hidden, params["head"], softcap=cfg.logits_softcap)
+
+
+def embed_inputs(params, cfg: ModelConfig, batch):
+    """Token inputs → (x (B, T, d), positions (B, T))."""
+    x = cm.embed_lookup(params["embed"], batch["tokens"])
+    B, T = x.shape[:2]
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    return x, positions
+
+
+def _mask_for(cfg: ModelConfig) -> cm.AttnMask:
+    return cm.AttnMask(causal=cfg.causal, window=cfg.attn_window)
+
+
+def _scan_blocks(params, cfg: ModelConfig, x, positions, mask,
+                 collect_kv: bool, kv_quant_attn: bool = False):
+    """Every layer's block_apply in order. Returns (x, (k_all, v_all))
+    with k/v stacked (L, B, T, NKV, H) when `collect_kv`, else (x, None)."""
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, k, v = block_apply(layer_params(params["blocks"], i), cfg, x,
+                              positions, mask, kv_quant_attn)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def forward_hidden(params, cfg: ModelConfig, batch):
+    """Full-sequence forward → final-normed hidden states (B, T, d)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    x, _ = _scan_blocks(params, cfg, x, positions, _mask_for(cfg), False)
+    return cm.apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Whole-prompt forward; returns (DecodeCache on a contiguous KVCache,
+    last-token logits (B, 1, V)).
+
+    ``batch["lengths"]`` (B,) marks right-padded prompts: row b's real
+    tokens sit at positions 0..lengths[b]-1, trailing pad slots are
+    excluded from the cache (slot_pos = -1) and from the logits, so a
+    prompt bucketed up to any length prefills bit-identically to an
+    exact-length prefill (causal attention never looks at trailing pads,
+    and neither the attention kernel nor the packed matmul lets a row
+    depend on the padded length). The cache carries DECODE_HEADROOM
+    empty slots for the tokens decoded next."""
+    x, positions = embed_inputs(params, cfg, batch)
+    B, S = x.shape[:2]
+    dev = x.device
+    lengths = batch.get("lengths")
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    x, (k_all, v_all) = _scan_blocks(params, cfg, x, positions, _mask_for(cfg),
+                                     True, kv_quant_attn=cfg.kv_cache_quant)
+    if cfg.attn_window:
+        raise ValueError("ring-buffer (windowed) caches are not ported yet")
+    zk = torch.zeros((*k_all.shape[:2], DECODE_HEADROOM, *k_all.shape[3:]),
+                     dtype=k_all.dtype, device=dev)
+    k_all = torch.cat([k_all, zk], dim=2)
+    v_all = torch.cat([v_all, zk], dim=2)
+    length = (torch.full((B,), S, dtype=torch.int32, device=dev)
+              if lengths is None else lengths)
+    slot_pos = full_slot_pos(cfg.num_layers, B, S + DECODE_HEADROOM, length,
+                             device=dev)
+    if cfg.kv_cache_quant:
+        k_all, k_scale = quantize_kv(k_all)
+        v_all, v_scale = quantize_kv(v_all)
+    else:
+        k_all, v_all = k_all.to(_dtype(cfg)), v_all.to(_dtype(cfg))
+        k_scale = v_scale = None
+    kvc = KVCache(k=k_all, v=v_all, slot_pos=slot_pos, length=length.clone(),
+                  k_scale=k_scale, v_scale=v_scale)
+    hidden = cm.apply_norm(cm.last_token_slice(x, lengths),
+                           params["final_norm"], cfg.norm)
+    logits = compute_logits(params, cfg, hidden)
+    return DecodeCache(pos=length.clone(), kv=kvc), logits
 
 
 def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
@@ -159,21 +299,39 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
                 tokens: torch.Tensor):
     """tokens (B, 1) → (cache, logits (B, 1, V)). Every slot decodes at
-    its own position cache.pos (continuous batching); the pool is written
-    in place and every row's pos/length advances by one."""
+    its own position cache.pos (continuous batching); the contiguous
+    cache or the paged pool is written in place and every row's
+    pos/length advances by one."""
     x = cm.embed_lookup(params["embed"], tokens)
-    kv: PagedKVCache = cache.kv
+    kv = cache.kv
     pos = cache.pos
     for i in range(cfg.num_layers):
-        pk, pv, ks, vs = kv.layer(i)
-        x = block_decode_paged(layer_params(params["blocks"], i), cfg, x, pos,
-                               pk, pv, kv.block_table, kv.block_size,
-                               k_scale=ks, v_scale=vs)
+        p = layer_params(params["blocks"], i)
+        if isinstance(kv, PagedKVCache):
+            pk, pv, ks, vs = kv.layer(i)
+            x = block_decode_paged(p, cfg, x, pos, pk, pv, kv.block_table,
+                                   kv.block_size, k_scale=ks, v_scale=vs)
+        else:
+            x = block_decode(p, cfg, x, pos, *kv.layer(i))
     hidden = cm.apply_norm(x, params["final_norm"], cfg.norm)
     logits = compute_logits(params, cfg, hidden)
     cache.pos = pos + 1
     kv.length = kv.length + 1
     return cache, logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device=None) -> DecodeCache:
+    """Empty contiguous cache on `device` (CUDA unless named) for decoding
+    after `seq_len` tokens of context (+ DECODE_HEADROOM slots); an int8
+    cache with scale planes when cfg.kv_cache_quant."""
+    device = resolve_device(device)
+    kvc = KVCache.init(cfg.num_layers, batch, seq_len + DECODE_HEADROOM,
+                       cfg.n_kv_heads, cfg.head_dim, window=cfg.attn_window,
+                       dtype=_dtype(cfg), quantized=cfg.kv_cache_quant,
+                       device=device)
+    return DecodeCache(pos=torch.full((batch,), seq_len, dtype=torch.int32,
+                                      device=device), kv=kvc)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,

@@ -1,19 +1,38 @@
 """Serving engine over the packed-weight path.
 
-Port of the continuous half of ``repro.serving.engine``: the engine packs
-the weights once under a QuantConfig or a per-layer PrecisionPolicy and
-serves requests through the continuous-batching scheduler on the paged
-pool with chunked prefill. The static-batch baseline (``generate_static``)
-comes with a later slice of the port.
+Port of ``repro.serving.engine`` without the prefix cache and the later
+scheduler features. The engine packs the weights once under a
+QuantConfig or a per-layer PrecisionPolicy and has two modes:
+
+  * ``generate`` — continuous batching through ``ContinuousScheduler``:
+    the paged pool with chunked prefill by default, solo whole-prompt
+    admission with ``chunked_prefill=False``, the contiguous per-slot
+    cache with ``paged=False``.
+  * ``generate_static`` — the static batch (whole-prompt prefill of up
+    to ``max_batch`` right-padded prompts, then a decode loop on the
+    contiguous cache, grown past the prefill headroom when needed), the
+    baseline continuous batching is measured against and the oracle of
+    the "continuous ≡ static" contract.
+
+Prompts are right-padded to the bucket with the real length passed to
+prefill, so pad tokens never occupy cache slots or shift rope positions,
+and both modes draw from the same per-request (seed, rid, step) sample
+streams.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import as_policy
 from repro_torch.core.quantized_linear import quantize_params_for_serving
+from repro_torch.models import build_model
+from repro_torch.models.kv_cache import KVCache, grow_cache
+from repro_torch.serving import sampling
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
 
 
@@ -21,10 +40,13 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 8,
                  quant=None, bucket: int = 64, seed: int = 0,
                  max_ctx: Optional[int] = None, on_token=None,
-                 block_size: int = 16, pool_blocks: Optional[int] = None,
+                 paged: Optional[bool] = None, block_size: int = 16,
+                 pool_blocks: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None,
                  prefill_budget: int = 32, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.model = build_model(cfg)
         self.policy = as_policy(quant)
         if self.policy is not None:
             params = quantize_params_for_serving(params, self.policy,
@@ -35,8 +57,10 @@ class ServingEngine:
         self.seed = seed
         self.max_ctx = max_ctx
         self.on_token = on_token
+        self.paged = paged                  # None = paged if eligible
         self.block_size = block_size
         self.pool_blocks = pool_blocks
+        self.chunked_prefill = chunked_prefill  # None = on if paged
         self.prefill_budget = prefill_budget
         self._sched: Optional[ContinuousScheduler] = None
 
@@ -51,9 +75,10 @@ class ServingEngine:
         if self._sched is None or need > self._sched.max_ctx:
             self._sched = ContinuousScheduler(
                 self.cfg, self.params, max_batch=self.max_batch, max_ctx=need,
-                quant=None, seed=self.seed,
-                on_token=self.on_token, block_size=self.block_size,
-                pool_blocks=self.pool_blocks,
+                quant=None, bucket=self.bucket, seed=self.seed,
+                on_token=self.on_token, paged=self.paged,
+                block_size=self.block_size, pool_blocks=self.pool_blocks,
+                chunked_prefill=self.chunked_prefill,
                 prefill_budget=self.prefill_budget, device=self.device)
         self._sched.on_token = self.on_token
         return self._sched
@@ -72,3 +97,72 @@ class ServingEngine:
             return []
         self.scheduler(self._ctx_needed(requests)).run(requests)
         return list(requests)
+
+    def generate_static(self, requests: List[Request]) -> List[Request]:
+        """Static batch generation (prefill batch → decode loop) in slices
+        of ``max_batch``; returns the requests (out_tokens filled)."""
+        out: List[Request] = []
+        for i in range(0, len(requests), self.max_batch):
+            out.extend(self._generate_batch(requests[i:i + self.max_batch]))
+        return out
+
+    def _grown(self, cache, needed: int):
+        """Refuse a batch whose decode writes exceed `max_ctx`, otherwise
+        grow the contiguous cache (to a bucket multiple) to cover every
+        decode write."""
+        kv = cache.kv
+        if not isinstance(kv, KVCache) or kv.window:
+            return cache
+        if self.max_ctx is not None and needed > self.max_ctx:
+            raise ValueError(
+                f"static batch writes {needed} cache slots but max_ctx is "
+                f"{self.max_ctx}; raise max_ctx or lower max_new_tokens")
+        if needed > kv.k.shape[2]:
+            cache = grow_cache(cache, -(-needed // self.bucket) * self.bucket)
+        return cache
+
+    def _generate_batch(self, reqs: List[Request]) -> List[Request]:
+        B = len(reqs)
+        lens = [len(r.prompt) for r in reqs]
+        L = self._bucketed(max(lens))
+        tokens = np.zeros((B, L), np.int64)
+        for i, r in enumerate(reqs):
+            tokens[i, :lens[i]] = r.prompt      # right-pad; real len in lengths
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device),
+                 "lengths": torch.tensor(lens, dtype=torch.int32)}
+        cache, logits = self.model.prefill(self.params, batch)
+        # The highest decode write is at position len + max_new - 2 (the
+        # first token comes from the prefill logits and writes nothing).
+        needed = max(n + max(r.max_new_tokens, 1) - 1 for n, r in zip(lens, reqs))
+        cache = self._grown(cache, needed)
+
+        temps = np.asarray([r.temperature for r in reqs], np.float32)
+        top_ks = np.asarray([r.top_k for r in reqs], np.int32)
+        keys = np.stack([sampling.request_key(self.seed, r.rid) for r in reqs])
+        steps = np.zeros((B,), np.int32)
+
+        def sample(lg):
+            return sampling.sample_tokens(lg[:, -1, :], temps, top_ks, keys,
+                                          steps).cpu().numpy()
+
+        cur = sample(logits)
+        steps += 1
+        outs = [[int(cur[i])] for i in range(B)]
+        done = [len(o) >= r.max_new_tokens
+                or (r.eos_id is not None and o[-1] == r.eos_id)
+                for o, r in zip(outs, reqs)]
+        for _ in range(max(r.max_new_tokens for r in reqs) - 1):
+            if all(done):
+                break               # every sequence hit max_new/EOS
+            tok = torch.from_numpy(cur[:, None].astype(np.int64)).to(self.device)
+            cache, logits = self.model.decode_step(self.params, cache, tok)
+            cur = sample(logits)
+            steps += 1
+            for i, r in enumerate(reqs):
+                if not done[i]:
+                    outs[i].append(int(cur[i]))
+                    done[i] = (len(outs[i]) >= r.max_new_tokens
+                               or (r.eos_id is not None and outs[i][-1] == r.eos_id))
+        for r, o in zip(reqs, outs):
+            r.out_tokens = o
+        return reqs

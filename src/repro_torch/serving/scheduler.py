@@ -3,24 +3,31 @@ admission, paged KV allocation with reservation queueing, and chunked
 prefill interleaved with decoding.
 
 Port of ``repro.serving.scheduler`` as it stood when chunked prefill
-landed (paged pool + Sarathi-style chunked prefill), without the prefix
-cache. Later features
-— prefix cache, speculation, precision tiers, lifecycle/preemption/chaos
-and the host tier — come with later slices of the port.
+landed (paged pool + Sarathi-style chunked prefill, solo whole-prompt
+admission, the contiguous cache), without the prefix cache. Later
+features — prefix cache, speculation, precision tiers,
+lifecycle/preemption/chaos and the host tier — come with later slices of
+the port.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
     token batch. Free slots decode a dummy token whose output is ignored.
-  * Paged KV pool shared by every slot. Admission reserves the request's
-    worst-case block count ``ceil((len + max_new - 1) / block_size)``; if
-    the pool cannot cover it the request waits (FIFO), so a live row can
-    never deadlock mid-decode. Blocks are allocated lazily: prompt blocks
-    at admission, one more whenever a decode step crosses a boundary.
-    Retirement frees a slot's blocks and its unclaimed reservation.
-  * Admission enqueues a chunk *plan*; each step runs at most one
-    ``prefill_budget``-token chunk (round-robin over plans) through the
-    paged-prefill kernel alongside the decode step. Until its last chunk
-    lands, a slot's device table row is all -1 (masked out of decoding).
+  * ``paged`` (default for full-attention archs): a KV pool shared by
+    every slot. Admission reserves the request's worst-case block count
+    ``ceil((len + max_new - 1) / block_size)``; if the pool cannot cover
+    it the request waits (FIFO), so a live row can never deadlock
+    mid-decode. Blocks are allocated lazily: prompt blocks at admission,
+    one more whenever a decode step crosses a boundary. Retirement frees
+    a slot's blocks and its unclaimed reservation. ``paged=False``: a
+    contiguous cache in which every slot reserves a max_ctx row.
+  * ``chunked_prefill`` (default on the paged pool): admission enqueues a
+    chunk *plan*; each step runs at most one ``prefill_budget``-token
+    chunk (round-robin over plans) through the paged-prefill kernel
+    alongside the decode step. Until its last chunk lands, a slot's device
+    table row is all -1 (masked out of decoding). Otherwise admission
+    prefills the whole prompt solo (right-padded to the bucket) and
+    scatters its cache into the slot's pool blocks or contiguous row;
+    every free slot may admit in the same step.
   * Sampling draws from per-request ``(seed, rid, step)`` streams, so a
     request's tokens do not depend on what else is in the batch.
 """
@@ -39,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import as_policy
 from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
+from repro_torch.models.kv_cache import scatter_into_paged, scatter_into_slot
 from repro_torch.serving import sampling
 
 
@@ -72,43 +80,67 @@ class ContinuousScheduler:
     workload to ``run()``."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
-                 max_ctx: int = 128, quant=None, seed: int = 0,
-                 on_token=None, block_size: int = 16, pool_blocks: Optional[int] = None, prefill_budget: int = 32,
+                 max_ctx: int = 128, quant=None, bucket: int = 64, seed: int = 0,
+                 on_token=None, paged: Optional[bool] = None, block_size: int = 16,
+                 pool_blocks: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None, prefill_budget: int = 32,
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
-        if getattr(self.model, "prefill_chunk", None) is None:
-            raise ValueError(f"{cfg.name}: the port's scheduler admits by "
-                             "chunked prefill, which this arch lacks")
         policy = as_policy(quant)
         if policy is not None:
             params = quantize_params_for_serving(params, policy, min_size=1024)
         self.params = params
         self.max_batch = max_batch
         self.max_ctx = max_ctx
+        self.bucket = bucket
         self.seed = seed
         self.on_token = on_token
         self.block_size = block_size
+
+        # Paged needs a full-attention cache; chunked prefill rides on the
+        # paged pool and on the model's fused chunk path (`prefill_chunk`).
+        can_page = not cfg.attn_window
+        if paged is None:
+            paged = can_page
+        elif paged and not can_page:
+            raise ValueError(f"{cfg.name}: the paged KV cache requires a "
+                             "full-attention cache")
+        self.paged = paged
+        can_chunk = paged and getattr(self.model, "prefill_chunk", None) is not None
+        if chunked_prefill is None:
+            chunked_prefill = can_chunk
+        elif chunked_prefill and not can_chunk:
+            raise ValueError(f"{cfg.name}: chunked prefill requires the paged KV "
+                             "cache and an arch with the fused chunk-prefill path")
+        self.chunked_prefill = chunked_prefill
         if prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1")
         self.prefill_budget = prefill_budget
 
         B = max_batch
-        self._max_blocks = -(-max_ctx // block_size)
-        usable = pool_blocks if pool_blocks is not None else B * self._max_blocks
-        if usable < 1:
-            raise ValueError("pool_blocks must be >= 1")
-        self.pool_blocks = usable
-        self.cache = self.model.init_paged_cache(
-            B, usable + 1, block_size, self._max_blocks, device=self.device)
+        # Admission bound: max_ctx in every mode, so static, contiguous and
+        # paged agree on which requests fit.
         self._capacity = max_ctx
-        self._free: List[int] = list(range(usable, 0, -1))   # block 0 = trash
-        self._avail = usable            # free minus outstanding reservations
-        self._reserved = np.zeros((B,), np.int64)
-        self._block_tab = np.full((B, self._max_blocks), -1, np.int32)
-        self._table_dirty = False
-        self._peak_blocks = 0
+        if paged:
+            self._max_blocks = -(-max_ctx // block_size)
+            usable = (pool_blocks if pool_blocks is not None
+                      else B * self._max_blocks)
+            if usable < 1:
+                raise ValueError("pool_blocks must be >= 1")
+            self.pool_blocks = usable
+            self.cache = self.model.init_paged_cache(
+                B, usable + 1, block_size, self._max_blocks, device=self.device)
+            self._free: List[int] = list(range(usable, 0, -1))  # block 0 = trash
+            self._avail = usable        # free minus outstanding reservations
+            self._reserved = np.zeros((B,), np.int64)
+            self._block_tab = np.full((B, self._max_blocks), -1, np.int32)
+            self._table_dirty = False
+            self._peak_blocks = 0
+        else:
+            # Every slot reserves a full max_ctx (+ headroom) row for life.
+            self.cache = self.model.init_cache(B, max_ctx, device=self.device)
 
         self._chunk_plans: Dict[int, dict] = {}     # slot → in-flight plan
         self._chunk_queue: Deque[int] = collections.deque()
@@ -153,16 +185,28 @@ class ContinuousScheduler:
     def _need_blocks(self, req: Request) -> int:
         return -(-self._need_tokens(req) // self.block_size)
 
+    def _bucketed(self, n: int) -> int:
+        return max(self.bucket, -(-n // self.bucket) * self.bucket)
+
     def _reject_reason(self, req: Request) -> Optional[str]:
         """Non-None iff the request can never be served here (vs. waiting
         for pool blocks)."""
         need = self._need_tokens(req)
-        if need > self._capacity or self._need_blocks(req) > self.pool_blocks:
-            return (f"request {req.rid}: prompt ({len(req.prompt)}) + "
-                    f"max_new_tokens ({req.max_new_tokens}) needs {need} "
-                    f"cache slots, beyond capacity ({self._capacity} per slot, "
-                    f"{self.pool_blocks * self.block_size} pooled); raise "
-                    "max_ctx / pool_blocks")
+        if self.paged:
+            if need > self._capacity or self._need_blocks(req) > self.pool_blocks:
+                return (f"request {req.rid}: prompt ({len(req.prompt)}) + "
+                        f"max_new_tokens ({req.max_new_tokens}) needs {need} "
+                        f"cache slots, beyond capacity ({self._capacity} per "
+                        f"slot, {self.pool_blocks * self.block_size} pooled); "
+                        "raise max_ctx / pool_blocks")
+            return None
+        L = self._bucketed(len(req.prompt))
+        # The solo prefill cache carries L + headroom slots and must fit the
+        # max_ctx + headroom row, hence the L > max_ctx bound.
+        if L > self.max_ctx or need > self._capacity:
+            return (f"request {req.rid}: bucketed prompt ({L}) or prompt + "
+                    f"max_new_tokens ({need} slots) exceeds cache capacity "
+                    f"(max_ctx {self.max_ctx}); raise max_ctx")
         return None
 
     # -- block allocator ---------------------------------------------------
@@ -202,8 +246,11 @@ class ContinuousScheduler:
         self._table_dirty = False
 
     def _release_slot(self, b: int) -> None:
-        """Retire row `b`: free its blocks and its unclaimed reservation."""
+        """Retire row `b`: free its blocks and its unclaimed reservation
+        (a contiguous row is simply overwritten by its next admission)."""
         self._slots[b] = None
+        if not self.paged:
+            return
         if self._chunk_plans.pop(b, None) is not None:
             self._chunk_queue.remove(b)
         row = self._block_tab[b]
@@ -218,6 +265,13 @@ class ContinuousScheduler:
     def pool_stats(self) -> dict:
         """KV-memory utilization and chunked-prefill counters."""
         kv = self.cache.kv
+        if not self.paged:
+            # The whole contiguous reservation is resident for life.
+            total = sum(a.numel() * a.element_size()
+                        for a in (kv.k, kv.v, kv.k_scale, kv.v_scale)
+                        if a is not None)
+            return {"paged": False, "resident_kv_bytes": total,
+                    "reserved_kv_bytes": total, "chunked_prefill": False}
         per_token = (kv.k.shape[0] * int(np.prod(kv.k.shape[3:]))
                      * 2 * kv.k.element_size())
         if kv.quantized:
@@ -237,7 +291,7 @@ class ContinuousScheduler:
             # The contiguous scheduler's reservation for the same settings
             # (max_ctx + 8 decode-headroom slots per slot, as in JAX).
             "reserved_kv_bytes": self.max_batch * (self.max_ctx + 8) * per_token,
-            "chunked_prefill": True,
+            "chunked_prefill": self.chunked_prefill,
             "prefill_budget": self.prefill_budget,
             "prefill_chunks_run": self.prefill_chunks_run,
             "decode_steps_stalled": self.decode_steps_stalled,
@@ -254,16 +308,45 @@ class ContinuousScheduler:
             req.out_tokens = []
         req.t_done = self._now()
 
+    def _reserve(self, req: Request, slot: int) -> None:
+        """Reserve the request's worst-case blocks and allocate its prompt
+        blocks in row `slot` of the host table."""
+        need = self._need_blocks(req)
+        self._avail -= need
+        self._reserved[slot] = need
+        for j in range(-(-len(req.prompt) // self.block_size)):
+            self._alloc_block(slot, j)
+
+    def _admit(self, req: Request, slot: int) -> Optional[Request]:
+        """Prefill `req`'s whole prompt solo (right-padded to the bucket)
+        and scatter its cache into row `slot` — its pool blocks, or its
+        contiguous row. Returns the request if it finished on its first
+        token."""
+        n = len(req.prompt)
+        if self.paged:
+            self._reserve(req, slot)
+        L = self._bucketed(n)
+        tokens = np.zeros((1, L), np.int64)
+        tokens[0, :n] = req.prompt
+        solo, logits = self.model.prefill(self.params, {
+            "tokens": torch.from_numpy(tokens).to(self.device),
+            "lengths": torch.tensor([n], dtype=torch.int32)})
+        if self.paged:
+            # The scatter writes this row's device table too; _table_dirty
+            # stays set so rows freed earlier sync on the next decode.
+            scatter_into_paged(self.cache, solo, slot, self._block_tab[slot])
+        else:
+            scatter_into_slot(self.cache, solo, slot)
+        self._pos_host[slot] = n
+        self._slots[slot] = req
+        return self._first_token(req, slot, logits)
+
     def _admit_chunked(self, req: Request, slot: int) -> None:
         """Claim row `slot`: reserve the request's blocks, allocate its
         prompt blocks, and enqueue a chunk plan. The slot stays masked out
         of decoding until its last chunk lands."""
         n = len(req.prompt)
-        need = self._need_blocks(req)
-        self._avail -= need
-        self._reserved[slot] = need
-        for j in range(-(-n // self.block_size)):
-            self._alloc_block(slot, j)
+        self._reserve(req, slot)
         self._pos_host[slot] = 0
         self._cur[slot, 0] = 0          # dummy decode input while prefilling
         self._slots[slot] = req
@@ -334,10 +417,11 @@ class ContinuousScheduler:
 
     def step(self) -> List[Request]:
         """One scheduler step: admit waiting requests into free slots (one
-        chunk plan per step), run one budgeted prefill chunk, then one
-        batched decode step, sample, and retire finished slots. Returns
-        the requests that finished this step (including rejected ones,
-        which carry ``error``)."""
+        chunk plan per step, or solo whole-prompt prefills into every free
+        slot), run one budgeted prefill chunk, then one batched decode
+        step, sample, and retire finished slots. Returns the requests that
+        finished this step (including rejected ones, which carry
+        ``error``)."""
         finished: List[Request] = []
         free = collections.deque(
             b for b in range(self.max_batch) if self._slots[b] is None)
@@ -349,11 +433,17 @@ class ContinuousScheduler:
                 self._fail(head, reason)
                 finished.append(head)
                 continue
-            if self._need_blocks(head) > self._avail:
+            if self.paged and self._need_blocks(head) > self._avail:
                 break                   # the head keeps FIFO priority: wait
-            self._admit_chunked(self.waiting.popleft(), free.popleft())
-            # One admission per step: its chunks are spent one per step.
-            break
+            if self.chunked_prefill:
+                self._admit_chunked(self.waiting.popleft(), free.popleft())
+                # One admission per step: its chunks are spent one per step.
+                break
+            done = self._admit(self.waiting.popleft(), free[0])
+            if done is not None:
+                finished.append(done)   # finished on its first token: the
+                continue                # slot is free again this step
+            free.popleft()
 
         chunk_ran = False
         if self._chunk_queue:
@@ -372,8 +462,9 @@ class ContinuousScheduler:
             return finished
         if chunk_ran:
             self.decode_steps_stalled += 1
-        self._alloc_boundary_blocks()
-        self._sync_table()
+        if self.paged:
+            self._alloc_boundary_blocks()
+            self._sync_table()
         cur = torch.from_numpy(self._cur).to(self.device)
         self.cache, logits = self.model.decode_step(self.params, self.cache, cur)
         toks = sampling.sample_tokens(logits[:, -1, :], self._temps,

@@ -246,3 +246,32 @@ def test_cuda_tensors_never_fall_back():
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.fused_quantize_matmul(x, torch.zeros((8, 4), dtype=torch.int8))
     assert ref.fused_quantize_matmul_ref is not None
+
+
+# (wrapper module, CUDA source, C entry): the kernels' ctypes bindings.
+_BINDINGS = [("fused_matmul", "fused_matmul", "fused_quantize_matmul"),
+             ("paged_attention", "paged_attention", "paged_attention"),
+             ("paged_prefill", "paged_prefill", "paged_prefill"),
+             ("pack_quant", "quantize_rows", "quantize_rows"),
+             ("bitplane_matmul", "bitplane_matmul", "bitplane_matmul"),
+             ("flash_attention", "flash_attention", "flash_attention")]
+
+
+@pytest.mark.parametrize("module,source,entry", _BINDINGS)
+def test_ctypes_signature_matches_the_c_entry(module, source, entry):
+    """Each wrapper's ctypes argtypes follow its C entry's parameters one
+    for one (a pointer as c_void_p, an int as c_int, a float as c_float):
+    ctypes cannot check them, and a CUDA kernel runs only on the card."""
+    import ctypes
+    import importlib
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / f"{source}.cu").read_text()
+    params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', src).group(1).split(",")
+    want = [ctypes.c_void_p if "*" in p else
+            ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+            for p in params]
+    assert importlib.import_module(f"repro_torch.kernels.{module}").ARGTYPES == want
+    assert source in build.KERNELS

@@ -3,35 +3,39 @@
 
   python3 chip_smoke.py
 
-1. Builds the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
    outputs within atol = rtol = 2e-2 in bf16 (summation order and expf
    differ between a one-pass softmax and the online one) and 1e-4 in
-   float32; the Table III mixed-group matmul within 1e-6 relative.
+   float32; the Table III mixed-group matmul within 1e-6 relative; wkv6
+   within 1e-4 in float32 (and bitwise independent of padding). The
+   attention kernels share one tile routine: chunked prefill, paged
+   decode and contiguous decode must be bitwise whole-prompt flash
+   attention on the same keys (``check_one_order``).
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function (CUDA events,
    median of 20, L2 flushed before each).
-4. Serves full-size olmo-1b (random weights from a seed) through
-   ``repro_torch.launch.serve``: 8 requests with prompts of 64-320
-   tokens, 32 new tokens each, 4 slots, in six runs — continuous with
-   chunked prefill on a bf16 pool (Table III policy "w4a6r25;wo=w8a8")
-   and an int8 pool ("w4a8;wo=w8a8"); (a) static, Table III policy;
-   (b) static, int8 cache; (c) continuous with solo whole-prompt
-   admission on the paged bf16 pool, Table III policy; (d) continuous
-   on the contiguous cache. Each run must launch the kernels of its
-   path, and each run's repeated pass must give identical greedy
-   tokens. First-token logits of chunked and batched prefill agree with
-   solo whole-prompt prefill within atol = rtol = 2e-2 when attention
-   runs its plain versions, and so do the static batch's with the
-   kernels; the kernels' chunked-vs-whole difference and the share of
-   greedy requests whose tokens agree across the paths are printed
-   (see ``compare_paths``). Also checks that a greedy request served alone and
-   admitted mid-decode emit identical tokens, and that a small float32
-   model gives the same logits on the card (kernels) as on the CPU
-   (plain versions), chunked and whole-prompt.
+4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
+   a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
+   of 64-320 tokens, 32 new tokens each, 4 slots, in eight runs — olmo
+   continuous with chunked prefill on a bf16 pool (Table III policy
+   "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
+   Table III policy; (b) static, int8 cache; (c) continuous with solo
+   whole-prompt admission on the paged bf16 pool, Table III policy; (d)
+   continuous on the contiguous cache; rwkv6-3b (e) static and (f)
+   continuous, unquantized bf16. Each run must launch the kernels of its
+   path, and each run's repeated pass must give identical greedy tokens.
+   Gated across paths (see ``compare_paths``): chunked and whole-prompt
+   first-token logits bitwise equal on the bf16 pool, and identical
+   greedy tokens whole-prompt (c) vs chunked and static (a) vs
+   continuous (c); a greedy request served alone and admitted mid-decode
+   emits identical tokens (olmo bf16 and int8 pools, rwkv6); small
+   float32 models (olmo-1b, rwkv6-3b) give the same logits on the card
+   (kernels) as on the CPU (plain versions). Printed: rwkv6's static
+   batch vs solo logits and greedy shares (``compare_rwkv6``).
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
@@ -72,6 +76,7 @@ REPLACES = {
     "quantize_rows": "src/repro/kernels/pack_quant.py:41",
     "bitplane_matmul": "src/repro/kernels/bitplane_matmul.py:109",
     "flash_attention": "src/repro/kernels/flash_attention.py:89",
+    "wkv6": "src/repro/kernels/wkv6.py:85",
 }
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
@@ -80,8 +85,11 @@ SOURCES = {
     "quantize_rows": "src/repro_torch/kernels/csrc/quantize_rows.cu",
     "bitplane_matmul": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
 }
 # Serve runs: name → (serve.py flags, policy, kernels its path must launch).
+# ``contig_attention`` is paged_attention's second entry, the paged decode
+# kernel's code run over the contiguous cache (one TPU kernel, two entries).
 SERVE_RUNS = {
     "chunked-bf16": (["--continuous"], MIXED_POLICY,
                      ("fused_quantize_matmul", "paged_attention", "paged_prefill",
@@ -90,14 +98,18 @@ SERVE_RUNS = {
                      ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
     "a-static": (["--static"], MIXED_POLICY,
                  ("flash_attention", "quantize_rows", "bitplane_matmul",
-                  "fused_quantize_matmul")),
+                  "fused_quantize_matmul", "contig_attention")),
     "b-static-int8": (["--static", "--kv-int8"], POLICY,
-                      ("flash_attention", "fused_quantize_matmul")),
+                      ("flash_attention", "fused_quantize_matmul", "contig_attention")),
     "c-solo-paged": (["--continuous", "--no-chunked-prefill"], MIXED_POLICY,
                      ("flash_attention", "quantize_rows", "bitplane_matmul",
                       "paged_attention", "fused_quantize_matmul")),
     "d-contiguous": (["--continuous", "--no-paged"], POLICY,
-                     ("flash_attention", "fused_quantize_matmul")),
+                     ("flash_attention", "fused_quantize_matmul", "contig_attention")),
+    # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
+    # serves rwkv6 unquantized): its recurrent state, no KV cache.
+    "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None, ("wkv6",)),
+    "f-rwkv6-continuous": (["--arch", "rwkv6-3b", "--continuous"], None, ("wkv6",)),
 }
 
 
@@ -237,6 +249,36 @@ def check_paged_attention(torch, dev, timer):
     log(f"paged_attention: bf16 and int8 pools within atol=rtol={ATOL} "
         f"(max |err| {max_err:.3g}), all -1 row zero")
 
+    # The contiguous-cache entry (launch_contig) on the same keys laid out
+    # as the static engine's cache: within tolerance of its plain version,
+    # and bitwise the paged kernel (one tile routine).
+    from repro_torch.models.common import decode_attention as decode_plain
+
+    S = maxb * bs + 8
+    tbl = table.clamp(min=0).long()
+    for quant in (False, True):
+        pk, pv, ks, vs = out[quant]
+        contig = [None if a is None else
+                  torch.nn.functional.pad(a[tbl].reshape(B, maxb * bs, *a.shape[2:]),
+                                          (0, 0) * (a.ndim - 2) + (0, 8))
+                  for a in (pk, pv, ks, vs)]
+        slots = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
+        kpos = torch.where(slots < torch.tensor(ctx, device=dev)[:, None], slots, -1)
+        kpos = kpos.to(torch.int32).contiguous()
+        got = paged_attention.launch_contig(q, contig[0], contig[1], kpos, pos,
+                                            contig[2], contig[3])
+        want = decode_plain(q, contig[0], contig[1], kpos, pos, k_scale=contig[2],
+                            v_scale=contig[3])
+        paged_out = paged_attention.launch(q, pk, pv, table, pos, ks, vs)
+        torch.cuda.synchronize()
+        max_err = max(max_err, _close(torch, got[:3], want[:3],
+                                      f"contig_attention quant={quant}"))
+        if not torch.equal(got, paged_out):
+            raise AssertionError(f"contig_attention quant={quant}: not bitwise the "
+                                 "paged kernel on the same keys")
+    log(f"contig_attention (contiguous cache): bf16 and int8 within atol=rtol={ATOL} "
+        f"of its plain version, bitwise the paged kernel on the same keys")
+
     pk, pv, _, _ = out[False]
     ms = timer(lambda: paged_attention.launch(q, pk, pv, table, pos))
     plain_ms = timer(lambda: ref.paged_attention_ref(q, pk, pv, table, pos))
@@ -256,9 +298,45 @@ def check_paged_attention(torch, dev, timer):
     nbytes = q.numel() * 2 * 2 + kv_bytes + table.numel() * 4 + B * 4
     flops = 4 * nkv * G * H * sum(ctx)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_err,
-            "shape": f"B={B} ctx={ctx} NQ=NKV={nkv} H={H} bs={bs} bf16"}
+    paged = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "shape": f"B={B} ctx={ctx} NQ=NKV={nkv} H={H} bs={bs} bf16"}
+    contig = time_contig_attention(torch, dev, timer, gen)
+    return {**paged, "max_abs_err": max_err,
+            "entries": {"paged": paged, "contiguous": contig}}
+
+
+def time_contig_attention(torch, dev, timer, gen):
+    """paged_attention's contiguous entry at the static engine's decode
+    shape on full-size olmo-1b: a batch of 4 (prompts 64/320/128/256, the
+    first static batch of the serve runs) 16 tokens into its decode, over
+    a 384-slot bf16 cache (the 320-token bucket plus headroom, grown to
+    the next bucket); each row sees its slots 0..q_pos. Times the kernel,
+    its plain version (``common.decode_attention``) and SDPA on the same
+    cache."""
+    from repro_torch.kernels import paged_attention
+    from repro_torch.models.common import decode_attention as decode_plain
+
+    B, S, nkv, H = 4, 384, 16, 128
+    ctx = [80, 336, 144, 272]
+    q = torch.randn((B, 1, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((B, S, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].expand(B, S)
+    live = slots < torch.tensor(ctx, device=dev)[:, None]
+    kpos = torch.where(live, slots, -1).to(torch.int32).contiguous()
+    pos = torch.tensor([c - 1 for c in ctx], dtype=torch.int32, device=dev)
+    ms = timer(lambda: paged_attention.launch_contig(q, kc, vc, kpos, pos))
+    plain_ms = timer(lambda: decode_plain(q, kc, vc, kpos, pos))
+    mask = live[:, None, None, :]
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, kc, vc))
+    F = torch.nn.functional
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    # Each row reads its visible keys' K/V and slot positions once.
+    nbytes = q.numel() * 2 * 2 + sum(ctx) * (nkv * H * 2 * 2 + 4) + B * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * nkv * H * sum(ctx), BF16_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": f"B={B} S={S} ctx={ctx} NQ=NKV={nkv} H={H} bf16"}
 
 
 def check_paged_prefill(torch, dev, timer):
@@ -503,6 +581,133 @@ def check_flash(torch, dev, timer):
             "shape": f"B*NQ={B * 16} T={T} H={H} bf16 causal"}
 
 
+def check_one_order(torch, dev):
+    """The attention kernels sum in one order (csrc/attend_tile.cuh): on
+    one olmo-1b head layout (16 heads of 128, bf16, a 200-token prompt),
+    chunked prefill (32-token chunks into pools of 16- and 64-token
+    blocks), paged decode and contiguous decode of a token at position p
+    are bitwise the whole-prompt flash kernel's row p."""
+    from repro_torch.kernels import flash_attention, paged_attention, paged_prefill
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    nkv, H, T, Lc = 16, 128, 200, 32
+    q, k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    whole = flash_attention.launch(q, k, v, causal=True, window=0, q_offset=0)
+    ps = torch.tensor([0, 31, 32, 100, 150, 199], dtype=torch.int32, device=dev)
+    qd = q[0, ps.long()][:, None].contiguous()
+    for bs in (16, 64):
+        nb = -(-T // bs)
+        pk = torch.zeros((nb + 1, bs, nkv, H), dtype=torch.bfloat16, device=dev)
+        pv = torch.zeros_like(pk)
+        blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+        parts = []
+        for start in range(0, T, Lc):
+            t = min(Lc, T - start)
+            qc, kc, vc = (torch.nn.functional.pad(a[:, start:start + t],
+                                                  (0, 0, 0, 0, 0, Lc - t))
+                          for a in (q, k, v))
+            cover = -(-(start + t) // bs)
+            parts.append(paged_prefill.launch(qc, kc, vc, pk, pv, blocks[:cover],
+                                              start, t)[0][:, :t])
+        chunked = torch.cat(parts, dim=1)
+        dec = paged_attention.launch(qd, pk, pv, blocks[None].expand(len(ps), nb)
+                                     .contiguous(), ps)
+        torch.cuda.synchronize()
+        if not torch.equal(chunked, whole):
+            raise AssertionError(f"bs={bs}: chunked prefill is not bitwise whole-prompt "
+                                 f"flash (max |err| {(chunked - whole).abs().max().item()})")
+        if not torch.equal(dec[:, 0], whole[0, ps.long()]):
+            raise AssertionError(f"bs={bs}: paged decode is not bitwise flash's rows")
+    kcache, vcache = (a.expand(len(ps), T, nkv, H).contiguous() for a in (k, v))
+    kpos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(len(ps), T)
+    contig = paged_attention.launch_contig(qd, kcache, vcache, kpos.contiguous(), ps)
+    torch.cuda.synchronize()
+    if not torch.equal(contig[:, 0], whole[0, ps.long()]):
+        raise AssertionError("contiguous decode is not bitwise flash's rows")
+    log("one summation order: chunked prefill (block size 16 and 64), paged decode "
+        "and contiguous decode bitwise equal to whole-prompt flash attention")
+
+
+WKV_TOL = 1e-4     # float32, inputs of unit scale: other summation orders
+
+
+def check_wkv6(torch, dev, timer):
+    """The wkv6 kernel against ``ref.wkv6_chunked_ref`` (and, at T = 1,
+    ``ref.wkv6_step``) on the card: float32 outputs and final states
+    within atol = rtol = 1e-4, at the full rwkv6-3b prefill shape (B = 4,
+    T = 320, H = 40, K = V = 64, chunk 64, bf16 r/k/v), a T that is not a
+    multiple of the chunk, the reduced width (K = 16), decays of 1e-6
+    everywhere, the JAX test shapes at chunks 16 and 32, and one decode
+    step from a random carried state; a prompt and the same prompt padded
+    by 40 tokens (k = 0, w = 1) give bitwise equal outputs and states."""
+    from repro_torch.kernels import ref, wkv6
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def inputs(B, T, H, K, dtype=torch.bfloat16, decay=None):
+        r, k, v = ((torch.randn((B, T, H, K), generator=gen, device=dev) * 0.5).to(dtype)
+                   for _ in range(3))
+        w = (torch.full((B, T, H, K), decay, device=dev) if decay is not None else
+             torch.rand((B, T, H, K), generator=gen, device=dev) * 0.499 + 0.5)
+        u = torch.randn((H, K), generator=gen, device=dev) * 0.5
+        s0 = torch.randn((B, H, K, K), generator=gen, device=dev) * 0.3
+        return r, k, v, w, u, s0
+
+    worst = 0.0
+    cases = [((4, 320, 40, 64), 64, None), ((4, 100, 40, 64), 64, None),
+             ((2, 70, 4, 16), 64, None), ((2, 64, 4, 16), 16, 1e-6),
+             ((1, 64, 2, 16), 16, None), ((1, 96, 1, 8), 16, None),
+             ((1, 33, 3, 32), 32, None), ((1, 64, 2, 16), 32, None)]
+    for (B, T, H, K), chunk, decay in cases:
+        for dtype in ((torch.bfloat16, torch.float32) if K == 64 else (torch.float32,)):
+            a = inputs(B, T, H, K, dtype, decay)
+            got = wkv6.launch(*a, chunk=chunk)
+            want = ref.wkv6_chunked_ref(*a, chunk)
+            torch.cuda.synchronize()
+            what = f"wkv6 B={B} T={T} H={H} K={K} chunk={chunk} {dtype} decay={decay}"
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{what}: not finite")
+            worst = max(worst, _close(torch, got[0], want[0], what + " out", WKV_TOL),
+                        _close(torch, got[1], want[1], what + " state", WKV_TOL))
+    # One decode step from a carried state: the T = 1 kernel vs wkv6_step.
+    r, k, v, w, u, s0 = inputs(4, 1, 40, 64)
+    got = wkv6.launch(r, k, v, w, u, s0, chunk=1)
+    want = ref.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+    torch.cuda.synchronize()
+    worst = max(worst, _close(torch, got[0][:, 0], want[0], "wkv6 T=1 out", WKV_TOL),
+                _close(torch, got[1], want[1], "wkv6 T=1 state", WKV_TOL))
+    # Padding: 100 real tokens, then 40 pad tokens (k = 0, w = 1).
+    r, k, v, w, u, s0 = inputs(4, 140, 40, 64)
+    k[:, 100:] = 0
+    w[:, 100:] = 1
+    exact = wkv6.launch(r[:, :100], k[:, :100], v[:, :100], w[:, :100], u, s0, chunk=64)
+    padded = wkv6.launch(r, k, v, w, u, s0, chunk=64)
+    torch.cuda.synchronize()
+    if not (torch.equal(exact[0], padded[0][:, :100]) and torch.equal(exact[1], padded[1])):
+        raise AssertionError("wkv6: a prompt padded by 40 tokens is not bitwise the prompt")
+    log(f"wkv6: {len(cases)} shapes (full B=4 T=320 H=40 K=64 chunk 64, ragged T, K=16, "
+        f"decay 1e-6, JAX test shapes) in bf16/f32, and a T=1 decode step, within "
+        f"atol=rtol={WKV_TOL} (max |err| {worst:.3g}); padded by 40 tokens: bitwise")
+
+    B, T, H, K, chunk = 4, 320, 40, 64, 64
+    a = inputs(B, T, H, K)
+    ms = timer(lambda: wkv6.launch(*a, chunk=chunk))
+    plain_ms = timer(lambda: ref.wkv6_chunked_ref(*a, chunk))
+    nbytes = 3 * B * T * H * K * 2 + B * T * H * K * 4 + H * K * 4 \
+        + 2 * B * H * K * K * 4 + B * T * H * K * 4
+    # The recurrence's own float32 work per (token, head), whatever form
+    # computes it: o = r^T S (2KV) plus the u bonus ((r*u) . k: 3K, times
+    # v: 2V), and S <- w * S + k v^T (3KV). The chunked form's extra work
+    # (log decays, exps, the pairwise products) is not counted.
+    V = K
+    ops_ = B * T * H * (5 * K * V + 3 * K + 2 * V)
+    b_ms, b_by = bound_ms(nbytes, ops_, FP32_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
+            "shape": f"B={B} T={T} H={H} K=V={K} chunk {chunk} bf16 r/k/v"}
+
+
 # -- the serving path ---------------------------------------------------------
 
 def mixed_requests(cfg, args):
@@ -525,19 +730,28 @@ SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--max-new", "32",
               "--device", "cuda"]
 
 
+def serve_argv(name):
+    """The serve CLI's arguments for run `name` of SERVE_RUNS (a later
+    --arch overrides olmo-1b)."""
+    flags, policy, _ = SERVE_RUNS[name]
+    return SERVE_ARGS + (["--policy", policy] if policy else []) + flags
+
+
 def serve_run(torch, params, name):
     """Serve the stream above in run `name` of SERVE_RUNS (a warmup pass,
     then the timed pass). Checks the outputs, that the run launched every
     kernel of its path, and that the two passes emit identical greedy
     tokens. Returns (engine, report, launch counts, tokens by rid)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, paged_attention
     from repro_torch.launch import serve
 
     flags, policy, needed = SERVE_RUNS[name]
-    args = serve.build_parser().parse_args(SERVE_ARGS + ["--policy", policy, *flags])
+    args = serve.build_parser().parse_args(serve_argv(name))
     ops.reset_launch_counts()
     engine, done, report = serve.run(args, mixed_requests, params=params)
     counts = ops.launch_counts()
+    # The contiguous entry's share of paged_attention's launches.
+    counts["contig_attention"] = paged_attention.contig_launches
     vocab = engine.cfg.vocab
     for r in done:
         if r.error or len(r.out_tokens) != 32 or not all(0 <= t < vocab for t in r.out_tokens):
@@ -553,7 +767,7 @@ def serve_run(torch, params, name):
             raise AssertionError(f"{name}: the repeated pass changed greedy request "
                                  f"{r.rid}: {warm[r.rid]} vs {r.out_tokens}")
     same = sum(warm[rid] == t for rid, t in tokens.items())
-    log(f"serve olmo-1b [{name}] policy {policy}: {report['tok_per_s']:.1f} tok/s "
+    log(f"serve {engine.cfg.name} [{name}] policy {policy}: {report['tok_per_s']:.1f} tok/s "
         f"steady state; repeated pass: greedy identical, {same}/{len(done)} "
         f"requests identical; launches {counts}")
     return engine, report, counts, tokens
@@ -604,20 +818,24 @@ def first_token_logits(torch, model, params, prompts):
 
 def compare_paths(torch, engine, runs):
     """Whole-prompt vs chunked prefill and the static batch of 4 vs solo
-    prefill, on engine (c)'s packed weights (Table III policy, bf16), by
-    the first-token logits of the 8 prompts.
+    prefill, on engine (c)'s packed weights (Table III policy, bf16 pool),
+    by the first-token logits of the 8 prompts, and the greedy tokens of
+    the serve runs of those paths.
 
-    Gated within atol = rtol = 2e-2: every path against solo whole-prompt
-    prefill with the attention kernels swapped for their plain versions
-    (the paths then compute one function), and the static batch against
-    solo with the kernels (no kernel lets a row depend on the batch).
-    Printed, not gated: chunked vs whole-prompt with the kernels, each
-    path's kernels vs its plain attention, and the share of greedy
-    requests whose tokens agree between the serve runs of those paths.
-    The two prefill paths attend with two kernels that sum in different
-    orders (a last-ulp difference, 1e-6 in float32), and the 6-bit
-    activation quantization of the Table III layers amplifies it over 16
-    layers (`chip_smoke.py paths` measures this in bf16 and float32)."""
+    The attention kernels share one tile routine (csrc/attend_tile.cuh),
+    so with the kernels on the bf16 pool the paths compute the same bits.
+    Gated: chunked vs whole-prompt first-token logits bitwise equal (max
+    |err| 0); greedy tokens identical for every greedy request between
+    whole-prompt (c) and chunked-bf16, and between static (a) and
+    continuous (c); within atol = rtol = 2e-2, every path against solo
+    whole-prompt prefill with the attention kernels swapped for their
+    plain versions, and the static batch against solo with the kernels.
+    Printed, not gated: the int8 pool's chunked vs whole-prompt difference
+    (whole-prompt flash reads dequantized float32 K/V, the chunk kernel
+    scores codes and then scales them: another function at float32
+    rounding), each path's kernels vs its plain attention, and the static
+    solo vs batch greedy share. Every comparison prints before any gate
+    raises."""
     import types
 
     from repro_torch.serving import Request
@@ -635,6 +853,9 @@ def compare_paths(torch, engine, runs):
     err_chunk = (chunk - solo).abs().max().item()
     argmax_same = int((chunk.argmax(-1) == solo.argmax(-1)).sum())
     vs_plain = [(k - p).abs().max().item() for k, p in zip((solo, chunk), plain[:2])]
+    eng8 = runs["chunked-int8"][0]
+    solo8, chunk8, _ = first_token_logits(torch, eng8.model, eng8.params, prompts[:4])
+    err_int8 = (chunk8 - solo8).abs().max().item()
     greedy = [r.rid for r in reqs if r.temperature == 0]
     # Static solo: each greedy request alone through engine (a)'s static path.
     eng_a = runs["a-static"][0]
@@ -647,18 +868,63 @@ def compare_paths(torch, engine, runs):
         "static_vs_continuous": _greedy_share(toks["a-static"], toks["c-solo-paged"], greedy),
         "static_solo_vs_batch": _greedy_share(static_solo, toks["a-static"], greedy),
     }
-    log(f"first-token logits (atol=rtol={ATOL}): plain attention, every path vs solo "
-        f"max |err| {err_plain:.3g}; kernels, static batch of 4 vs solo {err_batch:.3g}; "
-        f"kernels, chunked vs whole-prompt {err_chunk:.3g} (not gated; argmax equal "
-        f"for {argmax_same}/{len(reqs)} prompts; kernels vs plain attention: whole-"
-        f"prompt {vs_plain[0]:.3g}, chunked {vs_plain[1]:.3g})")
+    log(f"first-token logits: kernels, chunked vs whole-prompt (bf16 pool) max |err| "
+        f"{err_chunk:.3g} (gated at 0; argmax equal for {argmax_same}/{len(reqs)}); "
+        f"kernels, static batch of 4 vs solo {err_batch:.3g}; plain attention, every "
+        f"path vs solo {err_plain:.3g} (both within atol=rtol={ATOL}); int8 pool, "
+        f"chunked vs whole-prompt {err_int8:.3g} (not gated); kernels vs plain "
+        f"attention: whole-prompt {vs_plain[0]:.3g}, chunked {vs_plain[1]:.3g}")
     log(f"greedy requests with identical tokens: whole-prompt (c) vs chunked "
         f"{shares['whole_vs_chunked']}, static (a) vs continuous (c) "
-        f"{shares['static_vs_continuous']}, static solo vs batch of 4 "
-        f"{shares['static_solo_vs_batch']}")
+        f"{shares['static_vs_continuous']} (both gated at all), static solo vs batch "
+        f"of 4 {shares['static_solo_vs_batch']}")
+    full = f"{len(greedy)}/{len(greedy)}"
+    bad = [k for k in ("whole_vs_chunked", "static_vs_continuous") if shares[k] != full]
+    if err_chunk != 0.0 or bad:
+        raise AssertionError(f"paths part: chunked vs whole-prompt logits max |err| "
+                             f"{err_chunk}; greedy shares below {full}: {bad}")
     return {"logits_err_plain_paths": err_plain, "logits_err_batch_vs_solo": err_batch,
             "logits_err_chunked_vs_whole": err_chunk, "argmax_chunked_eq_whole": argmax_same,
+            "logits_err_chunked_vs_whole_int8": err_int8,
             "logits_err_kernels_vs_plain": vs_plain, "greedy_shares": shares}
+
+
+def compare_rwkv6(torch, runs):
+    """rwkv6-3b on engine (e)'s weights: first-token logits of the static
+    batch of 4 vs solo prefill, and the greedy shares (e) vs (f). Printed,
+    not gated: the dense bf16 products are torch.matmul, and cuBLAS may
+    pick another algorithm at another M. The gate on rwkv6 is solo ≡
+    mid-decode admission (solo_vs_mid_decode), whose decode batch has one
+    shape throughout."""
+    import types
+
+    import numpy as np
+
+    eng = runs["e-rwkv6-static"][0]
+    reqs = mixed_requests(eng.cfg, types.SimpleNamespace(max_new=32))
+
+    def prefill(batch):
+        L = max(-(-len(p) // 32) * 32 for p in batch)
+        toks = np.zeros((len(batch), L), np.int64)
+        for i, p in enumerate(batch):
+            toks[i, :len(p)] = p
+        _, lg = eng.model.prefill(eng.params, {
+            "tokens": torch.from_numpy(toks).cuda(),
+            "lengths": torch.tensor([len(p) for p in batch], dtype=torch.int32)})
+        return lg[:, -1].float()
+
+    prompts = [r.prompt for r in reqs]
+    solo = torch.stack([prefill([p])[0] for p in prompts])
+    batch = torch.cat([prefill(prompts[i:i + 4]) for i in range(0, len(prompts), 4)])
+    err = (batch - solo).abs().max().item()
+    argmax_same = int((batch.argmax(-1) == solo.argmax(-1)).sum())
+    greedy = [r.rid for r in reqs if r.temperature == 0]
+    share = _greedy_share(runs["e-rwkv6-static"][3], runs["f-rwkv6-continuous"][3], greedy)
+    log(f"rwkv6-3b first-token logits, static batch of 4 vs solo: max |err| {err:.3g} "
+        f"(argmax equal {argmax_same}/{len(prompts)}; not gated); greedy requests with "
+        f"identical tokens, static (e) vs continuous (f): {share}")
+    return {"logits_err_batch_vs_solo": err, "argmax_batch_eq_solo": argmax_same,
+            "greedy_share_e_vs_f": share}
 
 
 class plain_attention:
@@ -731,7 +997,58 @@ def paths_diagnostic(torch):
     p32 = quantize_params_for_serving(model32.init(seed=0, device="cuda"), mixed,
                                       min_size=1024)
     measure("f32 w4a6r25 kernels", model32, p32, prompts)
+    del p32
+    out["rwkv6"] = rwkv6_batch_diagnostic(torch)
     write_detail("paths.json", out)
+
+
+def rwkv6_batch_diagnostic(torch):
+    """Part of `chip_smoke.py paths`: why rwkv6-3b's static batch of 4
+    and solo prefill part. Its dense products are torch.matmul in bf16:
+    for each of its weight shapes, how far the rows of a product at M in
+    {1, 4, 64, 128, 256, 320} (decode and solo prefills of the stream's
+    bucketed prompts) differ from the same rows inside a product at M =
+    1280 (a static batch of 4 × 320); and the first-token logits of the
+    batch vs solo in bf16 and in a float32 copy of the model (full width,
+    4 layers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {}
+    for K, N in ((2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536)):
+        w = (torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((1280, K), generator=gen, device="cuda").to(torch.bfloat16)
+        full = torch.matmul(x, w).float()
+        for m in (1, 4, 64, 128, 256, 320):
+            res[f"matmul {K}x{N}: rows at M={m} vs the same rows at M=1280"] = \
+                (torch.matmul(x[:m], w).float() - full[:m]).abs().max().item()
+    prompts = [np.random.default_rng(0).integers(0, 65536, n).astype(np.int64)
+               for n in (64, 320, 128, 256)]
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("rwkv6-3b"), dtype=dtype, num_layers=4)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+
+        def prefill(batch):
+            L = max(-(-len(p) // 32) * 32 for p in batch)
+            toks = np.zeros((len(batch), L), np.int64)
+            for i, p in enumerate(batch):
+                toks[i, :len(p)] = p
+            return model.prefill(params, {
+                "tokens": torch.from_numpy(toks).cuda(),
+                "lengths": torch.tensor([len(p) for p in batch], dtype=torch.int32)})[1][:, -1]
+
+        solo = torch.cat([prefill([p]) for p in prompts]).float()
+        batch = prefill(prompts).float()
+        res[f"{dtype} 4 layers: first-token logits batch of 4 vs solo"] = \
+            (batch - solo).abs().max().item()
+        del params
+    for k, v in res.items():
+        log(f"paths [rwkv6]: {k}: max |err| {v:.4g}")
+    return res
 
 
 def solo_vs_mid_decode(engine):
@@ -819,6 +1136,34 @@ def card_vs_cpu(torch):
     return worst
 
 
+def card_vs_cpu_rwkv6(torch):
+    """Reduced rwkv6-3b in float32: a whole-prompt prefill of two
+    right-padded prompts and three decode steps on the card (the wkv6
+    kernel, chunked and at T = 1) vs on the CPU (its plain versions):
+    logits within 1e-3 (float32 products in other orders)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_reduced_config("rwkv6-3b"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        toks = (torch.arange(2 * 80, device=dev).reshape(2, 80) * 11) % cfg.vocab
+        cache, lg = model.prefill(p, {"tokens": toks, "lengths": torch.tensor([80, 45])})
+        lgs = [lg]
+        for t in range(3):
+            cache, lg = model.decode_step(p, cache, torch.tensor([[3 + t], [5 + t]],
+                                                                 device=dev))
+            lgs.append(lg)
+        out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"reduced fp32 rwkv6: card vs CPU logits differ by {err}")
+    return err
+
+
 def _to(tree, dev):
     from repro_torch.core.quantized_linear import PackedWeight
 
@@ -831,7 +1176,7 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def profile_serve(torch, params, names=("chunked-bf16", "a-static")):
+def profile_serve(torch, params_of, names=("chunked-bf16", "a-static")):
     """`chip_smoke.py profile [run ...]`: one warm serve pass of the
     stream above under torch.profiler, for each named run of SERVE_RUNS
     (by default the chunked continuous run and the static run (a)). Prints device time by kernel name and the device-busy share
@@ -844,9 +1189,8 @@ def profile_serve(torch, params, names=("chunked-bf16", "a-static")):
 
     out = {}
     for name in names:
-        flags, policy, _ = SERVE_RUNS[name]
-        args = serve.build_parser().parse_args(SERVE_ARGS + ["--policy", policy, *flags])
-        engine, _, report = serve.run(args, mixed_requests, params=params)
+        args = serve.build_parser().parse_args(serve_argv(name))
+        engine, _, report = serve.run(args, mixed_requests, params=params_of(name))
         reqs = mixed_requests(engine.cfg, args)
         go = engine.generate if args.continuous else engine.generate_static
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -888,17 +1232,28 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.models import build_model
     from repro_torch.configs import get_config
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions in full
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    params = {}
+
+    def params_of(name):
+        from repro_torch.launch import serve
+
+        arch = serve.build_parser().parse_args(serve_argv(name)).arch
+        if arch not in params:
+            params[arch] = build_model(get_config(arch)).init(seed=0, device=dev)
+        return params[arch]
+
     if sys.argv[1:] == ["paths"]:
         paths_diagnostic(torch)
         return 3                 # a partial run: no result line
     if sys.argv[1:2] == ["profile"]:
-        profile_serve(torch, build_model(get_config("olmo-1b")).init(seed=0, device=dev),
-                      *([sys.argv[2:]] if sys.argv[2:] else []))
+        profile_serve(torch, params_of, *([sys.argv[2:]] if sys.argv[2:] else []))
         return 3                 # a partial run: no result line
     t_start = t0 = time.perf_counter()
     paths = build.build()
@@ -918,49 +1273,61 @@ def main() -> int:
         "quantize_rows": check_quantize_rows(torch, dev, timer),
         "bitplane_matmul": check_bitplane(torch, dev, timer),
         "flash_attention": check_flash(torch, dev, timer),
+        "wkv6": check_wkv6(torch, dev, timer),
     }
     results["fused_quantize_matmul"]["max_abs_err"] = 0.0
     mixed_err = check_mixed_group(torch, dev)
+    check_one_order(torch, dev)
     for name, r in results.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4g} ms"
-        log(f"  {name}: {r['shape']}: {r['ms']:.4g} ms (bound {r['bound_ms']:.3g} ms "
-            f"by {r['bound_by']}, plain {r['plain_ms']:.4g} ms, library {lib})")
+        for what, e in [(name, r)] + [(f"{name}[{k}]", e)
+                                      for k, e in r.get("entries", {}).items()]:
+            lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4g} ms"
+            log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} "
+                f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib})")
     log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
     if sys.argv[1:] == ["kernels"]:
         write_detail("chip_smoke.json", {"kernels": results})
         return 3                 # a partial run: no result line
 
     t0 = time.perf_counter()
-    params = build_model(get_config("olmo-1b")).init(seed=0, device=dev)
-    counts = {k: 0 for k in results}
+    counts = {}
     runs = {}
     for name in SERVE_RUNS:
-        runs[name] = serve_run(torch, params, name)
-        for k in counts:
-            counts[k] += runs[name][2][k]
+        runs[name] = serve_run(torch, params_of(name), name)
+        for k, n in runs[name][2].items():
+            counts[k] = counts.get(k, 0) + n
     for k in results:
         results[k]["launches"] = counts[k]
-    for name in ("chunked-bf16", "chunked-int8"):
+    # One TPU kernel, two entries: paged decode and contiguous decode.
+    entries = results["paged_attention"]["entries"]
+    entries["contiguous"]["launches"] = counts["contig_attention"]
+    entries["paged"]["launches"] = counts["paged_attention"] - counts["contig_attention"]
+    for name in ("chunked-bf16", "chunked-int8", "f-rwkv6-continuous"):
         toks = solo_vs_mid_decode(runs[name][0])
         log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
             "identical")
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
+    rwkv_cmp = compare_rwkv6(torch, runs)
     log(f"serve phase: {time.perf_counter() - t0:.1f}s")
     err = card_vs_cpu(torch)
-    log(f"reduced fp32 model: card vs CPU logits max |err| {err:.3g}")
+    log(f"reduced fp32 olmo-1b: card vs CPU logits max |err| {err:.3g}")
+    err_rwkv = card_vs_cpu_rwkv6(torch)
+    log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err_rwkv:.3g}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     write_detail("chip_smoke.json", {
         "kernels": results, "mixed_group_rel_err": mixed_err,
         "serve": {name: run[1] for name, run in runs.items()},
-        "paths": paths_cmp, "card_vs_cpu_max_err": err, "nvidia_smi": smi})
+        "paths": paths_cmp, "rwkv6": rwkv_cmp, "card_vs_cpu_max_err": err,
+        "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"entries": r["entries"]} if "entries" in r else {})}
         for name, r in results.items()]}
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     log(json.dumps(line))

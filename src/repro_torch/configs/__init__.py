@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -17,51 +17,27 @@
 // peak), so the bytes bound it. The design is the
 // simple one: a block owns (batch*head, 16 query rows), 4 warps of 4 rows
 // each; the block stages its queries and 32-key K/V tiles in shared memory
-// (float32, K rows padded to 129 floats so lanes reading different keys
-// hit different banks); in a tile each lane scores one key for each of its
-// warp's rows, the warp reduces max and sum with shuffles, and each lane
-// accumulates 4 of the 128 output dimensions. Tiles wholly outside the
-// block's causal/window range are never loaded, and a tile in which a row
-// sees no key leaves that row's (m, l, acc) untouched.
+// (float32), and each warp folds each tile into its rows through
+// attend_tile.cuh, the routine the paged kernels share, so chunked prefill
+// and decode sum in exactly this order. Tiles wholly outside the block's
+// causal/window range are never loaded.
 //
 // Tiles are fixed (16 queries, 32 keys at absolute positions), not sized
 // from T: a row's result depends only on its own query and the keys it
 // sees, never on the length its batch was padded to, so bucketed prefill
 // is bitwise exact-length prefill on the card.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attend_tile.cuh"
 
 namespace {
+
+using attn::kBK;
+using attn::kHMax;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBQ = 16;             // query rows per block
 constexpr int kRPW = kBQ / kWarps;  // rows per warp
-constexpr int kBK = 32;             // keys per tile: one per lane
-constexpr int kHMax = 128;          // head dim the shared tiles hold
-constexpr int kDPL = kHMax / 32;    // output dims per lane
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(kThreads)
@@ -70,8 +46,7 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
              int NQ, int NKV, int H, int causal, int window, int q_offset,
              float scale) {
   __shared__ float q_s[kBQ][kHMax];
-  __shared__ float k_s[kBK][kHMax + 1];
-  __shared__ float v_s[kBK][kHMax];
+  __shared__ attn::Tile tile;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y / NQ, h = blockIdx.y % NQ;
   const int kvh = h / (NQ / NKV);
@@ -80,17 +55,12 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 
   for (int i = tid; i < kBQ * H; i += kThreads) {
     const int r = i / H, d = i % H;
-    q_s[r][d] = r < nrows ? to_f(q[(((size_t)b * Tq + t0 + r) * NQ + h) * H + d]) : 0.f;
+    q_s[r][d] = r < nrows ? attn::to_f(q[(((size_t)b * Tq + t0 + r) * NQ + h) * H + d]) : 0.f;
   }
 
-  float m[kRPW], l[kRPW], acc[kRPW][kDPL];
+  attn::Row st[kRPW];
 #pragma unroll
-  for (int rr = 0; rr < kRPW; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kDPL; ++i) acc[rr][i] = 0.f;
-  }
+  for (int rr = 0; rr < kRPW; ++rr) attn::row_init(st[rr]);
 
   // Key tiles any row of this block can see.
   const int q_lo = q_offset + t0, q_hi = q_offset + t0 + nrows - 1;
@@ -104,8 +74,8 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     for (int i = tid; i < kBK * H; i += kThreads) {
       const int j = i / H, d = i % H, key = k_lo + j;
       const size_t off = (((size_t)b * Tk + key) * NKV + kvh) * H + d;
-      k_s[j][d] = key < Tk ? to_f(k[off]) : 0.f;
-      v_s[j][d] = key < Tk ? to_f(v[off]) : 0.f;
+      tile.k[j][d] = key < Tk ? attn::to_f(k[off]) : 0.f;
+      tile.v[j][d] = key < Tk ? attn::to_f(v[off]) : 0.f;
     }
     __syncthreads();
 
@@ -117,29 +87,8 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       int jhi = min(kBK - 1, Tk - 1 - k_lo);
       if (causal) jhi = min(jhi, qpos - k_lo);
       const int jlo = window ? max(0, qpos - window + 1 - k_lo) : 0;
-      if (jhi < jlo) continue;                   // row sees no key here
-      const bool vis = lane >= jlo && lane <= jhi;
-      float s = -INFINITY;
-      if (vis) {
-        float dot = 0.f;
-        for (int d = 0; d < H; ++d) dot += q_s[r][d] * k_s[lane][d];
-        s = dot * scale;
-      }
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = vis ? expf(s - m_new) : 0.f;
-      const float alpha = m[rr] == -INFINITY ? 0.f : expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) acc[rr][i] *= alpha;
-      for (int j = jlo; j <= jhi; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < H) acc[rr][i] += pj * v_s[j][d];
-        }
-      }
-      m[rr] = m_new;
+      attn::attend_tile<false>(st[rr], q_s[r], tile, H, lane >= jlo && lane <= jhi,
+                               jlo, jhi, scale, 0.f, lane);
     }
   }
 
@@ -147,13 +96,7 @@ flash_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   for (int rr = 0; rr < kRPW; ++rr) {
     const int r = warp * kRPW + rr;
     if (r >= nrows) continue;
-    const float lz = fmaxf(l[rr], 1e-30f);
-    QT* o = out + (((size_t)b * Tq + t0 + r) * NQ + h) * H;
-#pragma unroll
-    for (int i = 0; i < kDPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < H) o[d] = from_f<QT>(acc[rr][i] / lz);
-    }
+    attn::row_store(st[rr], out + (((size_t)b * Tq + t0 + r) * NQ + h) * H, H, lane);
   }
 }
 

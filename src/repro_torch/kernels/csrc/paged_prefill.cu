@@ -22,14 +22,13 @@
 // Bound on the H100: at Lc = 32 the chunk reads the resident prefix once
 // per KV head and does 4*Lc flops per K/V element pair; for prompts of a
 // few hundred tokens it is bound by the pool bytes it streams. One thread
-// block per (KV head, tile of queries) walks the row's table in order with
-// the online-softmax state of the tile in shared memory.
+// block per (KV head, 16 query rows) walks the row's keys in the 32-key
+// tiles of whole-prompt flash attention (attend_tile.cuh), so a chunk's
+// rows get the bits whole-prompt prefill gives them.
 
 #include "paged_common.cuh"
 
 namespace {
-
-constexpr int kRowsMax = 16;   // query rows (tokens x heads of a group) per block
 
 template <typename QT, typename KT, bool QUANT>
 __global__ void chunk_write_kernel(const QT* __restrict__ k_new,
@@ -78,7 +77,6 @@ chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ pool_k,
                     QT* __restrict__ out, int Lc, int NKV, int G, int H, int bs,
                     int mb, int rows_tok, int start, int length, float scale,
                     float softcap) {
-  extern __shared__ float smem[];
   const int n = blockIdx.x;
   const int i0 = blockIdx.y * rows_tok;
   const int nI = min(rows_tok, Lc - i0);
@@ -87,7 +85,7 @@ chunk_attend_kernel(const QT* __restrict__ q, const KT* __restrict__ pool_k,
   paged::attend_rows<QT, KT, QUANT>(
       q + base, out + base, ii_stride, nI, G, H, /*pos0=*/start + i0,
       /*pos_step=*/1, /*n_valid=*/length - i0, pool_k, pool_v, k_scale, v_scale,
-      blocks, mb, bs, NKV, n, scale, softcap, smem);
+      paged::PagedSrc{blocks, mb, bs}, NKV, n, scale, softcap);
 }
 
 template <typename QT, typename KT, bool QUANT>
@@ -105,13 +103,9 @@ int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const int rows_tok = G >= kRowsMax ? 1 : kRowsMax / G;
-  const size_t smem = paged::attend_smem_floats(rows_tok * G, H, bs) * sizeof(float);
-  auto kern = chunk_attend_kernel<QT, KT, QUANT>;
-  cudaError_t e = paged::allow_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int rows_tok = paged::kRowsMax / G;
   const dim3 grid(NKV, (Lc + rows_tok - 1) / rows_tok);
-  kern<<<grid, paged::kThreads, smem, st>>>(
+  chunk_attend_kernel<QT, KT, QUANT><<<grid, paged::kThreads, 0, st>>>(
       (const QT*)q, (const KT*)pk, (const KT*)pv, ks, vs, blocks, (QT*)out, Lc, NKV,
       G, H, bs, mb, rows_tok, start, length, scale, softcap);
   return (int)cudaGetLastError();
@@ -130,6 +124,9 @@ extern "C" int paged_prefill(const void* q, const void* k_new, const void* v_new
                              float scale, float softcap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Lc <= 0) return (int)cudaGetLastError();
+  if (H <= 0 || H > attn::kHMax || NKV <= 0 || NQ % NKV || NQ / NKV > paged::kRowsMax ||
+      bs <= 0 || (bs % paged::kBK && paged::kBK % bs))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (quant)
       return launch<__nv_bfloat16, int8_t, true>(q, k_new, v_new, pool_k, pool_v,

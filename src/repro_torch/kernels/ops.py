@@ -5,11 +5,14 @@ tensor on the CPU runs the plain PyTorch version (:mod:`.ref`); a CUDA
 tensor launches the hand-written kernel, or the call raises — there is
 no fallback. Each kernel module counts its launches
 (:func:`launch_counts`), so a run can show that its main path went
-through the kernels. Six kernels are ported: the fused quantize →
-packed matmul, paged decode attention, paged chunked prefill, the row
-quantizer and the unfused integer matmul (the Table III mixed-group
-path) and flash attention (whole-prompt prefill). The JAX registry
-(block plans, autotune, plan files) is not part of the port yet.
+through the kernels. Every Pallas kernel of the JAX package is ported:
+the fused quantize → packed matmul, paged decode attention (also run
+over the contiguous cache by ``decode_attention``), paged chunked
+prefill, the row quantizer and the unfused integer matmul (the Table
+III mixed-group path), flash attention (whole-prompt prefill) and the
+RWKV-6 chunked recurrence ``wkv6``. The attention kernels share one
+tile routine, so every attention path sums in one order. The JAX
+registry (block plans, autotune, plan files) is not part of the port.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.kernels import pack_quant as _pq
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import wkv6 as _wkv6
 
 _MODULES = {
     "fused_quantize_matmul": _fused,
@@ -32,6 +36,7 @@ _MODULES = {
     "quantize_rows": _pq,
     "bitplane_matmul": _bpm,
     "flash_attention": _flash,
+    "wkv6": _wkv6,
 }
 
 
@@ -43,6 +48,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+    _paged.contig_launches = 0
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -183,3 +189,65 @@ def paged_prefill(q, k_new, v_new, pool_k, pool_v, blocks, start, length, *,
     return _paged_pf.launch(q, k_new, v_new, pool_k, pool_v, blocks, start,
                             length, k_scale=k_scale, v_scale=v_scale,
                             softcap=softcap)
+
+
+def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
+                     softcap: float = 0.0, k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token attention over one layer of the contiguous cache: q (B, 1,
+    NQ, H), k/v_cache (B, S, NKV, H) (int8 codes with (B, S, NKV, 1)
+    float32 scales for an int8 cache), kpos (B, S) slot positions (-1 =
+    empty), q_pos (B,). The plain version is
+    ``models.common.decode_attention``; on the card the paged decode
+    kernel's code runs with each row's slots as its tiles. A windowed
+    (ring-buffer) cache has no kernel yet and raises on the card."""
+    if _on_cpu(q, "decode_attention"):
+        from repro_torch.models.common import decode_attention as plain
+
+        return plain(q, k_cache, v_cache, kpos, q_pos, window=window,
+                     softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+    if window:
+        raise ValueError("decode_attention: the contiguous-decode kernel "
+                         "takes full (non-ring) caches only")
+    return _paged.launch_contig(q, k_cache, v_cache, kpos, q_pos, k_scale=k_scale,
+                                v_scale=v_scale, softcap=softcap)
+
+
+def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64):
+    """RWKV-6 recurrence over (B, T) tokens with the state carried in and
+    out: r/k (B, T, H, K) and v (B, T, H, V) in their own dtype, w (B, T,
+    H, K) decays in (0, 1], u (H, K), state (B, H, K, V) float32. Chunk
+    boundaries sit at absolute positions 0, chunk, 2·chunk, …, so a row's
+    outputs and final state never depend on the length its batch was
+    padded to (pad tokens: k = 0, w = 1). Returns (out (B, T, H, V)
+    float32, state (B, H, K, V) float32)."""
+    if _on_cpu(r, "wkv6"):
+        return _ref.wkv6_chunked_ref(r, k, v, w, u, state, chunk)
+    return _wkv6.launch(r, k, v, w, u, state, chunk=chunk)
+
+
+def wkv6_step(r, k, v, w, u, state):
+    """One token of the recurrence: r/k/w (B, H, K), v (B, H, V), state
+    (B, H, K, V) → (out (B, H, V), state) float32. The plain version is
+    ``ref.wkv6_step``; on the card the wkv6 kernel runs at T = 1 with the
+    carried state (one thread block per (row, head), whatever the batch)."""
+    if _on_cpu(r, "wkv6"):
+        return _ref.wkv6_step(r, k, v, w, u, state)
+    out, state = _wkv6.launch(r[:, None], k[:, None], v[:, None], w[:, None], u,
+                              state, chunk=1)
+    return out[:, 0], state
+
+
+def wkv6(r, k, v, w, u, *, chunk: int = 32) -> torch.Tensor:
+    """Chunked WKV6 with the JAX signature: r/k/w (T, H, K), v (T, H, V),
+    u (H, K), zero initial state → (T, H, V) float32."""
+    return wkv6_batched(r[None], k[None], v[None], w[None], u, chunk=chunk)[0]
+
+
+def wkv6_batched(r, k, v, w, u, *, chunk: int = 32) -> torch.Tensor:
+    """``wkv6`` over a batch: r/k/w (B, T, H, K), v (B, T, H, V) → (B, T,
+    H, V) float32, each row from a zero state."""
+    B, _, H, K = r.shape
+    state = torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32,
+                        device=r.device)
+    return wkv6_chunked(r, k, v, w, u, state, chunk=chunk)[0]

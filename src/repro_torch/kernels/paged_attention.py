@@ -3,6 +3,13 @@
 Replaces ``repro/kernels/paged_attention.py::paged_attention``: one query
 token per row attends the paged KV pool through its block table, with
 in-kernel dequantization of an int8 pool (``csrc/paged_attention.cu``).
+
+The same kernel code has a second entry, :func:`launch_contig`: one
+token per row attends one layer of the contiguous cache (B, S, NKV, H),
+each row's slots standing in for its blocks. The static engine and the
+contiguous scheduler decode through it, so contiguous and paged decode
+sum in one order. Its plain version is ``models.common.decode_attention``,
+which the JAX package computes outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -13,19 +20,43 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
+#: Launches of the CUDA kernel since the last reset (see ops.launch_counts),
+#: through either entry; ``contig_launches`` is the contiguous entry's share.
 launches = 0
+contig_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: ctypes signature of the C entry (checked against its source by the tests).
+#: ctypes signatures of the C entries (checked against their source by the
+#: tests): ``paged_attention`` and ``contig_attention``.
 ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
+CONTIG_ATTENTION_ARGTYPES = [_P] * 8 + [_I] * 7 + [_F, _F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Keys per tile of every attention kernel (csrc/attend_tile.cuh): tiles sit
+#: at absolute positions, whatever the pool's block size.
+TILE = 32
+_G_MAX = 16     # query heads per KV head a thread block holds
+_H_MAX = 128
+
+
+def check_block_size(block_size: int) -> None:
+    """A pool block must divide the 32-key tile or be a multiple of it, so
+    a tile gathers whole blocks or a block holds whole tiles: any other
+    size would change the kernels' summation order, so it raises."""
+    if block_size < 1 or (TILE % block_size and block_size % TILE):
+        raise ValueError(f"block size {block_size} must divide or be a multiple "
+                         f"of the attention kernels' {TILE}-key tile")
+
+
+def check_heads(NQ: int, NKV: int, H: int) -> None:
+    if NQ % NKV or NQ // NKV > _G_MAX or H > _H_MAX:
+        raise ValueError(f"query heads {NQ} must be a multiple (<= {_G_MAX}x) of "
+                         f"KV heads {NKV}, head dim <= {_H_MAX} (got {H})")
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.load("paged_attention").paged_attention
-    fn.argtypes = ARGTYPES
+def _fn(entry: str = "paged_attention"):
+    fn = getattr(build.load("paged_attention"), entry)
+    fn.argtypes = ARGTYPES if entry == "paged_attention" else CONTIG_ATTENTION_ARGTYPES
     fn.restype = _I
     return fn
 
@@ -58,9 +89,8 @@ def launch(q, pool_k, pool_v, block_table, q_pos, k_scale=None, v_scale=None,
     quant = check_pool(q, pool_k, pool_v, k_scale, v_scale)
     B, _, NQ, H = q.shape
     nb, bs, NKV, _ = pool_k.shape
-    if NQ % NKV or NQ // NKV > 16:
-        raise ValueError(f"query heads {NQ} must be a multiple (<= 16x) of "
-                         f"KV heads {NKV}")
+    check_heads(NQ, NKV, H)
+    check_block_size(bs)
     q = q.contiguous()
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32).reshape(B)
@@ -75,4 +105,33 @@ def launch(q, pool_k, pool_v, block_table, q_pos, k_scale=None, v_scale=None,
                torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_attention")
     launches += 1
+    return out
+
+
+def launch_contig(q, k_cache, v_cache, slot_pos, q_pos, k_scale=None, v_scale=None,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """q (B, 1, NQ, H); k/v_cache (B, S, NKV, H); slot_pos (B, S) int32
+    (-1 = empty, else the slot's own position); q_pos (B,) → (B, 1, NQ, H)
+    in q's dtype."""
+    global launches, contig_launches
+    quant = check_pool(q, k_cache, v_cache, k_scale, v_scale)
+    B, _, NQ, H = q.shape
+    _, S, NKV, _ = k_cache.shape
+    check_heads(NQ, NKV, H)
+    if slot_pos.shape != (B, S):
+        raise ValueError(f"slot_pos must be ({B}, {S}), got {tuple(slot_pos.shape)}")
+    q = q.contiguous()
+    sp = slot_pos.to(device=q.device, dtype=torch.int32).contiguous()
+    pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32).reshape(B)
+    out = torch.empty_like(q)
+    null = 0
+    rc = _fn("contig_attention")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quant else null, v_scale.data_ptr() if quant else null,
+        sp.data_ptr(), pos.contiguous().data_ptr(), out.data_ptr(),
+        B, NQ, NKV, H, S, _DTYPES[q.dtype], int(quant), H ** -0.5, softcap,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "contig_attention")
+    launches += 1
+    contig_launches += 1
     return out

@@ -14,7 +14,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import _DTYPES, check_pool
+from repro_torch.kernels.paged_attention import (_DTYPES, check_block_size,
+                                                 check_heads, check_pool)
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -40,8 +41,8 @@ def launch(q, k_new, v_new, pool_k, pool_v, blocks, start: int, length: int,
     quant = check_pool(q, pool_k, pool_v, k_scale, v_scale)
     _, Lc, NQ, H = q.shape
     nb, bs, NKV, _ = pool_k.shape
-    if NQ % NKV:
-        raise ValueError(f"query heads {NQ} must be a multiple of KV heads {NKV}")
+    check_heads(NQ, NKV, H)
+    check_block_size(bs)
     if k_new.shape != (1, Lc, NKV, H) or v_new.shape != k_new.shape:
         raise ValueError(f"k_new/v_new must be (1, {Lc}, {NKV}, {H})")
     q = q.contiguous()

@@ -2,14 +2,17 @@
 
 Ported from ``repro.kernels.ref`` (``quantize_pack_ref``,
 ``bitplane_matmul_ref``, ``mixed_group_matmul_ref``,
-``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``).
+``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``,
+``wkv6_ref``) and ``repro.models.rwkv6`` (``wkv6_chunked``,
+``wkv6_step``).
 They are the semantic specification: on the CPU the kernel entry points
 in :mod:`repro_torch.kernels.ops` run them, and on the card
 ``chip_smoke.py`` holds each CUDA kernel against them. Integer outputs
 (codes, accumulators, activation scales, int8 pool bytes and scale
 planes) are bitwise those of the JAX package; float outputs agree within
 the tolerances stated in ``tests/test_torch_kernels.py``,
-``tests/test_torch_mixed_matmul.py`` and ``tests/test_torch_flash.py``.
+``tests/test_torch_mixed_matmul.py``, ``tests/test_torch_flash.py`` and
+``tests/test_torch_rwkv6.py``.
 """
 from __future__ import annotations
 
@@ -204,3 +207,71 @@ def paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks, start, length,
     out = torch.einsum("nqgs,snh->qngh", p, v_rows)
     attn = out.reshape(1, Lc, NQ, H).to(q.dtype)
     return attn, pool_k, pool_v, k_scale, v_scale
+
+
+def wkv6_ref(r, k, v, w, u) -> torch.Tensor:
+    """RWKV-6 recurrence, sequential: r/k/w (T, H, K), v (T, H, V), u (H,
+    K), zero initial state; out_t = r_t · (S + u ⊙ k_t v_tᵀ), S ← diag(w_t)
+    S + k_t v_tᵀ. Returns (T, H, V) float32."""
+    r, k, v, w, u = (a.to(torch.float32) for a in (r, k, v, w, u))
+    T, H, K = r.shape
+    S = torch.zeros((H, K, v.shape[-1]), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(T):
+        kv = k[t][..., :, None] * v[t][..., None, :]
+        outs.append(torch.einsum("hk,hkv->hv", r[t], S + u[..., :, None] * kv))
+        S = w[t][..., :, None] * S + kv
+    return torch.stack(outs)
+
+
+def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int):
+    """The chunked algebra of ``repro.models.rwkv6.wkv6_chunked`` with the
+    state carried in and out: r/k/w (B, T, H, K), v (B, T, H, V), u (H,
+    K), state (B, H, K, V) → (out (B, T, H, V), state) float32. Unlike
+    JAX the chunk length never shrinks to T: T is padded up to a multiple
+    of `chunk` with k = v = 0 and w = 1, so chunk boundaries sit at
+    absolute positions and a prompt's outputs and final state do not
+    depend on the length it was padded to."""
+    B, T, H, K = r.shape
+    C = int(chunk)
+    pad = -T % C
+    r, k, v, w = (a.to(torch.float32) for a in (r, k, v, w))
+    if pad:
+        def zp(a, value=0.0):
+            return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad), value=value)
+        r, k, v, w = zp(r), zp(k), zp(v), zp(w, 1.0)
+    u = u.to(torch.float32)
+    S = state.to(torch.float32)
+    dev = r.device
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
+    tri = tri[None, :, :, None, None]                    # s < t
+    eye = torch.eye(C, dtype=torch.float32, device=dev)[None, :, None, :]
+    outs = []
+    for c0 in range(0, T + pad, C):
+        rb, kb, vb, wb = (a[:, c0:c0 + C] for a in (r, k, v, w))
+        lw = torch.log(torch.clamp(wb, min=1e-12))
+        L = torch.cumsum(lw, dim=1)
+        Lsh = L - lw
+        term1 = torch.einsum("bchk,bhkv->bchv", rb * torch.exp(Lsh), S)
+        diff = Lsh[:, :, None] - L[:, None, :]           # (B, Ct, Cs, H, K)
+        gate = torch.where(tri, torch.exp(torch.clamp(diff, max=0.0)),
+                           torch.zeros((), device=dev))
+        P = torch.einsum("bthk,bshk,btshk->bths", rb, kb, gate)
+        Pd = torch.einsum("bthk,hk,bthk->bth", rb, u, kb)
+        P = P + eye * Pd[..., None]
+        outs.append(term1 + torch.einsum("bths,bshv->bthv", P, vb))
+        L_last = L[:, -1:]
+        dk = kb * torch.exp(L_last - L)
+        S = torch.exp(L_last[:, 0])[..., None] * S + torch.einsum(
+            "bshk,bshv->bhkv", dk, vb)
+    return torch.cat(outs, dim=1)[:, :T], S
+
+
+def wkv6_step(r, k, v, w, u, state):
+    """One token: r/k/w (B, H, K), v (B, H, V), state (B, H, K, V) →
+    (out (B, H, V), state) float32 (``repro.models.rwkv6.wkv6_step``)."""
+    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    kv = kf[..., :, None] * vf[..., None, :]
+    out = torch.einsum("bhk,bhkv->bhv", rf,
+                       state + u.to(torch.float32)[None, ..., None] * kv)
+    return out, wf[..., None] * state + kv

@@ -1,0 +1,67 @@
+"""CUDA wrapper of the RWKV-6 chunked recurrence.
+
+Replaces ``repro/kernels/wkv6.py::wkv6`` with the state carried in and
+out, as ``repro/models/rwkv6.py::wkv6_chunked`` carries it
+(``csrc/wkv6.cu``): one thread block per (head, row) holds the (K, V)
+state in shared memory across chunks at absolute positions.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+#: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
+launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ctypes signature of the C entry (checked against its source by the tests).
+ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_DIM = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _fn():
+    fn = build.load("wkv6").wkv6
+    fn.argtypes = ARGTYPES
+    fn.restype = _I
+    return fn
+
+
+def launch(r, k, v, w, u, state, *, chunk: int):
+    """r/k (B, T, H, K), v (B, T, H, V) in one dtype (float32 or
+    bfloat16, read as they are); w (B, T, H, K), u (H, K) and state (B,
+    H, K, V) float32 → (out (B, T, H, V) float32, new state)."""
+    global launches
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if k.shape != r.shape or w.shape != r.shape or v.shape[:3] != (B, T, H):
+        raise ValueError(f"wkv6: r/k/w must be (B, T, H, K) and v (B, T, H, V); got "
+                         f"{tuple(r.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(w.shape)}")
+    if u.shape != (H, K) or state.shape != (B, H, K, V):
+        raise ValueError(f"wkv6: u must be ({H}, {K}) and state ({B}, {H}, {K}, {V})")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6: r/k/v must share float32 or bfloat16, got "
+                         f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if not (0 < K <= _MAX_DIM and 0 < V <= _MAX_DIM and 0 < chunk <= _MAX_DIM):
+        raise ValueError(f"wkv6: K, V and chunk must lie in 1..{_MAX_DIM}, got "
+                         f"{K}, {V}, {chunk}")
+    tensors = (r, k, v, w, u, state)
+    if not all(t.is_cuda and t.device == r.device for t in tensors):
+        raise ValueError("wkv6 kernel needs CUDA tensors on one device")
+    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
+    w, u, state = (t.to(torch.float32).contiguous() for t in (w, u, state))
+    out = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
+    new = torch.empty_like(state)
+    rc = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+               state.data_ptr(), out.data_ptr(), new.data_ptr(), B, T, H, K, V,
+               int(chunk), _DTYPES[r.dtype],
+               torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(rc, "wkv6")
+    launches += 1
+    return out, new

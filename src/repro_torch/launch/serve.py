@@ -14,6 +14,9 @@ given, serving with the hand-written kernels on the card and their plain
 PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
 paths (a wXaYrZZ token packs Table III mixed-group layers).
+``--arch rwkv6-3b`` serves the RWKV-6 family unquantized (as the JAX
+package does; --policy/--quant raise), on its constant-size recurrent
+state: static, or --continuous with solo whole-prompt admission.
 
 Without --continuous (or with --static) the engine serves static batches
 of --max-batch requests: whole-prompt prefill, then a decode loop on the
@@ -102,6 +105,7 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_policy_spec, parse_quant_token
     from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import check_policy
     from repro_torch.serving import ServingEngine
 
     if args.continuous and args.static:
@@ -111,16 +115,22 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     device = resolve_device(args.device)
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    quant = None
+    if args.policy:
+        quant = parse_policy_spec(args.policy)
+    elif args.quant and args.quant != "none":
+        quant = parse_quant_token(args.quant)
+    try:
+        check_policy(cfg, quant)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if args.policy:
+        print(f"precision policy: {quant.describe()}")
+    # --kv-int8 is accepted for every arch; a recurrent state ignores it.
     cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_int8)
     if params is None:
         params = build_model(cfg).init(seed=0, device=device)
         print("serving randomly initialized weights (no --ckpt)")
-    quant = None
-    if args.policy:
-        quant = parse_policy_spec(args.policy)
-        print(f"precision policy: {quant.describe()}")
-    elif args.quant and args.quant != "none":
-        quant = parse_quant_token(args.quant)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch, quant=quant,
                            bucket=32, paged=False if args.no_paged else None,
                            block_size=args.block_size,
@@ -165,8 +175,8 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                   f"{stats['reserved_kv_bytes']/1e6:.2f} MB contiguous "
                   "reservation")
         else:
-            print(f"  contiguous KV cache: "
-                  f"{stats['resident_kv_bytes']/1e6:.2f} MB resident "
+            what = "recurrent state" if cfg.family == "ssm" else "contiguous KV cache"
+            print(f"  {what}: {stats['resident_kv_bytes']/1e6:.2f} MB resident "
                   "(full per-slot reservation)")
         if stats["chunked_prefill"]:
             print(f"  chunked prefill: {stats['prefill_chunks_run']} "

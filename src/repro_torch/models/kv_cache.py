@@ -1,8 +1,9 @@
-"""Decode-time state: the contiguous KV cache, the paged KV pool and the
-decode carry.
+"""Decode-time state: the contiguous KV cache, the paged KV pool, the
+RWKV recurrent state and the decode carry.
 
-Port of the full-attention half of ``repro.models.kv_cache`` (ring
-buffers — ``ring_align`` — come with the windowed families). The
+Port of ``repro.models.kv_cache`` for full attention and RWKV (ring
+buffers — ``ring_align`` — and the Griffin state come with the windowed
+and hybrid families). The
 contiguous cache is ``(L, B, S, NKV, H)`` with per-row slot positions
 (slot == absolute position, -1 = empty). The pool is ``(L, num_blocks,
 block_size, NKV, H)`` shared by every batch slot, with a ``(B,
@@ -104,6 +105,9 @@ class PagedKVCache:
              max_blocks: int, n_kv: int, head_dim: int,
              dtype=torch.bfloat16, quantized: bool = False,
              device=None) -> "PagedKVCache":
+        from repro_torch.kernels.paged_attention import check_block_size
+
+        check_block_size(block_size)
         kd = torch.int8 if quantized else dtype
         shape = (layers, num_blocks, block_size, n_kv, head_dim)
         sshape = (layers, num_blocks, block_size, n_kv, 1)
@@ -122,12 +126,25 @@ class PagedKVCache:
 
 
 @dataclasses.dataclass
+class RwkvState:
+    """RWKV-6 recurrent state, stacked over layers: wkv (L, B, H, K, V)
+    float32, tm_shift / cm_shift (L, B, d) the last token of each row's
+    time-mix and channel-mix inputs. Constant size whatever the context."""
+
+    wkv: torch.Tensor
+    tm_shift: torch.Tensor
+    cm_shift: torch.Tensor
+
+
+@dataclasses.dataclass
 class DecodeCache:
     """Top-level decode carry: pos (B,) int32, the absolute position each
-    batch slot decodes at, plus the contiguous cache or the paged pool."""
+    batch slot decodes at, plus the contiguous cache or the paged pool
+    (attention) or the recurrent state (RWKV)."""
 
     pos: torch.Tensor
     kv: Optional[Union[KVCache, PagedKVCache]] = None
+    rwkv: Optional[RwkvState] = None
 
 
 def quantize_kv(x: torch.Tensor):
@@ -260,22 +277,29 @@ def paged_gather(pool_k, pool_v, block_table, k_scale=None, v_scale=None,
 
 def scatter_into_slot(batch: DecodeCache, solo: DecodeCache, slot: int) -> DecodeCache:
     """Admit a solo-prefilled request (batch axis of size 1) into row
-    `slot` of a live contiguous decode cache, in place. Only row `slot`
-    changes: its slots past the solo cache's are emptied, every other
-    row's KV and position is untouched."""
-    big, small = batch.kv, solo.kv
-    size, s = big.k.shape[2], small.k.shape[2]
-    if s > size:
-        raise ValueError(f"prefilled cache ({s} slots) exceeds batch cache "
-                         f"capacity ({size}); raise the scheduler's max_ctx")
-    pairs = [(big.k, small.k, 0), (big.v, small.v, 0),
-             (big.slot_pos, small.slot_pos, -1)]
-    if big.quantized:
-        pairs += [(big.k_scale, small.k_scale, 0.0), (big.v_scale, small.v_scale, 0.0)]
-    for dst, src, fill in pairs:
-        dst[:, slot, :s] = src[:, 0].to(dst.dtype)
-        dst[:, slot, s:] = fill
-    big.length[slot] = small.length[0]
+    `slot` of a live contiguous decode cache or recurrent state, in place.
+    Only row `slot` changes: its KV slots past the solo cache's are
+    emptied, or its wkv state and both token-shift tails are replaced;
+    every other row's state and position is untouched."""
+    if batch.kv is not None:
+        big, small = batch.kv, solo.kv
+        size, s = big.k.shape[2], small.k.shape[2]
+        if s > size:
+            raise ValueError(f"prefilled cache ({s} slots) exceeds batch cache "
+                             f"capacity ({size}); raise the scheduler's max_ctx")
+        pairs = [(big.k, small.k, 0), (big.v, small.v, 0),
+                 (big.slot_pos, small.slot_pos, -1)]
+        if big.quantized:
+            pairs += [(big.k_scale, small.k_scale, 0.0),
+                      (big.v_scale, small.v_scale, 0.0)]
+        for dst, src, fill in pairs:
+            dst[:, slot, :s] = src[:, 0].to(dst.dtype)
+            dst[:, slot, s:] = fill
+        big.length[slot] = small.length[0]
+    if batch.rwkv is not None:
+        for name in ("wkv", "tm_shift", "cm_shift"):
+            dst = getattr(batch.rwkv, name)
+            dst[:, slot] = getattr(solo.rwkv, name)[:, 0].to(dst.dtype)
     batch.pos[slot] = solo.pos[0]
     return batch
 
@@ -321,7 +345,8 @@ def grow_cache(cache: DecodeCache, size: int) -> DecodeCache:
     """Extend a full-attention contiguous cache's slot axis to at least
     `size` empty slots, so the static engine decodes past the prefill
     headroom instead of rewriting the last slot through write_slot's
-    clamp. Other caches pass through untouched."""
+    clamp. Other caches (the paged pool, a recurrent state) pass through
+    untouched."""
     kv = cache.kv
     if not isinstance(kv, KVCache) or kv.window or kv.k.shape[2] >= size:
         return cache

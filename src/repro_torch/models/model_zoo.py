@@ -1,23 +1,37 @@
 """build_model(cfg) — the model surface the serving stack drives.
 
-Port of ``repro.models.model_zoo`` for the dense transformer:
-``init(seed, device)``, ``prefill``, ``decode_step``, ``init_cache``,
-``init_paged_cache`` and, behind the same eligibility gate as JAX (full
-attention, no MoE, token inputs), ``prefill_chunk``.
+Port of ``repro.models.model_zoo`` for the dense transformer and the
+RWKV-6 family: ``init(seed, device)``, ``prefill``, ``decode_step`` and
+``init_cache``; for the dense transformer also ``init_paged_cache`` and,
+behind the same eligibility gate as JAX (full attention, no MoE, token
+inputs), ``prefill_chunk``. RWKV-6 keeps a constant-size recurrent state
+and has neither, as in JAX.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
+
+
+def check_policy(cfg: ModelConfig, policy) -> None:
+    """Refuse a precision policy for a family the JAX package serves
+    unquantized only (rwkv6: its packed (L, K, N) leaves meet ``.astype``
+    in ``time_mix`` there)."""
+    if policy is not None and cfg.family == "ssm":
+        raise ValueError(f"{cfg.name}: the JAX package serves rwkv6 unquantized "
+                         "only; no --policy/--quant")
 
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
-    if cfg.family != "dense":
+    if cfg.family == "ssm":
+        mod = rwkv6
+    elif cfg.family == "dense":
+        mod = transformer
+    else:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                         "(the port serves dense transformers)")
-    mod = transformer
+                         "(the port serves dense transformers and rwkv6)")
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
@@ -26,14 +40,16 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
             mod.decode_step(params, cfg, cache, tokens),
         init_cache=lambda batch, seq_len, device=None:
             mod.init_cache(cfg, batch, seq_len, device),
-        init_paged_cache=lambda batch, num_blocks, block_size, max_blocks,
-            device=None: mod.init_paged_cache(cfg, batch, num_blocks,
-                                              block_size, max_blocks, device),
     )
-    if not cfg.attn_window and not cfg.moe_experts and cfg.frontend == "none":
-        # Chunked prefill straight into the paged pool: the chunked ≡
-        # whole-prompt contract needs full attention, per-row
-        # reproducible routing and token inputs.
-        ns.prefill_chunk = (lambda params, cache, batch:
-                            mod.prefill_chunk(params, cfg, cache, batch))
+    if mod is transformer:
+        ns.init_paged_cache = (
+            lambda batch, num_blocks, block_size, max_blocks, device=None:
+            mod.init_paged_cache(cfg, batch, num_blocks, block_size, max_blocks,
+                                 device))
+        if not cfg.attn_window and not cfg.moe_experts and cfg.frontend == "none":
+            # Chunked prefill straight into the paged pool: the chunked ≡
+            # whole-prompt contract needs full attention, per-row
+            # reproducible routing and token inputs.
+            ns.prefill_chunk = (lambda params, cache, batch:
+                                mod.prefill_chunk(params, cfg, cache, batch))
     return ns

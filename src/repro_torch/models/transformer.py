@@ -7,9 +7,11 @@ are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 Python loop over layers replaces ``lax.scan``. Attention runs the
 kernels through :mod:`repro_torch.kernels.ops`: ``flash_attention`` for
 a whole prompt (``prefill``), ``paged_prefill`` for every chunk of a
-prompt, ``paged_attention`` for a paged decode step. The contiguous
-decode step attends in plain PyTorch (``common.decode_attention``), as
-the JAX package computes it outside any Pallas kernel.
+prompt, ``paged_attention`` for a paged decode step and
+``decode_attention`` for a contiguous one (the paged decode kernel over
+each row's own slots; the JAX package computes it outside any Pallas
+kernel, and ``common.decode_attention`` is its plain version). The four
+kernels share one tile routine, so every path sums in one order.
 """
 from __future__ import annotations
 
@@ -139,7 +141,7 @@ def block_decode(p: dict, cfg: ModelConfig, x, pos, k_cache, v_cache, slot_pos,
     """Single-token block against one layer's slice of the contiguous
     cache: every row writes its new k/v (int8 codes and scales for a
     quantized cache) at its own position, in place, then attends through
-    ``common.decode_attention``."""
+    ``ops.decode_attention``."""
     h = cm.apply_norm(x, p["ln1"], cfg.norm)
     q, k, v = _attention_qkv(p, cfg, h, pos[:, None])
     if k_scale is not None:
@@ -149,10 +151,10 @@ def block_decode(p: dict, cfg: ModelConfig, x, pos, k_cache, v_cache, slot_pos,
         row_write(k_scale, ks, slot)
         row_write(v_scale, vs, slot)
     cache_write(k_cache, v_cache, slot_pos, k, v, pos, cfg.attn_window)
-    attn = cm.decode_attention(q, k_cache, v_cache, slot_pos, pos,
-                               window=cfg.attn_window,
-                               softcap=cfg.attn_logit_softcap,
-                               k_scale=k_scale, v_scale=v_scale)
+    attn = ops.decode_attention(q, k_cache, v_cache, slot_pos, pos,
+                                window=cfg.attn_window,
+                                softcap=cfg.attn_logit_softcap,
+                                k_scale=k_scale, v_scale=v_scale)
     return _block_post_attn(p, cfg, x, attn)
 
 

@@ -12,7 +12,8 @@ QuantConfig or a per-layer PrecisionPolicy and has two modes:
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
     baseline continuous batching is measured against and the oracle of
-    the "continuous ≡ static" contract.
+    the "continuous ≡ static" contract. A recurrent model (rwkv6) keeps
+    its constant-size state in place of the cache.
 
 Prompts are right-padded to the bucket with the real length passed to
 prefill, so pad tokens never occupy cache slots or shift rope positions,
@@ -31,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import as_policy
 from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
+from repro_torch.models.model_zoo import check_policy
 from repro_torch.models.kv_cache import KVCache, grow_cache
 from repro_torch.serving import sampling
 from repro_torch.serving.scheduler import ContinuousScheduler, Request
@@ -48,6 +50,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         self.policy = as_policy(quant)
+        check_policy(cfg, self.policy)
         if self.policy is not None:
             params = quantize_params_for_serving(params, self.policy,
                                                  min_size=1024)

@@ -46,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import as_policy
 from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
+from repro_torch.models.model_zoo import check_policy
 from repro_torch.models.kv_cache import scatter_into_paged, scatter_into_slot
 from repro_torch.serving import sampling
 
@@ -89,6 +90,7 @@ class ContinuousScheduler:
         self.device = resolve_device(device)
         self.model = build_model(cfg)
         policy = as_policy(quant)
+        check_policy(cfg, policy)
         if policy is not None:
             params = quantize_params_for_serving(params, policy, min_size=1024)
         self.params = params
@@ -99,21 +101,25 @@ class ContinuousScheduler:
         self.on_token = on_token
         self.block_size = block_size
 
-        # Paged needs a full-attention cache; chunked prefill rides on the
-        # paged pool and on the model's fused chunk path (`prefill_chunk`).
-        can_page = not cfg.attn_window
+        # Paged needs a full-attention KV cache (recurrent states are
+        # constant-size); chunked prefill rides on the paged pool and on the
+        # model's fused chunk path (`prefill_chunk`).
+        can_page = (getattr(self.model, "init_paged_cache", None) is not None
+                    and not cfg.attn_window)
         if paged is None:
             paged = can_page
         elif paged and not can_page:
-            raise ValueError(f"{cfg.name}: the paged KV cache requires a "
-                             "full-attention cache")
+            raise ValueError(f"{cfg.name}: paged KV cache requires a full-attention "
+                             "cache (ring buffers and recurrent states are already "
+                             "footprint-bounded)")
         self.paged = paged
         can_chunk = paged and getattr(self.model, "prefill_chunk", None) is not None
         if chunked_prefill is None:
             chunked_prefill = can_chunk
         elif chunked_prefill and not can_chunk:
             raise ValueError(f"{cfg.name}: chunked prefill requires the paged KV "
-                             "cache and an arch with the fused chunk-prefill path")
+                             "cache and an arch with the fused chunk-prefill path "
+                             "(token-input, non-MoE full-attention transformer)")
         self.chunked_prefill = chunked_prefill
         if prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1")
@@ -121,8 +127,9 @@ class ContinuousScheduler:
 
         B = max_batch
         # Admission bound: max_ctx in every mode, so static, contiguous and
-        # paged agree on which requests fit.
-        self._capacity = max_ctx
+        # paged agree on which requests fit; a recurrent state is
+        # position-unbounded (None).
+        self._capacity = max_ctx if cfg.family != "ssm" else None
         if paged:
             self._max_blocks = -(-max_ctx // block_size)
             usable = (pool_blocks if pool_blocks is not None
@@ -191,6 +198,8 @@ class ContinuousScheduler:
     def _reject_reason(self, req: Request) -> Optional[str]:
         """Non-None iff the request can never be served here (vs. waiting
         for pool blocks)."""
+        if self._capacity is None:
+            return None
         need = self._need_tokens(req)
         if self.paged:
             if need > self._capacity or self._need_blocks(req) > self.pool_blocks:
@@ -266,9 +275,12 @@ class ContinuousScheduler:
         """KV-memory utilization and chunked-prefill counters."""
         kv = self.cache.kv
         if not self.paged:
-            # The whole contiguous reservation is resident for life.
-            total = sum(a.numel() * a.element_size()
-                        for a in (kv.k, kv.v, kv.k_scale, kv.v_scale)
+            # The whole contiguous reservation (or recurrent state) is
+            # resident for life.
+            st = self.cache.rwkv
+            planes = ((kv.k, kv.v, kv.k_scale, kv.v_scale) if kv is not None
+                      else (st.wkv, st.tm_shift, st.cm_shift))
+            total = sum(a.numel() * a.element_size() for a in planes
                         if a is not None)
             return {"paged": False, "resident_kv_bytes": total,
                     "reserved_kv_bytes": total, "chunked_prefill": False}

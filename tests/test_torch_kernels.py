@@ -248,13 +248,16 @@ def test_cuda_tensors_never_fall_back():
     assert ref.fused_quantize_matmul_ref is not None
 
 
-# (wrapper module, CUDA source, C entry): the kernels' ctypes bindings.
+# (wrapper module, CUDA source, C entry): the kernels' ctypes bindings. A
+# module binding a second entry keeps that signature in <ENTRY>_ARGTYPES.
 _BINDINGS = [("fused_matmul", "fused_matmul", "fused_quantize_matmul"),
              ("paged_attention", "paged_attention", "paged_attention"),
              ("paged_prefill", "paged_prefill", "paged_prefill"),
              ("pack_quant", "quantize_rows", "quantize_rows"),
              ("bitplane_matmul", "bitplane_matmul", "bitplane_matmul"),
-             ("flash_attention", "flash_attention", "flash_attention")]
+             ("flash_attention", "flash_attention", "flash_attention"),
+             ("paged_attention", "paged_attention", "contig_attention"),
+             ("wkv6", "wkv6", "wkv6")]
 
 
 @pytest.mark.parametrize("module,source,entry", _BINDINGS)
@@ -273,5 +276,6 @@ def test_ctypes_signature_matches_the_c_entry(module, source, entry):
     want = [ctypes.c_void_p if "*" in p else
             ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
             for p in params]
-    assert importlib.import_module(f"repro_torch.kernels.{module}").ARGTYPES == want
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert getattr(mod, f"{entry.upper()}_ARGTYPES", mod.ARGTYPES) == want
     assert source in build.KERNELS

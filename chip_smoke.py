@@ -3,21 +3,29 @@
 
   python3 chip_smoke.py
 
-1. Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all started together).
+1. Builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together): the seven ports of the
+   Pallas kernels and ``dense_matmul``, rwkv6's batch-invariant bf16
+   product.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
-   outputs within atol = rtol = 2e-2 in bf16 (summation order and expf
-   differ between a one-pass softmax and the online one) and 1e-4 in
-   float32; the Table III mixed-group matmul within 1e-6 relative; wkv6
-   within 1e-4 in float32 (and bitwise independent of padding). The
-   attention kernels share one tile routine: chunked prefill, paged
-   decode and contiguous decode must be bitwise whole-prompt flash
-   attention on the same keys (``check_one_order``).
+   outputs within atol = rtol = 2e-2 in bf16 (summation order, expf and
+   P rounded to bf16 for the tensor cores differ from a one-pass float32
+   softmax) and 1e-4 in float32, also at head dims 80 and 256
+   (``check_head_dims``); the Table III mixed-group matmul within 1e-6
+   relative; wkv6 within 1e-4 in float32 (and bitwise independent of
+   padding); ``dense_matmul`` within 2e-2 of ``x @ w`` and its rows
+   bitwise the same at M in {1, 4, 64, 128, 1280}. The attention kernels
+   share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
+   chunked prefill, paged decode and contiguous decode must be bitwise
+   whole-prompt flash attention on the same keys (``check_one_order``:
+   several splits, GQA 4 and 8, head dims 80 / 128 / 256, block sizes 16
+   / 32 / 64, NaN in every slot no row may see).
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function (CUDA events,
-   median of 20, L2 flushed before each).
+   median of 20, L2 flushed before each, the card held until the host
+   has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
    a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
    of 64-320 tokens, 32 new tokens each, 4 slots, in eight runs — olmo
@@ -31,14 +39,16 @@
    Gated across paths (see ``compare_paths``): chunked and whole-prompt
    first-token logits bitwise equal on the bf16 pool, and identical
    greedy tokens whole-prompt (c) vs chunked and static (a) vs
-   continuous (c); a greedy request served alone and admitted mid-decode
-   emits identical tokens (olmo bf16 and int8 pools, rwkv6); small
-   float32 models (olmo-1b, rwkv6-3b) give the same logits on the card
-   (kernels) as on the CPU (plain versions). Printed: rwkv6's static
-   batch vs solo logits and greedy shares (``compare_rwkv6``).
+   continuous (c); rwkv6's static batch vs solo first-token logits
+   bitwise equal and greedy (e) vs (f) identical (``compare_rwkv6``); a
+   greedy request served alone and admitted mid-decode emits identical
+   tokens (olmo bf16 and int8 pools, rwkv6); small float32 models
+   (olmo-1b, rwkv6-3b) give the same logits on the card (kernels) as on
+   the CPU (plain versions).
 
-Prints the kernel table as one JSON line, then the card's name and power
-limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
+Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
+(the seven ports of TPU kernels) as another, then the card's name and
+power limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
 failed check raises, so the exit code is non-zero and no result prints.
 With ``CHIP_SMOKE_OUT=<dir>`` set, the detailed numbers are also
 written to ``<dir>/chip_smoke.json``. Partial runs, which print no
@@ -108,8 +118,10 @@ SERVE_RUNS = {
                      ("flash_attention", "fused_quantize_matmul", "contig_attention")),
     # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
     # serves rwkv6 unquantized): its recurrent state, no KV cache.
-    "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None, ("wkv6",)),
-    "f-rwkv6-continuous": (["--arch", "rwkv6-3b", "--continuous"], None, ("wkv6",)),
+    "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None,
+                       ("wkv6", "dense_matmul")),
+    "f-rwkv6-continuous": (["--arch", "rwkv6-3b", "--continuous"], None,
+                           ("wkv6", "dense_matmul")),
 }
 
 
@@ -124,7 +136,14 @@ def bound_ms(nbytes: float, ops: float, rate: float):
 
 class Timer:
     """Median CUDA-event time of `fn` over `iters` calls, with the L2
-    cache flushed (a 128 MB write) before each timed call."""
+    cache flushed (a 128 MB write) before each timed call. The card then
+    sleeps ~5 ms (``torch.cuda._sleep``) before the first event, so the
+    host has enqueued all of `fn` by the time the card reaches it: the
+    time is the card's, not the wrapper's Python, whatever the host's
+    speed (for a plain version whose host work exceeds the sleep, the
+    excess still shows)."""
+
+    SLEEP_CYCLES = 10_000_000
 
     def __init__(self, torch, dev):
         self.torch = torch
@@ -137,6 +156,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -581,52 +601,141 @@ def check_flash(torch, dev, timer):
             "shape": f"B*NQ={B * 16} T={T} H={H} bf16 causal"}
 
 
+def check_head_dims(torch, dev):
+    """Each attention kernel against its plain version at head dims 80 and
+    256 (GQA, bf16 and the int8 pool or cache): flash (T = 100), paged
+    decode (contexts 300 / 70 / 0), contiguous decode and paged prefill (a
+    32-token chunk at 70), within atol = rtol = 2e-2."""
+    from repro_torch.kernels import flash_attention, paged_attention, paged_prefill, ref
+    from repro_torch.models.common import decode_attention as decode_plain
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = 0.0
+    for H, nkv, G in ((80, 4, 4), (256, 2, 8)):
+        nq = nkv * G
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = rnd(2, 100, nq, H), rnd(2, 100, nkv, H), rnd(2, 100, nkv, H)
+        kw = dict(causal=True, window=0, q_offset=0)
+        worst = max(worst, _close(torch, flash_attention.launch(q, k, v, **kw),
+                                  ref.flash_attention_gqa_ref(q, k, v, **kw),
+                                  f"flash H={H} G={G}"))
+        bs, maxb, ctx = 16, 24, [300, 70, 0]
+        B = len(ctx)
+        table = torch.full((B, maxb), -1, dtype=torch.int32, device=dev)
+        perm = (torch.randperm(B * maxb, generator=gen, device=dev) + 1).to(torch.int32)
+        used = 0
+        for b, c in enumerate(ctx):
+            n = -(-c // bs)
+            table[b, :n] = perm[used:used + n]
+            used += n
+        pos = torch.tensor([max(c - 1, 0) for c in ctx], dtype=torch.int32, device=dev)
+        qd = rnd(B, 1, nq, H)
+        for quant in (False, True):
+            pk, pv, ks, vs = _pool(torch, dev, gen, B * maxb + 1, bs, nkv, H, quant)
+            what = f"H={H} G={G} quant={quant}"
+            got = paged_attention.launch(qd, pk, pv, table, pos, ks, vs)
+            worst = max(worst, _close(torch, got, ref.paged_attention_ref(
+                qd, pk, pv, table, pos, ks, vs), f"paged_attention {what}"))
+            tbl = table.clamp(min=0).long()
+            cc = [None if a is None else a[tbl].reshape(B, maxb * bs, *a.shape[2:])
+                  for a in (pk, pv, ks, vs)]
+            slots = torch.arange(maxb * bs, device=dev, dtype=torch.int32)[None]
+            kpos = torch.where(slots < torch.tensor(ctx, device=dev)[:, None], slots, -1)
+            kpos = kpos.to(torch.int32).contiguous()
+            got = paged_attention.launch_contig(qd, cc[0], cc[1], kpos, pos, cc[2], cc[3])
+            want = decode_plain(qd, cc[0], cc[1], kpos, pos, k_scale=cc[2], v_scale=cc[3])
+            worst = max(worst, _close(torch, got[:2], want[:2], f"contig_attention {what}"))
+            qc, kn, vn = rnd(1, 32, nq, H), rnd(1, 32, nkv, H), rnd(1, 32, nkv, H)
+            blk = table[0, :-(-(70 + 32) // bs)].contiguous()
+            planes = [None if t is None else t.clone() for t in (pk, pv, ks, vs)]
+            got = paged_prefill.launch(qc, kn, vn, planes[0], planes[1], blk, 70, 32,
+                                       planes[2], planes[3])
+            want = ref.paged_prefill_ref(qc, kn, vn, pk, pv, blk, 70, 32, ks, vs)
+            worst = max(worst, _close(torch, got[0], want[0], f"paged_prefill {what}"))
+        torch.cuda.synchronize()
+    log(f"head dims 80 and 256 (GQA 4 and 8): flash, paged and contiguous decode, paged "
+        f"prefill, bf16 and int8, within atol=rtol={ATOL} of their plain versions "
+        f"(max |err| {worst:.3g})")
+    return worst
+
+
+# check_one_order cases: (head dim, KV heads, query heads per KV head,
+# prompt length, pool block sizes). The first is olmo-1b's head layout;
+# the others span several splits (>= 600 keys) under GQA.
+ONE_ORDER_CASES = ((128, 16, 1, 200, (16, 64)), (80, 4, 4, 640, (16, 32)),
+                   (256, 2, 8, 700, (32, 64)), (128, 4, 8, 610, (64,)))
+
+
 def check_one_order(torch, dev):
     """The attention kernels sum in one order (csrc/attend_tile.cuh): on
-    one olmo-1b head layout (16 heads of 128, bf16, a 200-token prompt),
-    chunked prefill (32-token chunks into pools of 16- and 64-token
-    blocks), paged decode and contiguous decode of a token at position p
-    are bitwise the whole-prompt flash kernel's row p."""
+    each case of ONE_ORDER_CASES (bf16), chunked prefill (32-token chunks
+    into pools of each block size), paged decode and contiguous decode of
+    a token at position p are bitwise the whole-prompt flash kernel's row
+    p. Every pool and cache starts filled with NaN, so the unwritten slots
+    of a row's last block, the unallocated (-1) blocks past its table and
+    the empty slots of the contiguous cache all hold NaN: a kernel that
+    let one into its products would not be finite."""
     from repro_torch.kernels import flash_attention, paged_attention, paged_prefill
 
     gen = torch.Generator(device=dev).manual_seed(8)
-    nkv, H, T, Lc = 16, 128, 200, 32
-    q, k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    whole = flash_attention.launch(q, k, v, causal=True, window=0, q_offset=0)
-    ps = torch.tensor([0, 31, 32, 100, 150, 199], dtype=torch.int32, device=dev)
-    qd = q[0, ps.long()][:, None].contiguous()
-    for bs in (16, 64):
-        nb = -(-T // bs)
-        pk = torch.zeros((nb + 1, bs, nkv, H), dtype=torch.bfloat16, device=dev)
-        pv = torch.zeros_like(pk)
-        blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
-        parts = []
-        for start in range(0, T, Lc):
-            t = min(Lc, T - start)
-            qc, kc, vc = (torch.nn.functional.pad(a[:, start:start + t],
-                                                  (0, 0, 0, 0, 0, Lc - t))
-                          for a in (q, k, v))
-            cover = -(-(start + t) // bs)
-            parts.append(paged_prefill.launch(qc, kc, vc, pk, pv, blocks[:cover],
-                                              start, t)[0][:, :t])
-        chunked = torch.cat(parts, dim=1)
-        dec = paged_attention.launch(qd, pk, pv, blocks[None].expand(len(ps), nb)
-                                     .contiguous(), ps)
+    nan = float("nan")
+    Lc = 32
+    for H, nkv, G, T, sizes in ONE_ORDER_CASES:
+        what = f"H={H} NKV={nkv} G={G} T={T}"
+        q = torch.randn((1, T, nkv * G, H), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        whole = flash_attention.launch(q, k, v, causal=True, window=0, q_offset=0)
+        ps = sorted({0, 31, 32, 63, 64, 100, T // 2, T - 2, T - 1})
+        psd = torch.tensor(ps, dtype=torch.int32, device=dev)
+        qd = q[0, psd.long()][:, None].contiguous()
+        want = whole[0, psd.long()]
+        if not bool(torch.isfinite(whole).all()):
+            raise AssertionError(f"{what}: flash output not finite")
+        for bs in sizes:
+            nb = -(-T // bs)
+            pk = torch.full((nb + 3, bs, nkv, H), nan, dtype=torch.bfloat16, device=dev)
+            pv = torch.full_like(pk, nan)
+            blocks = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+            parts = []
+            for start in range(0, T, Lc):
+                t = min(Lc, T - start)
+                qc, kc, vc = (torch.nn.functional.pad(a[:, start:start + t],
+                                                      (0, 0, 0, 0, 0, Lc - t))
+                              for a in (q, k, v))
+                cover = -(-(start + t) // bs)
+                parts.append(paged_prefill.launch(qc, kc, vc, pk, pv, blocks[:cover],
+                                                  start, t)[0][:, :t])
+            chunked = torch.cat(parts, dim=1)
+            # Tables two blocks wider than the prompt, unallocated (-1) there.
+            table = torch.cat([blocks, torch.full((2,), -1, dtype=torch.int32,
+                                                  device=dev)])
+            dec = paged_attention.launch(qd, pk, pv, table[None].expand(len(ps), nb + 2)
+                                         .contiguous(), psd)
+            torch.cuda.synchronize()
+            if not torch.equal(chunked, whole):
+                err = (chunked.float() - whole.float()).abs().max().item()
+                raise AssertionError(f"{what} bs={bs}: chunked prefill is not bitwise "
+                                     f"whole-prompt flash (max |err| {err})")
+            if not torch.equal(dec[:, 0], want):
+                raise AssertionError(f"{what} bs={bs}: paged decode is not bitwise "
+                                     "flash's rows")
+        S = T + 40                     # 40 empty slots past the prompt
+        kcache, vcache = (torch.cat([a.expand(len(ps), T, nkv, H),
+                                     torch.full((len(ps), S - T, nkv, H), nan,
+                                                dtype=a.dtype, device=dev)], dim=1)
+                          .contiguous() for a in (k, v))
+        slots = torch.arange(S, dtype=torch.int32, device=dev)
+        kpos = torch.where(slots < T, slots, -1)[None].expand(len(ps), S).contiguous()
+        contig = paged_attention.launch_contig(qd, kcache, vcache, kpos, psd)
         torch.cuda.synchronize()
-        if not torch.equal(chunked, whole):
-            raise AssertionError(f"bs={bs}: chunked prefill is not bitwise whole-prompt "
-                                 f"flash (max |err| {(chunked - whole).abs().max().item()})")
-        if not torch.equal(dec[:, 0], whole[0, ps.long()]):
-            raise AssertionError(f"bs={bs}: paged decode is not bitwise flash's rows")
-    kcache, vcache = (a.expand(len(ps), T, nkv, H).contiguous() for a in (k, v))
-    kpos = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(len(ps), T)
-    contig = paged_attention.launch_contig(qd, kcache, vcache, kpos.contiguous(), ps)
-    torch.cuda.synchronize()
-    if not torch.equal(contig[:, 0], whole[0, ps.long()]):
-        raise AssertionError("contiguous decode is not bitwise flash's rows")
-    log("one summation order: chunked prefill (block size 16 and 64), paged decode "
-        "and contiguous decode bitwise equal to whole-prompt flash attention")
+        if not torch.equal(contig[:, 0], want):
+            raise AssertionError(f"{what}: contiguous decode is not bitwise flash's rows")
+    log("one summation order: chunked prefill, paged decode and contiguous decode "
+        "bitwise equal to whole-prompt flash attention on "
+        + "; ".join(f"H={H} NKV={n} G={g} T={t} bs {'/'.join(map(str, b))}"
+                    for H, n, g, t, b in ONE_ORDER_CASES)
+        + " (NaN in every unwritten, unallocated and empty slot)")
 
 
 WKV_TOL = 1e-4     # float32, inputs of unit scale: other summation orders
@@ -706,6 +815,54 @@ def check_wkv6(torch, dev, timer):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
             "shape": f"B={B} T={T} H={H} K=V={K} chunk {chunk} bf16 r/k/v"}
+
+
+RWKV_KN = ((2560, 2560), (2560, 8960), (8960, 2560), (2560, 64), (64, 2560),
+           (2560, 65536))
+
+
+def check_dense_matmul(torch, dev, timer):
+    """The batch-invariant bf16 product at rwkv6-3b's weight shapes (the
+    mixers' 2560 x 2560, channel-mix 2560 -> 8960 -> 2560, the decay
+    LoRA's 2560 -> 64 -> 2560, the 2560 -> 65536 head): within atol = rtol
+    = 2e-2 of ``x @ w`` in bf16 (another summation order, one bf16
+    rounding), and each row bitwise the same at M in {1, 4, 64, 128, 1280}
+    (decode, solo prefills of bucketed prompts, a static batch of 4 x
+    320). Times the decode product 2560 -> 8960 at M = 4 (and, in
+    chip_smoke.json, the same at M = 1280)."""
+    from repro_torch.kernels import dense_matmul, ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    worst = 0.0
+    for K, N in RWKV_KN:
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((1280, K), generator=gen, device=dev).to(torch.bfloat16)
+        full = dense_matmul.launch(x, w)
+        want = ref.dense_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        worst = max(worst, _close(torch, full, want, f"dense_matmul {K}x{N} M=1280"))
+        for m in (1, 4, 64, 128):
+            part = dense_matmul.launch(x[:m], w)
+            torch.cuda.synchronize()
+            if not torch.equal(part, full[:m]):
+                raise AssertionError(f"dense_matmul {K}x{N}: rows at M={m} are not "
+                                     "bitwise the same rows at M=1280")
+    log(f"dense_matmul: {len(RWKV_KN)} rwkv6-3b shapes within atol=rtol={ATOL} of x @ w "
+        f"(max |err| {worst:.3g}); rows bitwise equal at M in {{1, 4, 64, 128, 1280}}")
+
+    def timed(M, K, N):
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        ms = timer(lambda: dense_matmul.launch(x, w))
+        plain_ms = timer(lambda: ref.dense_matmul_ref(x, w))
+        lib_ms = timer(lambda: torch.matmul(x, w))
+        b_ms, b_by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * K * N, BF16_FLOPS_PER_S)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "shape": f"M={M} {K}->{N} bf16"}
+
+    out = timed(4, 2560, 8960)
+    out["prefill"] = timed(1280, 2560, 8960)
+    return {**out, "max_abs_err": worst}
 
 
 # -- the serving path ---------------------------------------------------------
@@ -891,11 +1048,12 @@ def compare_paths(torch, engine, runs):
 
 def compare_rwkv6(torch, runs):
     """rwkv6-3b on engine (e)'s weights: first-token logits of the static
-    batch of 4 vs solo prefill, and the greedy shares (e) vs (f). Printed,
-    not gated: the dense bf16 products are torch.matmul, and cuBLAS may
-    pick another algorithm at another M. The gate on rwkv6 is solo ≡
-    mid-decode admission (solo_vs_mid_decode), whose decode batch has one
-    shape throughout."""
+    batch of 4 vs solo prefill, and the greedy tokens of static (e) vs
+    continuous (f). Every dense product runs the batch-invariant
+    dense_matmul kernel and wkv6 is row- and padding-independent, so a
+    row computes the same bits in a batch and alone. Gated: the logits
+    bitwise equal (max |err| 0) and every greedy request's tokens the
+    same in (e) and (f). Both print before the gate raises."""
     import types
 
     import numpy as np
@@ -921,8 +1079,11 @@ def compare_rwkv6(torch, runs):
     greedy = [r.rid for r in reqs if r.temperature == 0]
     share = _greedy_share(runs["e-rwkv6-static"][3], runs["f-rwkv6-continuous"][3], greedy)
     log(f"rwkv6-3b first-token logits, static batch of 4 vs solo: max |err| {err:.3g} "
-        f"(argmax equal {argmax_same}/{len(prompts)}; not gated); greedy requests with "
-        f"identical tokens, static (e) vs continuous (f): {share}")
+        f"(gated at 0; argmax equal {argmax_same}/{len(prompts)}); greedy requests with "
+        f"identical tokens, static (e) vs continuous (f): {share} (gated at all)")
+    if err != 0.0 or share != f"{len(greedy)}/{len(greedy)}":
+        raise AssertionError(f"rwkv6-3b: static batch vs solo logits max |err| {err}, "
+                             f"greedy (e) vs (f) {share}")
     return {"logits_err_batch_vs_solo": err, "argmax_batch_eq_solo": argmax_same,
             "greedy_share_e_vs_f": share}
 
@@ -1003,17 +1164,19 @@ def paths_diagnostic(torch):
 
 
 def rwkv6_batch_diagnostic(torch):
-    """Part of `chip_smoke.py paths`: why rwkv6-3b's static batch of 4
-    and solo prefill part. Its dense products are torch.matmul in bf16:
-    for each of its weight shapes, how far the rows of a product at M in
-    {1, 4, 64, 128, 256, 320} (decode and solo prefills of the stream's
-    bucketed prompts) differ from the same rows inside a product at M =
-    1280 (a static batch of 4 × 320); and the first-token logits of the
+    """Part of `chip_smoke.py paths`: whether rwkv6-3b's static batch of
+    4 and solo prefill part, and where. For each of its weight shapes, how
+    far the rows of a bf16 product at M in {1, 4, 64, 128, 256, 320}
+    (decode and solo prefills of the stream's bucketed prompts) differ
+    from the same rows inside a product at M = 1280 (a static batch of 4 ×
+    320), for torch.matmul (cuBLAS picks its plan by M) and for the
+    dense_matmul kernel the model runs; and the first-token logits of the
     batch vs solo in bf16 and in a float32 copy of the model (full width,
     4 layers)."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import dense_matmul
     from repro_torch.models import build_model
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1021,10 +1184,11 @@ def rwkv6_batch_diagnostic(torch):
     for K, N in ((2560, 2560), (2560, 8960), (8960, 2560), (2560, 65536)):
         w = (torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5).to(torch.bfloat16)
         x = torch.randn((1280, K), generator=gen, device="cuda").to(torch.bfloat16)
-        full = torch.matmul(x, w).float()
-        for m in (1, 4, 64, 128, 256, 320):
-            res[f"matmul {K}x{N}: rows at M={m} vs the same rows at M=1280"] = \
-                (torch.matmul(x[:m], w).float() - full[:m]).abs().max().item()
+        for name, mm in (("torch.matmul", torch.matmul), ("dense_matmul", dense_matmul.launch)):
+            full = mm(x, w).float()
+            for m in (1, 4, 64, 128, 256, 320):
+                res[f"{name} {K}x{N}: rows at M={m} vs the same rows at M=1280"] = \
+                    (mm(x[:m], w).float() - full[:m]).abs().max().item()
     prompts = [np.random.default_rng(0).integers(0, 65536, n).astype(np.int64)
                for n in (64, 320, 128, 256)]
     for dtype in ("bfloat16", "float32"):
@@ -1216,6 +1380,28 @@ def profile_serve(torch, params_of, names=("chunked-bf16", "a-static")):
     write_detail("profile.json", out)
 
 
+TENSOR_CORE_KERNELS = ("flash_attention", "paged_attention", "paged_prefill",
+                       "dense_matmul")
+
+
+def count_hmma(paths):
+    """The bf16 attention tile and dense_matmul run on the tensor cores:
+    the SASS of their libraries (``cuobjdump -sass``) must hold HMMA
+    instructions. Returns library → HMMA count."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    counts = {}
+    for name in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
+                              text=True, check=True).stdout
+        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+        if counts[name] == 0:
+            raise AssertionError(f"{name}: no HMMA instruction in its SASS")
+    log(f"tensor cores: HMMA instructions in the SASS of {counts}")
+    return counts
+
+
 def write_detail(name: str, data) -> None:
     """Write `data` as JSON to $CHIP_SMOKE_OUT/`name`, if that is set."""
     out = os.environ.get("CHIP_SMOKE_OUT")
@@ -1265,6 +1451,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    hmma = count_hmma(paths)
     timer = Timer(torch, dev)
     results = {
         "fused_quantize_matmul": check_fused(torch, dev, timer),
@@ -1277,6 +1464,8 @@ def main() -> int:
     }
     results["fused_quantize_matmul"]["max_abs_err"] = 0.0
     mixed_err = check_mixed_group(torch, dev)
+    dense = check_dense_matmul(torch, dev, timer)
+    head_dim_err = check_head_dims(torch, dev)
     check_one_order(torch, dev)
     for name, r in results.items():
         for what, e in [(name, r)] + [(f"{name}[{k}]", e)
@@ -1284,9 +1473,14 @@ def main() -> int:
             lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4g} ms"
             log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} "
                 f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib})")
+    log(f"  dense_matmul: {dense['shape']}: {dense['ms']:.4g} ms (bound "
+        f"{dense['bound_ms']:.3g} ms by {dense['bound_by']}, plain {dense['plain_ms']:.4g} "
+        f"ms, torch.matmul {dense['library_ms']:.4g} ms); {dense['prefill']['shape']}: "
+        f"{dense['prefill']['ms']:.4g} ms (bound {dense['prefill']['bound_ms']:.3g}, "
+        f"torch.matmul {dense['prefill']['library_ms']:.4g})")
     log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
     if sys.argv[1:] == ["kernels"]:
-        write_detail("chip_smoke.json", {"kernels": results})
+        write_detail("chip_smoke.json", {"kernels": results, "dense_matmul": dense})
         return 3                 # a partial run: no result line
 
     t0 = time.perf_counter()
@@ -1298,6 +1492,7 @@ def main() -> int:
             counts[k] = counts.get(k, 0) + n
     for k in results:
         results[k]["launches"] = counts[k]
+    dense["launches"] = counts["dense_matmul"]
     # One TPU kernel, two entries: paged decode and contiguous decode.
     entries = results["paged_attention"]["entries"]
     entries["contiguous"]["launches"] = counts["contig_attention"]
@@ -1317,7 +1512,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     write_detail("chip_smoke.json", {
-        "kernels": results, "mixed_group_rel_err": mixed_err,
+        "kernels": results, "dense_matmul": dense, "head_dims_max_err": head_dim_err,
+        "hmma_in_sass": hmma,
+        "mixed_group_rel_err": mixed_err,
         "serve": {name: run[1] for name, run in runs.items()},
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
@@ -1330,6 +1527,11 @@ def main() -> int:
          **({"entries": r["entries"]} if "entries" in r else {})}
         for name, r in results.items()]}
     log(f"total: {time.perf_counter() - t_start:.1f}s")
+    log(json.dumps({"dense_matmul": {
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/dense_matmul.cu",
+        "replaces": None, **{k: dense[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")}}}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

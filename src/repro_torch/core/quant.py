@@ -84,31 +84,78 @@ def _reduce_axes(x: torch.Tensor, axis: int):
     return tuple(i for i in range(x.ndim) if i != axis)
 
 
+_XLA_WINDOW = 32
+_MAE_ELEMS = 1 << 26     # candidate elements evaluated at once (256 MB in float32)
+
+
+def _sum_in_order(t: torch.Tensor, k: int) -> torch.Tensor:
+    """Sum over the last `k` dims of `t`, one element at a time in
+    row-major order, starting from 0."""
+    flat = t.reshape(*t.shape[:t.ndim - k], -1)
+    acc = torch.zeros(flat.shape[:-1], dtype=t.dtype, device=t.device)
+    for i in range(flat.shape[-1]):
+        acc = acc + flat[..., i]
+    return acc
+
+
+def xla_mean(t: torch.Tensor, dims) -> torch.Tensor:
+    """``jnp.mean(t, axis=dims)`` in XLA-CPU's summation order, bitwise.
+
+    XLA's tree-reduction rewrite (read from its optimized HLO and LLVM IR
+    for these reductions) turns a reduction over any dim longer than 32
+    into a reduce-window of 32 along every reduced dim (a dim of at most
+    32 is one window), zero-padded "same" style (the lower pad is half
+    the total, rounded down), and repeats that on the result until every
+    reduced dim is at most 32. Each window, and then the last reduce, is
+    a sequential sum from 0 in row-major order of its elements. The mean
+    is that sum times float32 1/n."""
+    dims = sorted(d % t.ndim for d in dims)
+    n = 1
+    for d in dims:
+        n *= t.shape[d]
+    keep = [d for d in range(t.ndim) if d not in dims]
+    t = t.permute(*keep, *dims)
+    k, lead = len(dims), t.ndim - len(dims)
+    while any(s > _XLA_WINDOW for s in t.shape[lead:]):
+        pads, shape = [], list(t.shape[:lead])
+        for s in t.shape[lead:]:
+            w = min(s, _XLA_WINDOW)
+            out = -(-s // w)
+            total = out * w - s
+            pads.append((total // 2, total - total // 2))
+            shape += [out, w]
+        flat_pad = [p for lo_hi in reversed(pads) for p in lo_hi]
+        t = torch.nn.functional.pad(t, flat_pad).reshape(shape)
+        outs = [lead + 2 * i for i in range(k)]
+        t = _sum_in_order(t.permute(*range(lead), *outs,
+                                    *[o + 1 for o in outs]), k)
+    return _sum_in_order(t, k) * reciprocal_f32(n)
+
+
 def mae_optimal_scale(x: torch.Tensor, bits: int, signed: bool = True,
                       axis: Optional[int] = None) -> torch.Tensor:
     """Clipping-threshold search minimizing the mean absolute error over
     the 32 fractions ``MAE_FRACS`` of |x|max (per tensor, or per channel
-    along `axis`). One candidate at a time: a full-size weight would
-    otherwise hold 32 copies of itself."""
+    along `axis`). Candidates go in groups of at most ``_MAE_ELEMS``
+    elements: a full-size weight would otherwise hold 32 copies of
+    itself. The mean sums in XLA-CPU's order (:func:`xla_mean`):
+    near-tied candidates would otherwise flip."""
     if axis is None:
         absmax = x.abs().max()
-        red = None
+        red = tuple(range(x.ndim))
     else:
         red = _reduce_axes(x, axis)
         absmax = x.abs().amax(dim=red, keepdim=True)
     q_hi = qmax(bits, signed)
     fracs = torch.from_numpy(MAE_FRACS).to(x.device)
-    best_err = best = None
-    for i in range(len(MAE_FRACS)):
-        scale = absmax * fracs[i] / q_hi
+    step = max(1, min(len(MAE_FRACS), _MAE_ELEMS // max(x.numel(), 1)))
+    errs = []
+    for i in range(0, len(MAE_FRACS), step):
+        f = fracs[i:i + step].reshape(-1, *[1] * x.ndim)
+        scale = absmax * f / q_hi                    # (c, ...) candidates
         err = (x - dequantize(quantize(x, scale, bits, signed), scale)).abs()
-        err = err.mean() if red is None else err.mean(dim=red)
-        if best is None:
-            best_err, best = err, torch.zeros_like(err, dtype=torch.long)
-        else:
-            better = err < best_err        # argmin keeps the first minimum
-            best = torch.where(better, torch.full_like(best, i), best)
-            best_err = torch.where(better, err, best_err)
+        errs.append(xla_mean(err, [d + 1 for d in red]))
+    best = torch.argmin(torch.cat(errs), dim=0)      # the first minimum
     return absmax * fracs[best] / q_hi
 
 

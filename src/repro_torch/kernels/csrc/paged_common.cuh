@@ -1,36 +1,31 @@
 // Shared pieces of the decode and chunked-prefill attention kernels: the
 // key sources (the paged pool through a row's block table, or one row of
-// the contiguous cache) and the block-level loop over a row's key tiles.
+// the contiguous cache) and the query rows of a thread block.
 //
-// A thread block attends up to kRowsMax query rows that share one KV head.
-// It walks the keys in tiles of attn::kBK at absolute positions, the tiles
-// of whole-prompt flash attention, gathering each tile's keys from the
-// pool blocks it spans (a block size must divide the tile or be a
-// multiple of it: the wrappers refuse any other) or from the contiguous
-// row, and folds each tile into its rows through attn::attend_tile. So
-// the sums run in one order whatever the pool's block size, and paged
-// decode, contiguous decode and chunked prefill give the bits of
-// whole-prompt prefill for a row that sees the same keys. The math is the
-// TPU kernels' (repro/kernels/paged_attention.py _paged_kernel,
+// A key source maps an absolute key position to its token slot (-1: an
+// unallocated block or an empty slot), so a tile of attn::kBK keys at
+// absolute positions gathers its keys from the pool blocks it spans (a
+// block size must divide the tile or be a multiple of it: the wrappers
+// refuse any other) or from the contiguous row. Every kernel then folds
+// the tiles through the drivers of attend_tile.cuh, so the sums run in
+// one order whatever the pool's block size, and paged decode, contiguous
+// decode and chunked prefill give the bits of whole-prompt prefill for a
+// row that sees the same keys. The math is the TPU kernels'
+// (repro/kernels/paged_attention.py _paged_kernel,
 // repro/kernels/paged_prefill.py _chunk_kernel): scores on the cache's
 // values (int8 codes times the per-key scale for an int8 cache), times
 // H^-0.5, optional tanh softcap, probabilities times the per-value scale
 // for an int8 cache; keys in unallocated (-1) blocks or empty (-1) slots
-// are masked and never loaded as a whole tile; rows that see no key
-// output zeros. Tiles past the last query position are never loaded.
+// are masked and staged as zeros, wholly unallocated tiles are never
+// loaded; rows that see no key output zeros.
 #pragma once
 
 #include "attend_tile.cuh"
 
 namespace paged {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsMax = 16;             // query rows per block
-constexpr int kRPW = kRowsMax / kWarps;  // rows per warp
-
+constexpr int kGMax = 16;                // query heads per KV head
 using attn::kBK;
-using attn::to_f;
 
 // Keys of one row in the paged pool: position pos lives in token slot
 // tbl[pos / bs] * bs + pos % bs, or nowhere (-1) if its block is unallocated.
@@ -64,73 +59,20 @@ struct ContigSrc {
   __device__ bool tile_live(int kt) const { return kt * kBK < S; }
 };
 
-// Rows: row r = ii * G + g reads q at q_base + ii * ii_stride + g * H and
-// sits at absolute position qpos(ii) = ii < n_valid ? pos0 + ii * pos_step
-// : -1 (no key visible). out has q's layout. nI * G <= kRowsMax.
-template <typename QT, typename KT, bool QUANT, typename Src>
-__device__ void attend_rows(const QT* __restrict__ q_base, QT* __restrict__ out_base,
-                            long ii_stride, int nI, int G, int H,
-                            int pos0, int pos_step, int n_valid,
-                            const KT* __restrict__ pool_k, const KT* __restrict__ pool_v,
-                            const float* __restrict__ k_scale,
-                            const float* __restrict__ v_scale, Src src, int NKV,
-                            int head, float scale, float softcap) {
-  __shared__ float q_s[kRowsMax][attn::kHMax];
-  __shared__ attn::Tile tile;
-  __shared__ int live_s[kBK];
-  const int R = nI * G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  for (int i = tid; i < R * H; i += kThreads) {
-    const int r = i / H, h = i % H;
-    q_s[r][h] = to_f(q_base[(long)(r / G) * ii_stride + (r % G) * H + h]);
+// Query rows of a block: row r = ii * G + g (r < R) reads q at
+// ii * ii_stride + g * H (relative to the block's base) and sits at
+// absolute position pos0 + ii * pos_step if ii < n_valid; a padded query
+// (ii >= n_valid) sees no key. out has q's layout.
+struct Rows {
+  long ii_stride;
+  int R, G, H, pos0, pos_step, n_valid;
+  __device__ bool exists(int r) const { return r < R; }
+  __device__ int lo(int) const { return 0; }
+  __device__ int hi(int r) const {
+    const int ii = r / G;
+    return ii < n_valid ? pos0 + ii * pos_step : -1;
   }
-  attn::Row st[kRPW];
-#pragma unroll
-  for (int rr = 0; rr < kRPW; ++rr) attn::row_init(st[rr]);
-  const int n_live = min(nI, n_valid);
-  const int last = n_live > 0 ? pos0 + (n_live - 1) * pos_step : -1;
-  const int ntiles = last < 0 ? 0 : last / kBK + 1;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (!src.tile_live(kt)) continue;   // wholly unallocated: never loaded
-    const int k_lo = kt * kBK;
-    __syncthreads();                    // the previous tile's readers are done
-    for (int i = tid; i < kBK * H; i += kThreads) {
-      const int j = i / H, d = i % H;
-      const long sl = src.slot(k_lo + j);
-      const long off = (sl * NKV + head) * H + d;
-      tile.k[j][d] = sl >= 0 ? to_f(pool_k[off]) : 0.f;
-      tile.v[j][d] = sl >= 0 ? to_f(pool_v[off]) : 0.f;
-    }
-    for (int j = tid; j < kBK; j += kThreads) {
-      const long sl = src.slot(k_lo + j);
-      live_s[j] = sl >= 0;
-      if (QUANT) {
-        tile.ks[j] = sl >= 0 ? k_scale[sl * NKV + head] : 0.f;
-        tile.vs[j] = sl >= 0 ? v_scale[sl * NKV + head] : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int rr = 0; rr < kRPW; ++rr) {
-      const int r = warp * kRPW + rr;
-      if (r >= R) continue;                         // warp-uniform
-      const int ii = r / G;
-      const int qpos = ii < n_valid ? pos0 + ii * pos_step : -1;
-      const int jhi = min(kBK - 1, qpos - k_lo);
-      attn::attend_tile<QUANT>(st[rr], q_s[r], tile, H, lane <= jhi && live_s[lane],
-                               0, jhi, scale, softcap, lane);
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRPW; ++rr) {
-    const int r = warp * kRPW + rr;
-    if (r >= R) continue;
-    attn::row_store(st[rr], out_base + (long)(r / G) * ii_stride + (r % G) * H, H, lane);
-  }
-}
+  __device__ long q_off(int r) const { return (long)(r / G) * ii_stride + (long)(r % G) * H; }
+};
 
 }  // namespace paged

@@ -13,6 +13,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import HEAD_DIMS
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -21,7 +22,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of the C entry (checked against its source by the tests).
 ARGTYPES = [_P] * 4 + [_I] * 11 + [_F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_H_MAX = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,8 +47,8 @@ def launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise ValueError(f"q and k/v must be float32 or bfloat16, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if H > _H_MAX:
-        raise ValueError(f"head dim {H} exceeds the kernel's {_H_MAX}")
+    if H not in HEAD_DIMS:
+        raise ValueError(f"head dim {H} is not one of the kernel's {HEAD_DIMS}")
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention kernel needs CUDA tensors on one device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

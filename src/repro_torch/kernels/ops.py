@@ -11,7 +11,9 @@ over the contiguous cache by ``decode_attention``), paged chunked
 prefill, the row quantizer and the unfused integer matmul (the Table
 III mixed-group path), flash attention (whole-prompt prefill) and the
 RWKV-6 chunked recurrence ``wkv6``. The attention kernels share one
-tile routine, so every attention path sums in one order. The JAX
+tile routine, so every attention path sums in one order. One kernel has
+no Pallas counterpart: ``dense_matmul``, the batch-invariant bf16
+product that rwkv6's dense layers run on the card. The JAX
 registry (block plans, autotune, plan files) is not part of the port.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import bitplane_matmul as _bpm
+from repro_torch.kernels import dense_matmul as _dense
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_matmul as _fused
 from repro_torch.kernels import pack_quant as _pq
@@ -37,6 +40,7 @@ _MODULES = {
     "bitplane_matmul": _bpm,
     "flash_attention": _flash,
     "wkv6": _wkv6,
+    "dense_matmul": _dense,
 }
 
 
@@ -211,6 +215,23 @@ def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
                          "takes full (non-ring) caches only")
     return _paged.launch_contig(q, k_cache, v_cache, kpos, q_pos, k_scale=k_scale,
                                 v_scale=v_scale, softcap=softcap)
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over the last dim of x: (..., K) × (K, N) → (..., N) in
+    x's dtype, each row's bits independent of how many rows share the
+    product. The plain version is ``x @ w.to(x.dtype)``. On the card a
+    bfloat16 x launches the batch-invariant kernel; a float32 x goes to
+    ``torch.matmul`` in full float32, a dtype route, not a fallback: the
+    port's float32 models serve the card-vs-CPU checks, which hold logits
+    within a tolerance, not bitwise."""
+    if _on_cpu(x, "dense_matmul"):
+        return _ref.dense_matmul_ref(x, w)
+    if x.dtype == torch.float32:
+        return x @ w.to(torch.float32)
+    lead = x.shape[:-1]
+    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    return y.reshape(*lead, w.shape[1])
 
 
 def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64):

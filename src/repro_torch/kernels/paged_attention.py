@@ -3,6 +3,9 @@
 Replaces ``repro/kernels/paged_attention.py::paged_attention``: one query
 token per row attends the paged KV pool through its block table, with
 in-kernel dequantization of an int8 pool (``csrc/paged_attention.cu``).
+In bf16 the kernel runs split over the context (one warp per row, KV
+head and split of ``SPLIT`` keys, partial results in scratch allocated
+here) and a second launch folds the splits in order.
 
 The same kernel code has a second entry, :func:`launch_contig`: one
 token per row attends one layer of the contiguous cache (B, S, NKV, H),
@@ -28,14 +31,19 @@ contig_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signatures of the C entries (checked against their source by the
 #: tests): ``paged_attention`` and ``contig_attention``.
-ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _F, _P]
-CONTIG_ATTENTION_ARGTYPES = [_P] * 8 + [_I] * 7 + [_F, _F, _P]
+ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
+CONTIG_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 8 + [_F, _F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Keys per tile of every attention kernel (csrc/attend_tile.cuh): tiles sit
 #: at absolute positions, whatever the pool's block size.
 TILE = 32
-_G_MAX = 16     # query heads per KV head a thread block holds
-_H_MAX = 128
+#: Keys per split (csrc/attend_tile.cuh): bf16 decode runs one warp per
+#: (row, KV head, split) and folds the splits in a second launch.
+SPLIT = 64
+_G_MAX = 16     # query heads per KV head a 16-row tile holds
+#: Head dims the attention kernels are instantiated for: every config of
+#: the JAX package, full (64-256) and reduced (16).
+HEAD_DIMS = (16, 64, 80, 128, 160, 192, 256)
 
 
 def check_block_size(block_size: int) -> None:
@@ -48,9 +56,20 @@ def check_block_size(block_size: int) -> None:
 
 
 def check_heads(NQ: int, NKV: int, H: int) -> None:
-    if NQ % NKV or NQ // NKV > _G_MAX or H > _H_MAX:
+    if NQ % NKV or NQ // NKV > _G_MAX or H not in HEAD_DIMS:
         raise ValueError(f"query heads {NQ} must be a multiple (<= {_G_MAX}x) of "
-                         f"KV heads {NKV}, head dim <= {_H_MAX} (got {H})")
+                         f"KV heads {NKV}, head dim one of {HEAD_DIMS} (got {H})")
+
+
+def _scratch(q, B, NKV, H, keys):
+    """Split scratch of bf16 decode (None, None for float32): each split's
+    (O, (m, l)) for the 16 rows of a (row, KV head) tile, float32."""
+    if q.dtype != torch.bfloat16:
+        return None, None, 0
+    ns = max(1, -(-keys // SPLIT))
+    part_o = torch.empty((B, NKV, ns, 16, H), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, NKV, ns, 16, 2), dtype=torch.float32, device=q.device)
+    return part_o, part_ml, ns
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,12 +114,15 @@ def launch(q, pool_k, pool_v, block_table, q_pos, k_scale=None, v_scale=None,
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32).reshape(B)
     out = torch.empty_like(q)
+    part_o, part_ml, ns = _scratch(q, B, NKV, H, table.shape[1] * bs)
     null = 0
     rc = _fn()(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                k_scale.data_ptr() if quant else null,
                v_scale.data_ptr() if quant else null,
                table.data_ptr(), pos.contiguous().data_ptr(), out.data_ptr(),
-               B, NQ, NKV, H, bs, table.shape[1], _DTYPES[q.dtype], int(quant),
+               null if part_o is None else part_o.data_ptr(),
+               null if part_ml is None else part_ml.data_ptr(),
+               B, NQ, NKV, H, bs, table.shape[1], ns, _DTYPES[q.dtype], int(quant),
                H ** -0.5, softcap,
                torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_attention")
@@ -124,12 +146,15 @@ def launch_contig(q, k_cache, v_cache, slot_pos, q_pos, k_scale=None, v_scale=No
     sp = slot_pos.to(device=q.device, dtype=torch.int32).contiguous()
     pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32).reshape(B)
     out = torch.empty_like(q)
+    part_o, part_ml, ns = _scratch(q, B, NKV, H, S)
     null = 0
     rc = _fn("contig_attention")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else null, v_scale.data_ptr() if quant else null,
         sp.data_ptr(), pos.contiguous().data_ptr(), out.data_ptr(),
-        B, NQ, NKV, H, S, _DTYPES[q.dtype], int(quant), H ** -0.5, softcap,
+        null if part_o is None else part_o.data_ptr(),
+        null if part_ml is None else part_ml.data_ptr(),
+        B, NQ, NKV, H, S, ns, _DTYPES[q.dtype], int(quant), H ** -0.5, softcap,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "contig_attention")
     launches += 1

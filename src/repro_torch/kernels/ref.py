@@ -79,6 +79,11 @@ def mixed_group_matmul_ref(x, w8_codes, wl_codes, scale8, scalel, a_bits: int):
     return torch.cat([y8, yl], dim=1)
 
 
+def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype: the plain version of ``dense_matmul``."""
+    return x @ w.to(x.dtype)
+
+
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
                         q_offset: int = 0) -> torch.Tensor:
     """Naive float32 softmax attention over (BH, T, D): key j is visible

@@ -11,9 +11,12 @@ The recurrence runs through ``ops.wkv6_chunked`` (prefill: the chunked
 algebra with the state carried in and out, chunk boundaries at absolute
 positions) and ``ops.wkv6_step`` (decode: one token with the carried
 state) — the CUDA ``wkv6`` kernel on the card, its plain versions on the
-CPU. The dense products are plain bf16 matrix products, as the JAX
-package leaves them to XLA. The JAX package serves rwkv6 unquantized, and
-so does the port (``model_zoo.check_policy``).
+CPU. Every dense product (the mixers' projections, the decay LoRA, the
+LM head) goes through ``ops.dense_matmul`` (:func:`_linear`): plain
+``x @ w`` on the CPU, as the JAX package leaves them to XLA, and on the
+card a bf16 kernel whose rows do not depend on M, so a prompt's logits
+are the same bits in a static batch and alone. The JAX package serves
+rwkv6 unquantized, and so does the port (``model_zoo.check_policy``).
 """
 from __future__ import annotations
 
@@ -88,8 +91,14 @@ def _shift(x: torch.Tensor, tail: torch.Tensor) -> torch.Tensor:
     return torch.cat([tail[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
+def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Every dense product of the model: ``x @ w`` in x's dtype, each row
+    independent of the number of rows on the card (``ops.dense_matmul``)."""
+    return ops.dense_matmul(x, w)
+
+
 def _decay(tm: dict, xw: torch.Tensor) -> torch.Tensor:
-    lora = torch.tanh(xw @ tm["decay_a"].to(xw.dtype)) @ tm["decay_b"].to(xw.dtype)
+    lora = _linear(torch.tanh(_linear(xw, tm["decay_a"])), tm["decay_b"])
     dw = tm["decay_base"].to(torch.float32) + lora.to(torch.float32)
     return torch.exp(-torch.exp(dw))  # (…, d) in (0, 1)
 
@@ -126,10 +135,10 @@ def time_mix(p: dict, cfg: ModelConfig, x, tail, wkv_state, lengths=None):
     xx = _shift(x, tail)
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (_mix(x, xx, mu, i) for i in range(5))
-    r = cm.linear(xr, p["w_recept"]).reshape(B, T, H, K)
-    k = cm.linear(xk, p["w_key"]).reshape(B, T, H, K)
-    v = cm.linear(xv, p["w_value"]).reshape(B, T, H, K)
-    g = F.silu(cm.linear(xg, p["w_gate"]))
+    r = _linear(xr, p["w_recept"]).reshape(B, T, H, K)
+    k = _linear(xk, p["w_key"]).reshape(B, T, H, K)
+    v = _linear(xv, p["w_value"]).reshape(B, T, H, K)
+    g = F.silu(_linear(xg, p["w_gate"]))
     w = _decay(p, xw).reshape(B, T, H, K)
     if lengths is not None:
         real = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
@@ -139,7 +148,7 @@ def time_mix(p: dict, cfg: ModelConfig, x, tail, wkv_state, lengths=None):
     out, state = ops.wkv6_chunked(r, k, v, w, p["u"], wkv_state, chunk=cfg.rwkv_chunk)
     out = out.reshape(B, T, d).to(x.dtype)
     out = _group_norm(out, H, p["gn_scale"], p["gn_bias"]) * g
-    return cm.linear(out, p["w_out"]), _last_real(x, lengths), state
+    return _linear(out, p["w_out"]), _last_real(x, lengths), state
 
 
 def time_mix_step(p: dict, cfg: ModelConfig, x, tail, wkv_state):
@@ -149,20 +158,20 @@ def time_mix_step(p: dict, cfg: ModelConfig, x, tail, wkv_state):
     xt = x[:, 0]
     mu = p["mu"].to(x.dtype)
     xr, xk, xv, xw, xg = (_mix(xt, tail.to(x.dtype), mu, i) for i in range(5))
-    r = cm.linear(xr, p["w_recept"]).reshape(B, H, K)
-    k = cm.linear(xk, p["w_key"]).reshape(B, H, K)
-    v = cm.linear(xv, p["w_value"]).reshape(B, H, K)
-    g = F.silu(cm.linear(xg, p["w_gate"]))
+    r = _linear(xr, p["w_recept"]).reshape(B, H, K)
+    k = _linear(xk, p["w_key"]).reshape(B, H, K)
+    v = _linear(xv, p["w_value"]).reshape(B, H, K)
+    g = F.silu(_linear(xg, p["w_gate"]))
     w = _decay(p, xw).reshape(B, H, K)
     out, state = ops.wkv6_step(r, k, v, w, p["u"], wkv_state)
     out = out.reshape(B, d).to(x.dtype)
     out = _group_norm(out, H, p["gn_scale"], p["gn_bias"]) * g
-    return cm.linear(out, p["w_out"])[:, None, :], xt, state
+    return _linear(out, p["w_out"])[:, None, :], xt, state
 
 
 def _channel(p: dict, xk, xr):
-    kk = torch.square(torch.relu(cm.linear(xk, p["w_key"])))
-    return torch.sigmoid(cm.linear(xr, p["w_recept"])) * cm.linear(kk, p["w_value"])
+    kk = torch.square(torch.relu(_linear(xk, p["w_key"])))
+    return torch.sigmoid(_linear(xr, p["w_recept"])) * _linear(kk, p["w_value"])
 
 
 def channel_mix(p: dict, x, tail, lengths=None):
@@ -223,7 +232,7 @@ def prefill(params, cfg: ModelConfig, batch):
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32).to(tokens.device)
     hidden, state = _forward(params, cfg, tokens, None, lengths)
-    logits = cm.logits_head(cm.last_token_slice(hidden, lengths), params["head"])
+    logits = _linear(cm.last_token_slice(hidden, lengths), params["head"]).float()
     pos = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
            if lengths is None else lengths.clone())
     return DecodeCache(pos=pos, rwkv=state), logits
@@ -246,7 +255,7 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache, tokens):
         st.tm_shift[i] = tm2
         st.cm_shift[i] = cm2
     hidden = cm.apply_norm(x, params["final_norm"], "layernorm")
-    logits = cm.logits_head(hidden, params["head"])
+    logits = _linear(hidden, params["head"]).float()
     cache.pos = cache.pos + 1
     return cache, logits
 

@@ -35,6 +35,38 @@ def test_mae_fracs_are_jax_linspace():
     assert np.array_equal(tq.MAE_FRACS, np.asarray(jnp.linspace(0.35, 1.0, 32)))
 
 
+@pytest.mark.parametrize("axis", [1, 0, None])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_mae_optimal_scale_bitwise(bits, axis):
+    """The MAE clip search picks JAX's scale on every input: its mean sums
+    in XLA-CPU's order (``tq.xla_mean``), so near-tied candidates break
+    the same way. 200 seeds of the packing test's input shape; the JAX
+    side runs them as one vmapped batch (a kept leading dim leaves each
+    reduction's order as it is)."""
+    xs = np.stack([(np.random.default_rng(seed).standard_normal((64, 40)) * 0.05)
+                   .astype(np.float32) for seed in range(200)])
+    want = np.asarray(jax.vmap(lambda x: jq.mae_optimal_scale(x, bits, True, axis=axis))(
+        jnp.asarray(xs)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # 200 small searches: pool start-up dominates
+    try:
+        got = np.stack([tq.mae_optimal_scale(torch.from_numpy(x), bits, True, axis=axis)
+                        .numpy() for x in xs])
+    finally:
+        torch.set_num_threads(threads)
+    bad = [seed for seed in range(200) if not np.array_equal(want[seed], got[seed])]
+    assert not bad, f"seeds {bad} pick another scale than JAX"
+
+
+@pytest.mark.parametrize("shape,dims", [((64, 40), (0,)), ((64, 40), (0, 1)),
+                                        ((2048, 40), (0,)), ((50000,), (0,)),
+                                        ((3, 70, 33), (1, 2))])
+def test_xla_mean_bitwise(shape, dims):
+    a = np.random.default_rng(len(shape) + sum(shape)).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jnp.mean(jnp.asarray(a), axis=dims))
+    assert np.array_equal(want, tq.xla_mean(torch.from_numpy(a), dims).numpy())
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_pack_bytes_bitwise(bits):
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
@@ -58,7 +90,9 @@ def test_quantize_tensor_codes_and_scales_bitwise(bits, axis):
 
 @pytest.mark.parametrize("spec", ["w4a8", "w2a6", "w8a8", "w4a8r25"])
 def test_pack_weight_bitwise(spec):
-    w = (RNG.standard_normal((64, 40)) * 0.05).astype(np.float32)
+    # Seed 112 is one of the inputs on which a mean in another order than
+    # XLA's flipped a near-tied w2 candidate.
+    w = (np.random.default_rng(112).standard_normal((64, 40)) * 0.05).astype(np.float32)
     cfg_j = jax_policy(spec).default
     cfg_t = torch_policy(spec).default
     assert_packed_equal(jql.pack_weight(jnp.asarray(w), cfg_j),

@@ -257,7 +257,8 @@ _BINDINGS = [("fused_matmul", "fused_matmul", "fused_quantize_matmul"),
              ("bitplane_matmul", "bitplane_matmul", "bitplane_matmul"),
              ("flash_attention", "flash_attention", "flash_attention"),
              ("paged_attention", "paged_attention", "contig_attention"),
-             ("wkv6", "wkv6", "wkv6")]
+             ("wkv6", "wkv6", "wkv6"),
+             ("dense_matmul", "dense_matmul", "dense_matmul")]
 
 
 @pytest.mark.parametrize("module,source,entry", _BINDINGS)
@@ -279,3 +280,36 @@ def test_ctypes_signature_matches_the_c_entry(module, source, entry):
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     assert getattr(mod, f"{entry.upper()}_ARGTYPES", mod.ARGTYPES) == want
     assert source in build.KERNELS
+
+
+@pytest.mark.parametrize("H", [16, 64, 80, 128, 160, 192, 256])
+def test_check_heads_takes_every_config_head_dim(H):
+    """The attention kernels are instantiated for every head dim of the
+    JAX package's configs (16: the reduced ones), up to 16 query heads a
+    KV head."""
+    from repro_torch.kernels.paged_attention import HEAD_DIMS, check_heads
+
+    assert H in HEAD_DIMS
+    check_heads(16, 1, H)
+    check_heads(32, 8, H)
+
+
+@pytest.mark.parametrize("NQ,NKV,H", [(4, 4, 32), (4, 4, 96), (4, 4, 512), (34, 2, 128),
+                                      (6, 4, 128)])
+def test_check_heads_refuses_the_rest(NQ, NKV, H):
+    from repro_torch.kernels.paged_attention import check_heads
+
+    with pytest.raises(ValueError):
+        check_heads(NQ, NKV, H)
+
+
+def test_split_scratch_covers_every_key():
+    """bf16 decode gets one (O, m, l) slot per split of 64 keys a row may
+    hold; float32 decode folds in the block and gets none."""
+    from repro_torch.kernels.paged_attention import SPLIT, _scratch
+
+    for keys in (1, 63, 64, 65, 640):
+        o, ml, ns = _scratch(torch.zeros(1, dtype=torch.bfloat16), 3, 2, 80, keys)
+        assert ns * SPLIT >= keys > (ns - 1) * SPLIT
+        assert o.shape == (3, 2, ns, 16, 80) and ml.shape == (3, 2, ns, 16, 2)
+    assert _scratch(torch.zeros(1), 3, 2, 80, 64) == (None, None, 0)

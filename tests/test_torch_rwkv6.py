@@ -280,3 +280,21 @@ def test_full_config_is_jax_s():
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert (cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab) == (32, 2560, 8960, 65536)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_dense_matmul_cpu_is_the_plain_product(dtype, lead):
+    """On the CPU ops.dense_matmul is bitwise ``x @ w.to(x.dtype)``, the
+    product rwkv6 ran before the kernel, so every CPU parity test keeps
+    its bits."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((*lead, 64)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((64, 40)).astype(np.float32)).to(torch.bfloat16)
+    assert torch.equal(ops.dense_matmul(x, w), x @ w.to(dtype))
+
+
+def test_dense_matmul_never_falls_back():
+    x = torch.zeros((2, 8), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.dense_matmul(x, torch.zeros((8, 8), dtype=torch.bfloat16))

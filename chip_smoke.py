@@ -15,15 +15,20 @@
    softmax) and 1e-4 in float32, also at head dims 80 and 256
    (``check_head_dims``); the Table III mixed-group matmul within 1e-6
    relative; wkv6 within 1e-4 in float32 (and bitwise independent of
-   padding); ``dense_matmul`` within 2e-2 of ``x @ w`` and its rows
-   bitwise the same at M in {1, 4, 64, 128, 1280}. The attention kernels
+   padding); ``bitplane_matmul`` bitwise at M in {4, 17, 64, 200, 1280}
+   (each tile plan) and on a ragged shape; ``dense_matmul`` within 2e-2 of
+   ``x @ w`` and its rows bitwise the same at M in {1, 4, 17, 64, 65, 128,
+   200, 640, 1280} (every tiling, split and unsplit K). The SASS of the
+   bf16 tensor-core kernels must hold HMMA, bitplane_matmul's IMMA
+   (``count_hmma``). The attention kernels
    share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
    chunked prefill, paged decode and contiguous decode must be bitwise
    whole-prompt flash attention on the same keys (``check_one_order``:
    several splits, GQA 4 and 8, head dims 80 / 128 / 256, block sizes 16
    / 32 / 64, NaN in every slot no row may see).
 3. Times each kernel, its plain version and one PyTorch library call on
-   the same inputs where one computes the same function (CUDA events,
+   the same inputs where one computes the same function, at the
+   decode and the prefill shape of the matmuls (CUDA events,
    median of 20, L2 flushed before each, the card held until the host
    has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
@@ -213,9 +218,25 @@ def check_fused(torch, dev, timer):
     lib_ms = timer(lambda: torch.matmul(x_bf16, w_bf16))
     nbytes = M * K * 4 + K * N * 4 // 8 + M * N * 4 + M * 4
     b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "cases": cases,
-            "shape": f"M={M} K={K} N={N} w4a8"}
+    decode = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "shape": f"M={M} K={K} N={N} w4a8"}
+
+    # The same weights at a static prefill's M = 4·320, for the next port
+    # slice to rank from; library: torch._int_mm on the unpacked codes, the
+    # activations' quantization not counted.
+    M = 1280
+    x = torch.randn((M, K), generator=gen, device=dev)
+    xq = ref.quantize_rows_ref(x, 8, True)[0]
+    w8 = unpack_weights(packed, 4).to(torch.int8).contiguous()
+    ms = timer(lambda: fused_matmul.launch(x, packed, **kw))
+    plain_ms = timer(lambda: ref.fused_quantize_matmul_ref(x, packed, **kw))
+    lib_ms = timer(lambda: torch._int_mm(xq, w8))
+    nbytes = M * K * 4 + K * N * 4 // 8 + M * N * 4 + M * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+    prefill = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch._int_mm (quantization not counted)",
+               "bound_ms": b_ms, "bound_by": b_by, "shape": f"M={M} K={K} N={N} w4a8"}
+    return {**decode, "cases": cases, "entries": {"decode": decode, "prefill": prefill}}
 
 
 def _pool(torch, dev, gen, nb, bs, nkv, H, quant):
@@ -456,57 +477,89 @@ def check_quantize_rows(torch, dev, timer):
 OLMO_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 1536))
 
 
+BITPLANE_M = (4, 17, 64, 200, 1280)   # each plan switch (32/64/128 rows), a ragged tile
+BITPLANE_RAGGED = (37, 200, 100)       # (M, K, N): no 16-byte rows, partial tiles
+
+
+def int_mm_time(torch, timer, xq, w8):
+    """torch._int_mm's time on xq, or, where xq has fewer rows than it
+    accepts (more than 16 on CUDA), on xq padded with zero rows to the
+    smallest M it takes: returns (ms, M timed)."""
+    for m in (xq.shape[0], 17, 24, 32):
+        if m < xq.shape[0]:
+            continue
+        xm = torch.nn.functional.pad(xq, (0, 0, 0, m - xq.shape[0]))
+        try:
+            torch._int_mm(xm, w8)
+        except RuntimeError:
+            continue
+        return timer(lambda: torch._int_mm(xm, w8)), m
+    raise AssertionError(f"torch._int_mm takes none of the M tried for {tuple(xq.shape)}")
+
+
 def check_bitplane(torch, dev, timer):
     from repro_torch.core.bitplane import pack_weights, unpack_weights
     from repro_torch.kernels import bitplane_matmul, ref
 
     gen = torch.Generator(device=dev).manual_seed(5)
     cases = 0
-    for M in (4, 1280):
+
+    def case(M, K, N, w_bits):
+        nonlocal cases
+        lo, hi = -(1 << (w_bits - 1)), (1 << (w_bits - 1))
+        codes = torch.randint(lo, hi, (K, N), generator=gen, device=dev, dtype=torch.int32)
+        packed = pack_weights(codes, w_bits, axis=0)
+        for a_bits in (2, 4, 6, 8):
+            for signed in (True, False):
+                alo, ahi = ((-(1 << (a_bits - 1)), 1 << (a_bits - 1))
+                            if signed else (0, 1 << a_bits))
+                xq = torch.randint(alo, ahi, (M, K), generator=gen,
+                                   device=dev, dtype=torch.int32).to(torch.int8)
+                for plane_lo in ((0,) if w_bits == 2 else (0, 1)):
+                    kw = dict(w_bits=w_bits, a_bits=a_bits,
+                              act_signed=signed, w_plane_lo=plane_lo)
+                    got = bitplane_matmul.launch(xq, packed, **kw)
+                    want = ref.bitplane_matmul_ref(xq, packed, a_bits, signed,
+                                                   plane_lo, w_bits=w_bits)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"bitplane M={M} K={K} N={N} w{w_bits} a{a_bits} "
+                            f"signed={signed} lo={plane_lo} plan={bitplane_matmul.plan(M, K, N)}: "
+                            f"{(got != want).sum().item()} mismatches")
+                    cases += 1
+
+    for M in BITPLANE_M:
         for K, N in OLMO_KN:
             for w_bits in (2, 4, 8):
-                lo, hi = -(1 << (w_bits - 1)), (1 << (w_bits - 1))
-                codes = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
-                                      dtype=torch.int32)
-                packed = pack_weights(codes, w_bits, axis=0)
-                for a_bits in (2, 4, 6, 8):
-                    for signed in (True, False):
-                        alo, ahi = ((-(1 << (a_bits - 1)), 1 << (a_bits - 1))
-                                    if signed else (0, 1 << a_bits))
-                        xq = torch.randint(alo, ahi, (M, K), generator=gen,
-                                           device=dev, dtype=torch.int32).to(torch.int8)
-                        for plane_lo in ((0, 1) if w_bits == 8 else (0,)):
-                            kw = dict(w_bits=w_bits, a_bits=a_bits,
-                                      act_signed=signed, w_plane_lo=plane_lo)
-                            got = bitplane_matmul.launch(xq, packed, **kw)
-                            want = ref.bitplane_matmul_ref(xq, packed, a_bits, signed,
-                                                           plane_lo, w_bits=w_bits)
-                            torch.cuda.synchronize()
-                            if not torch.equal(got, want):
-                                raise AssertionError(
-                                    f"bitplane M={M} K={K} N={N} w{w_bits} a{a_bits} "
-                                    f"signed={signed} lo={plane_lo}: "
-                                    f"{(got != want).sum().item()} mismatches")
-                            cases += 1
-    log(f"bitplane_matmul: {cases} cases (M in {{4, 1280}}, (K, N) in {OLMO_KN}, "
-        "w2/w4/w8, a2/4/6/8 signed and unsigned, plane_lo 0/1 on w8) bitwise "
-        "equal to the plain version")
+                case(M, K, N, w_bits)
+    for w_bits in (2, 4, 8):
+        case(*BITPLANE_RAGGED, w_bits)
+    log(f"bitplane_matmul: {cases} cases (M in {BITPLANE_M}, (K, N) in {OLMO_KN}, and "
+        f"(M, K, N) = {BITPLANE_RAGGED}; w2/w4/w8, a2/4/6/8 signed and unsigned, plane_lo "
+        "0/1 on w4 and w8) bitwise equal to the plain version")
 
-    # Timing: the low group of a w4a6r25 w_up at static prefill (M = 4·320).
-    M, K, N = 1280, 2048, 6144
+    # Timing: the low group of a w4a6r25 w_up at static prefill (M = 4·320)
+    # and at decode (M = 4), the same weights.
+    K, N = 2048, 6144
     codes = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int32)
     packed = pack_weights(codes, 4, axis=0)
-    xq = torch.randint(-32, 32, (M, K), generator=gen, device=dev,
-                       dtype=torch.int32).to(torch.int8)
-    kw = dict(w_bits=4, a_bits=6, act_signed=True, w_plane_lo=0)
-    ms = timer(lambda: bitplane_matmul.launch(xq, packed, **kw))
-    plain_ms = timer(lambda: ref.bitplane_matmul_ref(xq, packed, 6, True, 0, w_bits=4))
     w8 = unpack_weights(packed, 4).to(torch.int8).contiguous()
-    lib_ms = timer(lambda: torch._int_mm(xq, w8))
-    b_ms, b_by = bound_ms(M * K + K * N // 2 + M * N * 4, 2 * M * K * N, INT8_OPS_PER_S)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
-            "cases": cases, "shape": f"M={M} K={K} N={N} w4a6"}
+    kw = dict(w_bits=4, a_bits=6, act_signed=True, w_plane_lo=0)
+    entries = {}
+    for name, M in (("prefill", 1280), ("decode", 4)):
+        xq = torch.randint(-32, 32, (M, K), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        ms = timer(lambda: bitplane_matmul.launch(xq, packed, **kw))
+        plain_ms = timer(lambda: ref.bitplane_matmul_ref(xq, packed, 6, True, 0, w_bits=4))
+        lib_ms, lib_m = int_mm_time(torch, timer, xq, w8)
+        b_ms, b_by = bound_ms(M * K + K * N // 2 + M * N * 4, 2 * M * K * N, INT8_OPS_PER_S)
+        entries[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library": f"torch._int_mm at M={lib_m}",
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "plan": bitplane_matmul.plan(M, K, N)._asdict(),
+                         "shape": f"M={M} K={K} N={N} w4a6"}
+    return {**entries["prefill"], "max_abs_err": 0.0, "cases": cases, "entries": entries}
 
 
 def check_mixed_group(torch, dev):
@@ -821,15 +874,20 @@ RWKV_KN = ((2560, 2560), (2560, 8960), (8960, 2560), (2560, 64), (64, 2560),
            (2560, 65536))
 
 
+DENSE_M = (1, 4, 17, 64, 65, 128, 200, 640)   # rows bitwise those at M = 1280
+
+
 def check_dense_matmul(torch, dev, timer):
     """The batch-invariant bf16 product at rwkv6-3b's weight shapes (the
     mixers' 2560 x 2560, channel-mix 2560 -> 8960 -> 2560, the decay
     LoRA's 2560 -> 64 -> 2560, the 2560 -> 65536 head): within atol = rtol
     = 2e-2 of ``x @ w`` in bf16 (another summation order, one bf16
-    rounding), and each row bitwise the same at M in {1, 4, 64, 128, 1280}
-    (decode, solo prefills of bucketed prompts, a static batch of 4 x
-    320). Times the decode product 2560 -> 8960 at M = 4 (and, in
-    chip_smoke.json, the same at M = 1280)."""
+    rounding), and each row bitwise the same at every M of DENSE_M as at
+    M = 1280 (decode, solo prefills of bucketed prompts, a static batch of
+    4 x 320), across every tiling (split decode blocks folded by a second
+    launch; strips and wide tiles folding in the block). Times the decode
+    products 2560 -> 8960 and 8960 -> 2560 (K split) at M = 4, and
+    2560 -> 8960 at M = 1280."""
     from repro_torch.kernels import dense_matmul, ref
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -841,14 +899,16 @@ def check_dense_matmul(torch, dev, timer):
         want = ref.dense_matmul_ref(x, w)
         torch.cuda.synchronize()
         worst = max(worst, _close(torch, full, want, f"dense_matmul {K}x{N} M=1280"))
-        for m in (1, 4, 64, 128):
+        for m in DENSE_M:
             part = dense_matmul.launch(x[:m], w)
             torch.cuda.synchronize()
             if not torch.equal(part, full[:m]):
-                raise AssertionError(f"dense_matmul {K}x{N}: rows at M={m} are not "
-                                     "bitwise the same rows at M=1280")
+                raise AssertionError(
+                    f"dense_matmul {K}x{N}: rows at M={m} (plan "
+                    f"{dense_matmul.launch_plan(m, K, N)}) are not bitwise the same rows "
+                    f"at M=1280 (plan {dense_matmul.launch_plan(1280, K, N)})")
     log(f"dense_matmul: {len(RWKV_KN)} rwkv6-3b shapes within atol=rtol={ATOL} of x @ w "
-        f"(max |err| {worst:.3g}); rows bitwise equal at M in {{1, 4, 64, 128, 1280}}")
+        f"(max |err| {worst:.3g}); rows bitwise equal at M in {DENSE_M} and 1280")
 
     def timed(M, K, N):
         w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
@@ -857,12 +917,14 @@ def check_dense_matmul(torch, dev, timer):
         plain_ms = timer(lambda: ref.dense_matmul_ref(x, w))
         lib_ms = timer(lambda: torch.matmul(x, w))
         b_ms, b_by = bound_ms(2 * (M * K + K * N + M * N), 2 * M * K * N, BF16_FLOPS_PER_S)
+        S, _, bm = dense_matmul.launch_plan(M, K, N)
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "shape": f"M={M} {K}->{N} bf16"}
+                "bound_by": b_by, "slices": S, "rows_per_block": bm,
+                "shape": f"M={M} {K}->{N} bf16"}
 
-    out = timed(4, 2560, 8960)
-    out["prefill"] = timed(1280, 2560, 8960)
-    return {**out, "max_abs_err": worst}
+    entries = {"decode": timed(4, 2560, 8960), "decode_split": timed(4, 8960, 2560),
+               "prefill": timed(1280, 2560, 8960)}
+    return {**entries["decode"], "max_abs_err": worst, "entries": entries}
 
 
 # -- the serving path ---------------------------------------------------------
@@ -1380,25 +1442,28 @@ def profile_serve(torch, params_of, names=("chunked-bf16", "a-static")):
     write_detail("profile.json", out)
 
 
-TENSOR_CORE_KERNELS = ("flash_attention", "paged_attention", "paged_prefill",
-                       "dense_matmul")
+# Library → the tensor-core instruction its SASS must hold.
+TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
+                       "paged_prefill": "HMMA", "dense_matmul": "HMMA",
+                       "bitplane_matmul": "IMMA"}
 
 
 def count_hmma(paths):
-    """The bf16 attention tile and dense_matmul run on the tensor cores:
-    the SASS of their libraries (``cuobjdump -sass``) must hold HMMA
-    instructions. Returns library → HMMA count."""
+    """The bf16 attention tile and dense_matmul run on the bf16 tensor
+    cores, bitplane_matmul on the int8 ones: the SASS of their libraries
+    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions. Returns
+    library → count."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     counts = {}
-    for name in TENSOR_CORE_KERNELS:
+    for name, op in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
                               text=True, check=True).stdout
-        counts[name] = sum("HMMA" in line for line in sass.splitlines())
+        counts[name] = sum(op in line for line in sass.splitlines())
         if counts[name] == 0:
-            raise AssertionError(f"{name}: no HMMA instruction in its SASS")
-    log(f"tensor cores: HMMA instructions in the SASS of {counts}")
+            raise AssertionError(f"{name}: no {op} instruction in its SASS")
+    log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}")
     return counts
 
 
@@ -1467,17 +1532,12 @@ def main() -> int:
     dense = check_dense_matmul(torch, dev, timer)
     head_dim_err = check_head_dims(torch, dev)
     check_one_order(torch, dev)
-    for name, r in results.items():
+    for name, r in [*results.items(), ("dense_matmul", dense)]:
         for what, e in [(name, r)] + [(f"{name}[{k}]", e)
                                       for k, e in r.get("entries", {}).items()]:
             lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4g} ms"
             log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} "
                 f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib})")
-    log(f"  dense_matmul: {dense['shape']}: {dense['ms']:.4g} ms (bound "
-        f"{dense['bound_ms']:.3g} ms by {dense['bound_by']}, plain {dense['plain_ms']:.4g} "
-        f"ms, torch.matmul {dense['library_ms']:.4g} ms); {dense['prefill']['shape']}: "
-        f"{dense['prefill']['ms']:.4g} ms (bound {dense['prefill']['bound_ms']:.3g}, "
-        f"torch.matmul {dense['prefill']['library_ms']:.4g})")
     log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
     if sys.argv[1:] == ["kernels"]:
         write_detail("chip_smoke.json", {"kernels": results, "dense_matmul": dense})
@@ -1531,7 +1591,7 @@ def main() -> int:
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/dense_matmul.cu",
         "replaces": None, **{k: dense[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")}}}))
+            "library_ms", "shape", "entries")}}}))
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

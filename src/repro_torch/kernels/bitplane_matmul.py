@@ -4,12 +4,14 @@ packed weight codes.
 Replaces ``repro/kernels/bitplane_matmul.py::bitplane_matmul``: (M, K)
 int8 activation codes × 2/4/8-bit weight codes read packed (``w_bits=8``:
 the (K, N) codes themselves) → the exact (M, N) int32 product
-(``csrc/bitplane_matmul.cu``).
+(``csrc/bitplane_matmul.cu``, on the int8 tensor cores). The grid and
+the K split are :func:`plan`, a pure function of (M, K, N).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -20,7 +22,42 @@ launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signature of the C entry (checked against its source by the tests).
-ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+
+SMS = 132      # streaming multiprocessors of an H100 SXM
+BN = 128       # output columns per block
+KT = 128       # K codes per shared tile: a K slice is a whole number of them
+
+
+class Plan(NamedTuple):
+    """Rows per block, K codes per slice, and the grid (N tiles, K
+    slices, M tiles). Block (x, y, z) owns rows [z·bm, (z+1)·bm), columns
+    [x·BN, (x+1)·BN) and K codes [y·kb, (y+1)·kb), clipped to (M, N, K)."""
+    bm: int
+    kb: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def single_slice(self) -> bool:
+        """One K slice: the kernel stores every element of the output, so
+        the wrapper need not zero it (a split adds slices atomically)."""
+        return self.grid[1] == 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, K: int, N: int) -> Plan:
+    """32, 64 or 128 rows per block by M; K split into whole tiles until
+    about two blocks per SM are in flight (decode is bound by the weight
+    bytes, so every SM should stream its share). The product is exact in
+    integers, so the plan changes no bit of the result."""
+    bm = 32 if M <= 32 else 64 if M <= 64 else 128
+    n_tiles, m_tiles, k_tiles = _cdiv(N, BN), _cdiv(M, bm), _cdiv(K, KT)
+    want = min(max(_cdiv(2 * SMS, n_tiles * m_tiles), 1), k_tiles)
+    per = _cdiv(k_tiles, want)
+    return Plan(bm, per * KT, (n_tiles, _cdiv(k_tiles, per), m_tiles))
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,6 +80,8 @@ def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
         raise ValueError("w_packed must be (K*bits/8, N) int8")
     if w_bits not in (2, 4, 8) or not 2 <= a_bits <= 8:
         raise ValueError(f"unsupported precision w{w_bits}a{a_bits}")
+    if not 0 <= 2 * w_plane_lo < w_bits:
+        raise ValueError(f"w_plane_lo={w_plane_lo} keeps no plane of w{w_bits}")
     m, k = x_codes.shape
     if w_packed.shape[0] * 8 != k * w_bits:
         raise ValueError(f"packed rows {w_packed.shape[0]} do not hold K={k} "
@@ -52,9 +91,11 @@ def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
     x_codes = x_codes.contiguous()
     w_packed = w_packed.contiguous()
     n = w_packed.shape[1]
-    acc = torch.zeros((m, n), dtype=torch.int32, device=x_codes.device)
+    p = plan(m, k, n)
+    alloc = torch.empty if p.single_slice else torch.zeros
+    acc = alloc((m, n), dtype=torch.int32, device=x_codes.device)
     rc = _fn()(x_codes.data_ptr(), w_packed.data_ptr(), m, k, n, w_bits, a_bits,
-               int(act_signed), w_plane_lo, acc.data_ptr(),
+               int(act_signed), w_plane_lo, p.bm, p.kb, p.grid[1], acc.data_ptr(),
                torch.cuda.current_stream(x_codes.device).cuda_stream)
     build.check(rc, "bitplane_matmul")
     launches += 1

@@ -1,118 +1,291 @@
 // Exact integer matmul of int8 activation codes by packed weight codes,
-// for Hopper.
+// for Hopper's int8 tensor cores.
 //
 // Replaces repro/kernels/bitplane_matmul.py::bitplane_matmul
 // (_bitplane_matmul_kernel): (M, K) activation codes times (K, N) weight
 // codes give the exact (M, N) int32 product. The TPU kernel splits the
 // activations into 2-bit offset-binary planes, runs one MXU pass per
 // plane and subtracts offset * colsum(W); the sum it builds is x @ W, and
-// dp4a computes that product directly, so no plane, offset or colsum
-// exists here: odd a_bits need no partial top plane, and zero padding
-// (codes past K or N) contributes exact zeros. The weights arrive as
-// PackedWeight bytes (2/4/8 bits, little-endian along K; w_bits = 8 is the
-// (K, N) codes themselves) and are unpacked in registers, so the low-bit
-// group of a Table III layer is never unpacked in device memory.
-// w_plane_lo is an arithmetic shift of each unpacked weight code before
-// it enters the product, the TPU kernel's "shift before the colsum
-// correction". Unsigned activation codes may arrive wrapped (an 8-bit 255
-// is stored as int8 -1): they are read mod 2^a_bits and contracted with
-// dp4a.u32.s32.
+// the int8 mma computes that product directly, so no plane, offset or
+// colsum exists here: odd a_bits need no partial top plane, and zero
+// padding (codes past M, K or N) contributes exact zeros. The weights
+// arrive as PackedWeight bytes (2/4/8 bits, little-endian along K; w_bits
+// = 8 is the (K, N) codes themselves) and are unpacked in registers on
+// their way into the mma's B fragments, so the low-bit group of a Table
+// III layer is never unpacked in device memory. w_plane_lo is an
+// arithmetic shift of each unpacked weight code before it enters the
+// product, the TPU kernel's "shift before the colsum correction".
+// Unsigned activation codes may arrive wrapped (an 8-bit 255 is stored as
+// int8 -1): their A fragments are masked to a_bits and read as u8.
 //
-// Bound on the H100: the Table III matmul at decode and prefill shapes
-// streams K*N*bits/8 weight bytes against M*K code bytes; like the fused
-// kernel it is bound by the weight bytes at small M. The design is the
-// fused kernel's (packed_matmul.cuh: 128 columns and one K slice per
-// block, split-K with integer atomics, so a row's result never depends on
-// M); only the prologue differs: it stages the block's int8 code tile in
-// shared memory instead of quantizing floats.
+// Bound on the H100: at prefill (M = 1280) the 2 M K N operations bound it
+// (1 979 TOP/s int8); at decode the K N bits/8 packed weight bytes do.
+// Design: `mma.sync.m16n8k32` s8/u8 x s8 -> s32 on 128-column blocks of
+// 32, 64 or 128 rows (8 warps, 2 along M x 4 along N; a warp owns a
+// 16*MI x 32 tile), K walked in 128-code tiles through a 3-stage cp.async
+// ring. The activation tile feeds ldmatrix; the packed tile stays packed
+// in shared memory. A warp's four n8 tiles interleave their columns
+// (tile j, column g is column 4 g + j of the warp's 32), so a lane's B
+// fragments for all four tiles come from one 32-bit word (4 columns) per
+// packed row: bits/2 loads per 4 K codes, then a sign-extending field
+// extraction and a 4 x 4 byte transpose (__byte_perm). The grid and the
+// K split come from the caller's plan (kernels/bitplane_matmul.py::plan):
+// one K slice stores every element, a split adds slices with integer
+// atomics into a zeroed output. Integer addition is exact and
+// associative, so any plan gives the same bits.
 
-#include "packed_matmul.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
-using pm::kBN;
-using pm::kKBMax;
-using pm::kThreads;
+constexpr int kThreads = 256;   // 8 warps: 2 along M x 4 along N
+constexpr int kBN = 128;        // output columns per block
+constexpr int kKT = 128;        // K codes per shared tile (one 128-byte row of x)
+constexpr int kStages = 3;
 
-template <int BITS, int BM, bool SIGNED>
-__global__ void __launch_bounds__(kThreads)
-bitplane_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp,
-                       int M, int K, int N, int kb, int amask, int shift,
-                       int vec_loads, int32_t* __restrict__ acc) {
-  __shared__ uint32_t xq[BM][kKBMax / 4];
-  __shared__ int accs[BM][kBN];
+template <int MI, int BITS>
+struct Smem {
+  int8_t a[kStages][32 * MI][kKT];             // activation codes, rows x K
+  int8_t b[kStages][kKT * BITS / 8][kBN];      // packed weight bytes, K rows x N
+};
 
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kBN;
-  const int k0 = blockIdx.y * kb;
-  const int k1 = min(K, k0 + kb);
-  const int m0 = blockIdx.z * BM;
-  const int nq = (k1 - k0 + 3) / 4;
-
-  for (int i = tid; i < BM * kBN; i += kThreads) accs[i / kBN][i % kBN] = 0;
-  for (int i = tid; i < BM * nq; i += kThreads) {
-    const int r = i / nq, w = i % nq, m = m0 + r;
-    int c[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * w + j;
-      const int v = (m < M && k < k1) ? (int)x[(size_t)m * K + k] : 0;
-      c[j] = SIGNED ? v : (v & amask);
-    }
-    xq[r][w] = pm::pack4(c[0], c[1], c[2], c[3]);
-  }
-  __syncthreads();
-
-  pm::contract_tile<BITS, BM, SIGNED>(xq, accs, wp, M, K, N, k0, nq, n0, m0,
-                                      shift, vec_loads, acc);
+// XOR swizzles by 16-byte chunk. x rows are 8 chunks: chunk c of row r at
+// c ^ (r & 7), so ldmatrix's 8 rows hit 8 bank groups. Packed rows are 8
+// chunks: chunk c of packed row p at c ^ (2 ((p / RPQ) & 3)), so the four
+// K quads a warp's lanes read at once (p / RPQ = t mod 4) sit in
+// different bank groups.
+template <int MI, int BITS>
+__device__ __forceinline__ int8_t* a_at(Smem<MI, BITS>& s, int st, int r, int c) {
+  return &s.a[st][r][(c ^ (r & 7)) << 4];
+}
+template <int MI, int BITS>
+__device__ __forceinline__ int8_t* b_at(Smem<MI, BITS>& s, int st, int p, int c) {
+  constexpr int RPQ = BITS / 2;
+  return &s.b[st][p][(c ^ (((p / RPQ) & 3) << 1)) << 4];
 }
 
-template <int BITS, int BM>
-void launch_bm(dim3 grid, bool sgn, cudaStream_t st, const int8_t* x,
-               const int8_t* wp, int M, int K, int N, int kb, int amask,
-               int shift, int vec, int32_t* acc) {
-  if (sgn)
-    bitplane_matmul_kernel<BITS, BM, true><<<grid, kThreads, 0, st>>>(
-        x, wp, M, K, N, kb, amask, shift, vec, acc);
-  else
-    bitplane_matmul_kernel<BITS, BM, false><<<grid, kThreads, 0, st>>>(
-        x, wp, M, K, N, kb, amask, shift, vec, acc);
+// One 16-byte chunk from global memory into shared memory: cp.async when
+// the operands are 16-byte aligned (`vec`), else byte loads, `n` valid
+// bytes (0..16) and zeros after them.
+__device__ __forceinline__ void load16(int8_t* dst, const int8_t* src, int n, bool vec) {
+  if (vec) {
+    mma::cp16(dst, n > 0 ? src : nullptr, n > 0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) dst[j] = j < n ? src[j] : (int8_t)0;
+  }
+}
+
+// 4 bytes of sign-extended codes of width b held in the low b bits of each
+// byte of x (the bits above masked off): byte | (sign bit * (2^(9-b) - 2)),
+// which fills bits b..7 without a carry across bytes (mult = 0 for b = 8).
+__device__ __forceinline__ uint32_t sext4(uint32_t x, uint32_t sign, uint32_t mult) {
+  return x | ((x & sign) * mult);
+}
+
+template <int MI, int BITS, bool SIGNED>
+__global__ void __launch_bounds__(kThreads)
+imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M, int K,
+            int N, int kb, uint32_t amask4, int shift, int vec, int32_t* __restrict__ acc) {
+  constexpr int BM = 32 * MI;
+  constexpr int RPQ = BITS / 2;    // packed rows per quad of K codes
+  constexpr int EPB = 8 / BITS;    // codes per byte
+  constexpr int PR = kKT * BITS / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  Smem<MI, BITS>& s = *reinterpret_cast<Smem<MI, BITS>*>(smem);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.z * BM;
+  const int ks0 = blockIdx.y * kb, ks1 = min(K, ks0 + kb);
+  const int nk = (ks1 - ks0 + kKT - 1) / kKT;
+  const int kp_rows = K * BITS / 8;
+  const bool v = vec != 0;
+
+  auto load = [&](int st, int kt) {
+    const int k0 = ks0 + kt * kKT;
+#pragma unroll
+    for (int i = 0; i < BM * (kKT / 16) / kThreads; ++i) {
+      const int idx = tid + i * kThreads, r = idx >> 3, c = idx & 7;
+      const int gm = m0 + r, gk = k0 + 16 * c;
+      const int n = gm < M ? max(0, min(16, K - gk)) : 0;
+      load16(a_at(s, st, r, c), x + (size_t)gm * K + gk, n, v);
+    }
+#pragma unroll
+    for (int i = 0; i < PR * (kBN / 16) / kThreads; ++i) {
+      const int idx = tid + i * kThreads, p = idx >> 3, c = idx & 7;
+      const int gp = k0 * BITS / 8 + p, gn = n0 + 16 * c;
+      const int n = gp < kp_rows ? max(0, min(16, N - gn)) : 0;
+      load16(b_at(s, st, p, c), wp + (size_t)gp * N + gn, n, v);
+    }
+  };
+
+  int d[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][j][e] = 0;
+
+  // Field extraction: width b = BITS - shift (the planes kept).
+  const int b = BITS - shift;
+  const uint32_t fmask = ((1u << b) - 1u) * 0x01010101u;
+  const uint32_t fsign = (1u << (b - 1)) * 0x01010101u;
+  const uint32_t fmult = (1u << (9 - b)) - 2u;
+  const bool active = m0 + wm * 16 * MI < M;   // warp-uniform: rows past M skip the mma
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nk) load(st, st);
+    mma::cp_commit();
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();   // tile kt has landed; the stage refilled below is free
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) load(nxt % kStages, nxt);
+    mma::cp_commit();
+    if (!active) continue;
+    const int st = kt % kStages;
+#pragma unroll
+    for (int ks = 0; ks < kKT / 32; ++ks) {     // k32 steps
+      uint32_t bf[4][2];                        // [n8 tile][k half]
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = ks * 8 + 4 * h + t;       // K quad of this lane's fragment
+        uint32_t W[RPQ];
+#pragma unroll
+        for (int r = 0; r < RPQ; ++r)
+          W[r] = *reinterpret_cast<const uint32_t*>(
+              b_at(s, st, q * RPQ + r, wn * 2 + (g >> 2)) + 4 * (g & 3));
+        uint32_t F[4];                          // byte c: code (k = 4q + kk, column c)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          F[kk] = sext4((W[kk / EPB] >> ((kk % EPB) * BITS + shift)) & fmask, fsign, fmult);
+        const uint32_t lo01 = __byte_perm(F[0], F[1], 0x5140);
+        const uint32_t hi01 = __byte_perm(F[0], F[1], 0x7362);
+        const uint32_t lo23 = __byte_perm(F[2], F[3], 0x5140);
+        const uint32_t hi23 = __byte_perm(F[2], F[3], 0x7362);
+        bf[0][h] = __byte_perm(lo01, lo23, 0x5410);
+        bf[1][h] = __byte_perm(lo01, lo23, 0x7632);
+        bf[2][h] = __byte_perm(hi01, hi23, 0x5410);
+        bf[3][h] = __byte_perm(hi01, hi23, 0x7632);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        uint32_t a[4];
+        mma::ldm_x4(a, a_at(s, st, wm * 16 * MI + i * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+        if (!SIGNED) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] &= amask4;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma::mma16832<SIGNED>(d[i][j], a, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  if (!active) return;
+
+  // Lane (g, t) holds, for each m16 tile, rows g and g + 8 at the 8
+  // consecutive columns 8 t .. 8 t + 7 of the warp's 32: tile j's C column
+  // 2t (+1) is column 8 t + j (+4).
+  const bool split = gridDim.y > 1;
+  const int c0 = n0 + wn * 32 + 8 * t;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 16 * MI + i * 16 + g + 8 * h;
+      if (row >= M) continue;
+      int o[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[j] = d[i][j][2 * h];
+        o[4 + j] = d[i][j][2 * h + 1];
+      }
+      int32_t* dst = acc + (size_t)row * N + c0;
+      if (!split && v && c0 + 8 <= N) {
+        reinterpret_cast<int4*>(dst)[0] = make_int4(o[0], o[1], o[2], o[3]);
+        reinterpret_cast<int4*>(dst)[1] = make_int4(o[4], o[5], o[6], o[7]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (c0 + e < N) {
+            if (split) atomicAdd(dst + e, o[e]);
+            else dst[e] = o[e];
+          }
+      }
+    }
+}
+
+template <int MI, int BITS, bool SIGNED>
+cudaError_t launch_imma(dim3 grid, cudaStream_t st, const int8_t* x, const int8_t* wp,
+                        int M, int K, int N, int kb, uint32_t amask4, int shift, int vec,
+                        int32_t* acc) {
+  constexpr int bytes = (int)sizeof(Smem<MI, BITS>);
+  auto kern = imma_kernel<MI, BITS, SIGNED>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, kThreads, bytes, st>>>(x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  return cudaSuccess;
+}
+
+template <int BITS, bool SIGNED>
+cudaError_t imma_mi(int bm, dim3 grid, cudaStream_t st, const int8_t* x, const int8_t* wp,
+                    int M, int K, int N, int kb, uint32_t amask4, int shift, int vec,
+                    int32_t* acc) {
+  if (bm == 32)
+    return launch_imma<1, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  if (bm == 64)
+    return launch_imma<2, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  return launch_imma<4, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
 }
 
 template <int BITS>
-void launch_bits(int bm, dim3 grid, bool sgn, cudaStream_t st, const int8_t* x,
-                 const int8_t* wp, int M, int K, int N, int kb, int amask,
-                 int shift, int vec, int32_t* acc) {
-  if (bm == 4)
-    launch_bm<BITS, 4>(grid, sgn, st, x, wp, M, K, N, kb, amask, shift, vec, acc);
-  else if (bm == 8)
-    launch_bm<BITS, 8>(grid, sgn, st, x, wp, M, K, N, kb, amask, shift, vec, acc);
-  else
-    launch_bm<BITS, 16>(grid, sgn, st, x, wp, M, K, N, kb, amask, shift, vec, acc);
+cudaError_t imma_bits(bool sgn, int bm, dim3 grid, cudaStream_t st, const int8_t* x,
+                      const int8_t* wp, int M, int K, int N, int kb, uint32_t amask4,
+                      int shift, int vec, int32_t* acc) {
+  if (sgn) return imma_mi<BITS, true>(bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  return imma_mi<BITS, false>(bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
 }
 
 }  // namespace
 
 // x (M, K) int8 activation codes; wp (K*bits/8, N) int8 packed weight
-// codes; acc (M, N) int32, zero-filled by the caller. Returns the CUDA
-// error code of the launch (0 = launched).
-extern "C" int bitplane_matmul(const int8_t* x, const int8_t* wp, int M, int K,
-                               int N, int bits, int a_bits, int act_signed,
-                               int w_plane_lo, int32_t* acc, void* stream) {
+// codes; acc (M, N) int32, zero-filled by the caller when ksplit > 1.
+// The plan (kernels/bitplane_matmul.py::plan): bm rows per block (32, 64
+// or 128), kb K codes per slice (a multiple of 128), ksplit slices.
+// Returns the CUDA error code of the launch (0 = launched).
+extern "C" int bitplane_matmul(const int8_t* x, const int8_t* wp, int M, int K, int N,
+                               int bits, int a_bits, int act_signed, int w_plane_lo,
+                               int bm, int kb, int ksplit, int32_t* acc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const pm::Plan p = pm::plan(M, K, N);
-  const int amask = (1 << a_bits) - 1;
   const int shift = 2 * w_plane_lo;
-  const int vec = (N % 4 == 0) ? 1 : 0;
-  const bool sgn = act_signed != 0;
-  if (bits == 8)
-    launch_bits<8>(p.bm, p.grid, sgn, st, x, wp, M, K, N, p.kb, amask, shift, vec, acc);
-  else if (bits == 4)
-    launch_bits<4>(p.bm, p.grid, sgn, st, x, wp, M, K, N, p.kb, amask, shift, vec, acc);
-  else if (bits == 2)
-    launch_bits<2>(p.bm, p.grid, sgn, st, x, wp, M, K, N, p.kb, amask, shift, vec, acc);
-  else
+  if ((bits != 2 && bits != 4 && bits != 8) || a_bits < 2 || a_bits > 8 || shift < 0 ||
+      shift >= bits || (bm != 32 && bm != 64 && bm != 128) || ksplit < 1 || kb < 1 ||
+      kb % kKT || (long long)kb * ksplit < K || (long long)kb * (ksplit - 1) >= K)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kBN - 1) / kBN, ksplit, (M + bm - 1) / bm);
+  const int vec = (K % 16 == 0 && N % 16 == 0 && (uintptr_t)x % 16 == 0 &&
+                   (uintptr_t)wp % 16 == 0 && (uintptr_t)acc % 16 == 0) ? 1 : 0;
+  const uint32_t amask4 = (uint32_t)((1 << a_bits) - 1) * 0x01010101u;
+  const bool sgn = act_signed != 0;
+  cudaError_t e;
+  if (bits == 8)
+    e = imma_bits<8>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  else if (bits == 4)
+    e = imma_bits<4>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  else
+    e = imma_bits<2>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

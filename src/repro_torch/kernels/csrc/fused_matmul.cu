@@ -12,8 +12,7 @@
 // the int8 ridge point, so the kernel is bound by the weight bytes. The
 // design spreads the weight stream over every SM: a block owns 128
 // output columns and one slice of K (split-K), and the 8 warps of a block
-// walk the slice's K quads (packed_matmul.cuh, shared with the unfused
-// bitplane_matmul.cu). Whole-prompt prefill runs it at M = B*L (up to
+// walk the slice's K quads (packed_matmul.cuh). Whole-prompt prefill runs it at M = B*L (up to
 // 1280 rows); the integer product is exact, so rows stay independent of M.
 //
 // Quantization is the JAX kernel's prologue: scale = absmax * (1/qhi)

@@ -1,6 +1,7 @@
-// PTX helpers of the tensor-core kernels (attend_tile.cuh, dense_matmul.cu):
-// cp.async 16-byte copies into shared memory, ldmatrix, and the
-// m16n8k16 bf16 mma.sync with an fp32 accumulator.
+// PTX helpers of the tensor-core kernels (attend_tile.cuh, dense_matmul.cu,
+// bitplane_matmul.cu): cp.async 16-byte copies into shared memory,
+// ldmatrix, the m16n8k16 bf16 mma.sync with an fp32 accumulator and the
+// m16n8k32 int8 mma.sync with an int32 accumulator.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,6 +40,25 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: one m16n8k32 product of 8-bit codes, int32 accumulator. B is
+// signed (s8); A is s8, or u8 when SIGNED is false (codes up to 255).
+template <bool SIGNED>
+__device__ __forceinline__ void mma16832(int* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  if (SIGNED)
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -1,7 +1,8 @@
-// Shared device code of the two packed-weight integer matmuls
-// (fused_matmul.cu, bitplane_matmul.cu): the dp4a contraction of a block's
-// activation-code tile against 2/4/8-bit weight codes read packed from
-// device memory, and the grid plan both launch with.
+// Device code of the fused packed-weight integer matmul (fused_matmul.cu):
+// the dp4a contraction of a block's activation-code tile against 2/4/8-bit
+// weight codes read packed from device memory, and the grid plan it
+// launches with. (The unfused bitplane_matmul.cu runs on the int8 tensor
+// cores instead.)
 //
 // A block owns kBN = 128 output columns, BM rows and one slice of K
 // (split-K). Its activation codes sit in shared memory as words of 4

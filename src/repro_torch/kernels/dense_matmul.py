@@ -1,16 +1,20 @@
 """CUDA wrapper of the batch-invariant bf16 product ``y = x @ W``.
 
 Not a port of a Pallas kernel (the JAX package leaves rwkv6's dense
-products to XLA): one tile plan for every M and K walked in order, so a
-row's bits never depend on how many rows share its product
-(``csrc/dense_matmul.cu``). rwkv6 runs every dense product of its row
-path through it on the card, which makes static batches and solo
-prefill, and so static and continuous serving, agree bitwise.
+products to XLA): a row's bits never depend on how many rows share its
+product (``csrc/dense_matmul.cu``). The summation order is :func:`plan`,
+a function of (K, N) alone: S slices of whole K tiles, each a chain of
+k16 tensor-core steps from zero, folded ((p0 + p1) + p2) + ... in fp32.
+The tile plan (:func:`tiles`) may follow M, since every plan runs those
+same chains. rwkv6 runs every dense product of its row path through it
+on the card, which makes static batches and solo prefill, and so static
+and continuous serving, agree bitwise.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -21,7 +25,51 @@ launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signature of the C entry (checked against its source by the tests).
-ARGTYPES = [_P, _P, _P, _I, _I, _I, _P]
+ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+SMS = 132       # streaming multiprocessors of an H100 SXM
+KT = 128        # K elements per tile: a slice is a whole number of them
+STRIP_N = 32    # columns of a strip, the unit the K split is sized by
+DECODE = 16     # rows of a split decode block (16 x 128, one K slice each)
+WIDE = 128      # rows and columns of a wide tile (the prefill tiling)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(K: int, N: int) -> int:
+    """S, the number of K slices: about two blocks per SM at decode if each
+    32-column strip of N took S of them (S = 4 for 2560 or 8960 → 2560,
+    1 for 2560 → 8960 and the 65 536-wide head, 20 for 2560 → 64), each
+    slice a whole number of K tiles and none empty. It never reads M: a
+    row's summation order is the same at every batch size."""
+    k_tiles = _cdiv(K, KT)
+    want = min(max(_cdiv(2 * SMS, _cdiv(N, STRIP_N)), 1), k_tiles)
+    return _cdiv(k_tiles, _cdiv(k_tiles, want))
+
+
+def slice_k(K: int, N: int) -> int:
+    """K elements per slice of :func:`plan` (the last one may be shorter)."""
+    return _cdiv(_cdiv(K, KT), plan(K, N)) * KT
+
+
+def tiles(M: int, K: int, N: int) -> int:
+    """Rows per block: 128 × 128 wide tiles once they fill half the SMs;
+    at decode (M <= 16) with K split, 16 × 128 blocks, one per K slice;
+    else 64 × 32 strips. Wide tiles and strips walk all slices in one
+    block. Every tiling gives the same bits."""
+    if M > 64 and _cdiv(M, WIDE) * _cdiv(N, WIDE) >= SMS // 2:
+        return WIDE
+    if M <= DECODE and plan(K, N) > 1:
+        return DECODE
+    return 64
+
+
+def launch_plan(M: int, K: int, N: int) -> Tuple[int, int, int]:
+    """(S, slice length, rows per block) as :func:`launch` passes them:
+    the summation order from (K, N), the tiling from (M, K, N)."""
+    return plan(K, N), slice_k(K, N), tiles(M, K, N)
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,8 +95,12 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     M, K = x.shape
     N = w.shape[1]
+    S, sk, bm = launch_plan(M, K, N)
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    rc = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N,
+    part = (torch.empty((S, M, N), dtype=torch.float32, device=x.device)
+            if S > 1 and bm == DECODE else None)
+    rc = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+               0 if part is None else part.data_ptr(), M, K, N, S, sk, bm,
                torch.cuda.current_stream(x.device).cuda_stream)
     build.check(rc, "dense_matmul")
     launches += 1

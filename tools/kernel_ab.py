@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Time the port's matmul kernels of two checkouts on one GPU, in turns.
+
+  python3 tools/kernel_ab.py <other checkout> [<this checkout>]
+
+Builds ``bitplane_matmul``, ``dense_matmul`` and ``fused_matmul`` from
+each checkout's ``src/repro_torch/kernels/csrc`` and times them at the
+serving path's decode and prefill shapes, in four processes on the same
+card: other, this, this, other (two runs each, so the spread between a
+version's two runs shows beside the difference between versions). Each
+process imports only its own checkout's ``repro_torch``; the timer is
+``chip_smoke.Timer`` of this checkout for both (CUDA events, median of
+20, L2 flushed before each call). Inputs come from fixed seeds, the same
+in every process. Prints one line per shape and writes the numbers to
+``$CHIP_SMOKE_OUT/kernel_ab.json`` when that is set. Needs a CUDA GPU.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (kernel, M, K, N, w_bits): the w4a6r25 groups of olmo-1b's w_up and
+# w_down, the fused w4a8 w_up, rwkv6-3b's mixers and channel mix.
+SHAPES = [("bitplane_matmul", M, K, N, b) for M in (1280, 4)
+          for K, N, b in ((2048, 6144, 4), (2048, 2048, 8), (8192, 1536, 4))]
+SHAPES += [("fused_matmul", M, 2048, 8192, 4) for M in (4, 1280)]
+SHAPES += [("dense_matmul", M, K, N, 16) for M in (4, 1280)
+           for K, N in ((2560, 8960), (8960, 2560), (2560, 2560))]
+
+
+def worker(root: str) -> None:
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch
+
+    from repro_torch.core.bitplane import pack_weights
+    from repro_torch.kernels import bitplane_matmul, build, dense_matmul, fused_matmul
+
+    # chip_smoke puts this checkout's src first on sys.path: import it only
+    # after the kernels of `root` are loaded.
+    sys.path.insert(1, HERE)
+    from chip_smoke import Timer
+
+    if not build.__file__.startswith(os.path.join(root, "src")):
+        raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
+    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul"])
+    dev = torch.device("cuda")
+    timer = Timer(torch, dev)
+    out = {}
+    for i, (name, M, K, N, bits) in enumerate(SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        if name == "dense_matmul":
+            w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            fn = lambda: dense_matmul.launch(x, w)  # noqa: E731
+        else:
+            half = 1 << (bits - 1)
+            codes = torch.randint(-half, half, (K, N), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            packed = pack_weights(codes, bits, axis=0)
+            if name == "bitplane_matmul":
+                xq = torch.randint(-32, 32, (M, K), generator=gen, device=dev,
+                                   dtype=torch.int32).to(torch.int8)
+                fn = lambda: bitplane_matmul.launch(  # noqa: E731
+                    xq, packed, w_bits=bits, a_bits=6, act_signed=True, w_plane_lo=0)
+            else:
+                x = torch.randn((M, K), generator=gen, device=dev)
+                fn = lambda: fused_matmul.launch(  # noqa: E731
+                    x, packed, w_bits=bits, a_bits=8, act_signed=True, w_plane_lo=0)
+        dtype = "bf16" if name == "dense_matmul" else f"w{bits}"
+        out[f"{name} M={M} {K}->{N} {dtype}"] = timer(fn)
+    print(json.dumps(out))
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+        return 0
+    if not sys.argv[1:]:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = os.path.abspath(sys.argv[1])
+    this = os.path.abspath(sys.argv[2]) if sys.argv[2:] else HERE
+    runs = []
+    for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        runs.append((label, json.loads(res.stdout.strip().splitlines()[-1])))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{'shape':42s} {'other ms (2 runs)':>22s} {'this ms (2 runs)':>22s}  this/other")
+    table = {}
+    for key in runs[0][1]:
+        o = [r[key] for lab, r in runs if lab == "other"]
+        t = [r[key] for lab, r in runs if lab == "this"]
+        table[key] = {"other_ms": o, "this_ms": t}
+        print(f"{key:42s} {o[0]:10.4f} {o[1]:10.4f}  {t[0]:10.4f} {t[1]:10.4f}  "
+              f"{min(t) / min(o):9.3f}")
+    print(smi)
+    dest = os.environ.get("CHIP_SMOKE_OUT")
+    if dest:
+        os.makedirs(dest, exist_ok=True)
+        with open(os.path.join(dest, "kernel_ab.json"), "w") as f:
+            json.dump({"other": other, "this": this, "nvidia_smi": smi, "ms": table}, f,
+                      indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,13 +14,17 @@
    P rounded to bf16 for the tensor cores differ from a one-pass float32
    softmax) and 1e-4 in float32, also at head dims 80 and 256
    (``check_head_dims``); the Table III mixed-group matmul within 1e-6
-   relative; wkv6 within 1e-4 in float32 (and bitwise independent of
-   padding); ``bitplane_matmul`` bitwise at M in {4, 17, 64, 200, 1280}
+   relative; the fused quantize -> packed matmul bitwise in both output
+   forms, (acc, scales) and the dequantized product in x's dtype at a
+   column offset, at M in {4, 32, 1280} with float32 and bfloat16 rows
+   (``check_fused``); wkv6 within 1e-4 in float32 (and bitwise
+   independent of padding); ``bitplane_matmul`` bitwise at M in {4, 17,
+   64, 200, 1280}
    (each tile plan) and on a ragged shape; ``dense_matmul`` within 2e-2 of
    ``x @ w`` and its rows bitwise the same at M in {1, 4, 17, 64, 65, 128,
    200, 640, 1280} (every tiling, split and unsplit K). The SASS of the
-   bf16 tensor-core kernels must hold HMMA, bitplane_matmul's IMMA
-   (``count_hmma``). The attention kernels
+   bf16 tensor-core kernels must hold HMMA, bitplane_matmul's and the
+   fused kernel's IMMA (``count_hmma``). The attention kernels
    share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
    chunked prefill, paged decode and contiguous decode must be bitwise
    whole-prompt flash attention on the same keys (``check_one_order``:
@@ -33,23 +37,26 @@
    has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
    a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
-   of 64-320 tokens, 32 new tokens each, 4 slots, in eight runs — olmo
+   of 64-320 tokens, 32 new tokens each, 4 slots, in ten runs — olmo
    continuous with chunked prefill on a bf16 pool (Table III policy
    "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
    Table III policy; (b) static, int8 cache; (c) continuous with solo
    whole-prompt admission on the paged bf16 pool, Table III policy; (d)
    continuous on the contiguous cache; rwkv6-3b (e) static and (f)
-   continuous, unquantized bf16. Each run must launch the kernels of its
-   path, and each run's repeated pass must give identical greedy tokens.
-   Gated across paths (see ``compare_paths``): chunked and whole-prompt
-   first-token logits bitwise equal on the bf16 pool, and identical
-   greedy tokens whole-prompt (c) vs chunked and static (a) vs
-   continuous (c); rwkv6's static batch vs solo first-token logits
-   bitwise equal and greedy (e) vs (f) identical (``compare_rwkv6``); a
-   greedy request served alone and admitted mid-decode emits identical
-   tokens (olmo bf16 and int8 pools, rwkv6); small float32 models
-   (olmo-1b, rwkv6-3b) give the same logits on the card (kernels) as on
-   the CPU (plain versions).
+   continuous, unquantized bf16; olmo unpacked (no policy, every dense
+   product on ``dense_matmul``) (g) static and (h) continuous. Each run
+   must launch the kernels of its path, and each run's repeated pass must
+   give identical greedy tokens. Gated across paths (see
+   ``compare_paths``): chunked and whole-prompt first-token logits bitwise
+   equal on the bf16 pool, and identical greedy tokens whole-prompt (c)
+   vs chunked and static (a) vs continuous (c); rwkv6's static batch vs
+   solo first-token logits bitwise equal and greedy (e) vs (f) identical
+   (``compare_rwkv6``); unpacked olmo's static batch vs solo and chunked
+   vs whole-prompt first-token logits bitwise equal and greedy (g) vs (h)
+   identical (``compare_unpacked``); a greedy request served alone and
+   admitted mid-decode emits identical tokens (olmo bf16 and int8 pools,
+   rwkv6); small float32 models (olmo-1b, rwkv6-3b) give the same logits
+   on the card (kernels) as on the CPU (plain versions).
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels) as another, then the card's name and
@@ -121,6 +128,11 @@ SERVE_RUNS = {
                       "paged_attention", "fused_quantize_matmul")),
     "d-contiguous": (["--continuous", "--no-paged"], POLICY,
                      ("flash_attention", "fused_quantize_matmul", "contig_attention")),
+    # olmo-1b unpacked (no policy): every dense product on dense_matmul.
+    "g-olmo-unpacked-static": (["--static"], None,
+                               ("flash_attention", "contig_attention", "dense_matmul")),
+    "h-olmo-unpacked-continuous": (["--continuous"], None,
+                                   ("paged_attention", "paged_prefill", "dense_matmul")),
     # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
     # serves rwkv6 unquantized): its recurrent state, no KV cache.
     "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None,
@@ -174,69 +186,136 @@ class Timer:
 
 # -- kernels against their plain versions ------------------------------------
 
+OLMO_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 1536))
+FUSED_M = (4, 32, 1280)   # decode, a prefill chunk, a static prefill of 4 x 320
+
+
 def check_fused(torch, dev, timer):
+    """The fused kernel against its plain versions on the card, bitwise:
+    the (acc, scales) form at M in FUSED_M (and a ragged M = 37, K = 200,
+    N = 100), olmo-1b's (K, N), w2/w4/w8, a8 signed and a4 unsigned,
+    plane_lo 0/1, float32 and bfloat16 rows; the dequant form against
+    ``(acc.float() * xs * ws).to(dtype)`` (``ref.packed_matmul_ref``) at
+    M in FUSED_M, float32 and bfloat16, plane_lo 0/1, written at a column
+    offset of a wider output; and a two-group leaf through
+    ``ops.packed_matmul`` (8-bit group at column 0, the low group at
+    column n8, on one row pass). Times the (acc, scales) form at decode
+    (M = 4) and at a static prefill (M = 1280) with float32 rows (the
+    shapes earlier PRs timed), the bfloat16 rows the serving path gives
+    it, and the dequant form at both M."""
     from repro_torch.core.bitplane import pack_weights, unpack_weights
-    from repro_torch.kernels import fused_matmul, ref
+    from repro_torch.kernels import fused_matmul, ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = 0
-    for M in (4, 32):
-        for K, N in ((2048, 2048), (2048, 8192), (8192, 2048)):
-            for bits in (2, 4, 8):
-                lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
-                codes = torch.randint(lo, hi, (K, N), generator=gen, device=dev,
-                                      dtype=torch.int32)
-                packed = pack_weights(codes, bits, axis=0)
-                x = torch.randn((M, K), generator=gen, device=dev)
-                for a_bits, signed in ((8, True), (4, False)):
-                    xs = x if signed else x.abs()
+    cases = deq = 0
+
+    def codes_of(K, N, bits):
+        lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
+        c = torch.randint(lo, hi, (K, N), generator=gen, device=dev, dtype=torch.int32)
+        return pack_weights(c, bits, axis=0)
+
+    shapes = [(M, K, N) for M in FUSED_M for K, N in OLMO_KN[:3]] + [(37, 200, 100)]
+    for M, K, N in shapes:
+        for bits in (2, 4, 8):
+            packed = codes_of(K, N, bits)
+            scale = torch.rand((1, N), generator=gen, device=dev) * 0.01
+            x = torch.randn((M, K), generator=gen, device=dev)
+            for a_bits, signed in ((8, True), (4, False)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    xs = (x if signed else x.abs()).to(dtype)
                     for plane_lo in ((0, 1) if bits > 2 else (0,)):
                         kw = dict(w_bits=bits, a_bits=a_bits, act_signed=signed,
                                   w_plane_lo=plane_lo)
+                        what = (f"fused M={M} K={K} N={N} w{bits} a{a_bits} signed={signed} "
+                                f"lo={plane_lo} {dtype} plan={fused_matmul.plan(M, K, N)}")
                         acc, s = fused_matmul.launch(xs, packed, **kw)
-                        acc_r, s_r = ref.fused_quantize_matmul_ref(xs, packed, **kw)
+                        acc_r, s_r = ref.fused_quantize_matmul_ref(xs.float(), packed, **kw)
                         torch.cuda.synchronize()
                         if not (torch.equal(acc, acc_r) and torch.equal(s, s_r)):
-                            bad = (acc != acc_r).sum().item()
                             raise AssertionError(
-                                f"fused M={M} K={K} N={N} w{bits} a{a_bits} "
-                                f"signed={signed} lo={plane_lo}: {bad} acc "
-                                f"mismatches, scales equal={torch.equal(s, s_r)}")
+                                f"{what}: {(acc != acc_r).sum().item()} acc mismatches, "
+                                f"scales equal={torch.equal(s, s_r)}")
                         cases += 1
-    log(f"fused_quantize_matmul: {cases} cases bitwise equal to the plain version")
+                        if a_bits != 8:
+                            continue
+                        out = torch.full((M, N + 24), float("nan"), dtype=dtype, device=dev)
+                        fused_matmul.launch_dequant(xs, packed, scale, out, col=16, **kw)
+                        want = ref.packed_matmul_ref(xs, packed, scale, **kw)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(out[:, 16:16 + N], want)
+                                and out[:, :16].isnan().all() and out[:, 16 + N:].isnan().all()):
+                            raise AssertionError(f"{what}: the dequant form is not bitwise "
+                                                 f"(acc * xs * ws).to(dtype) at column 16")
+                        deq += 1
+    # A two-group leaf (8-bit codes first, then the low group), unsigned
+    # and plane-truncated: one output, no concatenation.
+    for M in FUSED_M:
+        K, N8, NL = 2048, 512, 1536
+        p8, pl = codes_of(K, N8, 8), codes_of(K, NL, 4)
+        s8 = torch.rand((1, N8), generator=gen, device=dev) * 0.01
+        sl = torch.rand((1, NL), generator=gen, device=dev) * 0.01
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+            for signed, lo in ((False, 0), (True, 1)):
+                kw = dict(a_bits=8, act_signed=signed, w_plane_lo=lo)
+                xs = x if signed else x.abs()
+                got = ops.packed_matmul(xs, pl, sl, w_bits=4, packed8=p8, scale8=s8, **kw)
+                want = torch.cat([ref.packed_matmul_ref(xs, p8, s8, w_bits=8, **kw),
+                                  ref.packed_matmul_ref(xs, pl, sl, w_bits=4, **kw)], dim=1)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"packed_matmul two-group leaf M={M} {dtype} "
+                                         f"signed={signed} lo={lo}: not bitwise")
+                deq += 1
+    log(f"fused_quantize_matmul: {cases} (acc, scales) cases (M in {FUSED_M} and 37, "
+        f"float32 and bfloat16 rows) and {deq} dequant cases (a column offset, two-group "
+        "leaves) bitwise equal to the plain versions")
 
-    # Timing at the decode shape of w_up/w_gate (M=4, 2048 -> 8192, w4a8).
-    M, K, N = 4, 2048, 8192
-    codes = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int32)
-    packed = pack_weights(codes, 4, axis=0)
-    x = torch.randn((M, K), generator=gen, device=dev)
+    # Timing: w_up/w_gate of a w4a8 layer (2048 -> 8192) at decode and at
+    # a static prefill (M = 4 x 320). Library: torch.matmul on bf16
+    # weights at decode, torch._int_mm on the unpacked codes at prefill
+    # (the activations' quantization not counted).
+    K, N = 2048, 8192
+    packed = codes_of(K, N, 4)
+    scale = torch.rand((1, N), generator=gen, device=dev) * 0.01
     kw = dict(w_bits=4, a_bits=8, act_signed=True, w_plane_lo=0)
     w_bf16 = (unpack_weights(packed, 4).float() * 0.01).to(torch.bfloat16)
-    x_bf16 = x.to(torch.bfloat16)
-    ms = timer(lambda: fused_matmul.launch(x, packed, **kw))
-    plain_ms = timer(lambda: ref.fused_quantize_matmul_ref(x, packed, **kw))
-    lib_ms = timer(lambda: torch.matmul(x_bf16, w_bf16))
-    nbytes = M * K * 4 + K * N * 4 // 8 + M * N * 4 + M * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
-    decode = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "bound_ms": b_ms, "bound_by": b_by, "shape": f"M={M} K={K} N={N} w4a8"}
-
-    # The same weights at a static prefill's M = 4·320, for the next port
-    # slice to rank from; library: torch._int_mm on the unpacked codes, the
-    # activations' quantization not counted.
-    M = 1280
-    x = torch.randn((M, K), generator=gen, device=dev)
-    xq = ref.quantize_rows_ref(x, 8, True)[0]
     w8 = unpack_weights(packed, 4).to(torch.int8).contiguous()
-    ms = timer(lambda: fused_matmul.launch(x, packed, **kw))
-    plain_ms = timer(lambda: ref.fused_quantize_matmul_ref(x, packed, **kw))
-    lib_ms = timer(lambda: torch._int_mm(xq, w8))
-    nbytes = M * K * 4 + K * N * 4 // 8 + M * N * 4 + M * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
-    prefill = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library": "torch._int_mm (quantization not counted)",
-               "bound_ms": b_ms, "bound_by": b_by, "shape": f"M={M} K={K} N={N} w4a8"}
-    return {**decode, "cases": cases, "entries": {"decode": decode, "prefill": prefill}}
+    entries = {}
+    for name, M in (("decode", 4), ("prefill", 1280)):
+        x = torch.randn((M, K), generator=gen, device=dev)
+        xb = x.to(torch.bfloat16)
+        nbytes = M * K * 4 + K * N * 4 // 8 + M * N * 4 + M * 4
+        b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+        if name == "decode":
+            lib_ms, lib = timer(lambda: torch.matmul(xb, w_bf16)), "torch.matmul, bf16 W"
+        else:
+            xq = ref.quantize_rows_ref(x, 8, True)[0]
+            lib_ms = timer(lambda: torch._int_mm(xq, w8))
+            lib = "torch._int_mm on the codes (quantization not counted)"
+        entries[name] = {
+            "ms": timer(lambda: fused_matmul.launch(x, packed, **kw)),
+            "plain_ms": timer(lambda: ref.fused_quantize_matmul_ref(x, packed, **kw)),
+            "library_ms": lib_ms, "library": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "plan": fused_matmul.plan(M, K, N)._asdict(),
+            "shape": f"M={M} K={K} N={N} w4a8 f32 rows"}
+        # The serving path's bf16 rows, and the dequant form writing bf16.
+        out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+        nbytes = M * K * 2 + K * N * 4 // 8 + M * N * 2 + N * 4
+        b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, INT8_OPS_PER_S)
+        entries[f"{name}_bf16"] = {
+            "ms": timer(lambda: fused_matmul.launch(xb, packed, **kw)),
+            "plain_ms": timer(lambda: ref.fused_quantize_matmul_ref(xb.float(), packed, **kw)),
+            "library_ms": lib_ms, "library": lib, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"M={M} K={K} N={N} w4a8 bf16 rows"}
+        entries[f"{name}_dequant"] = {
+            "ms": timer(lambda: fused_matmul.launch_dequant(xb, packed, scale, out, **kw)),
+            "plain_ms": timer(lambda: ref.packed_matmul_ref(xb, packed, scale, **kw)),
+            "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+            "library": "torch.matmul, bf16 W", "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"M={M} K={K} N={N} w4a8 bf16 rows -> bf16 y"}
+    return {**entries["decode"], "max_abs_err": 0.0, "cases": cases, "dequant_cases": deq,
+            "entries": entries}
 
 
 def _pool(torch, dev, gen, nb, bs, nkv, H, quant):
@@ -472,9 +551,6 @@ def check_quantize_rows(torch, dev, timer):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
             "cases": cases, "shape": f"M={M} K={K} a{bits} signed"}
-
-
-OLMO_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 1536))
 
 
 BITPLANE_M = (4, 17, 64, 200, 1280)   # each plan switch (32/64/128 rows), a ragged tile
@@ -802,7 +878,9 @@ def check_wkv6(torch, dev, timer):
     multiple of the chunk, the reduced width (K = 16), decays of 1e-6
     everywhere, the JAX test shapes at chunks 16 and 32, and one decode
     step from a random carried state; a prompt and the same prompt padded
-    by 40 tokens (k = 0, w = 1) give bitwise equal outputs and states."""
+    by 40 tokens (k = 0, w = 1) give bitwise equal outputs and states.
+    Times the prefill (B = 4, T = 320) and the decode step (T = 1, the
+    state carried in and out)."""
     from repro_torch.kernels import ref, wkv6
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -865,9 +943,21 @@ def check_wkv6(torch, dev, timer):
     V = K
     ops_ = B * T * H * (5 * K * V + 3 * K + 2 * V)
     b_ms, b_by = bound_ms(nbytes, ops_, FP32_FLOPS_PER_S)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
-            "shape": f"B={B} T={T} H={H} K=V={K} chunk {chunk} bf16 r/k/v"}
+    prefill = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "shape": f"B={B} T={T} H={H} K=V={K} chunk {chunk} bf16 r/k/v"}
+    # The decode step: one token with the carried state (ops.wkv6_step).
+    r, k, v, w, u, s0 = inputs(B, 1, H, K)
+    ms = timer(lambda: wkv6.launch(r, k, v, w, u, s0, chunk=1))
+    plain_ms = timer(lambda: ref.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0))
+    nbytes = 3 * B * H * K * 2 + B * H * K * 4 + H * K * 4 + 2 * B * H * K * V * 4 \
+        + B * H * V * 4
+    b_ms, b_by = bound_ms(nbytes, B * H * (5 * K * V + 3 * K + 2 * V), FP32_FLOPS_PER_S)
+    decode = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+              "bound_ms": b_ms, "bound_by": b_by,
+              "shape": f"B={B} T=1 H={H} K=V={K} bf16 r/k/v, carried state"}
+    return {**prefill, "max_abs_err": worst,
+            "entries": {"prefill": prefill, "decode": decode}}
 
 
 RWKV_KN = ((2560, 2560), (2560, 8960), (8960, 2560), (2560, 64), (64, 2560),
@@ -1150,6 +1240,37 @@ def compare_rwkv6(torch, runs):
             "greedy_share_e_vs_f": share}
 
 
+def compare_unpacked(torch, runs):
+    """olmo-1b served unpacked (runs (g) static and (h) continuous, no
+    policy): first-token logits of the 8 prompts through solo
+    whole-prompt prefill, chunked prefill on the bf16 pool and static
+    batches of 4, on engine (g)'s weights, and the greedy tokens of (g)
+    vs (h). Gated: static batch vs solo and chunked vs whole-prompt
+    logits bitwise equal (max |err| 0), and every greedy request's
+    tokens the same in (g) and (h). Everything prints before the gate
+    raises."""
+    import types
+
+    eng = runs["g-olmo-unpacked-static"][0]
+    reqs = mixed_requests(eng.cfg, types.SimpleNamespace(max_new=32))
+    solo, chunk, batch = first_token_logits(torch, eng.model, eng.params,
+                                            [r.prompt for r in reqs])
+    err_batch = (batch - solo).abs().max().item()
+    err_chunk = (chunk - solo).abs().max().item()
+    greedy = [r.rid for r in reqs if r.temperature == 0]
+    share = _greedy_share(runs["g-olmo-unpacked-static"][3],
+                          runs["h-olmo-unpacked-continuous"][3], greedy)
+    log(f"olmo-1b unpacked, first-token logits: static batch of 4 vs solo max |err| "
+        f"{err_batch:.3g}, chunked vs whole-prompt {err_chunk:.3g} (both gated at 0); "
+        f"greedy requests with identical tokens, static (g) vs continuous (h): {share} "
+        "(gated at all)")
+    if err_batch != 0.0 or err_chunk != 0.0 or share != f"{len(greedy)}/{len(greedy)}":
+        raise AssertionError(f"olmo-1b unpacked: batch vs solo {err_batch}, chunked vs "
+                             f"whole-prompt {err_chunk}, greedy (g) vs (h) {share}")
+    return {"logits_err_batch_vs_solo": err_batch,
+            "logits_err_chunked_vs_whole": err_chunk, "greedy_share_g_vs_h": share}
+
+
 class plain_attention:
     """Within the block, the model's attention kernels (flash_attention,
     paged_prefill) run their plain PyTorch versions on the card."""
@@ -1166,12 +1287,36 @@ class plain_attention:
             m.launch = fn
 
 
+class library_linear:
+    """Within the block, a model's dense (unpacked) linears run the
+    library's ``x @ w`` on the card instead of ``ops.dense_matmul``."""
+
+    def __enter__(self):
+        from repro_torch.core.quantized_linear import PackedWeight
+        from repro_torch.models import common
+
+        self.saved = saved = common.linear
+
+        def linear(x, w, quant=None):
+            return saved(x, w, quant) if isinstance(w, PackedWeight) else x @ w.to(x.dtype)
+
+        common.linear = linear
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import common
+
+        common.linear = self.saved
+
+
 def paths_diagnostic(torch):
     """`chip_smoke.py paths`: how far the prefill paths' first-token logits
     part at full size, and why. Full-size olmo-1b (seed 0) on the 8
     prompts of the serve stream, per variant: bf16 under the Table III
     policy with the kernels and with plain attention, bf16 unpacked
     (no quantization), and a float32 model under the Table III policy.
+    The unquantized model runs twice: its dense products on
+    ``dense_matmul`` (the serving path) and on the library's ``x @ w``.
     Prints max |err| of chunked vs solo and batch vs solo, the argmax
     agreement, the logits' spread, and kernel vs plain per path; writes
     paths.json under $CHIP_SMOKE_OUT. Not part of the default run."""
@@ -1214,6 +1359,8 @@ def paths_diagnostic(torch):
         out[f"kernel_vs_plain_{path}"] = d
         log(f"paths: bf16 w4a6r25 {path}: kernels vs plain attention max |err| {d:.4g}")
     measure("bf16 unquantized kernels", model, raw, prompts)
+    with library_linear():
+        measure("bf16 unquantized, library x @ w", model, raw, prompts)
     del raw, packed
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
@@ -1402,12 +1549,14 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def profile_serve(torch, params_of, names=("chunked-bf16", "a-static")):
+def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6-static")):
     """`chip_smoke.py profile [run ...]`: one warm serve pass of the
     stream above under torch.profiler, for each named run of SERVE_RUNS
-    (by default the chunked continuous run and the static run (a)). Prints device time by kernel name and the device-busy share
-    of each pass's wall time, and writes the tables to profile.json under
-    $CHIP_SMOKE_OUT. Not part of the default run."""
+    (by default the static runs (a) Table III, (b) where every packed
+    leaf runs the fused kernel, and (e) rwkv6-3b). Prints device time by
+    kernel name and the device-busy share of each pass's wall time, and
+    writes the tables to profile.json under $CHIP_SMOKE_OUT. Not part of
+    the default run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1445,14 +1594,14 @@ def profile_serve(torch, params_of, names=("chunked-bf16", "a-static")):
 # Library → the tensor-core instruction its SASS must hold.
 TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
                        "paged_prefill": "HMMA", "dense_matmul": "HMMA",
-                       "bitplane_matmul": "IMMA"}
+                       "bitplane_matmul": "IMMA", "fused_matmul": "IMMA"}
 
 
 def count_hmma(paths):
     """The bf16 attention tile and dense_matmul run on the bf16 tensor
-    cores, bitplane_matmul on the int8 ones: the SASS of their libraries
-    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions. Returns
-    library → count."""
+    cores, bitplane_matmul and the fused matmul on the int8 ones: the SASS
+    of their libraries (``cuobjdump -sass``) must hold HMMA (IMMA)
+    instructions. Returns library → count."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -1527,7 +1676,6 @@ def main() -> int:
         "flash_attention": check_flash(torch, dev, timer),
         "wkv6": check_wkv6(torch, dev, timer),
     }
-    results["fused_quantize_matmul"]["max_abs_err"] = 0.0
     mixed_err = check_mixed_group(torch, dev)
     dense = check_dense_matmul(torch, dev, timer)
     head_dim_err = check_head_dims(torch, dev)
@@ -1563,6 +1711,7 @@ def main() -> int:
             "identical")
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
     rwkv_cmp = compare_rwkv6(torch, runs)
+    unpacked_cmp = compare_unpacked(torch, runs)
     log(f"serve phase: {time.perf_counter() - t0:.1f}s")
     err = card_vs_cpu(torch)
     log(f"reduced fp32 olmo-1b: card vs CPU logits max |err| {err:.3g}")
@@ -1576,7 +1725,8 @@ def main() -> int:
         "hmma_in_sass": hmma,
         "mixed_group_rel_err": mixed_err,
         "serve": {name: run[1] for name, run in runs.items()},
-        "paths": paths_cmp, "rwkv6": rwkv_cmp, "card_vs_cpu_max_err": err,
+        "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
+        "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

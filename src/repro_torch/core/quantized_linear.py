@@ -126,17 +126,19 @@ def qmatmul(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
 
 def _serve_matmul(x: torch.Tensor, pw: PackedWeight,
                   cfg: Optional[QuantConfig]) -> torch.Tensor:
-    """Packed-weight matmul, ``acc · xs · ws`` per element in that order.
+    """Packed-weight matmul, ``(acc · xs) · ws`` per element in that order,
+    then one rounding to x's dtype.
 
     A Table III leaf (``n8 > 0``) with signed activations and no plane
     truncation — the case ``repro.kernels.ops.mixed_group_matmul`` covers
     — runs ``ops.mixed_group_matmul``: the rows are quantized once and
     each filter group has its own integer matmul. Every other leaf runs
     ``ops.packed_matmul``, the fused quantize→integer-matmul kernel (per-
-    row activation scales from its prologue, exact int32 accumulation
-    against the packed codes); an unsigned or plane-truncated Table III
-    leaf runs it once per group on the same rows. Either way each element
-    is the product ``unpack_weight`` feeds the JAX kernel."""
+    row activation scales, exact int32 accumulation against the packed
+    codes, the dequant in its store); an unsigned or plane-truncated Table
+    III leaf runs it once per group on the same row scales, each group
+    writing its columns of one output. Either way each element is the
+    product ``unpack_weight`` feeds the JAX kernel."""
     from repro_torch.kernels import ops
 
     a_bits = cfg.a_bits if cfg is not None else pw.a_bits
@@ -145,18 +147,17 @@ def _serve_matmul(x: torch.Tensor, pw: PackedWeight,
     k = x.shape[-1]
     if k != pw.k:
         raise ValueError(f"K mismatch: x has {k}, weight has {pw.k}")
-    x2 = x.reshape(-1, k).to(torch.float32)
+    x2 = x.reshape(-1, k)
     if pw.n8 and act_signed and not pw.plane_lo:
         y = ops.mixed_group_matmul(x2, pw.packed8, pw.packed, pw.scale[..., :pw.n8],
                                    pw.scale[..., pw.n8:], w_bits=pw.bits,
                                    a_bits=a_bits)
-        return y.reshape(*lead, -1).to(x.dtype)
-    kw = dict(a_bits=a_bits, act_signed=act_signed, w_plane_lo=pw.plane_lo)
-    y = ops.packed_matmul(x2, pw.packed, pw.scale[..., pw.n8:], w_bits=pw.bits, **kw)
-    if pw.n8:
-        y8 = ops.packed_matmul(x2, pw.packed8, pw.scale[..., :pw.n8], w_bits=8, **kw)
-        y = torch.cat([y8, y], dim=1)
-    return y.reshape(*lead, -1).to(x.dtype)
+        return y.reshape(*lead, -1)
+    y = ops.packed_matmul(x2, pw.packed, pw.scale[..., pw.n8:], w_bits=pw.bits,
+                          a_bits=a_bits, act_signed=act_signed, w_plane_lo=pw.plane_lo,
+                          packed8=pw.packed8 if pw.n8 else None,
+                          scale8=pw.scale[..., :pw.n8] if pw.n8 else None)
+    return y.reshape(*lead, -1)
 
 
 _NO_PACK = ("embed", "head", "patch_proj", "frame_proj", "router", "u",

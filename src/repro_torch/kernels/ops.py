@@ -71,31 +71,51 @@ def fused_quantize_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
     ((M, N) int32 accumulator, (M, 1) float32 per-row scales).
 
     With ``w_bits=8`` the packed operand is the (K, N) codes themselves —
-    the JAX signature. Activations are quantized per row in the kernel's
-    K-loop prologue; ``w_plane_lo`` contracts only the top weight planes."""
+    the JAX signature. Activations are quantized per row inside the
+    kernel; ``w_plane_lo`` contracts only the top weight planes. float32
+    and bfloat16 rows are read as they are (bf16 → f32 is exact)."""
     if plane_bits != 2:
         raise ValueError("the kernel decomposes 2-bit planes only")
-    x = x.to(torch.float32)
     kw = dict(w_bits=w_bits, a_bits=a_bits, act_signed=act_signed,
               w_plane_lo=w_plane_lo)
     if _on_cpu(x, "fused_quantize_matmul"):
-        return _ref.fused_quantize_matmul_ref(x, w_packed, **kw)
-    return _fused.launch(x, w_packed, **kw)
+        return _ref.fused_quantize_matmul_ref(x.to(torch.float32), w_packed, **kw)
+    return _fused.launch(_kernel_rows(x), w_packed, **kw)
+
+
+def _kernel_rows(x: torch.Tensor) -> torch.Tensor:
+    """x as the fused kernel reads it: float32 or bfloat16 as it is."""
+    return x if x.dtype in (torch.float32, torch.bfloat16) else x.to(torch.float32)
 
 
 def packed_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                   *, w_bits: int, a_bits: int = 8, act_signed: bool = True,
-                  w_plane_lo: int = 0) -> torch.Tensor:
-    """float x (M, K) × packed weights ((K·bits/8), N) → float (M, N):
-    the fused kernel, then ``acc · xs · ws`` per element in that order
-    (``ws`` regains 4**w_plane_lo for a plane-truncated view)."""
-    acc, xs = fused_quantize_matmul(x, packed, w_bits=w_bits, a_bits=a_bits,
-                                    act_signed=act_signed,
-                                    w_plane_lo=w_plane_lo)
-    ws = scale.reshape(1, -1)
-    if w_plane_lo:
-        ws = ws * (1 << (2 * w_plane_lo))
-    return (acc.to(torch.float32) * xs * ws).to(x.dtype)
+                  w_plane_lo: int = 0, packed8: Optional[torch.Tensor] = None,
+                  scale8: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """float x (M, K) × packed weights ((K·bits/8), N) → (M, N) in x's
+    dtype: the fused kernel with ``(acc · xs) · ws`` per element in its
+    store (``ws`` = scale · 4**w_plane_lo), one rounding to x's dtype.
+    With ``packed8`` (8-bit codes (K, N8)) and ``scale8``, a leaf's second
+    filter group: the result is [y8, y] (M, N8 + N), the 8-bit group
+    first, both on the same row scales. On the card that is one matmul
+    launch per group, each writing its columns of one output, after one
+    row pass (none up to M = 8, where the matmul blocks reduce the rows'
+    scales themselves)."""
+    kw = dict(a_bits=a_bits, act_signed=act_signed, w_plane_lo=w_plane_lo)
+    groups = [(packed, scale, w_bits)]
+    if packed8 is not None:
+        groups.insert(0, (packed8, scale8, 8))
+    if _on_cpu(x, "packed_matmul"):
+        ys = [_ref.packed_matmul_ref(x, p, s, w_bits=b, **kw) for p, s, b in groups]
+        return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
+    out = torch.empty((x.shape[0], sum(p.shape[1] for p, _, _ in groups)),
+                      dtype=out_dtype, device=x.device)
+    xk, xs, col = _kernel_rows(x), None, 0
+    for p, s, b in groups:
+        xs = _fused.launch_dequant(xk, p, s, out, col=col, w_bits=b, x_scales=xs, **kw)
+        col += p.shape[1]
+    return out.to(x.dtype)
 
 
 def quantize_rows(x: torch.Tensor, *, bits: int = 8, signed: bool = True):

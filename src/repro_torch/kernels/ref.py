@@ -142,6 +142,22 @@ def fused_quantize_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
                                plane_bits, w_bits), s
 
 
+def packed_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor, *,
+                      w_bits: int = 8, a_bits: int = 8, act_signed: bool = True,
+                      w_plane_lo: int = 0, plane_bits: int = 2) -> torch.Tensor:
+    """``fused_quantize_matmul_ref`` dequantized as
+    ``repro.core.quantized_linear._serve_matmul`` does it: ``(acc · xs) ·
+    ws`` in float32, two products rounded in that order, ``ws = scale ·
+    4**w_plane_lo``, then one rounding to x's dtype."""
+    acc, xs = fused_quantize_matmul_ref(x.to(torch.float32), w_packed, w_bits=w_bits,
+                                        a_bits=a_bits, act_signed=act_signed,
+                                        w_plane_lo=w_plane_lo, plane_bits=plane_bits)
+    ws = scale.reshape(1, -1).to(torch.float32)
+    if w_plane_lo:
+        ws = ws * (1 << (plane_bits * w_plane_lo))
+    return (acc.to(torch.float32) * xs * ws).to(x.dtype)
+
+
 def _row_view(pool, tbl, n):
     """Gather a row's blocks in table order: (n·bs, ...) values."""
     return pool[tbl].reshape(n * pool.shape[1], *pool.shape[2:])

@@ -28,10 +28,17 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 
 def linear(x: torch.Tensor, w, quant: Optional[QuantConfig] = None) -> torch.Tensor:
     """Every model matmul. PackedWeight leaves carry their own per-layer
-    precision and always run the packed kernel path."""
+    precision and always run the packed kernel path. A dense weight runs
+    ``ops.dense_matmul``: on the card a bfloat16 row's bits then do not
+    depend on how many rows share the product (a library product's
+    split-K does), so static ≡ continuous and chunked ≡ whole-prompt hold
+    for an unpacked model too; float32 goes to ``torch.matmul`` and the
+    CPU runs the plain ``x @ w``."""
     if isinstance(w, PackedWeight):
         return qmatmul(x, w, None)
-    return x @ w.to(x.dtype)
+    from repro_torch.kernels import ops
+
+    return ops.dense_matmul(x, w)
 
 
 def norm_init(kind: str, d: int, dtype=torch.float32, device=None,

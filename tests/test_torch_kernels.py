@@ -251,6 +251,7 @@ def test_cuda_tensors_never_fall_back():
 # (wrapper module, CUDA source, C entry): the kernels' ctypes bindings. A
 # module binding a second entry keeps that signature in <ENTRY>_ARGTYPES.
 _BINDINGS = [("fused_matmul", "fused_matmul", "fused_quantize_matmul"),
+             ("fused_matmul", "fused_matmul", "fused_dequant_matmul"),
              ("paged_attention", "paged_attention", "paged_attention"),
              ("paged_prefill", "paged_prefill", "paged_prefill"),
              ("pack_quant", "quantize_rows", "quantize_rows"),

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's matmul kernels of two checkouts on one GPU, in turns.
+"""Time the port's matmul and wkv6 kernels of two checkouts on one GPU,
+in turns.
 
   python3 tools/kernel_ab.py <other checkout> [<this checkout>]
 
-Builds ``bitplane_matmul``, ``dense_matmul`` and ``fused_matmul`` from
-each checkout's ``src/repro_torch/kernels/csrc`` and times them at the
-serving path's decode and prefill shapes, in four processes on the same
+Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul`` and
+``wkv6`` from each checkout's ``src/repro_torch/kernels/csrc`` and times
+them at the serving path's decode and prefill shapes (``wkv6``: a
+rwkv6-3b prefill of B = 4, T = 320 and a decode step, T = 1 with the
+state carried), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
 version's two runs shows beside the difference between versions). Each
 process imports only its own checkout's ``repro_torch``; the timer is
@@ -30,6 +33,8 @@ SHAPES = [("bitplane_matmul", M, K, N, b) for M in (1280, 4)
 SHAPES += [("fused_matmul", M, 2048, 8192, 4) for M in (4, 1280)]
 SHAPES += [("dense_matmul", M, K, N, 16) for M in (4, 1280)
            for K, N in ((2560, 8960), (8960, 2560), (2560, 2560))]
+# (wkv6, B, T, H, K): rwkv6-3b's heads, chunk 64.
+SHAPES += [("wkv6", 4, T, 40, 64) for T in (320, 1)]
 
 
 def worker(root: str) -> None:
@@ -37,7 +42,7 @@ def worker(root: str) -> None:
     import torch
 
     from repro_torch.core.bitplane import pack_weights
-    from repro_torch.kernels import bitplane_matmul, build, dense_matmul, fused_matmul
+    from repro_torch.kernels import bitplane_matmul, build, dense_matmul, fused_matmul, wkv6
 
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
@@ -46,12 +51,22 @@ def worker(root: str) -> None:
 
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
-    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul"])
+    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "wkv6"])
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
     out = {}
     for i, (name, M, K, N, bits) in enumerate(SHAPES):
         gen = torch.Generator(device=dev).manual_seed(i)
+        if name == "wkv6":
+            B, T, H, Kh = M, K, N, bits
+            r, k, v = ((torch.randn((B, T, H, Kh), generator=gen, device=dev) * 0.5)
+                       .to(torch.bfloat16) for _ in range(3))
+            w = torch.rand((B, T, H, Kh), generator=gen, device=dev) * 0.499 + 0.5
+            u = torch.randn((H, Kh), generator=gen, device=dev) * 0.5
+            s0 = torch.randn((B, H, Kh, Kh), generator=gen, device=dev) * 0.3
+            fn = lambda: wkv6.launch(r, k, v, w, u, s0, chunk=64)  # noqa: E731
+            out[f"wkv6 B={B} T={T} H={H} K=V={Kh}"] = timer(fn)
+            continue
         if name == "dense_matmul":
             w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)

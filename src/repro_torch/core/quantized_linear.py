@@ -8,9 +8,9 @@ matmul runs hand-written integer kernels on the packed bytes themselves:
 the fused quantize→integer-matmul kernel
 (``kernels.ops.fused_quantize_matmul``) — the route ``repro`` takes with
 ``use_kernel=True`` — or, for a Table III mixed-group leaf, one shared
-row quantization and one integer matmul per filter group
-(``kernels.ops.mixed_group_matmul``). The JAX model's dequant formula
-computes the same product in floats.
+row quantization and one integer matmul per filter group, each storing
+its dequantized columns of one output (``kernels.ops.mixed_group_matmul``).
+The JAX model's dequant formula computes the same product in floats.
 """
 from __future__ import annotations
 
@@ -132,7 +132,9 @@ def _serve_matmul(x: torch.Tensor, pw: PackedWeight,
     A Table III leaf (``n8 > 0``) with signed activations and no plane
     truncation — the case ``repro.kernels.ops.mixed_group_matmul`` covers
     — runs ``ops.mixed_group_matmul``: the rows are quantized once and
-    each filter group has its own integer matmul. Every other leaf runs
+    each filter group has its own integer matmul, the dequant in its
+    store (on the card one row pass and two matmul launches at decode).
+    Every other leaf runs
     ``ops.packed_matmul``, the fused quantize→integer-matmul kernel (per-
     row activation scales, exact int32 accumulation against the packed
     codes, the dequant in its store); an unsigned or plane-truncated Table

@@ -4,8 +4,11 @@ packed weight codes.
 Replaces ``repro/kernels/bitplane_matmul.py::bitplane_matmul``: (M, K)
 int8 activation codes × 2/4/8-bit weight codes read packed (``w_bits=8``:
 the (K, N) codes themselves) → the exact (M, N) int32 product
-(``csrc/bitplane_matmul.cu``, on the int8 tensor cores). The grid and
-the K split are :func:`plan`, a pure function of (M, K, N).
+(``csrc/bitplane_matmul.cu``, on the int8 tensor cores). Two output
+forms: the JAX signature's int32 product (:func:`launch`), and the Table
+III path's dequantized product ``(acc · xs) · ws`` written into a strided
+output at a column offset (:func:`launch_dequant`). The grid and the K
+split are :func:`plan`, a pure function of (M, K, N).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_k
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -23,6 +26,8 @@ launches = 0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signature of the C entry (checked against its source by the tests).
 ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+BITPLANE_DEQUANT_MATMUL_ARGTYPES = [_P, _P] + [_I] * 8 + [_P, _P, _P, _I, _I, _P, _P, _P]
+_Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SMS = 132      # streaming multiprocessors of an H100 SXM
 BN = 128       # output columns per block
@@ -40,7 +45,7 @@ class Plan(NamedTuple):
     @property
     def single_slice(self) -> bool:
         """One K slice: the kernel stores every element of the output, so
-        the wrapper need not zero it (a split adds slices atomically)."""
+        the int32 entry need not zero it (a split adds slices atomically)."""
         return self.grid[1] == 1
 
 
@@ -61,18 +66,17 @@ def plan(M: int, K: int, N: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.load("bitplane_matmul").bitplane_matmul
-    fn.argtypes = ARGTYPES
-    fn.restype = _I
-    return fn
+def _lib():
+    lib = build.load("bitplane_matmul")
+    lib.bitplane_matmul.argtypes = ARGTYPES
+    lib.bitplane_dequant_matmul.argtypes = BITPLANE_DEQUANT_MATMUL_ARGTYPES
+    for fn in (lib.bitplane_matmul, lib.bitplane_dequant_matmul):
+        fn.restype = _I
+    return lib
 
 
-def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
-           a_bits: int, act_signed: bool, w_plane_lo: int) -> torch.Tensor:
-    """(M, K) int8 CUDA codes × (K·w_bits/8, N) int8 packed codes →
-    (M, N) int32."""
-    global launches
+def _check(x_codes: torch.Tensor, w_packed: torch.Tensor, w_bits: int, a_bits: int,
+           w_plane_lo: int):
     if x_codes.dtype != torch.int8 or x_codes.ndim != 2:
         raise ValueError(f"x_codes must be (M, K) int8, got {x_codes.dtype} "
                          f"{tuple(x_codes.shape)}")
@@ -88,15 +92,61 @@ def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
                          f"codes at {w_bits} bits")
     if not (x_codes.is_cuda and w_packed.device == x_codes.device):
         raise ValueError("bitplane_matmul kernel needs CUDA tensors on one device")
-    x_codes = x_codes.contiguous()
-    w_packed = w_packed.contiguous()
-    n = w_packed.shape[1]
+    return x_codes.contiguous(), w_packed.contiguous(), m, k, w_packed.shape[1]
+
+
+def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
+           a_bits: int, act_signed: bool, w_plane_lo: int) -> torch.Tensor:
+    """(M, K) int8 CUDA codes × (K·w_bits/8, N) int8 packed codes →
+    (M, N) int32."""
+    global launches
+    x_codes, w_packed, m, k, n = _check(x_codes, w_packed, w_bits, a_bits, w_plane_lo)
     p = plan(m, k, n)
     alloc = torch.empty if p.single_slice else torch.zeros
     acc = alloc((m, n), dtype=torch.int32, device=x_codes.device)
-    rc = _fn()(x_codes.data_ptr(), w_packed.data_ptr(), m, k, n, w_bits, a_bits,
-               int(act_signed), w_plane_lo, p.bm, p.kb, p.grid[1], acc.data_ptr(),
-               torch.cuda.current_stream(x_codes.device).cuda_stream)
+    rc = _lib().bitplane_matmul(
+        x_codes.data_ptr(), w_packed.data_ptr(), m, k, n, w_bits, a_bits, int(act_signed),
+        w_plane_lo, p.bm, p.kb, p.grid[1], acc.data_ptr(),
+        torch.cuda.current_stream(x_codes.device).cuda_stream)
     build.check(rc, "bitplane_matmul")
     launches += 1
     return acc
+
+
+def launch_dequant(x_codes: torch.Tensor, w_packed: torch.Tensor, x_scales: torch.Tensor,
+                   scale: torch.Tensor, out: torch.Tensor, *, col: int = 0, w_bits: int,
+                   a_bits: int) -> None:
+    """``out[:, col:col + N] = (acc · x_scales) · scale`` in out's dtype
+    (float32 or bfloat16): acc the exact int32 product of the (M, K)
+    signed int8 codes and the (K·w_bits/8, N) packed codes (every weight
+    plane: the Table III route's leaves), each product rounded to
+    float32 in that order, then one rounding. ``x_scales`` is the rows'
+    (M, 1) float32 scales (``pack_quant.launch``), ``scale`` the N
+    columns' float32 scales ((N,) or (1, N), unit stride). Nothing is
+    cast or copied: any other input raises."""
+    global launches
+    if not (x_codes.is_contiguous() and w_packed.is_contiguous()):
+        raise ValueError("bitplane_dequant_matmul takes contiguous codes and packed weights")
+    x_codes, w_packed, m, k, n = _check(x_codes, w_packed, w_bits, a_bits, 0)
+    if out.dtype not in _Y_DTYPES or out.ndim != 2 or out.stride(1) != 1:
+        raise ValueError(f"out must be (M, >= N) float32 or bfloat16 with unit column "
+                         f"stride, got {out.dtype} {tuple(out.shape)}")
+    if out.shape[0] != m or not 0 <= col <= out.shape[1] - n or out.device != x_codes.device:
+        raise ValueError(f"out {tuple(out.shape)} has no (M={m}, N={n}) block at column {col}")
+    if (x_scales.shape != (m, 1) or x_scales.dtype != torch.float32
+            or not x_scales.is_contiguous() or x_scales.device != x_codes.device):
+        raise ValueError("x_scales must be a contiguous (M, 1) float32 tensor on x's device")
+    if (scale.dtype != torch.float32 or scale.numel() != n or scale.shape[-1] != n
+            or scale.stride(-1) != 1 or scale.device != x_codes.device):
+        raise ValueError(f"scale must hold N={n} float32 values with unit stride on "
+                         f"{x_codes.device}")
+    p = plan(m, k, n)
+    stream = torch.cuda.current_stream(x_codes.device).cuda_stream
+    part, part_p, ctr_p = split_k.scratch(p.grid, m, n, x_codes.device, stream)
+    y = out.data_ptr() + col * out.element_size()
+    rc = _lib().bitplane_dequant_matmul(
+        x_codes.data_ptr(), w_packed.data_ptr(), m, k, n, w_bits, a_bits, p.bm, p.kb,
+        p.grid[1], x_scales.data_ptr(), scale.data_ptr(), y, _Y_DTYPES[out.dtype],
+        out.stride(0), part_p, ctr_p, stream)
+    build.check(rc, "bitplane_dequant_matmul")
+    launches += 1

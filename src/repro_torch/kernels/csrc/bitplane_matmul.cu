@@ -29,15 +29,25 @@
 // fragments for all four tiles come from one 32-bit word (4 columns) per
 // packed row: bits/2 loads per 4 K codes, then a sign-extending field
 // extraction and a 4 x 4 byte transpose (__byte_perm). The grid and the
-// K split come from the caller's plan (kernels/bitplane_matmul.py::plan):
-// one K slice stores every element, a split adds slices with integer
-// atomics into a zeroed output. Integer addition is exact and
-// associative, so any plan gives the same bits.
+// K split come from the caller's plan (kernels/bitplane_matmul.py::plan).
+//
+// Two output forms share that mainloop. The int32 entry (the JAX
+// signature) stores the accumulator: one K slice stores every element, a
+// split adds slices with integer atomics into a zeroed output. The
+// dequant entry, the Table III path's, stores
+//     y = out_dtype((float(acc) * xs[m]) * ws[n])
+// into a strided output at a column offset, so a leaf's two filter
+// groups write [y8, yl] with no concatenation, cast or product around
+// them (split_store.cuh, shared with fused_matmul.cu): a split writes
+// int32 partial tiles, summed in slice order before the dequant by the
+// last block of a tile to arrive (M <= 8) or by a fold launch. Integer
+// addition is exact and associative, so any plan gives the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "split_store.cuh"
 
 namespace {
 
@@ -86,10 +96,25 @@ __device__ __forceinline__ uint32_t sext4(uint32_t x, uint32_t sign, uint32_t mu
   return x | ((x & sign) * mult);
 }
 
-template <int MI, int BITS, bool SIGNED>
-__global__ void __launch_bounds__(kThreads)
-imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M, int K,
-            int N, int kb, uint32_t amask4, int shift, int vec, int32_t* __restrict__ acc) {
+// The dequant entry's store (split_store.cuh): y from the int32 tile and
+// the rows' scales xs; a K split's partial tiles in part, its tiles'
+// counters, and fold: a fold launch sums the split (above kLastBlockRows
+// rows), else the last block of each tile does.
+struct Deq {
+  splitk::Out out;
+  const float* xs;
+  int32_t* part;
+  int* counters;
+  int fold;
+};
+
+// The int32 entry (DEQ false) and the dequant entry (DEQ true) share the
+// mainloop; only the store differs.
+template <int MI, int BITS, bool SIGNED, bool DEQ>
+__device__ __forceinline__ void imma_body(const int8_t* __restrict__ x,
+                                          const int8_t* __restrict__ wp, int M, int K, int N,
+                                          int kb, uint32_t amask4, int shift, int vec,
+                                          int32_t* __restrict__ acc, const Deq& dq) {
   constexpr int BM = 32 * MI;
   constexpr int RPQ = BITS / 2;    // packed rows per quad of K codes
   constexpr int EPB = 8 / BITS;    // codes per byte
@@ -189,13 +214,40 @@ imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M, 
       }
     }
   }
-  if (!active) return;
-
   // Lane (g, t) holds, for each m16 tile, rows g and g + 8 at the 8
   // consecutive columns 8 t .. 8 t + 7 of the warp's 32: tile j's C column
   // 2t (+1) is column 8 t + j (+4).
   const bool split = gridDim.y > 1;
   const int c0 = n0 + wn * 32 + 8 * t;
+  if constexpr (DEQ) {
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm * 16 * MI + i * 16 + g + 8 * h;
+          if (row >= M) continue;
+          int o[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            o[j] = d[i][j][2 * h];
+            o[4 + j] = d[i][j][2 * h + 1];
+          }
+          if (!split) splitk::store8(dq.out, N, row, c0, o, dq.xs[row]);
+          else splitk::store_part8(dq.part, blockIdx.y, M, N, row, c0, o);
+        }
+    }
+    if (!split || dq.fold) return;
+    // The ring is free once every thread is past the mainloop (the first
+    // barrier in last_block_store): its first int holds the flag.
+    const float* xs = dq.xs + m0;
+    splitk::last_block_store<kBN, kThreads>(dq.out, dq.part, dq.counters,
+                                            reinterpret_cast<int*>(smem), M, N, m0,
+                                            min(BM, M - m0), n0,
+                                            [&](int r) { return xs[r]; });
+    return;
+  }
+  if (!active) return;
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -224,37 +276,85 @@ imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M, 
 }
 
 template <int MI, int BITS, bool SIGNED>
-cudaError_t launch_imma(dim3 grid, cudaStream_t st, const int8_t* x, const int8_t* wp,
-                        int M, int K, int N, int kb, uint32_t amask4, int shift, int vec,
-                        int32_t* acc) {
+__global__ void __launch_bounds__(kThreads)
+imma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M, int K,
+            int N, int kb, uint32_t amask4, int shift, int vec, int32_t* __restrict__ acc) {
+  imma_body<MI, BITS, SIGNED, false>(x, wp, M, K, N, kb, amask4, shift, vec, acc, Deq{});
+}
+
+// Signed activation codes and every weight plane only.
+template <int MI, int BITS>
+__global__ void __launch_bounds__(kThreads)
+imma_dequant_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wp, int M,
+                    int K, int N, int kb, int vec, Deq dq) {
+  imma_body<MI, BITS, true, true>(x, wp, M, K, N, kb, 0u, 0, vec, nullptr, dq);
+}
+
+// The launch arguments both entries share.
+struct Args {
+  const int8_t* x;
+  const int8_t* wp;
+  int M, K, N, kb, shift, vec;
+  uint32_t amask4;
+  dim3 grid;
+};
+
+// Shared memory above 48 KB must be asked for, kernel by kernel.
+template <typename F>
+cudaError_t allow_smem(F kern, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int MI, int BITS, bool SIGNED, bool DEQ>
+cudaError_t launch_imma(const Args& a, cudaStream_t st, int32_t* acc, const Deq& dq) {
   constexpr int bytes = (int)sizeof(Smem<MI, BITS>);
-  auto kern = imma_kernel<MI, BITS, SIGNED>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
+  cudaError_t e;
+  if constexpr (DEQ) {
+    static_assert(SIGNED, "the dequant entry takes signed codes");
+    auto kern = imma_dequant_kernel<MI, BITS>;
+    if ((e = allow_smem(kern, bytes)) != cudaSuccess) return e;
+    kern<<<a.grid, kThreads, bytes, st>>>(a.x, a.wp, a.M, a.K, a.N, a.kb, a.vec, dq);
+  } else {
+    auto kern = imma_kernel<MI, BITS, SIGNED>;
+    if ((e = allow_smem(kern, bytes)) != cudaSuccess) return e;
+    kern<<<a.grid, kThreads, bytes, st>>>(a.x, a.wp, a.M, a.K, a.N, a.kb, a.amask4, a.shift,
+                                          a.vec, acc);
   }
-  kern<<<grid, kThreads, bytes, st>>>(x, wp, M, K, N, kb, amask4, shift, vec, acc);
   return cudaSuccess;
 }
 
-template <int BITS, bool SIGNED>
-cudaError_t imma_mi(int bm, dim3 grid, cudaStream_t st, const int8_t* x, const int8_t* wp,
-                    int M, int K, int N, int kb, uint32_t amask4, int shift, int vec,
-                    int32_t* acc) {
-  if (bm == 32)
-    return launch_imma<1, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
-  if (bm == 64)
-    return launch_imma<2, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
-  return launch_imma<4, BITS, SIGNED>(grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+template <int BITS, bool SIGNED, bool DEQ>
+cudaError_t imma_mi(int bm, const Args& a, cudaStream_t st, int32_t* acc, const Deq& dq) {
+  if (bm == 32) return launch_imma<1, BITS, SIGNED, DEQ>(a, st, acc, dq);
+  if (bm == 64) return launch_imma<2, BITS, SIGNED, DEQ>(a, st, acc, dq);
+  return launch_imma<4, BITS, SIGNED, DEQ>(a, st, acc, dq);
 }
 
-template <int BITS>
-cudaError_t imma_bits(bool sgn, int bm, dim3 grid, cudaStream_t st, const int8_t* x,
-                      const int8_t* wp, int M, int K, int N, int kb, uint32_t amask4,
-                      int shift, int vec, int32_t* acc) {
-  if (sgn) return imma_mi<BITS, true>(bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
-  return imma_mi<BITS, false>(bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+template <bool SIGNED, bool DEQ>
+cudaError_t imma_bits(int bits, int bm, const Args& a, cudaStream_t st, int32_t* acc,
+                      const Deq& dq) {
+  if (bits == 8) return imma_mi<8, SIGNED, DEQ>(bm, a, st, acc, dq);
+  if (bits == 4) return imma_mi<4, SIGNED, DEQ>(bm, a, st, acc, dq);
+  return imma_mi<2, SIGNED, DEQ>(bm, a, st, acc, dq);
+}
+
+// The plan's and the precision's checks (both entries), and the launch
+// arguments; vec from the operands' alignment.
+bool make_args(const int8_t* x, const int8_t* wp, int M, int K, int N, int bits, int a_bits,
+               int shift, int bm, int kb, int ksplit, Args& a) {
+  if ((bits != 2 && bits != 4 && bits != 8) || a_bits < 2 || a_bits > 8 || shift < 0 ||
+      shift >= bits || (bm != 32 && bm != 64 && bm != 128) || ksplit < 1 || kb < 1 ||
+      kb % kKT || (long long)kb * ksplit < K || (long long)kb * (ksplit - 1) >= K)
+    return false;
+  a.x = x;
+  a.wp = wp;
+  a.M = M; a.K = K; a.N = N; a.kb = kb; a.shift = shift;
+  a.grid = dim3((N + kBN - 1) / kBN, ksplit, (M + bm - 1) / bm);
+  a.vec = (K % 16 == 0 && N % 16 == 0 && (uintptr_t)x % 16 == 0 &&
+           (uintptr_t)wp % 16 == 0) ? 1 : 0;
+  a.amask4 = (uint32_t)((1 << a_bits) - 1) * 0x01010101u;
+  return true;
 }
 
 }  // namespace
@@ -269,23 +369,49 @@ extern "C" int bitplane_matmul(const int8_t* x, const int8_t* wp, int M, int K, 
                                int bm, int kb, int ksplit, int32_t* acc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const int shift = 2 * w_plane_lo;
-  if ((bits != 2 && bits != 4 && bits != 8) || a_bits < 2 || a_bits > 8 || shift < 0 ||
-      shift >= bits || (bm != 32 && bm != 64 && bm != 128) || ksplit < 1 || kb < 1 ||
-      kb % kKT || (long long)kb * ksplit < K || (long long)kb * (ksplit - 1) >= K)
+  Args a;
+  if (!make_args(x, wp, M, K, N, bits, a_bits, 2 * w_plane_lo, bm, kb, ksplit, a))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, ksplit, (M + bm - 1) / bm);
-  const int vec = (K % 16 == 0 && N % 16 == 0 && (uintptr_t)x % 16 == 0 &&
-                   (uintptr_t)wp % 16 == 0 && (uintptr_t)acc % 16 == 0) ? 1 : 0;
-  const uint32_t amask4 = (uint32_t)((1 << a_bits) - 1) * 0x01010101u;
-  const bool sgn = act_signed != 0;
-  cudaError_t e;
-  if (bits == 8)
-    e = imma_bits<8>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
-  else if (bits == 4)
-    e = imma_bits<4>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
-  else
-    e = imma_bits<2>(sgn, bm, grid, st, x, wp, M, K, N, kb, amask4, shift, vec, acc);
+  if ((uintptr_t)acc % 16) a.vec = 0;
+  const cudaError_t e = act_signed ? imma_bits<true, false>(bits, bm, a, st, acc, Deq{})
+                                   : imma_bits<false, false>(bits, bm, a, st, acc, Deq{});
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The dequant form: y (row stride ldy, float32 for y_dtype 0, bfloat16
+// for 1) gets (float(acc) * xs[m]) * wscale[n] at columns 0 .. N-1, acc
+// the exact product above of signed activation codes (all weight
+// planes), xs (M,) the rows' scales (quantize_rows), wscale (N,) the
+// columns'. With ksplit > 1, part is (ksplit, M, N) int32 scratch and
+// counters holds one zeroed int per output tile (ceil(N / 128) ceil(M /
+// bm)), left zeroed. Returns the CUDA error code of the launches (0 =
+// launched).
+extern "C" int bitplane_dequant_matmul(const int8_t* x, const int8_t* wp, int M, int K, int N,
+                                       int bits, int a_bits, int bm, int kb,
+                                       int ksplit, const float* xs, const float* wscale,
+                                       void* y, int y_dtype, int ldy, int32_t* part,
+                                       int* counters, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  Args a;
+  if (!make_args(x, wp, M, K, N, bits, a_bits, 0, bm, kb, ksplit, a) ||
+      (y_dtype != 0 && y_dtype != 1) || ldy < N || xs == nullptr || wscale == nullptr ||
+      y == nullptr || (ksplit > 1 && (part == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  Deq dq{};
+  dq.out.mode = 1 + y_dtype;
+  dq.out.y = y;
+  dq.out.ldy = ldy;
+  dq.out.wscale = wscale;
+  dq.out.wmul = 1.0f;
+  dq.out.vec = (ldy % (y_dtype == 0 ? 4 : 8) == 0 && (uintptr_t)y % 16 == 0) ? 1 : 0;
+  dq.xs = xs;
+  dq.part = part;
+  dq.counters = counters;
+  dq.fold = ksplit > 1 && M > splitk::kLastBlockRows;
+  const cudaError_t e = imma_bits<true, true>(bits, bm, a, st, nullptr, dq);
+  if (e != cudaSuccess) return (int)e;
+  if (dq.fold) splitk::launch_fold(part, ksplit, M, N, dq.out, xs, st);
   return (int)cudaGetLastError();
 }

@@ -39,15 +39,17 @@
 // buffer, which at decode (M <= 8) the last block of a tile to arrive
 // sums and stores (a counter per tile, reset by that block, so it needs
 // no fill), and above that a fold launch sums over all SMs (measured
-// faster at M = 32, where the last block's serial tail dominated).
-// Integer addition is exact, so any plan gives the same bits, and a row
-// never depends on M, on the split or on the other rows.
+// faster at M = 32, where the last block's serial tail dominated). That
+// store is split_store.cuh, shared with bitplane_matmul.cu's dequant
+// entry. Integer addition is exact, so any plan gives the same bits, and
+// a row never depends on M, on the split or on the other rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma.cuh"
+#include "split_store.cuh"
 
 namespace {
 
@@ -56,7 +58,7 @@ constexpr int kBN = 128;        // output columns per 32-column group of each of
 constexpr int kKT = 64;         // K codes per tile
 // Up to this M (decode) the matmul blocks reduce the row scales and sum
 // a K split themselves; above it a row pass and a fold launch do.
-constexpr int kFuseRows = 8;
+constexpr int kFuseRows = splitk::kLastBlockRows;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -112,69 +114,7 @@ __device__ __forceinline__ uint32_t sext4(uint32_t x, uint32_t sign, uint32_t mu
   return x | ((x & sign) * mult);
 }
 
-// Where the result goes. mode 0: the int32 accumulator (M, N); 1 / 2:
-// y = (float(acc) * xs[m]) * (wscale[n] * wmul) as float32 / bfloat16,
-// row stride ldy. vec: rows allow 16-byte stores of 8 columns.
-struct Out {
-  int mode;
-  int32_t* acc;
-  void* y;
-  int ldy;
-  const float* wscale;
-  float wmul;
-  int vec;
-};
-
-__device__ __forceinline__ float dequant(int v, float xs, const Out& o, int col) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(v), xs), __fmul_rn(o.wscale[col], o.wmul));
-}
-
-// Element (row, col), xs the row's scale.
-__device__ __forceinline__ void store1(const Out& o, int N, int row, int col, int v, float xs) {
-  if (o.mode == 0) {
-    o.acc[(size_t)row * N + col] = v;
-    return;
-  }
-  const float f = dequant(v, xs, o, col);
-  const size_t at = (size_t)row * o.ldy + col;
-  if (o.mode == 1) static_cast<float*>(o.y)[at] = f;
-  else static_cast<__nv_bfloat16*>(o.y)[at] = __float2bfloat16_rn(f);
-}
-
-// Columns c0 .. c0 + 7 of one row.
-__device__ __forceinline__ void store8(const Out& o, int N, int row, int c0, const int* v,
-                                       float xs) {
-  if (!o.vec || c0 + 8 > N) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      if (c0 + e < N) store1(o, N, row, c0 + e, v[e], xs);
-    return;
-  }
-  if (o.mode == 0) {
-    int4* dst = reinterpret_cast<int4*>(o.acc + (size_t)row * N + c0);
-    dst[0] = make_int4(v[0], v[1], v[2], v[3]);
-    dst[1] = make_int4(v[4], v[5], v[6], v[7]);
-    return;
-  }
-  float f[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = dequant(v[e], xs, o, c0 + e);
-  const size_t at = (size_t)row * o.ldy + c0;
-  if (o.mode == 1) {
-    float4* dst = reinterpret_cast<float4*>(static_cast<float*>(o.y) + at);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-      w[e] = *reinterpret_cast<uint32_t*>(&p);
-    }
-    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(o.y) + at) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
+using splitk::Out;
 
 template <typename XT>
 __global__ void row_scale_kernel(const XT* __restrict__ x, int K, float rq,
@@ -384,50 +324,16 @@ fused_kernel(const XT* __restrict__ x, const int8_t* __restrict__ wp,
           o[j] = d[i][4 * gq + j][2 * h];
           o[4 + j] = d[i][4 * gq + j][2 * h + 1];
         }
-        if (!split) {
-          store8(out, N, row, c0, o, s.scl[row - m0]);
-        } else {
-          int32_t* dst = part + ((size_t)blockIdx.y * M + row) * N + c0;
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (c0 + e < N) dst[e] = o[e];
-        }
+        if (!split) splitk::store8(out, N, row, c0, o, s.scl[row - m0]);
+        else splitk::store_part8(part, blockIdx.y, M, N, row, c0, o);
       }
   }
   if (!split || fold) return;
 
   // K split at decode: the last block of this output tile to arrive sums
-  // the slices' partial tiles (in slice order) and stores, then resets
-  // the tile's counter for the next launch.
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
-  if (tid == 0) s.last = atomicAdd(&counters[tile], 1) == (int)gridDim.y - 1;
-  __syncthreads();
-  if (!s.last) return;
-  __threadfence();
-  const int ncols = min(BN, N - n0);
-  for (int i = tid; i < rows * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    if (c >= ncols) continue;
-    const int row = m0 + r, col = n0 + c;
-    int sum = 0;
-    for (int sl = 0; sl < (int)gridDim.y; ++sl)
-      sum += __ldcg(part + ((size_t)sl * M + row) * N + col);
-    store1(out, N, row, col, sum, s.scl[r]);
-  }
-  if (tid == 0) counters[tile] = 0;
-}
-
-// K split above kFuseRows rows: element (row, col) = the slices' partial
-// sums in slice order, then stored as the kernel stores.
-__global__ void fold_kernel(const int32_t* __restrict__ part, int S, int M, int N, Out out,
-                            const float* __restrict__ scales) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * N) return;
-  int sum = 0;
-  for (int s = 0; s < S; ++s) sum += part[(size_t)s * M * N + i];
-  store1(out, N, i / N, i % N, sum, scales[i / N]);
+  // the slices and stores (split_store.cuh).
+  splitk::last_block_store<BN, kThreads>(out, part, counters, &s.last, M, N, m0, rows, n0,
+                                         [&](int r) { return s.scl[r]; });
 }
 
 template <int MI, int NG, int BITS, bool SIGNED, typename XT>
@@ -511,7 +417,7 @@ int run(const XT* x, const int8_t* wp, int M, int K, int N, int bits, int a_bits
   if (!scales_ready && !a.fuse) row_scale_kernel<XT><<<M, 256, 0, st>>>(x, K, a.rq, scales);
   const cudaError_t e = by_bits<XT>(bits, sgn, bm, bn, st, x, wp, scales, a, out);
   if (e != cudaSuccess) return (int)e;
-  if (a.fold) fold_kernel<<<(M * N + 255) / 256, 256, 0, st>>>(part, ksplit, M, N, out, scales);
+  if (a.fold) splitk::launch_fold(part, ksplit, M, N, out, scales, st);
   return (int)cudaGetLastError();
 }
 

@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_k
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -79,25 +79,6 @@ def _lib():
     return lib
 
 
-#: Split counters by (device, stream): zeroed once, and each kernel that
-#: splits K at decode (M <= 8, the last block of a tile sums the slices)
-#: leaves its tiles' counters at zero again.
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _split_scratch(p: Plan, m: int, n: int, device, stream: int):
-    """(partial tiles, counters) pointers for a split plan, else (0, 0)."""
-    if p.grid[1] == 1:
-        return None, 0, 0
-    key = (device.index, stream)
-    ctr = _counters.get(key)
-    if ctr is None or ctr.numel() < p.tiles:
-        ctr = torch.zeros(max(p.tiles, 4096), dtype=torch.int32, device=device)
-        _counters[key] = ctr
-    part = torch.empty((p.grid[1], m, n), dtype=torch.int32, device=device)
-    return part, part.data_ptr(), ctr.data_ptr()
-
-
 def _check(x: torch.Tensor, w_packed: torch.Tensor, w_bits: int, a_bits: int,
            w_plane_lo: int):
     if x.dtype not in _X_DTYPES or x.ndim != 2:
@@ -128,7 +109,7 @@ def launch(x: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
     scales = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    part, part_p, ctr_p = _split_scratch(p, m, n, x.device, stream)
+    part, part_p, ctr_p = split_k.scratch(p.grid, m, n, x.device, stream)
     rc = _lib().fused_quantize_matmul(
         x.data_ptr(), _X_DTYPES[x.dtype], w_packed.data_ptr(), m, k, n, w_bits, a_bits,
         int(act_signed), w_plane_lo, p.bm, p.bn, p.kb, p.grid[1], scales.data_ptr(),
@@ -166,7 +147,7 @@ def launch_dequant(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
         x_scales = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     p = plan(m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    part, part_p, ctr_p = _split_scratch(p, m, n, x.device, stream)
+    part, part_p, ctr_p = split_k.scratch(p.grid, m, n, x.device, stream)
     y = out.data_ptr() + col * out.element_size()
     rc = _lib().fused_dequant_matmul(
         x.data_ptr(), _X_DTYPES[x.dtype], w_packed.data_ptr(), m, k, n, w_bits, a_bits,

@@ -9,8 +9,9 @@ through the kernels. Every Pallas kernel of the JAX package is ported:
 the fused quantize → packed matmul, paged decode attention (also run
 over the contiguous cache by ``decode_attention``), paged chunked
 prefill, the row quantizer and the unfused integer matmul (the Table
-III mixed-group path), flash attention (whole-prompt prefill) and the
-RWKV-6 chunked recurrence ``wkv6``. The attention kernels share one
+III mixed-group path: one row pass, then one integer matmul per filter
+group with the dequant in its store), flash attention (whole-prompt
+prefill) and the RWKV-6 chunked recurrence ``wkv6``. The attention kernels share one
 tile routine, so every attention path sums in one order. One kernel has
 no Pallas counterpart: ``dense_matmul``, the batch-invariant bf16
 product that rwkv6's dense layers run on the card. The JAX
@@ -84,7 +85,8 @@ def fused_quantize_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
 
 
 def _kernel_rows(x: torch.Tensor) -> torch.Tensor:
-    """x as the fused kernel reads it: float32 or bfloat16 as it is."""
+    """x as the fused kernel and the row quantizer read it: float32 or
+    bfloat16 as it is, any other dtype as float32."""
     return x if x.dtype in (torch.float32, torch.bfloat16) else x.to(torch.float32)
 
 
@@ -120,12 +122,12 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 def quantize_rows(x: torch.Tensor, *, bits: int = 8, signed: bool = True):
     """Per-row (per-token) quantization: (M, K) float → ((M, K) int8
-    codes, (M, 1) float32 scales). Unsigned 8-bit codes are stored
-    wrapped (255 as -1)."""
-    x = x.to(torch.float32)
+    codes, (M, 1) float32 scales), the codes of x as float32. Unsigned
+    8-bit codes are stored wrapped (255 as -1). float32 and bfloat16 rows
+    are read as they are (bf16 → f32 is exact)."""
     if _on_cpu(x, "quantize_rows"):
         return _ref.quantize_rows_ref(x, bits, signed)
-    return _pq.launch(x, bits=bits, signed=signed)
+    return _pq.launch(_kernel_rows(x), bits=bits, signed=signed)
 
 
 def bitplane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
@@ -153,14 +155,29 @@ def mixed_group_matmul(x: torch.Tensor, w8_codes: torch.Tensor,
     """Intra-layer mixed 8-bit / low-bit filter groups (paper Table III):
     one signed per-row quantization of x shared by both groups, then one
     integer matmul per group — the 8-bit codes (K, N8) and the low group
-    read packed ((K·w_bits/8, NL)) — each dequantized ``acc · xs · ws``
-    with its own scales. Returns [y8, yl] (M, N8 + NL) in x's dtype."""
-    xq, xs = quantize_rows(x, bits=a_bits, signed=True)
-    acc8 = bitplane_matmul(xq, w8_codes, a_bits=a_bits)
-    accl = bitplane_matmul(xq, wl_packed, a_bits=a_bits, w_bits=w_bits)
-    y8 = acc8.to(torch.float32) * xs * scale8.reshape(1, -1)
-    yl = accl.to(torch.float32) * xs * scalel.reshape(1, -1)
-    return torch.cat([y8, yl], dim=1).to(x.dtype)
+    read packed ((K·w_bits/8, NL)) — each dequantized ``(acc · xs) · ws``
+    in float32 with its own scales. Returns [y8, yl] (M, N8 + NL) in x's
+    dtype, one rounding from float32.
+
+    On the card that is one ``quantize_rows`` launch on x as it is
+    (float32 or bfloat16), then one ``bitplane_matmul`` dequant launch per
+    group, each storing its columns of one output (plus a fold launch
+    where the plan splits K above M = 8): no concatenation, cast, product
+    or fill around them."""
+    if _on_cpu(x, "mixed_group_matmul"):
+        xq, xs = quantize_rows(x, bits=a_bits, signed=True)
+        acc8 = bitplane_matmul(xq, w8_codes, a_bits=a_bits)
+        accl = bitplane_matmul(xq, wl_packed, a_bits=a_bits, w_bits=w_bits)
+        y8 = acc8.to(torch.float32) * xs * scale8.reshape(1, -1)
+        yl = accl.to(torch.float32) * xs * scalel.reshape(1, -1)
+        return torch.cat([y8, yl], dim=1).to(x.dtype)
+    xk = _kernel_rows(x)
+    xq, xs = _pq.launch(xk, bits=a_bits, signed=True)
+    n8 = w8_codes.shape[1]
+    out = torch.empty((x.shape[0], n8 + wl_packed.shape[1]), dtype=xk.dtype, device=x.device)
+    _bpm.launch_dequant(xq, w8_codes, xs, scale8, out, col=0, w_bits=8, a_bits=a_bits)
+    _bpm.launch_dequant(xq, wl_packed, xs, scalel, out, col=n8, w_bits=w_bits, a_bits=a_bits)
+    return out.to(x.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -256,6 +256,7 @@ _BINDINGS = [("fused_matmul", "fused_matmul", "fused_quantize_matmul"),
              ("paged_prefill", "paged_prefill", "paged_prefill"),
              ("pack_quant", "quantize_rows", "quantize_rows"),
              ("bitplane_matmul", "bitplane_matmul", "bitplane_matmul"),
+             ("bitplane_matmul", "bitplane_matmul", "bitplane_dequant_matmul"),
              ("flash_attention", "flash_attention", "flash_attention"),
              ("paged_attention", "paged_attention", "contig_attention"),
              ("wkv6", "wkv6", "wkv6"),

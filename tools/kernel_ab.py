@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's matmul and wkv6 kernels of two checkouts on one GPU,
-in turns.
+"""Time the port's matmul, row-quantizer and wkv6 kernels of two
+checkouts on one GPU, in turns.
 
   python3 tools/kernel_ab.py <other checkout> [<this checkout>]
 
-Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul`` and
-``wkv6`` from each checkout's ``src/repro_torch/kernels/csrc`` and times
-them at the serving path's decode and prefill shapes (``wkv6``: a
-rwkv6-3b prefill of B = 4, T = 320 and a decode step, T = 1 with the
-state carried), in four processes on the same
+Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul``,
+``quantize_rows`` and ``wkv6`` from each checkout's
+``src/repro_torch/kernels/csrc`` and times them at the serving path's
+decode and prefill shapes (``wkv6``: a rwkv6-3b prefill of B = 4, T = 320
+and a decode step, T = 1 with the state carried; ``quantize_rows`` and
+the Table III leaf through ``ops``, so a checkout whose quantizer reads
+float32 only pays its cast of bfloat16 rows), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
 version's two runs shows beside the difference between versions). Each
 process imports only its own checkout's ``repro_torch``; the timer is
@@ -35,6 +37,12 @@ SHAPES += [("dense_matmul", M, K, N, 16) for M in (4, 1280)
            for K, N in ((2560, 8960), (8960, 2560), (2560, 2560))]
 # (wkv6, B, T, H, K): rwkv6-3b's heads, chunk 64.
 SHAPES += [("wkv6", 4, T, 40, 64) for T in (320, 1)]
+# (quantize_rows, M, K, -, row dtype): a w4a6r25 layer's rows.
+SHAPES += [("quantize_rows", M, 2048, 0, dt) for M in (4, 1280) for dt in ("f32", "bf16")]
+# (table3, M, K, N, w_bits): olmo-1b's w4a6r25 leaves through
+# ops.mixed_group_matmul, bf16 rows: wq/wk/wv, w_gate/w_up, w_down.
+SHAPES += [("table3", M, K, N, 4) for M in (4, 1280)
+           for K, N in ((2048, 2048), (2048, 8192), (8192, 2048))]
 
 
 def worker(root: str) -> None:
@@ -42,7 +50,10 @@ def worker(root: str) -> None:
     import torch
 
     from repro_torch.core.bitplane import pack_weights
-    from repro_torch.kernels import bitplane_matmul, build, dense_matmul, fused_matmul, wkv6
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.quantized_linear import pack_weight
+    from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, fused_matmul, ops,
+                                     wkv6)
 
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
@@ -51,7 +62,7 @@ def worker(root: str) -> None:
 
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
-    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "wkv6"])
+    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "quantize_rows", "wkv6"])
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
     out = {}
@@ -66,6 +77,20 @@ def worker(root: str) -> None:
             s0 = torch.randn((B, H, Kh, Kh), generator=gen, device=dev) * 0.3
             fn = lambda: wkv6.launch(r, k, v, w, u, s0, chunk=64)  # noqa: E731
             out[f"wkv6 B={B} T={T} H={H} K=V={Kh}"] = timer(fn)
+            continue
+        if name == "quantize_rows":
+            dtype = torch.float32 if bits == "f32" else torch.bfloat16
+            x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+            fn = lambda: ops.quantize_rows(x, bits=6, signed=True)  # noqa: E731
+            out[f"quantize_rows M={M} K={K} a6 {bits} rows"] = timer(fn)
+            continue
+        if name == "table3":
+            w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+            pw = pack_weight(w, QuantConfig(w_bits=4, a_bits=6, mixed_ratio_8b=0.25))
+            args = (pw.packed8, pw.packed, pw.scale[:, :pw.n8], pw.scale[:, pw.n8:])
+            x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+            fn = lambda: ops.mixed_group_matmul(x, *args, w_bits=4, a_bits=6)  # noqa: E731
+            out[f"mixed_group_matmul M={M} {K}->{N} w4a6r25 bf16"] = timer(fn)
             continue
         if name == "dense_matmul":
             w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)

@@ -42,16 +42,32 @@
    has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
    a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
-   of 64-320 tokens, 32 new tokens each, 4 slots, in ten runs — olmo
+   of 64-320 tokens, 32 new tokens each, 4 slots, in twelve runs — olmo
    continuous with chunked prefill on a bf16 pool (Table III policy
    "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
    Table III policy; (b) static, int8 cache; (c) continuous with solo
    whole-prompt admission on the paged bf16 pool, Table III policy; (d)
    continuous on the contiguous cache; rwkv6-3b (e) static and (f)
    continuous, unquantized bf16; olmo unpacked (no policy, every dense
-   product on ``dense_matmul``) (g) static and (h) continuous. Each run
-   must launch the kernels of its path, and each run's repeated pass must
-   give identical greedy tokens. Gated across paths (see
+   product on ``dense_matmul``) (g) static and (h) continuous; and the
+   prefix cache, every prompt after one shared 200-token prompt: (i)
+   chunked on the bf16 pool, Table III policy, and (j) whole-prompt
+   admission on the int8 pool. Each run must launch the kernels of its
+   path, a paged pool must hold its allocator invariants after the run,
+   and each run's repeated pass must give identical greedy tokens. The
+   prefix cache is on in every paged continuous run, but this gates warm
+   against cold only where the pool keeps the warmup's blocks (runs (i)
+   and (j)): the runs without a shared prefix hold exactly 4 slots'
+   blocks, so the LRU evicts most of them before the timed pass reaches
+   them, and those passes are mostly cold (their tok/s includes the
+   evictions).
+   Prefix-cache gates (``compare_prefix``): runs (i) and (j) emit the
+   greedy tokens of their stream served with --no-prefix-cache, in both
+   passes; a partial and a whole-prompt hit give first-token logits
+   bitwise those of the cold admission, chunked and whole-prompt, on
+   bf16 and int8 pools; run (i) hits blocks and copies one on write.
+   The read-only (store=False) form of ``paged_prefill`` is bitwise the
+   storing call and leaves the pool unchanged. Gated across paths (see
    ``compare_paths``): chunked and whole-prompt first-token logits bitwise
    equal on the bf16 pool, and identical greedy tokens whole-prompt (c)
    vs chunked and static (a) vs continuous (c); rwkv6's static batch vs
@@ -117,6 +133,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
 }
+SHARED_PREFIX = 200
 # Serve runs: name → (serve.py flags, policy, kernels its path must launch).
 # ``contig_attention`` is paged_attention's second entry, the paged decode
 # kernel's code run over the contiguous cache (one TPU kernel, two entries).
@@ -141,6 +158,19 @@ SERVE_RUNS = {
                                ("flash_attention", "contig_attention", "dense_matmul")),
     "h-olmo-unpacked-continuous": (["--continuous"], None,
                                    ("paged_attention", "paged_prefill", "dense_matmul")),
+    # The prefix cache: every prompt after one shared 200-token prompt
+    # (12 whole 16-token blocks and a block it shares only in part, so a
+    # whole-prompt hit copies its partial block on write). (i) chunked on
+    # the bf16 pool; (j) whole-prompt admission on the int8 pool, its
+    # suffixes through the flash kernel over dequantized blocks.
+    "i-prefix-chunked": (["--continuous", "--shared-prefix", str(SHARED_PREFIX)],
+                         MIXED_POLICY,
+                         ("fused_quantize_matmul", "paged_attention", "paged_prefill",
+                          "quantize_rows", "bitplane_matmul")),
+    "j-prefix-solo-int8": (["--continuous", "--no-chunked-prefill", "--kv-int8",
+                            "--shared-prefix", str(SHARED_PREFIX)], POLICY,
+                           ("flash_attention", "fused_quantize_matmul",
+                            "paged_attention")),
     # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
     # serves rwkv6 unquantized): its recurrent state, no KV cache.
     "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None,
@@ -500,6 +530,7 @@ def check_paged_prefill(torch, dev, timer):
     log(f"paged_prefill: cold and mid-block chunks, bf16 and int8 pools: pool "
         f"bytes and scale planes bitwise, attention within atol=rtol={ATOL} "
         f"(max |err| {max_err:.3g})")
+    max_err = max(max_err, check_paged_prefill_read_only(torch, dev, gen))
 
     start, length = 256, 32
     pk, pv, _, _ = _pool(torch, dev, gen, nb, bs, nkv, H, False)
@@ -523,9 +554,81 @@ def check_paged_prefill(torch, dev, timer):
         + length * elem * 2 + q.numel() * 2 + blk.numel() * 4
     flops = 4 * nkv * G * H * sum(start + i + 1 for i in range(length))
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    # The read-only form as a whole-prompt prefix hit runs it: the last
+    # token of a resident 384-token prompt over its blocks, nothing written.
+    blk = blocks.contiguous()
+    S = blk.shape[0] * bs
+    ro_start = S - 1
+    q1, k1, v1 = q[:, :1].contiguous(), kn[:, :1].contiguous(), vn[:, :1].contiguous()
+    ro_got = paged_prefill.launch(q1, k1, v1, pk, pv, blk, ro_start, 1, store=False)[0]
+    ro_want = ref.paged_prefill_ref(q1, k1, v1, pk, pv, blk, ro_start, 1, store=False)[0]
+    torch.cuda.synchronize()
+    ro_err = _close(torch, ro_got, ro_want,
+                    f"paged_prefill store=False timed shape (Lc=1 at {ro_start})")
+    max_err = max(max_err, ro_err)
+    ro_ms = timer(lambda: paged_prefill.launch(q1, k1, v1, pk, pv, blk, ro_start, 1,
+                                               store=False))
+    ro_plain = timer(lambda: ref.paged_prefill_ref(q1, k1, v1, pk, pv, blk, ro_start, 1,
+                                                   store=False))
+    kc = pk[blk.long()].reshape(1, S, nkv, H).transpose(1, 2).contiguous()
+    vc = pv[blk.long()].reshape(1, S, nkv, H).transpose(1, 2).contiguous()
+    qs1 = q1.transpose(1, 2)
+    ro_lib = timer(lambda: F.scaled_dot_product_attention(qs1, kc, vc))
+    ro_bound = bound_ms(2 * q1.numel() * 2 + S * elem * 2 + blk.numel() * 4,
+                        4 * nkv * G * H * S, BF16_FLOPS_PER_S)
+    read_only = {"ms": ro_ms, "plain_ms": ro_plain, "library_ms": ro_lib,
+                 "max_abs_err": ro_err, "bound_ms": ro_bound[0], "bound_by": ro_bound[1],
+                 "shape": f"store=False, Lc=1 at {ro_start} (a resident {S}-token prompt) "
+                          f"NQ=NKV={nkv} H={H} bs={bs} bf16"}
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_err,
-            "shape": f"Lc={Lc} start={start} NQ=NKV={nkv} H={H} bs={bs} bf16"}
+            "shape": f"Lc={Lc} start={start} NQ=NKV={nkv} H={H} bs={bs} bf16",
+            "entries": {"read_only": read_only}}
+
+
+def check_paged_prefill_read_only(torch, dev, gen):
+    """The store=False form (a whole-prompt prefix hit's last token over
+    shared blocks), bf16 and int8 pools: a chunk stored first, then the
+    same chunk read-only gives bitwise the stored call's output and
+    leaves every pool byte and scale unchanged; within atol=rtol of the
+    plain store=False version. Cases: a 32-row chunk (20 live rows, and
+    one), and the serve path's own shape, one query row (Lc = 1) at the
+    last token of resident prompts, in the middle and at the end of a
+    block and past one 512-key span. Returns the max |err| against the
+    plain version."""
+    from repro_torch.kernels import paged_prefill, ref
+
+    nkv, H, bs = 16, 128, 16
+    nb = 48
+    blocks = (torch.randperm(nb - 1, generator=gen, device=dev)[:nb - 8] + 1).to(torch.int32)
+    worst = 0.0
+    for quant in (False, True):
+        for Lc, start, length in ((32, 290, 20), (32, 243, 1), (1, 243, 1), (1, 263, 1),
+                                  (1, 383, 1), (1, 519, 1)):
+            pk, pv, ks, vs = _pool(torch, dev, gen, nb, bs, nkv, H, quant)
+            q, kn, vn = (torch.randn((1, Lc, nkv, H), generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(3))
+            blk = blocks.clone()
+            blk[-(-(start + length) // bs):] = -1
+            stored = paged_prefill.launch(q, kn, vn, pk, pv, blk, start, length, ks, vs)[0]
+            before = [t.clone() for t in (pk, pv, ks, vs) if t is not None]
+            got = paged_prefill.launch(q, kn, vn, pk, pv, blk, start, length, ks, vs,
+                                       store=False)[0]
+            want = ref.paged_prefill_ref(q, kn, vn, pk, pv, blk, start, length, ks, vs,
+                                         store=False)[0]
+            torch.cuda.synchronize()
+            what = (f"paged_prefill store=False quant={quant} Lc={Lc} start={start} "
+                    f"length={length}")
+            if not torch.equal(got, stored):
+                raise AssertionError(f"{what}: differs from the storing call")
+            after = [t for t in (pk, pv, ks, vs) if t is not None]
+            if not all(torch.equal(a, b) for a, b in zip(before, after)):
+                raise AssertionError(f"{what}: the pool changed")
+            worst = max(worst, _close(torch, got, want, what))
+    log(f"paged_prefill store=False: Lc=32 (length 20, 1) and Lc=1 at 243, 263, 383, "
+        f"519, bf16 and int8 pools: bitwise the storing call, pool unchanged, within "
+        f"atol=rtol={ATOL} of its plain version (max |err| {worst:.3g})")
+    return worst
 
 
 # olmo-1b's rows, a ragged K, rows of no whole vector, and rows past one
@@ -1207,14 +1310,17 @@ def check_dense_matmul(torch, dev, timer):
 
 def mixed_requests(cfg, args):
     """8 requests with prompts of 64-320 tokens (greedy and temperature
-    0.7 alternating), all queued at t=0; the same stream on every call."""
+    0.7 alternating), after a common --shared-prefix prompt if one is
+    asked for, all queued at t=0; the same stream on every call."""
     import numpy as np
 
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, getattr(args, "shared_prefix", 0))
     lens = (64, 320, 128, 256, 96, 192, 288, 160)
-    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int64),
+    return [Request(rid=i, prompt=np.concatenate(
+                        [shared, rng.integers(0, cfg.vocab, n)]).astype(np.int64),
                     max_new_tokens=args.max_new,
                     temperature=0.0 if i % 2 == 0 else 0.7)
             for i, n in enumerate(lens)]
@@ -1232,11 +1338,30 @@ def serve_argv(name):
     return SERVE_ARGS + (["--policy", policy] if policy else []) + flags
 
 
+def check_outputs(name, engine, done):
+    """Every request of run `name` emitted 32 tokens of the vocabulary,
+    and a paged pool's allocator holds its invariants."""
+    from repro_torch.serving import assert_pool_invariants
+
+    vocab = engine.cfg.vocab
+    for r in done:
+        if r.error or len(r.out_tokens) != 32 or not all(0 <= t < vocab for t in r.out_tokens):
+            raise AssertionError(f"{name}: request {r.rid}: bad output {r.error} "
+                                 f"{r.out_tokens}")
+    if engine._sched is not None:
+        assert_pool_invariants(engine._sched)
+
+
 def serve_run(torch, params, name):
     """Serve the stream above in run `name` of SERVE_RUNS (a warmup pass,
-    then the timed pass). Checks the outputs, that the run launched every
-    kernel of its path, and that the two passes emit identical greedy
-    tokens. Returns (engine, report, launch counts, tokens by rid)."""
+    then the timed pass). Checks the outputs and the pool invariants, that
+    the run launched every kernel of its path, and that the two passes
+    emit identical greedy tokens. With the prefix cache on (every paged
+    continuous run), the timed pass admits from the blocks the warmup
+    pass left where the pool still holds them: warm against cold in runs
+    (i) and (j), mostly cold in the runs without a shared prefix, whose
+    LRU evicts before reuse. Returns
+    (engine, report, launch counts, tokens by rid)."""
     from repro_torch.kernels import ops, paged_attention
     from repro_torch.launch import serve
 
@@ -1247,11 +1372,7 @@ def serve_run(torch, params, name):
     counts = ops.launch_counts()
     # The contiguous entry's share of paged_attention's launches.
     counts["contig_attention"] = paged_attention.contig_launches
-    vocab = engine.cfg.vocab
-    for r in done:
-        if r.error or len(r.out_tokens) != 32 or not all(0 <= t < vocab for t in r.out_tokens):
-            raise AssertionError(f"{name}: request {r.rid}: bad output {r.error} "
-                                 f"{r.out_tokens}")
+    check_outputs(name, engine, done)
     for k in needed:
         if counts[k] <= 0:
             raise AssertionError(f"{name}: {k} never launched while serving")
@@ -1262,10 +1383,119 @@ def serve_run(torch, params, name):
             raise AssertionError(f"{name}: the repeated pass changed greedy request "
                                  f"{r.rid}: {warm[r.rid]} vs {r.out_tokens}")
     same = sum(warm[rid] == t for rid, t in tokens.items())
+    st = report["stats"] or {}
+    prefix = (f"; prefix cache: hit rate {st['prefix_hit_rate']:.4f} "
+              f"({st['prefix_hit_blocks']} block hits, {st['cow_copies']} CoW copies, "
+              f"{st['prefix_evictions']} evictions)" if st.get("prefix_cache") else "")
     log(f"serve {engine.cfg.name} [{name}] policy {policy}: {report['tok_per_s']:.1f} tok/s "
         f"steady state; repeated pass: greedy identical, {same}/{len(done)} "
-        f"requests identical; launches {counts}")
+        f"requests identical{prefix}; launches {counts}")
     return engine, report, counts, tokens
+
+
+def compare_prefix(torch, runs):
+    """The prefix cache's gates on runs (i) and (j).
+
+    (i) Each run's stream served once more by the run's engine with the
+    cache off (--no-prefix-cache): every
+    greedy request's tokens, in the warm run's warmup pass (live sharing,
+    chunk plans from the first uncached block) and its timed pass (every
+    prompt resident), identical to the cold run's. (ii) First-token
+    logits of a partial hit and of a whole-prompt hit bitwise equal (max
+    |err| 0) to the cold admission of the same prompt in the same mode,
+    chunked and whole-prompt, on run (i)'s bf16 pool and run (j)'s int8
+    pool (``admission_logits``). (iii) Run (i) hit blocks and copied a
+    block on write. Everything prints before a gate raises."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    out, bad = {}, []
+    for name in ("i-prefix-chunked", "j-prefix-solo-int8"):
+        engine, report, _, tokens = runs[name]
+        # The run's engine with the cache off, serving the stream once.
+        cold_engine = ServingEngine(
+            engine.cfg, engine.params, max_batch=engine.max_batch, bucket=engine.bucket,
+            block_size=engine.block_size, pool_blocks=engine.pool_blocks,
+            prefix_cache=False, chunked_prefill=engine.chunked_prefill,
+            prefill_budget=engine.prefill_budget, device=engine.device)
+        args = serve.build_parser().parse_args(serve_argv(name))
+        t0 = time.perf_counter()
+        cold_done = cold_engine.generate(mixed_requests(engine.cfg, args))
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        check_outputs(f"{name} without the prefix cache", cold_engine, cold_done)
+        cold = {r.rid: r.out_tokens for r in cold_done}
+        greedy = [r.rid for r in cold_done if r.temperature == 0]
+        shares = {"warmup": _greedy_share(report["warmup_tokens"], cold, greedy),
+                  "timed": _greedy_share(tokens, cold, greedy)}
+        logits = admission_logits(torch, engine)
+        st = report["stats"]
+        cold_tps = sum(len(r.out_tokens) for r in cold_done) / cold_s
+        out[name] = {"greedy_vs_cold": shares, "logits_max_err": logits,
+                     "cold_tok_per_s": cold_tps,
+                     **{k: st[k] for k in ("prefix_hit_rate", "prefix_hit_blocks",
+                                           "cow_copies", "prefix_evictions")}}
+        log(f"prefix cache [{name}]: greedy requests identical to --no-prefix-cache: "
+            f"warmup pass {shares['warmup']}, timed pass {shares['timed']} (gated at "
+            f"all); first-token logits warm vs cold max |err| {logits} (gated at 0); "
+            f"one pass without the cache {cold_tps:.1f} tok/s")
+        full = f"{len(greedy)}/{len(greedy)}"
+        bad += [f"{name} greedy {k} {v}" for k, v in shares.items() if v != full]
+        bad += [f"{name} logits {k} {v}" for k, v in logits.items() if v != 0.0]
+    st = runs["i-prefix-chunked"][1]["stats"]
+    if not (st["prefix_hit_blocks"] > 0 and st["cow_copies"] > 0):
+        bad.append(f"i-prefix-chunked: {st['prefix_hit_blocks']} block hits, "
+                   f"{st['cow_copies']} CoW copies")
+    if bad:
+        raise AssertionError(f"prefix cache: {bad}")
+    return out
+
+
+def admission_logits(torch, engine):
+    """First-token logits of prompt A (200 shared + 44 own tokens: 15
+    whole blocks and a partial one) and B (the same 200 + 52 others) on
+    `engine`'s weights and pool type, in chunked and whole-prompt
+    admission: a scheduler with the prefix cache serves A cold, then B (a
+    partial hit: 12 blocks resident, the suffix prefilled), then A again
+    (a whole-prompt hit, its partial block copied on write at the first
+    decode); one without the cache serves A and B cold. Returns max |err|
+    warm vs cold per mode and hit kind."""
+    import numpy as np
+
+    from repro_torch.serving import ContinuousScheduler, Request, assert_pool_invariants
+
+    cfg = engine.cfg
+    rng = np.random.default_rng(11)
+    shared = rng.integers(0, cfg.vocab, SHARED_PREFIX)
+    a = np.concatenate([shared, rng.integers(0, cfg.vocab, 44)]).astype(np.int64)
+    b = np.concatenate([shared, rng.integers(0, cfg.vocab, 52)]).astype(np.int64)
+    errs = {}
+    for chunked in (True, False):
+        seen = {}
+        for cache_on in (False, True):
+            sched = ContinuousScheduler(cfg, engine.params, max_batch=2, max_ctx=320,
+                                        block_size=16, prefill_budget=32, bucket=32,
+                                        prefix_cache=cache_on, chunked_prefill=chunked,
+                                        device=engine.device)
+            first = sched._first_token
+
+            def grab(req, slot, logits, first=first, cache_on=cache_on):
+                seen[(cache_on, req.rid)] = logits[0, -1].float().clone()
+                return first(req, slot, logits)
+
+            sched._first_token = grab
+            for rid, p in enumerate((a, b, a) if cache_on else (a, b)):
+                sched.run([Request(rid=rid, prompt=p, max_new_tokens=3)])
+            assert_pool_invariants(sched)
+        st = sched.pool_stats()
+        if st["prefix_hit_tokens"] != 192 + len(a) or st["cow_copies"] < 1:
+            raise AssertionError(f"admission_logits (chunked={chunked}): "
+                                 f"{st['prefix_hit_tokens']} hit tokens, "
+                                 f"{st['cow_copies']} CoW copies")
+        mode = "chunked" if chunked else "whole"
+        errs[f"{mode}_partial_hit"] = (seen[(True, 1)] - seen[(False, 1)]).abs().max().item()
+        errs[f"{mode}_full_hit"] = (seen[(True, 2)] - seen[(False, 0)]).abs().max().item()
+    return errs
 
 
 def _greedy_share(a, b, rids):
@@ -1901,6 +2131,7 @@ def main() -> int:
         toks = solo_vs_mid_decode(runs[name][0])
         log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
             "identical")
+    prefix_cmp = compare_prefix(torch, runs)
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
     rwkv_cmp = compare_rwkv6(torch, runs)
     unpacked_cmp = compare_unpacked(torch, runs)
@@ -1918,6 +2149,7 @@ def main() -> int:
         "mixed_group_cases": mixed["cases"], "table3_launches": table3_launches,
         "serve": {name: run[1] for name, run in runs.items()},
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
+        "prefix_cache": prefix_cmp,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

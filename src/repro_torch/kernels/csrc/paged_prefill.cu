@@ -10,6 +10,11 @@
 // outside [start, start + length) are never written, nor are blocks that
 // are not destinations; padded queries (i >= length) output zeros.
 //
+// store = 0 is the read-only form: nothing is written and the chunk
+// attends the K/V already resident at its positions. A prefix-cache hit
+// on a whole prompt runs its last token so: the blocks are shared, hold
+// exactly what a store would write, and must never be written.
+//
 // The read/write race: a destination block is both attended and
 // rewritten. The TPU grid (NKV/bh, max_blocks) ran in order, merging the
 // chunk into each destination tile before attending it. Thread blocks on
@@ -114,10 +119,10 @@ chunk_attend_f32_kernel(const float* __restrict__ q, const KT* __restrict__ pool
 template <int H, typename QT, typename KT, bool QUANT>
 int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
            float* ks, float* vs, const int* blocks, void* out, int Lc, int NQ,
-           int NKV, int bs, int mb, int start, int length, float scale,
+           int NKV, int bs, int mb, int start, int length, bool store, float scale,
            float softcap, cudaStream_t st) {
   const int G = NQ / NKV;
-  if (length > 0) {
+  if (store && length > 0) {
     const int warps = 4;
     const int pairs = length * NKV;
     chunk_write_kernel<QT, KT, QUANT><<<(pairs + warps - 1) / warps, 32 * warps, 0, st>>>(
@@ -153,13 +158,14 @@ int launch(const void* q, const void* kn, const void* vn, void* pk, void* pv,
 // q/out (1, Lc, NQ, H); k_new/v_new (1, Lc, NKV, H) in q's dtype; pools
 // (num_blocks, bs, NKV, H), written in place; scales (num_blocks, bs,
 // NKV, 1) float32 for an int8 pool (quant = 1), else null; blocks (mb,)
-// int32. dtype: 0 = float32, 1 = bfloat16. H in {16, 64, 80, 128, 160,
-// 192, 256}, NQ / NKV <= 16.
+// int32. dtype: 0 = float32, 1 = bfloat16. store: 1 writes the chunk's
+// K/V, 0 reads the pool as it is. H in {16, 64, 80, 128, 160, 192, 256},
+// NQ / NKV <= 16.
 extern "C" int paged_prefill(const void* q, const void* k_new, const void* v_new,
                              void* pool_k, void* pool_v, float* k_scale, float* v_scale,
                              const int* blocks, void* out, int Lc, int NQ, int NKV, int H,
                              int bs, int mb, int start, int length, int dtype, int quant,
-                             float scale, float softcap, void* stream) {
+                             int store, float scale, float softcap, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (Lc <= 0) return (int)cudaGetLastError();
   if (!attn::head_dim_ok(H) || NKV <= 0 || NQ % NKV || NQ / NKV > paged::kGMax ||
@@ -171,17 +177,17 @@ extern "C" int paged_prefill(const void* q, const void* k_new, const void* v_new
       if (quant)
         return launch<HH, bf, int8_t, true>(q, k_new, v_new, pool_k, pool_v, k_scale,
                                             v_scale, blocks, out, Lc, NQ, NKV, bs, mb,
-                                            start, length, scale, softcap, st);
+                                            start, length, store != 0, scale, softcap, st);
       return launch<HH, bf, bf, false>(q, k_new, v_new, pool_k, pool_v, k_scale, v_scale,
                                        blocks, out, Lc, NQ, NKV, bs, mb, start, length,
-                                       scale, softcap, st);
+                                       store != 0, scale, softcap, st);
     }
     if (quant)
       return launch<HH, float, int8_t, true>(q, k_new, v_new, pool_k, pool_v, k_scale,
                                              v_scale, blocks, out, Lc, NQ, NKV, bs, mb,
-                                             start, length, scale, softcap, st);
+                                             start, length, store != 0, scale, softcap, st);
     return launch<HH, float, float, false>(q, k_new, v_new, pool_k, pool_v, k_scale,
                                            v_scale, blocks, out, Lc, NQ, NKV, bs, mb,
-                                           start, length, scale, softcap, st);
+                                           start, length, store != 0, scale, softcap, st);
   });
 }

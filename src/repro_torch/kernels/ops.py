@@ -214,22 +214,25 @@ def paged_attention(q, pool_k, pool_v, block_table, q_pos, *,
 def paged_prefill(q, k_new, v_new, pool_k, pool_v, blocks, start, length, *,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None,
-                  softcap: float = 0.0):
+                  softcap: float = 0.0, store: bool = True):
     """Chunked prefill over one layer's paged pool: the chunk (1, Lc, NQ,
     H) attends causally over [pool-resident prefix ++ chunk], and its K/V
     (1, Lc, NKV, H) is written into the row's destination blocks ``blocks``
     (mb,) at positions [start, start + length). The pool planes are
     updated IN PLACE (the JAX kernel aliases them); the returned planes
-    are the same tensors. Returns (attn (1, Lc, NQ, H) in q's dtype,
-    pool_k, pool_v, k_scale, v_scale)."""
+    are the same tensors. ``store=False`` writes nothing: the chunk
+    attends the K/V already resident at its own positions (a whole-prompt
+    prefix-cache hit, whose blocks are shared). Returns (attn (1, Lc, NQ,
+    H) in q's dtype, pool_k, pool_v, k_scale, v_scale)."""
     start, length = int(start), int(length)
     if _on_cpu(q, "paged_prefill"):
         return _ref.paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks,
                                       start, length, k_scale=k_scale,
-                                      v_scale=v_scale, softcap=softcap)
+                                      v_scale=v_scale, softcap=softcap,
+                                      store=store)
     return _paged_pf.launch(q, k_new, v_new, pool_k, pool_v, blocks, start,
                             length, k_scale=k_scale, v_scale=v_scale,
-                            softcap=softcap)
+                            softcap=softcap, store=store)
 
 
 def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,

@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/paged_prefill.py::paged_prefill_attention``: a
 chunk of one row's prompt attends causally over [pool-resident prefix ++
 chunk], and the chunk's K/V is written into its destination pool blocks
-in place (quantize-on-write for an int8 pool). See
+in place (quantize-on-write for an int8 pool); ``store=False`` writes
+nothing and attends what the pool already holds. See
 ``csrc/paged_prefill.cu`` for how the read/write race is avoided.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of the C entry (checked against its source by the tests).
-ARGTYPES = [_P] * 9 + [_I] * 10 + [_F, _F, _P]
+ARGTYPES = [_P] * 9 + [_I] * 11 + [_F, _F, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,9 +35,9 @@ def _fn():
 
 
 def launch(q, k_new, v_new, pool_k, pool_v, blocks, start: int, length: int,
-           k_scale=None, v_scale=None, softcap: float = 0.0):
+           k_scale=None, v_scale=None, softcap: float = 0.0, store: bool = True):
     """q (1, Lc, NQ, H); k_new/v_new (1, Lc, NKV, H); pools written in
-    place. Returns (attn (1, Lc, NQ, H), pool_k, pool_v, k_scale, v_scale)."""
+    place unless ``store`` is False. Returns (attn (1, Lc, NQ, H), pool_k, pool_v, k_scale, v_scale)."""
     global launches
     quant = check_pool(q, pool_k, pool_v, k_scale, v_scale)
     _, Lc, NQ, H = q.shape
@@ -56,7 +57,7 @@ def launch(q, k_new, v_new, pool_k, pool_v, blocks, start: int, length: int,
                k_scale.data_ptr() if quant else null,
                v_scale.data_ptr() if quant else null,
                blk.data_ptr(), out.data_ptr(), Lc, NQ, NKV, H, bs, blk.shape[0],
-               int(start), int(length), _DTYPES[q.dtype], int(quant),
+               int(start), int(length), _DTYPES[q.dtype], int(quant), int(store),
                H ** -0.5, softcap,
                torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_prefill")

@@ -184,10 +184,11 @@ def paged_attention_ref(q, pool_k, pool_v, block_table, q_pos,
 
 
 def paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks, start, length,
-                      k_scale=None, v_scale=None, softcap: float = 0.0):
+                      k_scale=None, v_scale=None, softcap: float = 0.0,
+                      store: bool = True):
     """Scatter-then-gather-attend: write the chunk into the pool with
     ``kv_cache.paged_chunk_write`` (in place; int8 pools quantize on
-    write), gather the row's blocks in table order and run a full fp32
+    write; ``store=False`` skips the write and reads the pool as it is), gather the row's blocks in table order and run a full fp32
     masked softmax — chunk query i sees allocated positions <= start + i,
     padded queries (i >= length) see nothing and output zeros. Returns
     (attn (1, Lc, NQ, H) in q's dtype, pool_k, pool_v, k_scale, v_scale)."""
@@ -198,8 +199,9 @@ def paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks, start, length,
     G = NQ // NKV
     mb = blocks.shape[0]
     start, length = int(start), int(length)
-    paged_chunk_write(pool_k, pool_v, blocks, k_new, v_new, start, length, bs,
-                      k_scale, v_scale)
+    if store:
+        paged_chunk_write(pool_k, pool_v, blocks, k_new, v_new, start, length, bs,
+                          k_scale, v_scale)
     tbl = blocks.clamp(min=0).long()
     k_rows = _row_view(pool_k, tbl, mb).to(torch.float32)
     v_rows = _row_view(pool_v, tbl, mb).to(torch.float32)

@@ -6,6 +6,7 @@ continuous scheduler.
       --policy "w4a8;wo=w8a8" [--static | --continuous] [--kv-int8] \
       [--requests 8] [--max-new 16] [--max-batch 4] [--rate 20] \
       [--block-size 16] [--pool-blocks N] [--no-paged] \
+      [--prefix-cache | --no-prefix-cache] [--shared-prefix N] \
       [--prefill-budget 32] [--no-chunked-prefill] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
@@ -26,6 +27,19 @@ prompt tokens per step) by default, with solo whole-prompt admission
 under --no-chunked-prefill, on the contiguous per-slot cache under
 --no-paged. One warmup pass runs first, so steady-state throughput and
 throughput including the warmup are reported separately.
+
+Cross-request prefix caching is on by default whenever the pool is
+paged: prompts sharing a prefix — --shared-prefix N prepends a common
+N-token prompt to every synthetic request — reuse each other's resident
+prompt blocks (refcounted, copied on write), and admission prefills only
+the uncached suffix, bitwise a cold prefill. --no-prefix-cache turns it
+off, --prefix-cache forces it on (and raises where it cannot be). The
+engine keeps its scheduler, so the timed pass of a paged continuous run
+admits from whatever blocks of the warmup pass the pool still holds:
+all of them where the pool is large enough or the prompts share a
+prefix, few where the LRU evicted them first. Its tok/s includes that
+mix of hits and evictions; the hit rate and evictions are reported after
+a continuous run.
 """
 from __future__ import annotations
 
@@ -64,6 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-paged", action="store_true",
                     help="continuous scheduler on the contiguous per-slot "
                          "max_ctx cache instead of the paged pool")
+    ap.add_argument("--prefix-cache", dest="prefix_cache", action="store_true",
+                    default=None,
+                    help="force cross-request prefix caching on (default: on "
+                         "whenever the pool is paged)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache", action="store_false",
+                    help="disable cross-request prefix caching")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common N-token prompt to every synthetic "
+                         "request (exercises the prefix cache)")
     ap.add_argument("--prefill-budget", type=int, default=32,
                     help="chunked prefill: max prompt tokens prefilled per "
                          "scheduler step (the decode-stall bound)")
@@ -78,14 +101,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def synthetic_requests(cfg, args) -> list:
-    """The JAX serve CLI's request stream: prompts of 8-12 random tokens,
-    greedy and temperature-0.7 requests alternating, Poisson arrivals at
-    --rate. Every call reproduces the same stream."""
+    """The JAX serve CLI's request stream: prompts of 8-12 random tokens
+    after a common --shared-prefix prompt, greedy and temperature-0.7
+    requests alternating, Poisson arrivals at --rate. Every call
+    reproduces the same stream."""
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab, args.shared_prefix)
     reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab, 8 + (i % 5)).astype(np.int64),
+                    prompt=np.concatenate([
+                        shared, rng.integers(0, cfg.vocab, 8 + (i % 5))]).astype(np.int64),
                     max_new_tokens=args.max_new,
                     temperature=0.0 if i % 2 == 0 else 0.7)
             for i in range(args.requests)]
@@ -135,6 +161,7 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                            bucket=32, paged=False if args.no_paged else None,
                            block_size=args.block_size,
                            pool_blocks=args.pool_blocks,
+                           prefix_cache=args.prefix_cache,
                            chunked_prefill=args.chunked_prefill,
                            prefill_budget=args.prefill_budget, device=device)
     serve = engine.generate if args.continuous else engine.generate_static
@@ -174,6 +201,13 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                   f"{stats['peak_resident_kv_bytes']/1e6:.2f} MB vs "
                   f"{stats['reserved_kv_bytes']/1e6:.2f} MB contiguous "
                   "reservation")
+            if stats["prefix_cache"]:
+                print(f"  prefix cache: {stats['prefix_hit_rate']:.0%} of "
+                      f"prompt tokens served from resident blocks "
+                      f"({stats['prefix_hit_blocks']} block hits, "
+                      f"{stats['cow_copies']} CoW copies, "
+                      f"{stats['prefix_evictions']} evictions, "
+                      f"{stats['retained_prefix_blocks']} retained)")
         else:
             what = "recurrent state" if cfg.family == "ssm" else "contiguous KV cache"
             print(f"  {what}: {stats['resident_kv_bytes']/1e6:.2f} MB resident "

@@ -98,13 +98,15 @@ def chunked_attention(q, k, v, mask: AttnMask, *, q_offset: int = 0,
     ``repro.models.common.chunked_attention``, computed by
     ``ops.flash_attention`` (the kernel on a CUDA tensor, its plain
     version on the CPU). Explicit key positions (``kpos``), prefix-LM
-    masks and a logit softcap — the prefix-cache and gemma paths — are
-    not ported yet and raise on every device alike."""
+    masks and a logit softcap are not ported and raise on every device
+    alike: the port's suffix prefill gathers exactly the resident prefix
+    positions and needs no ``kpos``; the other two are gemma's."""
     from repro_torch.kernels import ops
 
     if kpos is not None:
         raise ValueError("chunked_attention: explicit key positions (kpos) are "
-                         "not ported yet (the prefix-cache path)")
+                         "not ported (prefill_suffix gathers exactly the resident "
+                         "positions instead)")
     if mask.prefix_len:
         raise ValueError("chunked_attention: prefix-LM masks are not ported yet")
     if softcap:

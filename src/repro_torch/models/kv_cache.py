@@ -312,6 +312,20 @@ def scatter_into_paged(batch: DecodeCache, solo: DecodeCache, slot: int,
     row_blocks[j]. Entries past the allocated prompt blocks are -1 and
     land in the trash block (they hold only right-pad / headroom slots).
     Also writes the row's block table, length and position."""
+    return scatter_suffix_into_paged(batch, solo, slot, row_blocks, 0)
+
+
+def scatter_suffix_into_paged(batch: DecodeCache, solo: DecodeCache, slot: int,
+                              row_blocks, start_block: int) -> DecodeCache:
+    """Admit a *suffix-only* prefill (a prefix-cache hit) into the paged
+    pool, in place. `solo` holds only the uncached tail: its cache slot t
+    is absolute position ``start_block * bs + t`` (a suffix always starts
+    at a block boundary — only whole prompt blocks are shared), so its
+    virtual block j goes to pool block ``row_blocks[start_block + j]``;
+    entries past the row's table, or -1, land in the trash block. int8
+    pools move their scale planes with the codes. Also writes the row's
+    whole block table (shared prefix blocks included), length and
+    position."""
     kv: PagedKVCache = batch.kv
     bs = kv.block_size
     s_solo = solo.kv.k.shape[2]
@@ -326,19 +340,47 @@ def scatter_into_paged(batch: DecodeCache, solo: DecodeCache, slot: int,
         return a.reshape(a.shape[0], nb, bs, *a.shape[2:])
 
     dst = torch.full((nb,), -1, dtype=torch.long, device=kv.k.device)
-    n = min(nb, row_blocks.shape[0])
-    dst[:n] = row_blocks[:n].long()
+    n = max(0, min(nb, row_blocks.shape[0] - start_block))
+    dst[:n] = row_blocks[start_block:start_block + n].long()
     dst = dst.clamp(min=0)
     kv.k[:, dst] = as_blocks(solo.kv.k).to(kv.k.dtype)
     kv.v[:, dst] = as_blocks(solo.kv.v).to(kv.v.dtype)
     if kv.quantized:
         kv.k_scale[:, dst] = as_blocks(solo.kv.k_scale)
         kv.v_scale[:, dst] = as_blocks(solo.kv.v_scale)
+    return set_paged_row(batch, solo, slot, row_blocks)
+
+
+def set_paged_row(batch: DecodeCache, solo: DecodeCache, slot: int,
+                  row_blocks) -> DecodeCache:
+    """Admission metadata of a *fully* prefix-cached prompt, in place:
+    every prompt position is already resident in shared pool blocks, so
+    only row `slot`'s block table, length and decode position change —
+    no KV moves. (`solo` is the one-token suffix prefill; only its
+    length and position are read.)"""
+    kv: PagedKVCache = batch.kv
     mb = kv.block_table.shape[1]
-    kv.block_table[slot] = row_blocks[:mb]
+    kv.block_table[slot] = torch.as_tensor(row_blocks, dtype=torch.int32)[:mb].to(
+        kv.block_table.device)
     kv.length[slot] = solo.kv.length[0]
     batch.pos[slot] = solo.pos[0]
     return batch
+
+
+def copy_pool_block(cache: DecodeCache, src: int, dst: int) -> DecodeCache:
+    """Copy-on-write: duplicate pool block `src` into `dst` in every layer
+    (k, v and an int8 pool's scale planes), in place. The allocator calls
+    it before a row appends into a block it shares with other rows or
+    with the prefix cache: the sharers keep the pristine block, the
+    appender writes its private copy. Copying the whole block (slots past
+    the row's position included) is safe — a row reads only slots below
+    its own position and its next writes overwrite the rest."""
+    kv: PagedKVCache = cache.kv
+    planes = (kv.k, kv.v) + ((kv.k_scale, kv.v_scale) if kv.quantized else ())
+    idx = torch.tensor([dst], dtype=torch.long, device=kv.k.device)
+    for a in planes:
+        a.index_copy_(1, idx, a[:, src:src + 1])
+    return cache
 
 
 def grow_cache(cache: DecodeCache, size: int) -> DecodeCache:

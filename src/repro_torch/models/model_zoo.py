@@ -4,7 +4,8 @@ Port of ``repro.models.model_zoo`` for the dense transformer and the
 RWKV-6 family: ``init(seed, device)``, ``prefill``, ``decode_step`` and
 ``init_cache``; for the dense transformer also ``init_paged_cache`` and,
 behind the same eligibility gate as JAX (full attention, no MoE, token
-inputs), ``prefill_chunk``. RWKV-6 keeps a constant-size recurrent state
+inputs), ``prefill_chunk`` and ``prefill_suffix`` (the prefix cache's
+suffix-only prefill). RWKV-6 keeps a constant-size recurrent state
 and has neither, as in JAX.
 """
 from __future__ import annotations
@@ -52,4 +53,8 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
             # reproducible routing and token inputs.
             ns.prefill_chunk = (lambda params, cache, batch:
                                 mod.prefill_chunk(params, cfg, cache, batch))
+            # Suffix-only prefill over pool-resident prefix blocks: the
+            # prefix cache's warm ≡ cold contract needs the same gate.
+            ns.prefill_suffix = (lambda params, batch:
+                                 mod.prefill_suffix(params, cfg, batch))
     return ns

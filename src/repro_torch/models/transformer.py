@@ -1,14 +1,15 @@
-"""Dense decoder transformer: init, whole-prompt and chunked prefill,
-and the decode step on the contiguous cache or the paged pool.
+"""Dense decoder transformer: init, whole-prompt, chunked and suffix-only
+prefill, and the decode step on the contiguous cache or the paged pool.
 
 Port of the dense serving path of ``repro.models.transformer``. Params
 are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 (``embed``, ``blocks/wq``, ``blocks/ffn/w_up``, ``final_norm``, …); a
 Python loop over layers replaces ``lax.scan``. Attention runs the
 kernels through :mod:`repro_torch.kernels.ops`: ``flash_attention`` for
-a whole prompt (``prefill``), ``paged_prefill`` for every chunk of a
-prompt, ``paged_attention`` for a paged decode step and
-``decode_attention`` for a contiguous one (the paged decode kernel over
+a whole prompt (``prefill``) and for the uncached tail of a prefix-cache
+hit (``prefill_suffix``), ``paged_prefill`` for every chunk of a prompt,
+``paged_attention`` for a paged decode step and ``decode_attention`` for
+a contiguous one (the paged decode kernel over
 each row's own slots; the JAX package computes it outside any Pallas
 kernel, and ``common.decode_attention`` is its plain version). The four
 kernels share one tile routine, so every path sums in one order.
@@ -264,9 +265,13 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
     chunk length; start — absolute position of the chunk's first token
     (positions [0, start) are already pool-resident); slot — the row's
     batch slot; blocks (nbp,) — the row's pool blocks in virtual-block
-    order (-1 = unallocated). Each layer runs ``ops.paged_prefill``: the
-    chunk attends causally over [prefix ++ chunk] and its K/V lands in the
-    row's blocks in place. Updates ``cache.pos``/``kv.length`` at slot to
+    order (-1 = unallocated); store (optional, default True). Each layer
+    runs ``ops.paged_prefill``: the chunk attends causally over [prefix ++
+    chunk] and its K/V lands in the row's blocks in place. With ``store``
+    False nothing is written and the chunk attends the K/V already
+    resident at its positions — a whole-prompt prefix-cache hit runs its
+    last token so, computing the function its cold last chunk computed
+    without writing the shared blocks. Updates ``cache.pos``/``kv.length`` at slot to
     start + length and returns ``(cache, logits (1, 1, V))`` for the
     chunk's last real token."""
     if cfg.attn_window:
@@ -276,6 +281,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
     length = int(batch["lengths"][0])
     start = int(batch["start"])
     slot = int(batch["slot"])
+    store = bool(batch.get("store", True))
     dev = tokens.device
     blocks = torch.as_tensor(batch["blocks"], dtype=torch.int32).to(dev)
     kv: PagedKVCache = cache.kv
@@ -288,7 +294,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
         q, k, v = _attention_qkv(p, cfg, h, positions)
         attn = ops.paged_prefill(q, k, v, pk, pv, blocks, start, length,
                                  k_scale=ks, v_scale=vs,
-                                 softcap=cfg.attn_logit_softcap)[0]
+                                 softcap=cfg.attn_logit_softcap, store=store)[0]
         x = _block_post_attn(p, cfg, x, attn)
     hidden = cm.apply_norm(cm.last_token_slice(x, [length]),
                            params["final_norm"], cfg.norm)
@@ -296,6 +302,88 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
     cache.pos[slot] = start + length
     kv.length[slot] = start + length
     return cache, logits
+
+
+def prefill_suffix(params, cfg: ModelConfig, batch):
+    """Prefill only the uncached tail of a prompt against prefix K/V
+    resident in the paged pool — the compute half of the prefix cache.
+
+    ``batch``: tokens (1, Ls) right-padded suffix ids; lengths (1,) real
+    suffix length; start — absolute position of the first suffix token,
+    the number of resident prefix positions; pool_k / pool_v (L,
+    num_blocks, bs, NKV, H); prefix_blocks — the row's pool blocks
+    covering [0, start) in virtual-block order; pool_k_scale /
+    pool_v_scale for an int8 pool.
+
+    Each layer gathers exactly positions [0, start) from the blocks (slot
+    s holds position s; an int8 pool is dequantized), computes the
+    suffix's q/k/v at its absolute positions and runs the flash kernel
+    over [prefix ++ suffix] at ``q_offset=start``. The kernel's tiles sit
+    at absolute positions and a row's result depends only on its query
+    and the keys it sees, so each suffix row computes the bits the cold
+    whole-prompt prefill gives it (the int8 path reads the prefix through
+    the quantizer, as ``_kv_attn_view`` makes the cold prefill read its
+    own K/V). JAX pads the prefix to a bucket and masks it with explicit
+    key positions; the port knows ``start`` on the host and needs none.
+
+    Returns ``(DecodeCache, logits (1, 1, V))``: the cache holds ONLY the
+    suffix (slot t ↔ position start + t, see
+    ``kv_cache.scatter_suffix_into_paged``); pos/length are start +
+    lengths."""
+    if cfg.attn_window:
+        raise ValueError("prefix caching requires a full-attention cache")
+    tokens = batch["tokens"]
+    B, Ls = tokens.shape
+    dev = tokens.device
+    length = int(batch["lengths"][0])
+    start = int(batch["start"])
+    pool_k, pool_v = batch["pool_k"], batch["pool_v"]
+    L, _, bs = pool_k.shape[:3]
+    blocks = torch.as_tensor(batch["prefix_blocks"], dtype=torch.long)
+    tbl = blocks.clamp(min=0).to(dev)
+    P = tbl.shape[0] * bs
+    quant = cfg.kv_cache_quant
+
+    def gather(plane):
+        return plane[:, tbl].reshape(L, P, *plane.shape[3:])[:, :start]
+
+    pk, pv = gather(pool_k), gather(pool_v)
+    if quant:
+        pk = dequantize_kv(pk, gather(batch["pool_k_scale"]))
+        pv = dequantize_kv(pv, gather(batch["pool_v_scale"]))
+    positions = (start + torch.arange(Ls, dtype=torch.int32, device=dev))[None].expand(B, Ls)
+    mask = _mask_for(cfg)
+    x = cm.embed_lookup(params["embed"], tokens)
+    ks, vs = [], []
+    for i in range(L):
+        p = layer_params(params["blocks"], i)
+        h = cm.apply_norm(x, p["ln1"], cfg.norm)
+        q, k, v = _attention_qkv(p, cfg, h, positions)
+        k_att, v_att = _kv_attn_view(k, v, quant)
+        k_cat = torch.cat([pk[i][None].to(k_att.dtype), k_att], dim=1)
+        v_cat = torch.cat([pv[i][None].to(v_att.dtype), v_att], dim=1)
+        attn = cm.chunked_attention(q, k_cat, v_cat, mask, q_offset=start,
+                                    softcap=cfg.attn_logit_softcap)
+        x = _block_post_attn(p, cfg, x, attn)
+        ks.append(k)
+        vs.append(v)
+    k_all, v_all = torch.stack(ks), torch.stack(vs)
+    if quant:
+        k_all, k_scale = quantize_kv(k_all)
+        v_all, v_scale = quantize_kv(v_all)
+    else:
+        k_all, v_all = k_all.to(_dtype(cfg)), v_all.to(_dtype(cfg))
+        k_scale = v_scale = None
+    total = torch.full((B,), start + length, dtype=torch.int32, device=dev)
+    spos = start + torch.arange(Ls, dtype=torch.int32, device=dev)
+    spos = torch.where(torch.arange(Ls, device=dev) < length, spos, torch.full_like(spos, -1))
+    kvc = KVCache(k=k_all, v=v_all,
+                  slot_pos=spos[None, None].expand(L, B, Ls).contiguous(),
+                  length=total.clone(), k_scale=k_scale, v_scale=v_scale)
+    hidden = cm.apply_norm(cm.last_token_slice(x, [length]),
+                           params["final_norm"], cfg.norm)
+    logits = compute_logits(params, cfg, hidden)
+    return DecodeCache(pos=total, kv=kvc), logits
 
 
 def decode_step(params, cfg: ModelConfig, cache: DecodeCache,

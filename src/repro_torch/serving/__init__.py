@@ -1,2 +1,3 @@
 from repro_torch.serving.engine import ServingEngine  # noqa: F401
+from repro_torch.serving.invariants import assert_pool_invariants  # noqa: F401
 from repro_torch.serving.scheduler import ContinuousScheduler, Request  # noqa: F401

@@ -1,13 +1,16 @@
 """Serving engine over the packed-weight path.
 
-Port of ``repro.serving.engine`` without the prefix cache and the later
-scheduler features. The engine packs the weights once under a
-QuantConfig or a per-layer PrecisionPolicy and has two modes:
+Port of ``repro.serving.engine`` without the later scheduler features.
+The engine packs the weights once under a QuantConfig or a per-layer
+PrecisionPolicy and has two modes:
 
   * ``generate`` — continuous batching through ``ContinuousScheduler``:
-    the paged pool with chunked prefill by default, solo whole-prompt
+    the paged pool with the prefix cache and chunked prefill by default,
+    no prefix cache with ``prefix_cache=False``, solo whole-prompt
     admission with ``chunked_prefill=False``, the contiguous per-slot
-    cache with ``paged=False``.
+    cache with ``paged=False``. The scheduler lives as long as the
+    engine, so a prompt served again hits the blocks an earlier call
+    left in the prefix cache.
   * ``generate_static`` — the static batch (whole-prompt prefill of up
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
@@ -44,6 +47,7 @@ class ServingEngine:
                  max_ctx: Optional[int] = None, on_token=None,
                  paged: Optional[bool] = None, block_size: int = 16,
                  pool_blocks: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None,
                  prefill_budget: int = 32, device=None):
         self.cfg = cfg
@@ -63,6 +67,7 @@ class ServingEngine:
         self.paged = paged                  # None = paged if eligible
         self.block_size = block_size
         self.pool_blocks = pool_blocks
+        self.prefix_cache = prefix_cache        # None = on if paged
         self.chunked_prefill = chunked_prefill  # None = on if paged
         self.prefill_budget = prefill_budget
         self._sched: Optional[ContinuousScheduler] = None
@@ -81,6 +86,7 @@ class ServingEngine:
                 quant=None, bucket=self.bucket, seed=self.seed,
                 on_token=self.on_token, paged=self.paged,
                 block_size=self.block_size, pool_blocks=self.pool_blocks,
+                prefix_cache=self.prefix_cache,
                 chunked_prefill=self.chunked_prefill,
                 prefill_budget=self.prefill_budget, device=self.device)
         self._sched.on_token = self.on_token

@@ -1,31 +1,39 @@
 """Continuous-batching scheduler: request queue, slot table, mid-decode
-admission, paged KV allocation with reservation queueing, and chunked
-prefill interleaved with decoding.
+admission, paged KV allocation with reservation queueing, chunked
+prefill interleaved with decoding, and the cross-request prefix cache.
 
-Port of ``repro.serving.scheduler`` as it stood when chunked prefill
-landed (paged pool + Sarathi-style chunked prefill, solo whole-prompt
-admission, the contiguous cache), without the prefix cache. Later
-features — prefix cache, speculation, precision tiers,
-lifecycle/preemption/chaos and the host tier — come with later slices of
-the port.
+Port of ``repro.serving.scheduler``'s paged pool, chunked prefill, solo
+whole-prompt admission, contiguous cache and prefix cache. Later
+features — speculation, precision tiers, lifecycle/preemption/chaos and
+the host tier — come with later slices of the port.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
     token batch. Free slots decode a dummy token whose output is ignored.
   * ``paged`` (default for full-attention archs): a KV pool shared by
-    every slot. Admission reserves the request's worst-case block count
-    ``ceil((len + max_new - 1) / block_size)``; if the pool cannot cover
-    it the request waits (FIFO), so a live row can never deadlock
-    mid-decode. Blocks are allocated lazily: prompt blocks at admission,
-    one more whenever a decode step crosses a boundary. Retirement frees
-    a slot's blocks and its unclaimed reservation. ``paged=False``: a
-    contiguous cache in which every slot reserves a max_ctx row.
+    every slot. Admission reserves the blocks the request may still
+    allocate; if the pool cannot cover them the request waits (FIFO), so
+    a live row can never deadlock mid-decode. Blocks are allocated
+    lazily: prompt blocks at admission, one more whenever a decode step
+    crosses a boundary. ``paged=False``: a contiguous cache in which
+    every slot reserves a max_ctx row.
+  * ``prefix_cache`` (default on the paged pool): a host index maps
+    chain digests of block-sized token chunks to resident pool blocks, so
+    a request whose prompt prefix is already resident maps those blocks
+    into its table instead of prefilling them again. Blocks are
+    refcounted: retirement decrefs, unreferenced cached blocks are kept
+    in an LRU (evicted only when the pool needs them), and a row that
+    must append into a block it shares copies it first (copy-on-write).
+    Admission prefills only the uncached suffix, and a warm request's
+    tokens are bitwise a cold request's.
   * ``chunked_prefill`` (default on the paged pool): admission enqueues a
-    chunk *plan*; each step runs at most one ``prefill_budget``-token
-    chunk (round-robin over plans) through the paged-prefill kernel
-    alongside the decode step. Until its last chunk lands, a slot's device
-    table row is all -1 (masked out of decoding). Otherwise admission
-    prefills the whole prompt solo (right-padded to the bucket) and
+    chunk *plan* starting at the first uncached position; each step runs
+    at most one ``prefill_budget``-token chunk (round-robin over plans)
+    through the paged-prefill kernel alongside the decode step. Until its
+    last chunk lands, a slot's device table row is all -1 (masked out of
+    decoding). A prompt that is resident whole runs its last token
+    through the same kernel without writing (``store=False``). Otherwise
+    admission prefills the whole prompt (or its uncached suffix) solo and
     scatters its cache into the slot's pool blocks or contiguous row;
     every free slot may admit in the same step.
   * Sampling draws from per-request ``(seed, rid, step)`` streams, so a
@@ -35,8 +43,9 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +56,13 @@ from repro_torch.core.precision import as_policy
 from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import check_policy
-from repro_torch.models.kv_cache import scatter_into_paged, scatter_into_slot
+from repro_torch.models.kv_cache import (
+    copy_pool_block,
+    scatter_into_paged,
+    scatter_into_slot,
+    scatter_suffix_into_paged,
+    set_paged_row,
+)
 from repro_torch.serving import sampling
 
 
@@ -69,6 +84,9 @@ class Request:
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     error: Optional[str] = None
+    # (key, chain digests) memo of ContinuousScheduler._req_hashes.
+    _prefix_hashes: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def failed(self) -> bool:
@@ -83,7 +101,7 @@ class ContinuousScheduler:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_ctx: int = 128, quant=None, bucket: int = 64, seed: int = 0,
                  on_token=None, paged: Optional[bool] = None, block_size: int = 16,
-                 pool_blocks: Optional[int] = None,
+                 pool_blocks: Optional[int] = None, prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None, prefill_budget: int = 32,
                  device=None):
         self.cfg = cfg
@@ -113,6 +131,16 @@ class ContinuousScheduler:
                              "cache (ring buffers and recurrent states are already "
                              "footprint-bounded)")
         self.paged = paged
+        # Prefix caching rides on the paged pool (shared blocks need block
+        # tables and host-side ownership) and on suffix-only prefill.
+        can_prefix = paged and getattr(self.model, "prefill_suffix", None) is not None
+        if prefix_cache is None:
+            prefix_cache = can_prefix
+        elif prefix_cache and not can_prefix:
+            raise ValueError(f"{cfg.name}: prefix caching requires the paged KV "
+                             "cache and an arch with suffix-only prefill "
+                             "(token-input, non-MoE full-attention transformer)")
+        self.prefix_cache = prefix_cache
         can_chunk = paged and getattr(self.model, "prefill_chunk", None) is not None
         if chunked_prefill is None:
             chunked_prefill = can_chunk
@@ -140,11 +168,31 @@ class ContinuousScheduler:
             self.cache = self.model.init_paged_cache(
                 B, usable + 1, block_size, self._max_blocks, device=self.device)
             self._free: List[int] = list(range(usable, 0, -1))  # block 0 = trash
-            self._avail = usable        # free minus outstanding reservations
+            # Free + LRU-retained minus outstanding reservations: what
+            # admission can still promise without deadlocking a live row.
+            self._avail = usable
             self._reserved = np.zeros((B,), np.int64)
             self._block_tab = np.full((B, self._max_blocks), -1, np.int32)
             self._table_dirty = False
             self._peak_blocks = 0
+            # Prefix-cache ownership: refcounts, digest → block, block →
+            # every digest registered against it (a retired row's straddle
+            # block carries its prompt-partial and its extended full-chunk
+            # digest; once any digest is attached the block's bytes are
+            # frozen), and the refcount-0 cached blocks in LRU order.
+            self._refcnt = np.zeros((usable + 1,), np.int64)
+            self._prefix_index: Dict[bytes, int] = {}
+            self._block_hash: Dict[int, set] = {}
+            self._lru: "collections.OrderedDict[int, None]" = collections.OrderedDict()
+            self._slot_hashes: List[Optional[tuple]] = [None] * B
+            self.prefix_hit_blocks = 0
+            self.prefix_hit_tokens = 0
+            self.prompt_tokens_seen = 0
+            self.cow_copies = 0
+            self.prefix_evictions = 0
+            # Tokens run through prefill at admission (padding included):
+            # a prefix hit prefills only its suffix.
+            self.prefill_tokens_computed = 0
         else:
             # Every slot reserves a full max_ctx (+ headroom) row for life.
             self.cache = self.model.init_cache(B, max_ctx, device=self.device)
@@ -222,16 +270,74 @@ class ContinuousScheduler:
 
     @property
     def _live_blocks(self) -> int:
-        return self.pool_blocks - len(self._free)
+        """Pool blocks referenced by a row's table (LRU-retained prefix
+        blocks are resident but reclaimable, so they do not count)."""
+        return self.pool_blocks - len(self._free) - len(self._lru)
+
+    def _touch_peak(self) -> None:
+        self._peak_blocks = max(self._peak_blocks, self._live_blocks)
+
+    def _evict_lru(self) -> None:
+        """Reclaim the least-recently-used retained prefix block: its
+        digests leave the index and it joins the free list. Only
+        refcount-0 blocks sit in the LRU, so eviction never takes a block
+        from a live row or a reservation (``_avail`` counts LRU blocks as
+        reclaimable)."""
+        if not self._lru:
+            raise RuntimeError("paged pool invariant violated: reservation "
+                               "accounting should guarantee a free or "
+                               "evictable block")
+        blk, _ = self._lru.popitem(last=False)
+        for h in self._block_hash.pop(blk, ()):
+            self._prefix_index.pop(h, None)
+        self.prefix_evictions += 1
+        self._free.append(blk)
 
     def _take_free_block(self) -> int:
+        if not self._free:
+            self._evict_lru()
         return self._free.pop()
 
     def _alloc_block(self, slot: int, j: int) -> None:
-        self._block_tab[slot, j] = self._take_free_block()
+        blk = self._take_free_block()
+        self._refcnt[blk] = 1
+        self._block_tab[slot, j] = blk
         self._reserved[slot] -= 1
         self._table_dirty = True
-        self._peak_blocks = max(self._peak_blocks, self._live_blocks)
+        self._touch_peak()
+
+    def _decref(self, blk: int) -> None:
+        """Drop one table reference. At refcount 0 a prefix-cached block is
+        retained (LRU end, evicted lazily under pool pressure, so a repeat
+        of the prompt still hits); an uncached block frees at once."""
+        self._refcnt[blk] -= 1
+        if self._refcnt[blk] == 0:
+            if blk in self._block_hash:
+                self._lru[blk] = None
+            else:
+                self._free.append(blk)
+            self._avail += 1
+
+    def _ensure_private_block(self, b: int, j: int) -> None:
+        """Make virtual block `j` of row `b` writable: allocate it if
+        empty, and copy it on write when the row shares it — with other
+        rows (refcount > 1) or with the prefix cache itself (a registered
+        digest describes its bytes, so even a sole referencer must not
+        append in place). The sharers keep the pristine block; the copy
+        is charged to the row's reservation like any allocation."""
+        blk = int(self._block_tab[b, j])
+        if blk < 0:
+            self._alloc_block(b, j)
+        elif self._refcnt[blk] > 1 or blk in self._block_hash:
+            dst = self._take_free_block()
+            self._refcnt[dst] = 1
+            copy_pool_block(self.cache, blk, dst)
+            self._block_tab[b, j] = dst
+            self._decref(blk)
+            self._reserved[b] -= 1
+            self._table_dirty = True
+            self.cow_copies += 1
+            self._touch_peak()
 
     def _alloc_boundary_blocks(self) -> None:
         """Back the position each live (decoding) slot writes this step."""
@@ -239,8 +345,8 @@ class ContinuousScheduler:
             if req is None or b in self._chunk_plans:
                 continue
             j = int(self._pos_host[b]) // self.block_size
-            if j < self._max_blocks and self._block_tab[b, j] < 0:
-                self._alloc_block(b, j)
+            if j < self._max_blocks:
+                self._ensure_private_block(b, j)
 
     def _sync_table(self) -> None:
         """Push the host block table to the device; rows with a chunk plan
@@ -255,24 +361,150 @@ class ContinuousScheduler:
         self._table_dirty = False
 
     def _release_slot(self, b: int) -> None:
-        """Retire row `b`: free its blocks and its unclaimed reservation
-        (a contiguous row is simply overwritten by its next admission)."""
+        """Retire row `b`. On the paged pool its blocks are decref'd
+        (shared blocks stay with their other referencers, last-reference
+        cached blocks go to the LRU, the rest are freed) and its unclaimed
+        reservation returns. What the row wrote — prompt AND generated
+        tokens — is registered in the prefix index here, once the row has
+        stopped appending into its tail block. A contiguous row is simply
+        overwritten by its next admission."""
+        req = self._slots[b]
         self._slots[b] = None
         if not self.paged:
             return
         if self._chunk_plans.pop(b, None) is not None:
             self._chunk_queue.remove(b)
+            self._slot_hashes[b] = None     # unwritten blocks hold nothing
+        if self.prefix_cache:
+            self._register_retired(b, req)
+        self._slot_hashes[b] = None
         row = self._block_tab[b]
         for blk in row[row >= 0]:
-            self._free.append(int(blk))
-            self._avail += 1
+            self._decref(int(blk))
         row[:] = -1
         self._avail += int(self._reserved[b])
         self._reserved[b] = 0
         self._table_dirty = True
 
+    # -- prefix cache: digests, matching, claiming, registration -----------
+
+    def _hash_chunks(self, tokens) -> Tuple[List[bytes], Optional[bytes]]:
+        """Chain digests of `tokens` at block granularity: one per full
+        block-sized chunk (each covers every token up to the end of its
+        chunk, so a hit at chunk j means the whole prefix matches) and one
+        for a trailing partial chunk, tagged so it never aliases a full
+        block. Byte-equal to the JAX scheduler's (untiered) digests."""
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        bs = self.block_size
+        full, h = [], b"m4bram-prefix"
+        for j in range(len(toks) // bs):
+            h = hashlib.blake2b(h + toks[j * bs:(j + 1) * bs].tobytes(),
+                                digest_size=16).digest()
+            full.append(h)
+        r = len(toks) % bs
+        partial = (hashlib.blake2b(h + toks[len(toks) - r:].tobytes() + b"#partial",
+                                   digest_size=16).digest() if r else None)
+        return full, partial
+
+    def _req_hashes(self, req: Request) -> Tuple[List[bytes], Optional[bytes]]:
+        """`req`'s prompt digests, memoized on the request: a pool-blocked
+        queue head is matched again every step."""
+        key = (self.block_size, len(req.prompt))
+        if req._prefix_hashes is None or req._prefix_hashes[0] != key:
+            req._prefix_hashes = (key, self._hash_chunks(req.prompt))
+        return req._prefix_hashes[1]
+
+    def _match_prefix(self, req: Request):
+        """Longest resident prefix of `req`'s prompt, without touching the
+        allocator. Returns (hits [(virtual j, pool block)], resident token
+        count, revive = hits that must leave the LRU, reserve = blocks the
+        row may still allocate (uncovered blocks, plus one for a
+        copy-on-write of a shared partial block), the (full, partial)
+        digests for registration)."""
+        need = self._need_blocks(req)
+        if not self.prefix_cache:
+            return [], 0, 0, need, None
+        hashes = self._req_hashes(req)
+        full, partial = hashes
+        hits: List[Tuple[int, int]] = []
+        for j, h in enumerate(full):
+            blk = self._prefix_index.get(h)
+            if blk is None:
+                break
+            hits.append((j, blk))
+        n_full = len(hits)
+        resident = n_full * self.block_size
+        if n_full == len(full) and partial is not None:
+            blk = self._prefix_index.get(partial)
+            if blk is not None:
+                hits.append((n_full, blk))
+                resident = len(req.prompt)
+        revive = sum(1 for _, b in hits if self._refcnt[b] == 0)
+        return hits, resident, revive, need - n_full, hashes
+
+    def _claim_hits(self, slot: int, hits) -> None:
+        """Map matched blocks into row `slot`, incref'ing each; a
+        refcount-0 block leaves the LRU, which spends one unit of
+        reclaimable capacity (``_avail``)."""
+        for j, blk in hits:
+            if self._refcnt[blk] == 0:
+                self._lru.pop(blk)
+                self._avail -= 1
+            self._refcnt[blk] += 1
+            self._block_tab[slot, j] = blk
+        if hits:
+            self._table_dirty = True
+
+    def _register_full(self, slot: int, limit: Optional[int] = None) -> None:
+        """Index row `slot`'s full prompt blocks once their bytes are final
+        (appends land past the prompt). A chunk plan passes ``limit`` to
+        register only the blocks its landed chunks cover."""
+        full, _ = self._slot_hashes[slot]
+        if limit is not None:
+            full = full[:limit]
+        for j, h in enumerate(full):
+            blk = int(self._block_tab[slot, j])
+            if blk < 0 or h in self._prefix_index:
+                continue
+            self._prefix_index[h] = blk
+            self._block_hash.setdefault(blk, set()).add(h)
+
+    def _register_partial(self, slot: int) -> None:
+        """Index the trailing partial prompt block, at retirement only: a
+        live row appends into it in place, so it is never shared while
+        the row lives."""
+        full, partial = self._slot_hashes[slot]
+        j = len(full)
+        if partial is None or j >= self._max_blocks:
+            return
+        blk = int(self._block_tab[slot, j])
+        if blk < 0 or partial in self._prefix_index:
+            return
+        self._prefix_index[partial] = blk
+        self._block_hash.setdefault(blk, set()).add(partial)
+
+    def _register_retired(self, b: int, req: Optional[Request]) -> None:
+        """Register what row `b` wrote, at retirement: first the prompt's
+        chain (full blocks and the now-immutable partial tail, so a repeat
+        of the prompt hits it whole and copies on write when it appends),
+        then the chain over prompt ++ generated tokens up to the row's
+        position (the last sampled token's K/V never lands), so a
+        multi-turn follow-up that resubmits the conversation hits past
+        the prompt. Digests the chains share register once."""
+        if self._slot_hashes[b] is None or req is None:
+            return
+        self._register_full(b)
+        self._register_partial(b)
+        pos = int(self._pos_host[b])
+        toks = np.concatenate([np.asarray(req.prompt, np.int64),
+                               np.asarray(req.out_tokens or (), np.int64)])[:pos]
+        self._slot_hashes[b] = self._hash_chunks(toks)
+        self._register_full(b)
+        self._register_partial(b)
+
     def pool_stats(self) -> dict:
-        """KV-memory utilization and chunked-prefill counters."""
+        """KV-memory utilization, prefix-cache and chunked-prefill
+        counters."""
         kv = self.cache.kv
         if not self.paged:
             # The whole contiguous reservation (or recurrent state) is
@@ -289,12 +521,16 @@ class ContinuousScheduler:
         if kv.quantized:
             per_token += kv.k.shape[0] * kv.k.shape[3] * 2 * 4
         allocated = self._live_blocks
+        seen = self.prompt_tokens_seen
         return {
             "paged": True,
             "block_size": self.block_size,
             "pool_blocks": self.pool_blocks,
             "free_blocks": len(self._free),
+            # Live = referenced by a row's table; retained = refcount-0
+            # prefix blocks kept for later hits, reclaimable on demand.
             "allocated_blocks": allocated,
+            "retained_prefix_blocks": len(self._lru),
             "peak_allocated_blocks": self._peak_blocks,
             "capacity_tokens": self.pool_blocks * self.block_size,
             "resident_kv_bytes": allocated * self.block_size * per_token,
@@ -303,6 +539,15 @@ class ContinuousScheduler:
             # The contiguous scheduler's reservation for the same settings
             # (max_ctx + 8 decode-headroom slots per slot, as in JAX).
             "reserved_kv_bytes": self.max_batch * (self.max_ctx + 8) * per_token,
+            "prefix_cache": self.prefix_cache,
+            "prefix_hit_blocks": self.prefix_hit_blocks,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prompt_tokens": seen,
+            "prefix_hit_rate": self.prefix_hit_tokens / seen if seen else 0.0,
+            "cow_copies": self.cow_copies,
+            "prefix_evictions": self.prefix_evictions,
+            "cached_prefix_blocks": len(self._prefix_index),
+            "prefill_tokens_computed": self.prefill_tokens_computed,
             "chunked_prefill": self.chunked_prefill,
             "prefill_budget": self.prefill_budget,
             "prefill_chunks_run": self.prefill_chunks_run,
@@ -320,57 +565,128 @@ class ContinuousScheduler:
             req.out_tokens = []
         req.t_done = self._now()
 
-    def _reserve(self, req: Request, slot: int) -> None:
-        """Reserve the request's worst-case blocks and allocate its prompt
-        blocks in row `slot` of the host table."""
-        need = self._need_blocks(req)
-        self._avail -= need
-        self._reserved[slot] = need
-        for j in range(-(-len(req.prompt) // self.block_size)):
-            self._alloc_block(slot, j)
-
-    def _admit(self, req: Request, slot: int) -> Optional[Request]:
-        """Prefill `req`'s whole prompt solo (right-padded to the bucket)
-        and scatter its cache into row `slot` — its pool blocks, or its
-        contiguous row. Returns the request if it finished on its first
-        token."""
+    def _claim_row(self, req: Request, slot: int, match) -> None:
+        """The allocator half of a paged admission: count the prompt and
+        its hits, reserve what the row may still allocate, map the hit
+        blocks and allocate the other prompt blocks into row `slot`."""
         n = len(req.prompt)
+        hits, resident, _, reserve, hashes = match
+        self.prompt_tokens_seen += n
+        self.prefix_hit_blocks += len(hits)
+        self.prefix_hit_tokens += resident
+        if self.prefix_cache:
+            self._slot_hashes[slot] = hashes
+        self._avail -= reserve
+        self._reserved[slot] = reserve
+        self._claim_hits(slot, hits)       # revives pay into _avail here
+        for j in range(-(-n // self.block_size)):
+            if self._block_tab[slot, j] < 0:
+                self._alloc_block(slot, j)
+        self._touch_peak()
+
+    def _admit(self, req: Request, slot: int, match=None) -> Optional[Request]:
+        """Prefill `req` — its whole prompt solo (right-padded to the
+        bucket), or only the uncached suffix of a prefix hit — and scatter
+        its cache into row `slot`: its pool blocks, or its contiguous row.
+        Returns the request if it finished on its first token."""
+        n = len(req.prompt)
+        resident = 0
         if self.paged:
-            self._reserve(req, slot)
-        L = self._bucketed(n)
-        tokens = np.zeros((1, L), np.int64)
-        tokens[0, :n] = req.prompt
-        solo, logits = self.model.prefill(self.params, {
-            "tokens": torch.from_numpy(tokens).to(self.device),
-            "lengths": torch.tensor([n], dtype=torch.int32)})
-        if self.paged:
-            # The scatter writes this row's device table too; _table_dirty
-            # stays set so rows freed earlier sync on the next decode.
-            scatter_into_paged(self.cache, solo, slot, self._block_tab[slot])
-        else:
-            scatter_into_slot(self.cache, solo, slot)
-        self._pos_host[slot] = n
+            match = match if match is not None else self._match_prefix(req)
+            self._claim_row(req, slot, match)
+            resident = match[1]
         self._slots[slot] = req
+        if resident:
+            logits = self._prefill_suffix(req, slot, resident)
+        else:
+            L = self._bucketed(n)
+            tokens = np.zeros((1, L), np.int64)
+            tokens[0, :n] = req.prompt
+            solo, logits = self.model.prefill(self.params, {
+                "tokens": torch.from_numpy(tokens).to(self.device),
+                "lengths": torch.tensor([n], dtype=torch.int32)})
+            if self.paged:
+                self.prefill_tokens_computed += L
+                # The scatter writes this row's device table too;
+                # _table_dirty stays set so rows freed earlier sync.
+                scatter_into_paged(self.cache, solo, slot, self._block_tab[slot])
+            else:
+                scatter_into_slot(self.cache, solo, slot)
+        if self.paged and self.prefix_cache:
+            self._register_full(slot)
+        self._pos_host[slot] = n
         return self._first_token(req, slot, logits)
 
-    def _admit_chunked(self, req: Request, slot: int) -> None:
-        """Claim row `slot`: reserve the request's blocks, allocate its
-        prompt blocks, and enqueue a chunk plan. The slot stays masked out
+    def _prefill_suffix(self, req: Request, slot: int, resident: int):
+        """Prefill a prefix hit: at least the last prompt token is run (the
+        first token is sampled from its logits), and no resident position
+        is ever written. Whole-prompt admission runs ``prefill_suffix``
+        (the flash kernel over the gathered prefix ++ suffix) and scatters
+        the suffix into the row's fresh blocks, or, on a full hit, only
+        sets the row's table. Under chunked prefill a full hit runs its
+        last token through the chunk kernel with ``store=False`` over the
+        shared blocks, so each mode computes warm the function it computes
+        cold. Returns the logits."""
+        toks = np.asarray(req.prompt)
+        n = len(toks)
+        start = min(resident, n - 1)
+        bs = self.block_size
+        if self.chunked_prefill:
+            # Only a full hit comes here (a partial one gets a chunk plan).
+            self.prefill_tokens_computed += 1
+            self.cache, logits = self.model.prefill_chunk(self.params, self.cache, {
+                "tokens": torch.from_numpy(toks[None, start:].astype(np.int64)).to(
+                    self.device),
+                "lengths": [1], "start": start, "slot": slot, "store": False,
+                "blocks": torch.from_numpy(self._block_tab[slot, :-(-n // bs)].copy())})
+            return logits
+        ls = n - start
+        Ls = self._bucketed(ls)
+        self.prefill_tokens_computed += Ls
+        tokens = np.zeros((1, Ls), np.int64)
+        tokens[0, :ls] = toks[start:]
+        kv = self.cache.kv
+        batch = {
+            "tokens": torch.from_numpy(tokens).to(self.device),
+            "lengths": [ls],
+            "start": start,
+            "pool_k": kv.k,
+            "pool_v": kv.v,
+            "prefix_blocks": torch.from_numpy(self._block_tab[slot, :-(-start // bs)].copy()),
+        }
+        if kv.quantized:
+            batch["pool_k_scale"] = kv.k_scale
+            batch["pool_v_scale"] = kv.v_scale
+        solo, logits = self.model.prefill_suffix(self.params, batch)
+        if resident < n:
+            # Below a full hit only whole blocks are shared: the suffix
+            # starts exactly at the block boundary `resident`.
+            scatter_suffix_into_paged(self.cache, solo, slot, self._block_tab[slot],
+                                      resident // bs)
+        else:
+            set_paged_row(self.cache, solo, slot, self._block_tab[slot])
+        return logits
+
+    def _admit_chunked(self, req: Request, slot: int, match) -> None:
+        """Claim row `slot` as `_admit` does (reservation, hit claiming,
+        prompt blocks) and enqueue a chunk plan from the first uncached
+        position: below a full hit that is a block boundary, so no chunk
+        writes a block shared with other rows. The slot stays masked out
         of decoding until its last chunk lands."""
-        n = len(req.prompt)
-        self._reserve(req, slot)
+        self._claim_row(req, slot, match)
         self._pos_host[slot] = 0
         self._cur[slot, 0] = 0          # dummy decode input while prefilling
         self._slots[slot] = req
-        self._chunk_plans[slot] = {"req": req, "next": 0, "n": n,
+        self._chunk_plans[slot] = {"req": req, "next": match[1], "n": len(req.prompt),
                                    "toks": np.asarray(req.prompt)}
         self._chunk_queue.append(slot)
         self._table_dirty = True
 
     def _run_chunk(self, slot: int) -> Optional[Request]:
-        """Run one `prefill_budget`-token chunk of row `slot`'s plan. On
-        the final chunk the slot graduates to decoding and samples its
-        first token. Returns the request if it finished on that token."""
+        """Run one `prefill_budget`-token chunk of row `slot`'s plan and
+        register the blocks it has fully landed. On the final chunk the
+        slot graduates to decoding and samples its first token. Returns
+        the request if it finished on that token."""
         plan = self._chunk_plans[slot]
         req, n, start = plan["req"], plan["n"], plan["next"]
         Lc = self.prefill_budget
@@ -388,7 +704,12 @@ class ContinuousScheduler:
         self.cache, logits = self.model.prefill_chunk(self.params, self.cache, batch)
         self.prefill_chunks_run += 1
         self.prefill_chunk_tokens += t
+        self.prefill_tokens_computed += Lc
         plan["next"] = start + t
+        if self.prefix_cache:
+            # Blocks this chunk completed are final: a same-prefix request
+            # admitted on a later step shares them.
+            self._register_full(slot, limit=plan["next"] // self.block_size)
         if plan["next"] < n:
             return None
         del self._chunk_plans[slot]
@@ -428,12 +749,13 @@ class ContinuousScheduler:
     # -- the decode loop ----------------------------------------------------
 
     def step(self) -> List[Request]:
-        """One scheduler step: admit waiting requests into free slots (one
-        chunk plan per step, or solo whole-prompt prefills into every free
-        slot), run one budgeted prefill chunk, then one batched decode
-        step, sample, and retire finished slots. Returns the requests that
-        finished this step (including rejected ones, which carry
-        ``error``)."""
+        """One scheduler step: admit waiting requests into free slots (at
+        most one new chunk plan per step; solo, suffix and full-hit
+        admissions into every free slot), run one budgeted prefill chunk,
+        then one batched decode step, sample, and retire finished slots.
+        A request whose revive + reservation draw the pool cannot cover
+        waits, FIFO. Returns the requests that finished this step
+        (including rejected ones, which carry ``error``)."""
         finished: List[Request] = []
         free = collections.deque(
             b for b in range(self.max_batch) if self._slots[b] is None)
@@ -445,13 +767,19 @@ class ContinuousScheduler:
                 self._fail(head, reason)
                 finished.append(head)
                 continue
-            if self.paged and self._need_blocks(head) > self._avail:
+            match = self._match_prefix(head) if self.paged else None
+            if self.paged and match[2] + match[3] > self._avail:
                 break                   # the head keeps FIFO priority: wait
-            if self.chunked_prefill:
-                self._admit_chunked(self.waiting.popleft(), free.popleft())
-                # One admission per step: its chunks are spent one per step.
+            req = self.waiting.popleft()
+            if self.chunked_prefill and match[1] < len(req.prompt):
+                # An uncached tail gets a chunk plan, one per step: a
+                # same-prefix follower admitted now would match an index
+                # this plan has not written yet; admitted next step, it
+                # hits the blocks the plan has landed by then. (A full hit
+                # writes nothing and admits at once.)
+                self._admit_chunked(req, free.popleft(), match)
                 break
-            done = self._admit(self.waiting.popleft(), free[0])
+            done = self._admit(req, free[0], match)
             if done is not None:
                 finished.append(done)   # finished on its first token: the
                 continue                # slot is free again this step

@@ -21,7 +21,7 @@ from repro_torch import convert
 from repro_torch.configs import get_reduced_config
 from repro_torch.core.precision import parse_policy_spec
 from repro_torch.models import build_model
-from repro_torch.serving import ContinuousScheduler, Request, sampling
+from repro_torch.serving import ContinuousScheduler, Request, assert_pool_invariants, sampling
 from torch_parity import to_numpy_tree
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,20 +63,13 @@ def _sched(cfg, params, **kw):
     return ContinuousScheduler(cfg, params, **args)
 
 
-@pytest.mark.parametrize("kv_int8", [False, True])
-def test_solo_equals_mid_decode_admission(olmo, kv_int8):
-    """A request served alone and the same request admitted while other
-    slots are deep into their decodes emit identical tokens (greedy and
-    sampled), on bf16 and int8 pools."""
-    cfg, params = olmo
-    cfg = dataclasses.replace(cfg, kv_cache_quant=kv_int8)
-    target = [Request(10, PROMPTS[2], max_new_tokens=9),
-              Request(11, PROMPTS[0], max_new_tokens=7, temperature=0.8, top_k=40)]
-    solo = {}
-    for r in target:
-        solo[r.rid] = _sched(cfg, params).run([dataclasses.replace(r)])[0].out_tokens
-    mixed = _sched(cfg, params)
-    mixed.submit(Request(0, PROMPTS[1], max_new_tokens=12, temperature=0.7))
+def _solo_vs_mid_decode(cfg, params, target, first, **kw):
+    """`target`'s tokens served alone (each in a fresh scheduler) and
+    admitted while `first` is decoding; returns (solo, mixed, scheduler)."""
+    solo = {r.rid: _sched(cfg, params, **kw).run([dataclasses.replace(r)])[0].out_tokens
+            for r in target}
+    mixed = _sched(cfg, params, **kw)
+    mixed.submit(first)
     for _ in range(4):
         mixed.step()
     reqs = [dataclasses.replace(r) for r in target]
@@ -84,23 +77,82 @@ def test_solo_equals_mid_decode_admission(olmo, kv_int8):
         mixed.submit(r)
     while mixed.num_active or mixed.num_waiting:
         mixed.step()
-    assert {r.rid: r.out_tokens for r in reqs} == solo
-    assert mixed.pool_stats()["prefill_chunks_run"] >= 5
+    return solo, {r.rid: r.out_tokens for r in reqs}, mixed
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_solo_equals_mid_decode_admission(olmo, kv_int8):
+    """A request served alone and the same request admitted while other
+    slots are deep into their decodes emit identical tokens (greedy and
+    sampled), on bf16 and int8 pools, each row owning its blocks (no
+    prefix cache)."""
+    cfg, params = olmo
+    cfg = dataclasses.replace(cfg, kv_cache_quant=kv_int8)
+    target = [Request(10, PROMPTS[2], max_new_tokens=9),
+              Request(11, PROMPTS[0], max_new_tokens=7, temperature=0.8, top_k=40)]
+    first = Request(0, PROMPTS[1], max_new_tokens=12, temperature=0.7)
+    solo, mixed, sched = _solo_vs_mid_decode(cfg, params, target, first,
+                                             prefix_cache=False)
+    assert mixed == solo
+    assert sched.pool_stats()["prefill_chunks_run"] >= 5
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_solo_equals_mid_decode_admission_prefix_cache(olmo, kv_int8):
+    """The twin with the prefix cache on (the default): the mid-decode
+    admissions share the live request's first 8 prompt tokens, hit them,
+    chunk-prefill only their tails, and still emit the solo tokens."""
+    cfg, params = olmo
+    cfg = dataclasses.replace(cfg, kv_cache_quant=kv_int8)
+    shared = PROMPTS[2][:8]
+    target = [Request(10, np.concatenate([shared, PROMPTS[2]]), max_new_tokens=9),
+              Request(11, np.concatenate([shared, PROMPTS[0]]), max_new_tokens=7,
+                      temperature=0.8, top_k=40)]
+    first = Request(0, np.concatenate([shared, PROMPTS[1]]), max_new_tokens=12,
+                    temperature=0.7)
+    solo, mixed, sched = _solo_vs_mid_decode(cfg, params, target, first)
+    assert mixed == solo
+    stats = sched.pool_stats()
+    assert stats["prefix_cache"] and stats["prefix_hit_blocks"] >= 4
+    assert stats["prefill_chunks_run"] >= 5
+    assert_pool_invariants(sched)
 
 
 def test_reservation_queueing_small_pool(olmo):
     """A pool too small for every request at once: admissions wait for
     blocks (FIFO) instead of failing, and every stream is unchanged; a
-    request that can never fit comes back failed."""
+    request that can never fit comes back failed. Each row owns its
+    blocks (no prefix cache)."""
     cfg, params = olmo
     reqs = lambda: [Request(i, p, max_new_tokens=8) for i, p in enumerate(PROMPTS)]
-    big = {r.rid: r.out_tokens for r in _sched(cfg, params).run(reqs())}
-    small = _sched(cfg, params, pool_blocks=6)
+    big = {r.rid: r.out_tokens for r in _sched(cfg, params, prefix_cache=False).run(reqs())}
+    small = _sched(cfg, params, pool_blocks=6, prefix_cache=False)
     got = {r.rid: r.out_tokens for r in small.run(reqs())}
     assert got == big
     assert small.pool_stats()["peak_allocated_blocks"] <= 6
     too_big = small.run([Request(9, np.arange(40) % 512, max_new_tokens=8)])[0]
     assert too_big.failed and too_big.out_tokens == []
+
+
+def test_reservation_queueing_small_pool_prefix_cache(olmo):
+    """The twin with the prefix cache on: prompts sharing 8 tokens queue
+    for a pool of 6 blocks, hit each other's retained blocks, evict them
+    when admissions need room, and emit the streams of a large pool with
+    the cache off; live blocks never pass the pool."""
+    cfg, params = olmo
+    shared = PROMPTS[0][:8]
+    reqs = lambda: [Request(i, np.concatenate([shared, p[:5]]), max_new_tokens=8)
+                    for i, p in enumerate(PROMPTS)]
+    big = {r.rid: r.out_tokens for r in _sched(cfg, params, prefix_cache=False).run(reqs())}
+    small = _sched(cfg, params, pool_blocks=6)
+    got = {r.rid: r.out_tokens for r in small.run(reqs())}
+    assert got == big
+    stats = small.pool_stats()
+    assert stats["peak_allocated_blocks"] <= 6
+    assert stats["prefix_hit_blocks"] > 0 and stats["prefix_evictions"] > 0
+    too_big = small.run([Request(9, np.arange(40) % 512, max_new_tokens=8)])[0]
+    assert too_big.failed and too_big.out_tokens == []
+    assert_pool_invariants(small)
 
 
 def test_sample_stream_is_a_function_of_seed_rid_step():
@@ -131,6 +183,26 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert "precision policy: default=w4a8; wo=w8a8" in out
     assert "3 requests, 12 tokens" in out and "chunked prefill:" in out
     assert "req 2: [" in out and "kv_int8=True" in out
+    # The timed pass serves every prompt again: all of it from the blocks
+    # the warmup pass left.
+    assert "prefix cache: 50% of prompt tokens served from resident blocks" in out
+
+
+def test_serve_cli_shared_prefix_hits_on_cpu(capsys):
+    """--shared-prefix 8 on 4-token blocks: the CLI reports a prefix hit
+    rate above 0, and --no-prefix-cache emits the same greedy tokens."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "olmo-1b", "--reduced", "--continuous", "--shared-prefix", "8",
+            "--block-size", "4", "--device", "cpu", "--requests", "4", "--max-new", "4"]
+    out = {}
+    for extra in ([], ["--no-prefix-cache"]):
+        _, done, report = serve.run(serve.build_parser().parse_args(argv + extra))
+        out[bool(extra)] = ({r.rid: r.out_tokens for r in done if r.temperature == 0},
+                            report["stats"])
+    assert out[True][0] == out[False][0]
+    assert out[False][1]["prefix_hit_rate"] > 0 and not out[True][1]["prefix_cache"]
+    assert "prefix cache: " in capsys.readouterr().out
 
 
 def test_port_never_loads_jax():

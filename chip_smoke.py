@@ -42,7 +42,7 @@
    has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
    a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
-   of 64-320 tokens, 32 new tokens each, 4 slots, in twelve runs — olmo
+   of 64-320 tokens, 32 new tokens each, 4 slots, in fourteen runs — olmo
    continuous with chunked prefill on a bf16 pool (Table III policy
    "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
    Table III policy; (b) static, int8 cache; (c) continuous with solo
@@ -52,7 +52,12 @@
    product on ``dense_matmul``) (g) static and (h) continuous; and the
    prefix cache, every prompt after one shared 200-token prompt: (i)
    chunked on the bf16 pool, Table III policy, and (j) whole-prompt
-   admission on the int8 pool. Each run must launch the kernels of its
+   admission on the int8 pool; and self-speculative decoding: (k)
+   --speculate 4 with a w4a8 draft on the int8 pool ("w4a8;wo=w8a8":
+   the draft truncates the w8 `wo` leaves to plane_lo 2) and (l)
+   --speculate 3 with a w2a8 draft on the bf16 pool with the 200-token
+   shared prefix ("w4a8r25;wo=w8a8": Table III leaves drafted at
+   plane_lo 1, `wo` at 3). Each run must launch the kernels of its
    path, a paged pool must hold its allocator invariants after the run,
    and each run's repeated pass must give identical greedy tokens. The
    prefix cache is on in every paged continuous run, but this gates warm
@@ -66,6 +71,13 @@
    passes; a partial and a whole-prompt hit give first-token logits
    bitwise those of the cold admission, chunked and whole-prompt, on
    bf16 and int8 pools; run (i) hits blocks and copies one on write.
+   Speculation gates (``compare_speculation``): runs (k) and (l) emit the
+   greedy tokens of their stream served without --speculate, in both
+   passes; the verify chunk's logits are bitwise the decode steps' it
+   replaces and the pool bytes it writes over the draft's are bitwise the
+   decode-written ones, on the int8 and the bf16 pool, with dead rows
+   left as they were (``verify_vs_decode``); the draft/accept/verify
+   counters hold together.
    The read-only (store=False) form of ``paged_prefill`` is bitwise the
    storing call and leaves the pool unchanged. Gated across paths (see
    ``compare_paths``): chunked and whole-prompt first-token logits bitwise
@@ -91,7 +103,9 @@ result line and exit 3: ``python3 chip_smoke.py kernels`` stops after
 the kernel phase; ``python3 chip_smoke.py profile [run ...]`` profiles
 one serve pass per run (see ``profile_serve``); ``python3 chip_smoke.py
 paths`` measures how far the prefill paths' logits part (see
-``paths_diagnostic``).
+``paths_diagnostic``); ``python3 chip_smoke.py spec`` runs the fused,
+``bitplane_matmul`` and paged-prefill checks, runs (k) and (l) and the
+speculation gates.
 """
 from __future__ import annotations
 
@@ -115,6 +129,9 @@ ATOL = RTOL = 2e-2
 F32_TOL = 1e-4
 POLICY = "w4a8;wo=w8a8"
 MIXED_POLICY = "w4a6r25;wo=w8a8"   # the paper's Table III setting
+# Table III at a8: a w2a8 draft view of it truncates every leaf without
+# changing an activation width (a6 leaves would refuse an a8 draft).
+SPEC_TABLE3_POLICY = "w4a8r25;wo=w8a8"
 REPLACES = {
     "fused_quantize_matmul": "src/repro/kernels/fused_matmul.py:114",
     "paged_attention": "src/repro/kernels/paged_attention.py:119",
@@ -171,6 +188,18 @@ SERVE_RUNS = {
                             "--shared-prefix", str(SHARED_PREFIX)], POLICY,
                            ("flash_attention", "fused_quantize_matmul",
                             "paged_attention")),
+    # Self-speculative decoding. (k) int8 pool: a w4a8 draft truncates only
+    # the w8 `wo` leaves (plane_lo 2); (l) bf16 pool, Table III leaves and
+    # the prefix cache: a w2a8 draft shifts both filter groups of each
+    # Table III leaf by one plane and `wo` by three.
+    "k-spec-int8": (["--continuous", "--kv-int8", "--speculate", "4",
+                     "--draft-policy", "w4a8"], POLICY,
+                    ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
+    "l-spec-table3-prefix": (["--continuous", "--speculate", "3", "--draft-policy",
+                              "w2a8", "--shared-prefix", str(SHARED_PREFIX)],
+                             SPEC_TABLE3_POLICY,
+                             ("fused_quantize_matmul", "paged_attention", "paged_prefill",
+                              "quantize_rows", "bitplane_matmul")),
     # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
     # serves rwkv6 unquantized): its recurrent state, no KV cache.
     "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None,
@@ -232,9 +261,10 @@ def check_fused(torch, dev, timer):
     """The fused kernel against its plain versions on the card, bitwise:
     the (acc, scales) form at M in FUSED_M (and a ragged M = 37, K = 200,
     N = 100), olmo-1b's (K, N), w2/w4/w8, a8 signed and a4 unsigned,
-    plane_lo 0/1, float32 and bfloat16 rows; the dequant form against
+    every plane_lo (0-3 on w8, the speculative drafts' 2 and 3 included,
+    0-1 on w4), float32 and bfloat16 rows; the dequant form against
     ``(acc.float() * xs * ws).to(dtype)`` (``ref.packed_matmul_ref``) at
-    M in FUSED_M, float32 and bfloat16, plane_lo 0/1, written at a column
+    M in FUSED_M, float32 and bfloat16, every plane_lo, written at a column
     offset of a wider output; and a two-group leaf through
     ``ops.packed_matmul`` (8-bit group at column 0, the low group at
     column n8, on one row pass). Times the (acc, scales) form at decode
@@ -261,7 +291,7 @@ def check_fused(torch, dev, timer):
             for a_bits, signed in ((8, True), (4, False)):
                 for dtype in (torch.float32, torch.bfloat16):
                     xs = (x if signed else x.abs()).to(dtype)
-                    for plane_lo in ((0, 1) if bits > 2 else (0,)):
+                    for plane_lo in range(bits // 2):
                         kw = dict(w_bits=bits, a_bits=a_bits, act_signed=signed,
                                   w_plane_lo=plane_lo)
                         what = (f"fused M={M} K={K} N={N} w{bits} a{a_bits} signed={signed} "
@@ -306,8 +336,8 @@ def check_fused(torch, dev, timer):
                                          f"signed={signed} lo={lo}: not bitwise")
                 deq += 1
     log(f"fused_quantize_matmul: {cases} (acc, scales) cases (M in {FUSED_M} and 37, "
-        f"float32 and bfloat16 rows) and {deq} dequant cases (a column offset, two-group "
-        "leaves) bitwise equal to the plain versions")
+        f"float32 and bfloat16 rows, plane_lo 0-3 on w8 and 0-1 on w4) and {deq} dequant "
+        "cases (a column offset, two-group leaves) bitwise equal to the plain versions")
 
     # Timing: w_up/w_gate of a w4a8 layer (2048 -> 8192) at decode and at
     # a static prefill (M = 4 x 320). Library: torch.matmul on bf16
@@ -580,10 +610,67 @@ def check_paged_prefill(torch, dev, timer):
                  "max_abs_err": ro_err, "bound_ms": ro_bound[0], "bound_by": ro_bound[1],
                  "shape": f"store=False, Lc=1 at {ro_start} (a resident {S}-token prompt) "
                           f"NQ=NKV={nkv} H={H} bs={bs} bf16"}
+    verify = check_paged_prefill_verify(torch, dev, timer, gen)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_err,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max(max_err, verify["max_abs_err"]),
             "shape": f"Lc={Lc} start={start} NQ=NKV={nkv} H={H} bs={bs} bf16",
-            "entries": {"read_only": read_only}}
+            "entries": {"read_only": read_only, "verify": verify}}
+
+
+def check_paged_prefill_verify(torch, dev, timer, gen):
+    """The speculative verify call's shape: a chunk of Lc = 5 (the current
+    token and 4 drafts) at start 300 on a bf16 pool whose positions
+    300-303 a draft already wrote (other K/V, one decode-style write a
+    position): the kernel overwrites the draft's bytes with the chunk's
+    (bitwise the plain version's pool), its output within atol=rtol of
+    the plain version. Timed against the plain version and SDPA over the
+    same 305 keys. Returns the entry; its ``launches`` are filled from the
+    serve runs' verify rows."""
+    from repro_torch.kernels import paged_prefill, ref
+    from repro_torch.models.kv_cache import paged_cache_write
+
+    nkv, H, bs, Lc, start = 16, 128, 16, 5, 300
+    mb = -(-(start + Lc) // bs)
+    nb = mb + 4
+    blk = (torch.randperm(nb - 1, generator=gen, device=dev)[:mb] + 1).to(torch.int32)
+    pk, pv, _, _ = _pool(torch, dev, gen, nb, bs, nkv, H, False)
+    q, kn, vn = (torch.randn((1, Lc, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(3))
+    table = blk[None]
+    for i in range(Lc - 1):           # the draft's writes at 300..303
+        kd, vd = (torch.randn((1, 1, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        paged_cache_write(pk, pv, table, kd, vd,
+                          torch.tensor([start + i], dtype=torch.int32, device=dev), bs)
+    wk, wv = pk.clone(), pv.clone()
+    got = paged_prefill.launch(q, kn, vn, pk, pv, blk, start, Lc)
+    want = ref.paged_prefill_ref(q, kn, vn, wk, wv, blk, start, Lc)
+    torch.cuda.synchronize()
+    what = f"paged_prefill verify (Lc={Lc} at {start} over draft-written positions)"
+    err = _close(torch, got[0], want[0], what)
+    if not (torch.equal(pk[1:], want[1][1:]) and torch.equal(pv[1:], want[2][1:])):
+        raise AssertionError(f"{what}: the pool is not bitwise the plain version's")
+    ms = timer(lambda: paged_prefill.launch(q, kn, vn, pk, pv, blk, start, Lc))
+    plain_ms = timer(lambda: ref.paged_prefill_ref(q, kn, vn, pk, pv, blk, start, Lc))
+    S = start + Lc
+    kc = pk[blk.long()].reshape(1, mb * bs, nkv, H)[:, :S].transpose(1, 2).contiguous()
+    vc = pv[blk.long()].reshape(1, mb * bs, nkv, H)[:, :S].transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= torch.arange(Lc, device=dev)[:, None] + start)
+    qs = q.transpose(1, 2)
+    F = torch.nn.functional
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask))
+    elem = nkv * H * 2
+    nbytes = 3 * q.numel() * 2 + start * elem * 2 + Lc * elem * 2 + q.numel() * 2 \
+        + blk.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * nkv * H * sum(start + i + 1 for i in range(Lc)),
+                          BF16_FLOPS_PER_S)
+    log(f"paged_prefill verify: Lc={Lc} at {start} over draft-written positions: pool "
+        f"bitwise the plain version's, max |err| {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"verify Lc={Lc} at {start} over draft-written positions, "
+                     f"NQ=NKV={nkv} H={H} bs={bs} bf16"}
 
 
 def check_paged_prefill_read_only(torch, dev, gen):
@@ -722,7 +809,7 @@ def check_bitplane(torch, dev, timer):
                             if signed else (0, 1 << a_bits))
                 xq = torch.randint(alo, ahi, (M, K), generator=gen,
                                    device=dev, dtype=torch.int32).to(torch.int8)
-                for plane_lo in ((0,) if w_bits == 2 else (0, 1)):
+                for plane_lo in range(w_bits // 2):
                     kw = dict(w_bits=w_bits, a_bits=a_bits,
                               act_signed=signed, w_plane_lo=plane_lo)
                     got = bitplane_matmul.launch(xq, packed, **kw)
@@ -744,7 +831,7 @@ def check_bitplane(torch, dev, timer):
         case(*BITPLANE_RAGGED, w_bits)
     log(f"bitplane_matmul: {cases} cases (M in {BITPLANE_M}, (K, N) in {OLMO_KN}, and "
         f"(M, K, N) = {BITPLANE_RAGGED}; w2/w4/w8, a2/4/6/8 signed and unsigned, plane_lo "
-        "0/1 on w4 and w8) bitwise equal to the plain version")
+        "0-1 on w4 and 0-3 on w8) bitwise equal to the plain version")
 
     # Timing: the dequant entry, the one the serving path launches, at the
     # two groups of a w4a6r25 w_up (2048 -> 8192: n8 = 2048 8-bit columns,
@@ -1360,18 +1447,48 @@ def serve_run(torch, params, name):
     continuous run), the timed pass admits from the blocks the warmup
     pass left where the pool still holds them: warm against cold in runs
     (i) and (j), mostly cold in the runs without a shared prefix, whose
-    LRU evicts before reuse. Returns
-    (engine, report, launch counts, tokens by rid)."""
+    LRU evicts before reuse. The report gains ``verify`` (the speculative
+    verify calls over both passes: live rows, and the ``paged_prefill``
+    launches counted inside those calls) and ``requests_spec`` (the
+    requests' ``spec_drafted``/``spec_accepted`` summed over both passes).
+    Returns (engine, report, launch counts, tokens by rid)."""
     from repro_torch.kernels import ops, paged_attention
     from repro_torch.launch import serve
+    from repro_torch.models import transformer
 
     flags, policy, needed = SERVE_RUNS[name]
     args = serve.build_parser().parse_args(serve_argv(name))
+    built = []                   # every Request of both passes
+
+    def make_requests(cfg, args):
+        reqs = mixed_requests(cfg, args)
+        built.extend(reqs)
+        return reqs
+
+    verify = {"calls": 0, "rows": 0, "launches": 0}
+    multi = transformer.prefill_chunk_logits_multi
+
+    def counted_multi(params, cfg, cache, batch):
+        before = ops.launch_counts()["paged_prefill"]
+        out = multi(params, cfg, cache, batch)
+        verify["launches"] += ops.launch_counts()["paged_prefill"] - before
+        verify["rows"] += sum(int(s) >= 0 for s in batch["slots"])
+        verify["calls"] += 1
+        return out
+
+    # model_zoo's entry looks the function up on the module at each call.
+    transformer.prefill_chunk_logits_multi = counted_multi
     ops.reset_launch_counts()
-    engine, done, report = serve.run(args, mixed_requests, params=params)
+    try:
+        engine, done, report = serve.run(args, make_requests, params=params)
+    finally:
+        transformer.prefill_chunk_logits_multi = multi
     counts = ops.launch_counts()
     # The contiguous entry's share of paged_attention's launches.
     counts["contig_attention"] = paged_attention.contig_launches
+    report["verify"] = verify
+    report["requests_spec"] = [sum(r.spec_drafted for r in built),
+                               sum(r.spec_accepted for r in built)]
     check_outputs(name, engine, done)
     for k in needed:
         if counts[k] <= 0:
@@ -1448,6 +1565,205 @@ def compare_prefix(torch, runs):
                    f"{st['cow_copies']} CoW copies")
     if bad:
         raise AssertionError(f"prefix cache: {bad}")
+    return out
+
+
+SPEC_RUNS = ("k-spec-int8", "l-spec-table3-prefix")
+
+
+def compare_speculation(torch, runs):
+    """Speculation's gates on runs (k) and (l).
+
+    (a) Each run's stream served once more by an engine on the run's
+    weights and flags without --speculate: every greedy request's tokens
+    in the speculating run's warmup pass and timed pass identical to it.
+    (b) ``verify_vs_decode`` on run (k)'s int8 pool and run (l)'s bf16
+    pool, at every verify width Lc = k + 1 for k in ``VERIFY_KS`` (the
+    runs' own --speculate among them). (c) The counters: more drafts than
+    accepted tokens in both runs, some accepted in run (k), verify rows >=
+    verify calls > 0, the requests' ``spec_drafted``/``spec_accepted``
+    summing to the scheduler's totals over both passes, and the
+    ``paged_prefill`` launches counted inside the verify calls equal to
+    one a layer for each verified row. (The pool invariants, (d), hold
+    after every paged run, ``check_outputs``.) Everything prints before a
+    gate raises."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    out, bad = {}, []
+    for name in SPEC_RUNS:
+        engine, report, _, tokens = runs[name]
+        plain = ServingEngine(
+            engine.cfg, engine.params, max_batch=engine.max_batch, bucket=engine.bucket,
+            block_size=engine.block_size, pool_blocks=engine.pool_blocks,
+            prefix_cache=engine.prefix_cache, chunked_prefill=engine.chunked_prefill,
+            prefill_budget=engine.prefill_budget, device=engine.device)
+        args = serve.build_parser().parse_args(serve_argv(name))
+        t0 = time.perf_counter()
+        plain_done = plain.generate(mixed_requests(engine.cfg, args))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check_outputs(f"{name} without --speculate", plain, plain_done)
+        ref_toks = {r.rid: r.out_tokens for r in plain_done}
+        greedy = [r.rid for r in plain_done if r.temperature == 0]
+        shares = {"warmup": _greedy_share(report["warmup_tokens"], ref_toks, greedy),
+                  "timed": _greedy_share(tokens, ref_toks, greedy)}
+        st = report["stats"]
+        per_req = report["requests_spec"]
+        verify = report["verify"]
+        k = int(args.speculate)
+        assert k in VERIFY_KS, (k, VERIFY_KS)
+        err = verify_vs_decode(torch, engine, args.draft_policy, VERIFY_KS)
+        worst = max(e["logits_max_err"] for e in err.values())
+        keys = ("spec_rounds", "spec_draft_tokens", "spec_accepted_tokens",
+                "spec_acceptance_rate", "spec_verify_calls", "spec_verify_rows",
+                "prefix_hit_rate", "cow_copies", "prefix_evictions")
+        out[name] = {"greedy_vs_no_speculation": shares, "verify_vs_decode": err,
+                     "no_speculation_tok_per_s":
+                         sum(len(r.out_tokens) for r in plain_done) / plain_s,
+                     "tok_per_s": report["tok_per_s"], "speculate": k,
+                     "per_request_drafted_accepted": per_req,
+                     "verify_launches": verify,
+                     **{key: st[key] for key in keys}}
+        log(f"speculation [{name}] k={k} draft {args.draft_policy}: greedy requests "
+            f"identical to the stream without --speculate: warmup pass {shares['warmup']}, "
+            f"timed pass {shares['timed']} (gated at all); {st['spec_accepted_tokens']}/"
+            f"{st['spec_draft_tokens']} drafts accepted over {st['spec_rounds']} rounds, "
+            f"{st['spec_verify_rows']} rows in {st['spec_verify_calls']} verify calls; "
+            f"requests' sums {per_req}; prefix hit rate {st['prefix_hit_rate']:.4f}, "
+            f"{st['cow_copies']} CoW copies, {st['prefix_evictions']} evictions; "
+            f"{verify['launches']} paged_prefill launches in {verify['rows']} verified "
+            f"rows x {engine.cfg.num_layers} layers; verify vs decode at Lc "
+            f"{[kk + 1 for kk in VERIFY_KS]}: logits max |err| {worst}, pool bitwise "
+            f"{all(e['pool_bitwise'] for e in err.values())}, dead rows kept "
+            f"{all(e['dead_rows_kept'] for e in err.values())}; "
+            f"{report['tok_per_s']:.1f} tok/s against "
+            f"{out[name]['no_speculation_tok_per_s']:.1f} without --speculate (one pass)")
+        full = f"{len(greedy)}/{len(greedy)}"
+        bad += [f"{name} greedy {p} {v}" for p, v in shares.items() if v != full]
+        if not st["spec_draft_tokens"] > st["spec_accepted_tokens"]:
+            bad.append(f"{name}: every draft accepted ({st['spec_accepted_tokens']})")
+        if not st["spec_verify_rows"] >= st["spec_verify_calls"] > 0:
+            bad.append(f"{name}: {st['spec_verify_rows']} rows in "
+                       f"{st['spec_verify_calls']} verify calls")
+        if per_req != [st["spec_draft_tokens"], st["spec_accepted_tokens"]]:
+            bad.append(f"{name}: requests' drafted/accepted {per_req} != the scheduler's "
+                       f"{st['spec_draft_tokens']}/{st['spec_accepted_tokens']}")
+        if not (verify["rows"] == st["spec_verify_rows"] and verify["calls"] ==
+                st["spec_verify_calls"] and verify["launches"] ==
+                verify["rows"] * engine.cfg.num_layers > 0):
+            bad.append(f"{name}: verify launches {verify} against "
+                       f"{st['spec_verify_rows']} rows x {engine.cfg.num_layers} layers "
+                       f"in {st['spec_verify_calls']} calls")
+        for kk, e in err.items():
+            if e["logits_max_err"] != 0.0 or not e["pool_bitwise"] or not e["dead_rows_kept"]:
+                bad.append(f"{name}: verify vs decode at k={kk} {e}")
+    if not runs["k-spec-int8"][1]["stats"]["spec_accepted_tokens"] > 0:
+        bad.append("k-spec-int8: no draft accepted")
+    if bad:
+        raise AssertionError(f"speculation: {bad}")
+    return out
+
+
+# Draft lengths at which verify_vs_decode holds the verify chunk (Lc = k + 1
+# rows through the LM head) against decode (B = 4 rows): Lc 2-9.
+VERIFY_KS = tuple(range(1, 9))
+
+
+def verify_vs_decode(torch, engine, draft, ks):
+    """The verify chunk against the decode steps it replaces, on
+    `engine`'s weights and pool type, for each draft length k of `ks`. One
+    greedy prompt (203 tokens) is prefilled into slot 0 of a 4-slot pool
+    whose other rows sit at other positions behind all -1 tables; then,
+    for each k: k + 1 full-policy decode steps (tokens t0..tk at
+    positions n..n+k, logits and written pool bytes kept); positions
+    restored by ``set_decode_positions``; draft-policy K/V written over
+    the same positions (the same tokens through the plane-truncated view);
+    positions restored; then ``prefill_chunk_logits_multi`` over [t0..tk]
+    with one live row and three dead ones; positions restored for the
+    next k. Returns, by k, the verify logits' max |err| against the decode
+    logits (gated at 0), whether the verified pool bytes (codes and scale
+    planes on int8) equal the decode-written ones bitwise, whether the
+    draft's bytes differed from them, and whether the dead rows'
+    pos/length and every block but row 0's (and the trash block) kept
+    their values."""
+    import numpy as np
+
+    from repro_torch.models.kv_cache import set_decode_positions
+    from repro_torch.serving.speculative import derive_draft_params
+
+    cfg, params, model, dev = engine.cfg, engine.params, engine.model, engine.device
+    B, bs, budget = 4, 16, 32
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(0, cfg.vocab, 203).astype(np.int64)
+    n = len(prompt)
+    nrow = -(-(n + max(ks) + 1) // bs)
+    cache = model.init_paged_cache(B, 2 * nrow + 1, bs, nrow, device=dev)
+    blocks = torch.arange(1, nrow + 1, dtype=torch.int32)
+    for start in range(0, n, budget):
+        t = min(budget, n - start)
+        toks = np.zeros((1, budget), np.int64)
+        toks[0, :t] = prompt[start:start + t]
+        cache, lg = model.prefill_chunk(params, cache, {
+            "tokens": torch.from_numpy(toks).to(dev), "lengths": [t], "start": start,
+            "slot": 0, "blocks": blocks[:-(-(start + t) // bs)]})
+    t0 = int(lg[0, -1].argmax())
+    table = np.full((B, nrow), -1, np.int32)
+    table[0] = blocks.numpy()
+    cache.kv.block_table.copy_(torch.from_numpy(table))
+    pos0 = np.asarray([n, 17, 40, 77], np.int64)
+    kv = cache.kv
+    planes = [kv.k, kv.v] + ([kv.k_scale, kv.v_scale] if kv.quantized else [])
+    others = torch.ones(planes[0].shape[1], dtype=torch.bool, device=dev)
+    others[0] = False
+    others[blocks.long().to(dev)] = False
+    dparams, _ = derive_draft_params(params, draft)
+    cur = np.zeros((B, 1), np.int64)
+    out = {}
+    for k in ks:
+        set_decode_positions(cache, pos0, pos0)
+        where = [n + i for i in range(k + 1)]
+        blk = blocks[[p // bs for p in where]].long().to(dev)
+        off = torch.tensor([p % bs for p in where], device=dev)
+
+        def written():
+            return [a[:, blk, off].clone() for a in planes]
+
+        seq = [t0]
+        dec = []
+        for i in range(k + 1):
+            cur[0, 0] = seq[i]
+            cache, lg = model.decode_step(params, cache, torch.from_numpy(cur).to(dev))
+            dec.append(lg[0, -1].clone())
+            seq.append(int(lg[0, -1].argmax()))
+        decoded = written()
+        set_decode_positions(cache, pos0, pos0)
+        for i in range(k + 1):
+            cur[0, 0] = seq[i]
+            cache, _ = model.decode_step(dparams, cache, torch.from_numpy(cur).to(dev))
+        drafted = written()
+        set_decode_positions(cache, pos0, pos0)
+        before = [a[:, others].clone() for a in planes]
+        tokens = np.zeros((B, k + 1), np.int64)
+        tokens[0] = seq[:k + 1]
+        btab = np.full((B, nrow), -1, np.int32)
+        btab[0] = blocks.numpy()
+        cache, vlog = model.prefill_chunk_logits_multi(params, cache, {
+            "tokens": torch.from_numpy(tokens).to(dev), "lengths": [k + 1, 0, 0, 0],
+            "starts": [n, 0, 0, 0], "slots": [0, -1, -1, -1],
+            "blocks": torch.from_numpy(btab)})
+        torch.cuda.synchronize()
+        out[k] = {
+            "logits_max_err": max((vlog[0, i] - dec[i]).abs().max().item()
+                                  for i in range(k + 1)),
+            "argmax_equal": int((vlog[0].argmax(-1).cpu() == torch.tensor(seq[1:])).sum()),
+            "pool_bitwise": all(torch.equal(a, b) for a, b in zip(written(), decoded)),
+            "draft_bytes_differed": any(not torch.equal(a, b)
+                                        for a, b in zip(drafted, decoded)),
+            "dead_rows_kept": (cache.pos.tolist() == kv.length.tolist()
+                               == [n + k + 1, 17, 40, 77]
+                               and all(torch.equal(a[:, others], b)
+                                       for a, b in zip(planes, before)))}
     return out
 
 
@@ -2071,6 +2387,15 @@ def main() -> int:
     if sys.argv[1:2] == ["profile"]:
         profile_serve(torch, params_of, *([sys.argv[2:]] if sys.argv[2:] else []))
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["spec"]:
+        build.build()
+        timer = Timer(torch, dev)
+        check_fused(torch, dev, timer)
+        check_bitplane(torch, dev, timer)
+        check_paged_prefill(torch, dev, timer)
+        runs = {name: serve_run(torch, params_of(name), name) for name in SPEC_RUNS}
+        write_detail("chip_smoke_spec.json", compare_speculation(torch, runs))
+        return 3                 # a partial run: no result line
     t_start = t0 = time.perf_counter()
     paths = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
@@ -2132,6 +2457,12 @@ def main() -> int:
         log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
             "identical")
     prefix_cmp = compare_prefix(torch, runs)
+    spec_cmp = compare_speculation(torch, runs)
+    # The verify row's launches: paged_prefill's counter read inside the
+    # runs' verify calls (compare_speculation gates it at one a layer a row).
+    entries = results["paged_prefill"]["entries"]
+    entries["verify"]["launches"] = sum(runs[name][1]["verify"]["launches"]
+                                        for name in SPEC_RUNS)
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
     rwkv_cmp = compare_rwkv6(torch, runs)
     unpacked_cmp = compare_unpacked(torch, runs)
@@ -2149,7 +2480,7 @@ def main() -> int:
         "mixed_group_cases": mixed["cases"], "table3_launches": table3_launches,
         "serve": {name: run[1] for name, run in runs.items()},
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
-        "prefix_cache": prefix_cmp,
+        "prefix_cache": prefix_cmp, "speculation": spec_cmp,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

@@ -2,8 +2,11 @@
 to :class:`~repro_torch.core.quant.QuantConfig`.
 
 Port of the policy half of ``repro.core.precision`` (the spec grammar
-and path matching). The precision-tier half — plane-truncated policy
-views — comes with the tier slice of the port.
+and path matching) and of the part of its precision-tier half that
+speculative drafts use: ``PLANE_BITS``, ``parse_tier_token``,
+``plane_offset`` and ``truncate_policy_view``, the zero-copy
+plane-truncated view of packed serving params. Tier specs, the degrade
+order and ``PrecisionPolicy.view`` come with the tier slice of the port.
 """
 from __future__ import annotations
 
@@ -102,3 +105,114 @@ def parse_policy_spec(spec: str) -> PrecisionPolicy:
     if default is None:
         raise ValueError(f"policy spec {spec!r} has no default wXaY token")
     return PrecisionPolicy(default=default, rules=tuple(rules))
+
+
+# -- precision tiers: plane-truncated views of one packed weight set -------
+#
+# Weights are stored once as little-endian 2-bit planes
+# (``repro_torch.core.bitplane``), and any precision at or below the
+# storage width is a *view*: contract only the top planes
+# (``PackedWeight.plane_lo``), never copy a byte. Speculative drafts and
+# (with the tier slice) per-request serving tiers both route through
+# :func:`truncate_policy_view`.
+
+PLANE_BITS = 2
+
+
+def parse_tier_token(spec: Union[str, QuantConfig]) -> QuantConfig:
+    """Normalize one tier/draft token ("w4a8" or an already-built
+    QuantConfig). Tiers are pure plane truncations of the stored planes,
+    so the Table-III mixed 8-bit filter-group ratio ("rZZ") is rejected:
+    a filter-group split changes *which channels* are 8-bit, which cannot
+    be expressed as a plane subset of the resident codes."""
+    cfg = spec if isinstance(spec, QuantConfig) else parse_quant_token(str(spec))
+    if cfg.mixed_ratio_8b:
+        raise ValueError(
+            "a precision tier is a plane truncation of the resident "
+            f"weights; a mixed 8-bit filter group ({quant_token(cfg)!r}) "
+            "cannot be expressed as a plane subset"
+        )
+    return cfg
+
+
+def plane_offset(target_bits: int, view_bits: int) -> int:
+    """Number of low 2-bit planes to drop so `target_bits` storage serves
+    a `view_bits` contraction. 0 when the leaf is already at or below the
+    view precision (nothing to truncate — the view runs it as-is)."""
+    if view_bits >= target_bits:
+        return 0
+    drop = target_bits - view_bits
+    if drop % PLANE_BITS:
+        raise ValueError(
+            f"cannot serve w{target_bits} storage at w{view_bits}: the "
+            f"precision gap must be a whole number of {PLANE_BITS}-bit "
+            "planes"
+        )
+    lo = drop // PLANE_BITS
+    if PLANE_BITS * lo >= target_bits:
+        raise ValueError(
+            f"plane_lo={lo} leaves no planes of a w{target_bits} weight"
+        )
+    return lo
+
+
+def truncate_policy_view(params, tier: Union[str, QuantConfig], *,
+                         require_truncation: bool = False) -> Tuple[object, int]:
+    """`tier`-precision view of packed serving params: every PackedWeight
+    leaf stored above the tier's weight width gets ``plane_lo`` set (a
+    ``dataclasses.replace``) so its matmuls contract only the top planes.
+    Returns ``(view, truncated)``.
+
+    The view is *zero-copy*: every tensor (packed bytes, 8-bit group,
+    scales, and every unpacked leaf) is the served params' own object, so
+    a view costs no device memory. A tier that truncates nothing returns
+    ``params`` itself. A tier is a per-leaf *cap*: leaves already stored
+    at or below the tier width serve as stored; a Table III leaf's 8-bit
+    group is shifted with its low group (its ``plane_lo`` comes from the
+    low group's width, as in ``repro``).
+
+    Raises when the params carry no packed leaves (serve with a quant
+    policy first), when the precision gap of some leaf is not a whole
+    number of planes, or when the tier's activation precision disagrees
+    with a truncating leaf's — plane truncation only lowers weight bits.
+    With ``require_truncation`` (the speculative-draft contract) a view
+    that truncates no leaf is also an error."""
+    from repro_torch.core.quantized_linear import PackedWeight
+
+    cfg = parse_tier_token(tier)
+    counts = {"packed": 0, "truncated": 0}
+
+    def view(leaf):
+        if isinstance(leaf, dict):
+            return {k: view(v) for k, v in leaf.items()}
+        if not isinstance(leaf, PackedWeight):
+            return leaf
+        counts["packed"] += 1
+        lo = plane_offset(leaf.bits, cfg.w_bits)
+        if lo == 0:
+            return leaf
+        if leaf.a_bits != cfg.a_bits:
+            raise ValueError(
+                f"tier w{cfg.w_bits}a{cfg.a_bits} changes the "
+                f"activation precision of a w{leaf.bits}a{leaf.a_bits} "
+                "leaf; plane truncation only lowers weight bits — use "
+                f"a{leaf.a_bits} in the tier spec"
+            )
+        counts["truncated"] += 1
+        return dataclasses.replace(leaf, plane_lo=lo)
+
+    view_params = view(params)
+    if not counts["packed"]:
+        raise ValueError(
+            "precision-tier views need bit-plane-packed weights: "
+            "serve with a quant policy (e.g. --quant w8a8) so the view "
+            "can truncate the resident planes"
+        )
+    if not counts["truncated"]:
+        if require_truncation:
+            raise ValueError(
+                f"draft policy w{cfg.w_bits} truncates no leaf: every "
+                "packed weight is already at or below the draft precision"
+            )
+        return params, 0
+    return view_params, counts["truncated"]

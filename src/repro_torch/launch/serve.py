@@ -7,7 +7,8 @@ continuous scheduler.
       [--requests 8] [--max-new 16] [--max-batch 4] [--rate 20] \
       [--block-size 16] [--pool-blocks N] [--no-paged] \
       [--prefix-cache | --no-prefix-cache] [--shared-prefix N] \
-      [--prefill-budget 32] [--no-chunked-prefill] [--reduced] [--device cpu]
+      [--prefill-budget 32] [--no-chunked-prefill] \
+      [--speculate K] [--draft-policy w4a8] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -40,6 +41,17 @@ all of them where the pool is large enough or the prompts share a
 prefix, few where the LRU evicted them first. Its tok/s includes that
 mix of hits and evictions; the hit rate and evictions are reported after
 a continuous run.
+
+Self-speculative decoding: --speculate K drafts K tokens per scheduler
+step from a plane-truncated view of the resident packed weights (the
+draft reads only the top bit-planes — no second weight copy) and
+verifies all K+1 positions in one chunk-shaped full-policy call,
+emitting the longest matching prefix. Greedy requests' tokens are
+bitwise identical to --speculate 0; sampled requests decode normally.
+--draft-policy picks the draft precision (w4a8 / w2a8 — the plane
+subset to keep). It needs --continuous, a quant policy (--quant /
+--policy) and the paged pool; anything else raises. Draft/acceptance
+counters are reported after the run.
 """
 from __future__ import annotations
 
@@ -94,6 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
                     action="store_false", default=None,
                     help="admit by solo whole-prompt prefill instead of "
                          "chunked prefill")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="self-speculative decoding: draft tokens per "
+                         "scheduler step from the plane-truncated view "
+                         "of the packed weights (0 = off; greedy "
+                         "requests only, needs --quant/--policy)")
+    ap.add_argument("--draft-policy", default="w4a8",
+                    help="draft precision for --speculate: the plane "
+                         "subset of the resident weights the draft "
+                         "contracts (e.g. w4a8, w2a8)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -138,6 +159,12 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
         raise SystemExit("--continuous and --static are mutually exclusive")
     if args.quant and args.policy:
         raise SystemExit("--quant and --policy are mutually exclusive")
+    if args.speculate and not args.continuous:
+        raise SystemExit("--speculate runs inside the continuous "
+                         "scheduler; add --continuous")
+    if args.speculate and not (args.quant or args.policy):
+        raise SystemExit("--speculate drafts from the resident bit-plane "
+                         "weights; add a quant policy (e.g. --quant w8a8)")
     device = resolve_device(args.device)
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
@@ -163,7 +190,9 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                            pool_blocks=args.pool_blocks,
                            prefix_cache=args.prefix_cache,
                            chunked_prefill=args.chunked_prefill,
-                           prefill_budget=args.prefill_budget, device=device)
+                           prefill_budget=args.prefill_budget,
+                           speculate=args.speculate,
+                           draft_policy=args.draft_policy, device=device)
     serve = engine.generate if args.continuous else engine.generate_static
 
     def sync():
@@ -218,6 +247,14 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                   f"{stats['decode_steps_stalled']} decode steps "
                   f"shared a step with a chunk, "
                   f"{stats['prefill_tokens_per_step']:.1f} prefill tok/step")
+        if stats.get("speculate"):
+            print(f"  speculative decode: k={stats['speculate']}, "
+                  f"{stats['spec_accepted_tokens']}/"
+                  f"{stats['spec_draft_tokens']} drafts accepted "
+                  f"({stats['spec_acceptance_rate']:.0%}) over "
+                  f"{stats['spec_rounds']} rounds, "
+                  f"{stats['spec_verify_rows']} rows in "
+                  f"{stats['spec_verify_calls']} verify calls")
         for r in [r for r in done if r.error][:4]:
             print(f"  req {r.rid} failed: {r.error}")
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import reciprocal_f32
@@ -365,6 +366,25 @@ def set_paged_row(batch: DecodeCache, solo: DecodeCache, slot: int,
     kv.length[slot] = solo.kv.length[0]
     batch.pos[slot] = solo.pos[0]
     return batch
+
+
+def set_decode_positions(cache: DecodeCache, pos, length) -> DecodeCache:
+    """Overwrite every row's decode position and live length, in place, in
+    one host-to-device write — the speculative-decode rollback.
+
+    Drafting advances each row's ``pos``/``length`` one token per draft
+    step (the decode step advances *all* rows) and the verify chunk sets
+    its slot past every drafted position; after greedy acceptance the host
+    knows the true position of every row and restores it here. Rejected
+    positions' pool bytes are left stale — the position mask hides them
+    from every later read, and the row's next writes land there anyway,
+    so the whole rollback IS this metadata write."""
+    kv: PagedKVCache = cache.kv
+    both = torch.as_tensor(np.stack([np.asarray(pos), np.asarray(length)]),
+                           dtype=torch.int32).to(cache.pos.device)
+    cache.pos.copy_(both[0])
+    kv.length.copy_(both[1])
+    return cache
 
 
 def copy_pool_block(cache: DecodeCache, src: int, dst: int) -> DecodeCache:

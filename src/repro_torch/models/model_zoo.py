@@ -4,8 +4,9 @@ Port of ``repro.models.model_zoo`` for the dense transformer and the
 RWKV-6 family: ``init(seed, device)``, ``prefill``, ``decode_step`` and
 ``init_cache``; for the dense transformer also ``init_paged_cache`` and,
 behind the same eligibility gate as JAX (full attention, no MoE, token
-inputs), ``prefill_chunk`` and ``prefill_suffix`` (the prefix cache's
-suffix-only prefill). RWKV-6 keeps a constant-size recurrent state
+inputs), ``prefill_chunk``, ``prefill_suffix`` (the prefix cache's
+suffix-only prefill) and the speculative verify entries
+``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6 keeps a constant-size recurrent state
 and has neither, as in JAX.
 """
 from __future__ import annotations
@@ -57,4 +58,10 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
             # prefix cache's warm ≡ cold contract needs the same gate.
             ns.prefill_suffix = (lambda params, batch:
                                  mod.prefill_suffix(params, cfg, batch))
+            # Speculative verify: the chunk path with all-position logits.
+            ns.prefill_chunk_logits = (lambda params, cache, batch:
+                                       mod.prefill_chunk_logits(params, cfg, cache, batch))
+            ns.prefill_chunk_logits_multi = (
+                lambda params, cache, batch:
+                mod.prefill_chunk_logits_multi(params, cfg, cache, batch))
     return ns

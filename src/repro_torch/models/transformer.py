@@ -7,7 +7,8 @@ are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 Python loop over layers replaces ``lax.scan``. Attention runs the
 kernels through :mod:`repro_torch.kernels.ops`: ``flash_attention`` for
 a whole prompt (``prefill``) and for the uncached tail of a prefix-cache
-hit (``prefill_suffix``), ``paged_prefill`` for every chunk of a prompt,
+hit (``prefill_suffix``), ``paged_prefill`` for every chunk of a prompt
+and every speculative verify window (``prefill_chunk_logits[_multi]``),
 ``paged_attention`` for a paged decode step and ``decode_attention`` for
 a contiguous one (the paged decode kernel over
 each row's own slots; the JAX package computes it outside any Pallas
@@ -258,6 +259,29 @@ def prefill(params, cfg: ModelConfig, batch):
     return DecodeCache(pos=length.clone(), kv=kvc), logits
 
 
+def _chunk_forward(params, cfg: ModelConfig, kv: PagedKVCache, tokens, start: int,
+                   length: int, blocks, store: bool = True):
+    """One row's chunk (1, Lc) through every layer against the paged
+    pool: each layer runs ``ops.paged_prefill`` (the chunk attends
+    causally over [prefix ++ chunk], its K/V written into the row's
+    blocks in place unless ``store`` is False). Returns the last layer's
+    output x (1, Lc, d)."""
+    Lc = tokens.shape[1]
+    dev = tokens.device
+    positions = (start + torch.arange(Lc, dtype=torch.int32, device=dev))[None]
+    x = cm.embed_lookup(params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        p = layer_params(params["blocks"], i)
+        pk, pv, ks, vs = kv.layer(i)
+        h = cm.apply_norm(x, p["ln1"], cfg.norm)
+        q, k, v = _attention_qkv(p, cfg, h, positions)
+        attn = ops.paged_prefill(q, k, v, pk, pv, blocks, start, length,
+                                 k_scale=ks, v_scale=vs,
+                                 softcap=cfg.attn_logit_softcap, store=store)[0]
+        x = _block_post_attn(p, cfg, x, attn)
+    return x
+
+
 def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
     """Prefill one chunk of a single row's prompt against the paged pool.
 
@@ -277,31 +301,72 @@ def prefill_chunk(params, cfg: ModelConfig, cache: DecodeCache, batch):
     if cfg.attn_window:
         raise ValueError("chunked prefill requires a full-attention paged cache")
     tokens = batch["tokens"]
-    _, Lc = tokens.shape
     length = int(batch["lengths"][0])
     start = int(batch["start"])
     slot = int(batch["slot"])
-    store = bool(batch.get("store", True))
-    dev = tokens.device
-    blocks = torch.as_tensor(batch["blocks"], dtype=torch.int32).to(dev)
+    blocks = torch.as_tensor(batch["blocks"], dtype=torch.int32).to(tokens.device)
     kv: PagedKVCache = cache.kv
-    positions = (start + torch.arange(Lc, dtype=torch.int32, device=dev))[None]
-    x = cm.embed_lookup(params["embed"], tokens)
-    for i in range(cfg.num_layers):
-        p = layer_params(params["blocks"], i)
-        pk, pv, ks, vs = kv.layer(i)
-        h = cm.apply_norm(x, p["ln1"], cfg.norm)
-        q, k, v = _attention_qkv(p, cfg, h, positions)
-        attn = ops.paged_prefill(q, k, v, pk, pv, blocks, start, length,
-                                 k_scale=ks, v_scale=vs,
-                                 softcap=cfg.attn_logit_softcap, store=store)[0]
-        x = _block_post_attn(p, cfg, x, attn)
+    x = _chunk_forward(params, cfg, kv, tokens, start, length, blocks,
+                       bool(batch.get("store", True)))
     hidden = cm.apply_norm(cm.last_token_slice(x, [length]),
                            params["final_norm"], cfg.norm)
     logits = compute_logits(params, cfg, hidden)
     cache.pos[slot] = start + length
     kv.length[slot] = start + length
     return cache, logits
+
+
+def prefill_chunk_logits_multi(params, cfg: ModelConfig, cache: DecodeCache, batch):
+    """Speculative-decode verify: R independent chunk rows through one
+    call, logits for every chunk position of every row.
+
+    ``batch`` keys (leading R where the single-row call is scalar):
+      tokens (R, Lc)    right-padded chunk token ids per row
+      lengths (R,)      real chunk length per row (0 for dead rows)
+      starts (R,)       absolute position of each row's first chunk token
+      slots (R,)        each row's batch slot; -1 marks a DEAD row
+      blocks (R, nbp)   each row's pool blocks (-1 = unallocated)
+
+    Rows run one after another, as JAX's ``lax.scan`` runs them: each
+    live row is its own :func:`_chunk_forward` (one ``paged_prefill``
+    launch per layer), attends only through its own block table and
+    writes only its own blocks, so each live row's logits are bitwise
+    what it returns alone (:func:`prefill_chunk_logits`). A dead row
+    is not run: it writes nothing (JAX routes its writes to the trash
+    block), its ``pos``/``length`` do not move and its logits rows are
+    zeros the caller ignores. Returns ``(cache, logits (R, Lc, V))``."""
+    if cfg.attn_window:
+        raise ValueError("chunked prefill requires a full-attention paged cache")
+    tokens = batch["tokens"]
+    R, Lc = tokens.shape
+    lengths = [int(n) for n in batch["lengths"]]
+    starts = [int(s) for s in batch["starts"]]
+    slots = [int(s) for s in batch["slots"]]
+    blocks = torch.as_tensor(batch["blocks"], dtype=torch.int32).to(tokens.device)
+    kv: PagedKVCache = cache.kv
+    logits = torch.zeros((R, Lc, cfg.vocab), dtype=torch.float32, device=tokens.device)
+    for r in range(R):
+        if slots[r] < 0:
+            continue
+        x = _chunk_forward(params, cfg, kv, tokens[r:r + 1], starts[r], lengths[r],
+                           blocks[r])
+        hidden = cm.apply_norm(x, params["final_norm"], cfg.norm)
+        logits[r] = compute_logits(params, cfg, hidden)[0]
+        cache.pos[slots[r]] = starts[r] + lengths[r]
+        kv.length[slots[r]] = starts[r] + lengths[r]
+    return cache, logits
+
+
+def prefill_chunk_logits(params, cfg: ModelConfig, cache: DecodeCache, batch):
+    """JAX's single-row verify entry, kept for parity: one live row of
+    :func:`prefill_chunk_logits_multi` with :func:`prefill_chunk`'s batch
+    keys (tokens (1, Lc), lengths (1,), start, slot, blocks). Returns
+    ``(cache, logits (1, Lc, V))``, every chunk position (those past the
+    real length are padding)."""
+    blocks = torch.as_tensor(batch["blocks"], dtype=torch.int32)
+    return prefill_chunk_logits_multi(params, cfg, cache, {
+        "tokens": batch["tokens"], "lengths": batch["lengths"],
+        "starts": [batch["start"]], "slots": [batch["slot"]], "blocks": blocks[None]})
 
 
 def prefill_suffix(params, cfg: ModelConfig, batch):

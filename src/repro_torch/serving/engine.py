@@ -10,13 +10,18 @@ PrecisionPolicy and has two modes:
     admission with ``chunked_prefill=False``, the contiguous per-slot
     cache with ``paged=False``. The scheduler lives as long as the
     engine, so a prompt served again hits the blocks an earlier call
-    left in the prefix cache.
+    left in the prefix cache. With ``speculate=k`` its greedy slots
+    self-speculate: a plane-truncated view of the packed weights
+    (``draft_policy``) drafts k tokens a step and one full-policy verify
+    call emits the longest matching prefix, bitwise the greedy tokens
+    without it.
   * ``generate_static`` — the static batch (whole-prompt prefill of up
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
     baseline continuous batching is measured against and the oracle of
     the "continuous ≡ static" contract. A recurrent model (rwkv6) keeps
-    its constant-size state in place of the cache.
+    its constant-size state in place of the cache. Static batches do not
+    speculate (``speculate`` applies to ``generate`` only, as in JAX).
 
 Prompts are right-padded to the bucket with the real length passed to
 prefill, so pad tokens never occupy cache slots or shift rope positions,
@@ -49,7 +54,8 @@ class ServingEngine:
                  pool_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None,
-                 prefill_budget: int = 32, device=None):
+                 prefill_budget: int = 32, speculate: int = 0,
+                 draft_policy="w4a8", device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -70,6 +76,8 @@ class ServingEngine:
         self.prefix_cache = prefix_cache        # None = on if paged
         self.chunked_prefill = chunked_prefill  # None = on if paged
         self.prefill_budget = prefill_budget
+        self.speculate = speculate          # draft tokens a step (0 = off)
+        self.draft_policy = draft_policy    # plane-truncation draft spec
         self._sched: Optional[ContinuousScheduler] = None
 
     def _bucketed(self, n: int) -> int:
@@ -88,7 +96,8 @@ class ServingEngine:
                 block_size=self.block_size, pool_blocks=self.pool_blocks,
                 prefix_cache=self.prefix_cache,
                 chunked_prefill=self.chunked_prefill,
-                prefill_budget=self.prefill_budget, device=self.device)
+                prefill_budget=self.prefill_budget, speculate=self.speculate,
+                draft_policy=self.draft_policy, device=self.device)
         self._sched.on_token = self.on_token
         return self._sched
 

@@ -3,9 +3,10 @@ admission, paged KV allocation with reservation queueing, chunked
 prefill interleaved with decoding, and the cross-request prefix cache.
 
 Port of ``repro.serving.scheduler``'s paged pool, chunked prefill, solo
-whole-prompt admission, contiguous cache and prefix cache. Later
-features — speculation, precision tiers, lifecycle/preemption/chaos and
-the host tier — come with later slices of the port.
+whole-prompt admission, contiguous cache, prefix cache and
+self-speculative decoding. Later features — precision tiers,
+lifecycle/preemption/chaos and the host tier — come with later slices
+of the port.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
@@ -36,6 +37,13 @@ Design:
     admission prefills the whole prompt (or its uncached suffix) solo and
     scatters its cache into the slot's pool blocks or contiguous row;
     every free slot may admit in the same step.
+  * ``speculate=k`` (paged pool, packed weights): each step, before the
+    batched decode, greedy slots draft up to k tokens with a
+    plane-truncated view of the resident weights (``draft_policy``),
+    then one full-policy verify call over every row's ``[current token,
+    drafts]`` window emits the longest matching prefix; positions roll
+    back for the rejected tail. Greedy tokens are bitwise those without
+    speculation; sampled slots decode normally.
   * Sampling draws from per-request ``(seed, rid, step)`` streams, so a
     request's tokens do not depend on what else is in the batch.
 """
@@ -61,9 +69,11 @@ from repro_torch.models.kv_cache import (
     scatter_into_paged,
     scatter_into_slot,
     scatter_suffix_into_paged,
+    set_decode_positions,
     set_paged_row,
 )
 from repro_torch.serving import sampling
+from repro_torch.serving.speculative import derive_draft_params, greedy_accept
 
 
 @dataclasses.dataclass
@@ -84,9 +94,18 @@ class Request:
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     error: Optional[str] = None
+    # Speculative-decoding counters (filled when the scheduler runs with
+    # `speculate`): draft tokens proposed for this request and how many of
+    # them greedy verification accepted.
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     # (key, chain digests) memo of ContinuousScheduler._req_hashes.
     _prefix_hashes: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        return self.spec_accepted / self.spec_drafted if self.spec_drafted else 0.0
 
     @property
     def failed(self) -> bool:
@@ -103,7 +122,7 @@ class ContinuousScheduler:
                  on_token=None, paged: Optional[bool] = None, block_size: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None, prefill_budget: int = 32,
-                 device=None):
+                 speculate: int = 0, draft_policy="w4a8", device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -152,6 +171,30 @@ class ContinuousScheduler:
         if prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1")
         self.prefill_budget = prefill_budget
+
+        # Self-speculative decoding: drafting reuses the decode step with
+        # *view* params (plane_lo on the packed leaves, the same tensors)
+        # and verification the chunk path with all-position logits, so it
+        # needs the paged pool, the verify entry and packed weights.
+        if speculate:
+            if speculate < 1:
+                raise ValueError("speculate must be >= 1 (0 disables)")
+            can_spec = (paged and getattr(self.model, "prefill_chunk_logits_multi",
+                                          None) is not None)
+            if not can_spec:
+                raise ValueError(f"{cfg.name}: speculative decoding requires the paged "
+                                 "KV cache and the chunked-prefill verify path "
+                                 "(token-input, non-MoE full-attention transformer)")
+            # Raises when the params carry no packed leaves (serve with a
+            # quant policy) or the draft truncates nothing.
+            self._draft_params, _ = derive_draft_params(self.params, draft_policy)
+        self.speculate = int(speculate)
+        self.draft_policy = draft_policy
+        self.spec_rounds = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_verify_calls = 0     # multi-row verify calls
+        self.spec_verify_rows = 0      # slots verified across those calls
 
         B = max_batch
         # Admission bound: max_ctx in every mode, so static, contiguous and
@@ -347,6 +390,34 @@ class ContinuousScheduler:
             j = int(self._pos_host[b]) // self.block_size
             if j < self._max_blocks:
                 self._ensure_private_block(b, j)
+
+    def _alloc_blocks_through(self, b: int, last_pos: int) -> None:
+        """Back every position row `b` writes in a speculation round —
+        [pos, last_pos] spans the draft writes and the verify chunk — with
+        writable (private) blocks, before any of them runs. Blocks backed
+        for drafts that verification rejects stay allocated: they sit
+        inside the row's admission reservation and its next decode steps
+        write them anyway."""
+        first = int(self._pos_host[b]) // self.block_size
+        last = min(last_pos // self.block_size, self._max_blocks - 1)
+        for j in range(first, last + 1):
+            self._ensure_private_block(b, j)
+
+    def _push_spec_table(self, spec_slots) -> None:
+        """Device block table for the draft phase, written in place: only
+        speculating rows keep their real blocks. Every other row — live
+        decoders, chunk plans, free slots — is masked to -1, so the draft
+        decode steps route its writes to the trash block and attend over
+        nothing (its logits are discarded). Without this a draft step
+        would write *draft-policy* K/V at a non-speculating row's live
+        position, possibly into a block it shares. Marks the table dirty
+        so the real table is pushed again before the normal decode."""
+        tab = self._block_tab.copy()
+        for b in range(self.max_batch):
+            if b not in spec_slots:
+                tab[b, :] = -1
+        self.cache.kv.block_table.copy_(torch.from_numpy(tab))
+        self._table_dirty = True
 
     def _sync_table(self) -> None:
         """Push the host block table to the device; rows with a chunk plan
@@ -555,6 +626,14 @@ class ContinuousScheduler:
             "prefill_tokens_per_step":
                 self.prefill_chunk_tokens / max(self.prefill_chunk_steps, 1),
             "prefill_chunk_steps": self.prefill_chunk_steps,
+            "speculate": self.speculate,
+            "spec_rounds": self.spec_rounds,
+            "spec_draft_tokens": self.spec_draft_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_acceptance_rate": (self.spec_accepted_tokens / self.spec_draft_tokens
+                                     if self.spec_draft_tokens else 0.0),
+            "spec_verify_calls": self.spec_verify_calls,
+            "spec_verify_rows": self.spec_verify_rows,
         }
 
     # -- admission / retirement --------------------------------------------
@@ -746,13 +825,137 @@ class ContinuousScheduler:
         return (req.failed or len(req.out_tokens) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id))
 
+    # -- self-speculative decoding -----------------------------------------
+
+    def _spec_phase(self) -> List[Request]:
+        """One speculation round: draft up to ``speculate`` tokens per
+        eligible slot with the plane-truncated view params (draft K/V lands
+        in the row's own pool blocks), then verify the slots' ``[current
+        token, drafts]`` windows in one full-policy multi-row chunk call and
+        emit each slot's longest matching prefix.
+
+        Eligibility: greedy slots only (acceptance compares argmaxes), not
+        mid-chunk-plan, and at least 2 tokens still owed (with 1 owed the
+        trailing decode is cheaper than draft + verify).
+
+        Rollback is a metadata write: verification recomputes all k+1
+        positions at the full policy — its K/V overwrites the draft's bytes
+        in place — so rejecting a tail only restores ``pos``/``length`` to
+        the accepted frontier (:func:`set_decode_positions`). Every
+        speculative write lands at a position >= the prompt length, inside
+        blocks the round made private first (:meth:`_alloc_blocks_through`),
+        so shared prefix blocks are never touched. Returns the requests
+        that finished in the round."""
+        spec: Dict[int, int] = {}       # slot -> draft count this round
+        for b, req in enumerate(self._slots):
+            if req is None or b in self._chunk_plans or req.temperature > 0:
+                continue
+            k_eff = min(self.speculate, req.max_new_tokens - len(req.out_tokens) - 1)
+            if k_eff >= 1:
+                spec[b] = k_eff
+        if not spec:
+            return []
+        # Back every position the round writes — drafts at [pos, pos+k) and
+        # the verify chunk at [pos, pos+k] — before any kernel runs; all of
+        # them sit inside the row's admission reservation.
+        for b, k_eff in spec.items():
+            self._alloc_blocks_through(b, int(self._pos_host[b]) + k_eff)
+        self._push_spec_table(set(spec))
+
+        # Lockstep draft: every speculating row advances one token per
+        # iteration through the ordinary decode step with the view params.
+        # Rows that reach their own draft count are masked out again (their
+        # surplus writes would overrun the blocks backed above).
+        active = set(spec)
+        drafts: Dict[int, List[int]] = {b: [] for b in spec}
+        cur = self._cur.copy()
+        for _ in range(max(spec.values())):
+            todo = {b for b in active if len(drafts[b]) < spec[b]}
+            if todo != active:
+                active = todo
+                self._push_spec_table(active)
+            self.cache, logits = self.model.decode_step(
+                self._draft_params, self.cache, torch.from_numpy(cur).to(self.device))
+            toks = logits[:, -1, :].to(torch.float32).argmax(dim=-1).cpu().numpy()
+            for b in active:
+                drafts[b].append(int(toks[b]))
+                cur[b, 0] = int(toks[b])
+
+        # Verify: one full-policy multi-row call over each group's windows
+        # [current token, d_1 .. d_k]; position i's argmax is the token
+        # sequential greedy decode would emit there. One group (key None)
+        # until precision tiers are ported: they verify each tier's slots
+        # with that tier's view params in a call of their own.
+        finished: List[Request] = []
+        Lc = self.speculate + 1
+        R = self.max_batch
+        vgroups: Dict[Optional[str], List[int]] = {None: sorted(spec)}
+        for slots_g in vgroups.values():
+            nbp = min(self._max_blocks, max(
+                -(-(int(self._pos_host[b]) + spec[b] + 1) // self.block_size)
+                for b in slots_g))
+            tokens = np.zeros((R, Lc), np.int64)
+            lengths = np.zeros((R,), np.int32)
+            starts = np.zeros((R,), np.int32)
+            slot_ids = np.full((R,), -1, np.int32)
+            btab = np.full((R, nbp), -1, np.int32)
+            for b in slots_g:
+                t = spec[b] + 1
+                tokens[b, 0] = self._cur[b, 0]
+                tokens[b, 1:t] = drafts[b]
+                lengths[b] = t
+                starts[b] = int(self._pos_host[b])
+                slot_ids[b] = b
+                btab[b] = self._block_tab[b, :nbp]
+            self.cache, logits = self.model.prefill_chunk_logits_multi(
+                self.params, self.cache, {
+                    "tokens": torch.from_numpy(tokens).to(self.device),
+                    "lengths": lengths, "starts": starts, "slots": slot_ids,
+                    "blocks": torch.from_numpy(btab)})
+            self.spec_verify_calls += 1
+            self.spec_verify_rows += len(slots_g)
+            lg = logits.argmax(dim=-1).cpu().numpy()
+            for b in slots_g:
+                k_eff = spec[b]
+                req = self._slots[b]
+                p = int(self._pos_host[b])
+                emitted = greedy_accept(lg[b, :k_eff + 1], drafts[b])
+                self.spec_draft_tokens += k_eff
+                self.spec_accepted_tokens += len(emitted) - 1
+                req.spec_drafted += k_eff
+                req.spec_accepted += len(emitted) - 1
+                m, done = 0, False
+                for tok in emitted:
+                    req.out_tokens.append(tok)
+                    self._emit(req, tok)
+                    m += 1
+                    if self._finished(req, tok):
+                        done = True
+                        break
+                self._pos_host[b] = p + m
+                self._steps[b] += m
+                if done:
+                    self._release_slot(b)
+                    finished.append(req)
+                else:
+                    self._cur[b, 0] = emitted[m - 1]
+        # Roll every row back to its accepted frontier in one write. Other
+        # rows are safe to overwrite: a chunk plan's next chunk sets its own
+        # row, free rows sit behind an all -1 table, and live decoders'
+        # device positions equal _pos_host before the round began.
+        set_decode_positions(self.cache, self._pos_host, self._pos_host)
+        self._table_dirty = True       # the real table goes back before decode
+        self.spec_rounds += 1
+        return finished
+
     # -- the decode loop ----------------------------------------------------
 
     def step(self) -> List[Request]:
         """One scheduler step: admit waiting requests into free slots (at
         most one new chunk plan per step; solo, suffix and full-hit
         admissions into every free slot), run one budgeted prefill chunk,
-        then one batched decode step, sample, and retire finished slots.
+        then a speculation round (with ``speculate``) and one batched decode
+        step, sample, and retire finished slots.
         A request whose revive + reservation draw the pool cannot cover
         waits, FIFO. Returns the requests that finished this step
         (including rejected ones, which carry ``error``)."""
@@ -800,6 +1003,15 @@ class ContinuousScheduler:
                     if r is not None and b not in self._chunk_plans]
         if not decoding:
             return finished
+        if self.speculate:
+            # A speculation round stands in for several sequential decode
+            # steps of the greedy slots; survivors still join the decode
+            # below, which is exactly their next sequential step.
+            finished.extend(self._spec_phase())
+            decoding = [b for b, r in enumerate(self._slots)
+                        if r is not None and b not in self._chunk_plans]
+            if not decoding:
+                return finished         # every live slot retired in the round
         if chunk_ran:
             self.decode_steps_stalled += 1
         if self.paged:

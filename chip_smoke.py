@@ -42,7 +42,7 @@
    has enqueued the call).
 4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
    a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
-   of 64-320 tokens, 32 new tokens each, 4 slots, in fourteen runs — olmo
+   of 64-320 tokens, 32 new tokens each, 4 slots, in sixteen runs — olmo
    continuous with chunked prefill on a bf16 pool (Table III policy
    "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
    Table III policy; (b) static, int8 cache; (c) continuous with solo
@@ -57,7 +57,14 @@
    the draft truncates the w8 `wo` leaves to plane_lo 2) and (l)
    --speculate 3 with a w2a8 draft on the bf16 pool with the 200-token
    shared prefix ("w4a8r25;wo=w8a8": Table III leaves drafted at
-   plane_lo 1, `wo` at 3). Each run must launch the kernels of its
+   plane_lo 1, `wo` at 3); and per-request precision tiers, the
+   requests at w8a8, w4a8 and w2a8 round-robin in one batch: (m) "w8a8"
+   storage on the bf16 pool with the 200-token shared prefix (the fused
+   kernel at plane_lo 0, 2 and 3 in consecutive group calls, tier-scoped
+   prefix hits) and (n) "w4a8r25;wo=w8a8" on the int8 pool with
+   --speculate 3 and a w2a8 draft (w8a8 and w4a8 slots speculate, each
+   tier group verified in a call of its own, w2a8 slots do not; Table III
+   leaves at plane_lo 1 at w2a8). Each run must launch the kernels of its
    path, a paged pool must hold its allocator invariants after the run,
    and each run's repeated pass must give identical greedy tokens. The
    prefix cache is on in every paged continuous run, but this gates warm
@@ -78,6 +85,23 @@
    decode-written ones, on the int8 and the bf16 pool, with dead rows
    left as they were (``verify_vs_decode``); the draft/accept/verify
    counters hold together.
+   Tier gates (``compare_tiers``): in both passes of runs (m) and (n)
+   every request (greedy and sampled) emits the tokens an engine
+   configured with that request's tier alone emits (same weights, pool,
+   flags and max_batch), 8/8; after every mixed-tier step the device
+   pos/length of each decoding row equal the host's (``watch_tiers``);
+   (m) hits prefix blocks; in (n) w2a8 requests draft nothing and each
+   round makes one verify call per speculating tier group, also in the
+   rounds with two groups that (n)'s three greedy requests make when
+   served together; the per-tier counters agree with the requests. Lifecycle gates
+   (``check_lifecycle``, int8 pool, the same stream in-process): a
+   request cancelling itself from ``on_token`` after 5 tokens, one
+   cancelled while queued, one past its ``deadline_steps`` mid-decode
+   and one whose callback raises each return their error and a prefix
+   of their unperturbed stream, every other request its unperturbed
+   tokens, the counters 2 / 1 / 1, no block leaked; and the serve CLI
+   with --tiers and --deadline-ms prints its per-tier and lifecycle
+   reports.
    The read-only (store=False) form of ``paged_prefill`` is bitwise the
    storing call and leaves the pool unchanged. Gated across paths (see
    ``compare_paths``): chunked and whole-prompt first-token logits bitwise
@@ -105,10 +129,12 @@ one serve pass per run (see ``profile_serve``); ``python3 chip_smoke.py
 paths`` measures how far the prefill paths' logits part (see
 ``paths_diagnostic``); ``python3 chip_smoke.py spec`` runs the fused,
 ``bitplane_matmul`` and paged-prefill checks, runs (k) and (l) and the
-speculation gates.
+speculation gates; ``python3 chip_smoke.py tiers`` builds the kernels and
+runs (m) and (n) with the tier gates and the lifecycle check.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -151,6 +177,7 @@ SOURCES = {
     "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
 }
 SHARED_PREFIX = 200
+TIERS = "w8a8,w4a8,w2a8"
 # Serve runs: name → (serve.py flags, policy, kernels its path must launch).
 # ``contig_attention`` is paged_attention's second entry, the paged decode
 # kernel's code run over the contiguous cache (one TPU kernel, two entries).
@@ -200,6 +227,22 @@ SERVE_RUNS = {
                              SPEC_TABLE3_POLICY,
                              ("fused_quantize_matmul", "paged_attention", "paged_prefill",
                               "quantize_rows", "bitplane_matmul")),
+    # Precision tiers: the requests take w8a8, w4a8 and w2a8 round-robin,
+    # served from one packed weight set in one batch. (m) w8a8 storage on
+    # the bf16 pool with the shared prefix: the fused kernel at plane_lo
+    # 0/2/3 in consecutive group calls, tier-scoped prefix hits, chunks at
+    # the slot's tier; (n) Table III storage on the int8 pool with a w2a8
+    # draft: w8a8 and w4a8 slots speculate (one verify call per tier
+    # group), w2a8 slots do not, and w2a8 runs the Table III leaves at
+    # plane_lo 1 (``ops.packed_matmul(..., packed8=)``).
+    "m-tiers-prefix": (["--continuous", "--tiers", TIERS, "--shared-prefix",
+                        str(SHARED_PREFIX)], "w8a8",
+                       ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
+    "n-tiers-spec-table3-int8": (["--continuous", "--kv-int8", "--tiers", TIERS,
+                                  "--speculate", "3", "--draft-policy", "w2a8"],
+                                 SPEC_TABLE3_POLICY,
+                                 ("fused_quantize_matmul", "paged_attention",
+                                  "paged_prefill", "quantize_rows", "bitplane_matmul")),
     # rwkv6-3b at full width, bf16 weights, no policy (the JAX package
     # serves rwkv6 unquantized): its recurrent state, no KV cache.
     "e-rwkv6-static": (["--arch", "rwkv6-3b", "--static"], None,
@@ -1449,9 +1492,12 @@ def serve_run(torch, params, name):
     (i) and (j), mostly cold in the runs without a shared prefix, whose
     LRU evicts before reuse. The report gains ``verify`` (the speculative
     verify calls over both passes: live rows, and the ``paged_prefill``
-    launches counted inside those calls) and ``requests_spec`` (the
-    requests' ``spec_drafted``/``spec_accepted`` summed over both passes).
-    Returns (engine, report, launch counts, tokens by rid)."""
+    launches counted inside those calls), ``requests_spec`` (the
+    requests' ``spec_drafted``/``spec_accepted`` summed over both passes),
+    ``requests`` (rid, tier, tokens, drafted, accepted of every request
+    of both passes) and, in a run with --tiers, ``tier_steps``
+    (``watch_tiers``). Returns (engine, report, launch counts, tokens by
+    rid)."""
     from repro_torch.kernels import ops, paged_attention
     from repro_torch.launch import serve
     from repro_torch.models import transformer
@@ -1480,7 +1526,12 @@ def serve_run(torch, params, name):
     transformer.prefill_chunk_logits_multi = counted_multi
     ops.reset_launch_counts()
     try:
-        engine, done, report = serve.run(args, make_requests, params=params)
+        if args.tiers:
+            with watch_tiers() as tier_steps:
+                engine, done, report = serve.run(args, make_requests, params=params)
+            report["tier_steps"] = tier_steps
+        else:
+            engine, done, report = serve.run(args, make_requests, params=params)
     finally:
         transformer.prefill_chunk_logits_multi = multi
     counts = ops.launch_counts()
@@ -1489,6 +1540,8 @@ def serve_run(torch, params, name):
     report["verify"] = verify
     report["requests_spec"] = [sum(r.spec_drafted for r in built),
                                sum(r.spec_accepted for r in built)]
+    report["requests"] = [(r.rid, r.tier, len(r.out_tokens or ()), r.spec_drafted,
+                           r.spec_accepted) for r in built]
     check_outputs(name, engine, done)
     for k in needed:
         if counts[k] <= 0:
@@ -1508,6 +1561,316 @@ def serve_run(torch, params, name):
         f"steady state; repeated pass: greedy identical, {same}/{len(done)} "
         f"requests identical{prefix}; launches {counts}")
     return engine, report, counts, tokens
+
+
+@contextlib.contextmanager
+def watch_tiers():
+    """Within the block, every ``ContinuousScheduler.step`` that decodes in
+    more than one tier group (a mixed step) is followed by a read of the
+    device's pos/length rows, each live decoding row compared with the
+    host's ``_pos_host``; and every speculation round's verify calls are
+    counted against the tier groups the round has eligible slots in
+    (greedy, decoding, 1+ draft owed, a tier above the draft's bits),
+    worked out here before the round runs. Yields a dict: ``mixed_steps``,
+    ``pos_mismatches`` (step, row, device pos, length, host pos), ``rounds``,
+    ``multi_group_rounds`` (rounds with slots in two or more tier groups)
+    and ``round_mismatches`` (round, groups, verify calls)."""
+    from repro_torch.serving.scheduler import ContinuousScheduler as S
+
+    step, spec = S.step, S._spec_phase
+    out = {"mixed_steps": 0, "pos_mismatches": [], "rounds": 0, "multi_group_rounds": 0,
+           "round_mismatches": []}
+
+    def decode_calls(sched):
+        return sum(tc["decode_calls"] for tc in sched.tier_counters.values())
+
+    def watched_step(sched):
+        calls = decode_calls(sched)
+        finished = step(sched)
+        if decode_calls(sched) - calls > 1:
+            out["mixed_steps"] += 1
+            pos = sched.cache.pos.cpu().tolist()
+            length = sched.cache.kv.length.cpu().tolist()
+            for b, r in enumerate(sched._slots):
+                host = int(sched._pos_host[b])
+                if (r is not None and b not in sched._chunk_plans
+                        and (pos[b] != host or length[b] != host)):
+                    out["pos_mismatches"].append((sched.steps_run, b, pos[b], length[b], host))
+        return finished
+
+    def watched_spec(sched):
+        groups = set()
+        for b, r in enumerate(sched._slots):
+            if r is None or b in sched._chunk_plans or r.temperature > 0:
+                continue
+            tier = sched._slot_tier[b]
+            if tier is not None and sched._tier_cfgs[tier].w_bits <= sched._draft_bits:
+                continue
+            if r.max_new_tokens - len(r.out_tokens) - 1 >= 1:
+                groups.add(tier)
+        calls = sched.spec_verify_calls
+        finished = spec(sched)
+        if groups:
+            out["rounds"] += 1
+            out["multi_group_rounds"] += len(groups) > 1
+            made = sched.spec_verify_calls - calls
+            if made != len(groups):
+                out["round_mismatches"].append((out["rounds"], sorted(groups), made))
+        return finished
+
+    S.step, S._spec_phase = watched_step, watched_spec
+    try:
+        yield out
+    finally:
+        S.step, S._spec_phase = step, spec
+
+
+TIER_RUNS = ("m-tiers-prefix", "n-tiers-spec-table3-int8")
+
+
+def compare_tiers(torch, runs):
+    """The tier gates on runs (m) and (n).
+
+    (a) For each tier, the stream's requests of that tier served by an
+    engine configured with that tier alone, on the run's weights, pool,
+    flags and max_batch: every request's tokens (greedy and sampled) in
+    the mixed run's warmup and timed pass identical to its solo-at-tier
+    tokens, 8/8. (b) After every mixed step (more than one decode call),
+    the device pos/length of each live decoding row equal ``_pos_host``,
+    and mixed steps happened. (c) Run (m) hit prefix blocks. (d) Run (n):
+    w2a8 requests drafted nothing, w8a8 and w4a8 requests drafted, every
+    round made one verify call per tier group with eligible slots, and
+    the ``paged_prefill`` launches inside the verify calls are one a layer
+    a verified row; the stream's greedy requests at w8a8 and w4a8 (rids 0
+    and 4) never share a round there, so its three greedy requests (rids
+    0, 2, 4) are served once more together by a scheduler on (n)'s
+    weights and flags: rounds with two speculating groups must occur,
+    each with one verify call per group, and each request's tokens equal
+    its solo-at-tier tokens. (e) ``tier_counters`` agree with the requests of both
+    passes: requests, tokens, drafted and accepted per tier, decode calls
+    > 0, no request at the storage tier. Everything prints before a gate
+    raises."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    out, bad = {}, []
+    for name in TIER_RUNS:
+        engine, report, _, tokens = runs[name]
+        args = serve.build_parser().parse_args(serve_argv(name))
+        stream = serve.assign_lifecycle(mixed_requests(engine.cfg, args), args)
+        solo, solo_s = {}, {}
+        for tier in TIERS.split(","):
+            eng = ServingEngine(
+                engine.cfg, engine.params, max_batch=engine.max_batch,
+                bucket=engine.bucket, block_size=engine.block_size,
+                pool_blocks=engine.pool_blocks, prefix_cache=engine.prefix_cache,
+                chunked_prefill=engine.chunked_prefill,
+                prefill_budget=engine.prefill_budget, speculate=engine.speculate,
+                draft_policy=engine.draft_policy, tiers=tier, device=engine.device)
+            t0 = time.perf_counter()
+            done = eng.generate([r for r in stream if r.tier == tier])
+            torch.cuda.synchronize()
+            solo_s[tier] = time.perf_counter() - t0
+            check_outputs(f"{name} at {tier} alone", eng, done)
+            solo.update({r.rid: r.out_tokens for r in done})
+        rids = sorted(solo)
+        shares = {"warmup": _greedy_share(report["warmup_tokens"], solo, rids),
+                  "timed": _greedy_share(tokens, solo, rids)}
+        st = report["stats"]
+        watch = report["tier_steps"]
+        reqs = report["requests"]
+        per_tier = {}
+        for tier in TIERS.split(","):
+            mine = [q for q in reqs if q[1] == tier]
+            per_tier[tier] = {"requests": len(mine), "tokens": sum(q[2] for q in mine),
+                              "spec_draft_tokens": sum(q[3] for q in mine),
+                              "spec_accepted_tokens": sum(q[4] for q in mine)}
+        verify = report["verify"]
+        out[name] = {"solo_at_tier": shares, "mixed_steps": watch["mixed_steps"],
+                     "pos_mismatches": watch["pos_mismatches"][:8],
+                     "spec_rounds_watched": watch["rounds"],
+                     "round_mismatches": watch["round_mismatches"][:8],
+                     "tiers": st["tiers"], "tok_per_s": report["tok_per_s"],
+                     "solo_at_tier_s": solo_s, "verify_launches": verify,
+                     **{k: st[k] for k in ("prefix_hit_rate", "prefix_hit_tokens",
+                                           "spec_draft_tokens", "spec_accepted_tokens",
+                                           "spec_verify_calls", "spec_verify_rows")}}
+        log(f"tiers [{name}]: tokens identical to the solo-at-tier engines: warmup pass "
+            f"{shares['warmup']}, timed pass {shares['timed']} (gated at all); "
+            f"{watch['mixed_steps']} mixed steps, device pos/length != host in "
+            f"{len(watch['pos_mismatches'])} rows; {watch['rounds']} speculation rounds, "
+            f"{len(watch['round_mismatches'])} with verify calls != tier groups; prefix "
+            f"hit tokens {st['prefix_hit_tokens']}; per tier "
+            + "; ".join(f"{t}: {tc['requests']} req, {tc['tokens']} tok, "
+                        f"{tc['decode_calls']} decode calls, {tc['spec_accepted_tokens']}/"
+                        f"{tc['spec_draft_tokens']} drafts accepted"
+                        for t, tc in st["tiers"].items() if tc["requests"])
+            + f"; {report['tok_per_s']:.1f} tok/s")
+        full = f"{len(rids)}/{len(rids)}"
+        bad += [f"{name} solo-at-tier {p} {v}" for p, v in shares.items() if v != full]
+        if len(rids) != 8:
+            bad.append(f"{name}: {len(rids)} requests served at their tiers")
+        if not watch["mixed_steps"] or watch["pos_mismatches"]:
+            bad.append(f"{name}: {watch['mixed_steps']} mixed steps, pos mismatches "
+                       f"{watch['pos_mismatches'][:4]}")
+        if st["tiers"]["base"]["requests"]:
+            bad.append(f"{name}: {st['tiers']['base']['requests']} requests at the storage tier")
+        for tier, want in per_tier.items():
+            got = {k: st["tiers"][tier][k] for k in want}
+            if got != want or not st["tiers"][tier]["decode_calls"] > 0:
+                bad.append(f"{name}: tier_counters[{tier}] {st['tiers'][tier]} vs the "
+                           f"requests' {want}")
+        if name == "m-tiers-prefix" and not st["prefix_hit_tokens"] > 0:
+            bad.append(f"{name}: no prefix hit")
+        if name == "n-tiers-spec-table3-int8":
+            two = two_group_rounds(engine, args, solo)
+            out[name]["two_group_check"] = two
+            log(f"tiers [{name}]: greedy rids 0, 2, 4 together: {two['rounds']} rounds, "
+                f"{two['multi_group_rounds']} with two speculating groups, "
+                f"{len(two['round_mismatches'])} with verify calls != groups; tokens "
+                f"identical to solo-at-tier {two['solo_at_tier']}")
+            if not (two["multi_group_rounds"] > 0 and not two["round_mismatches"]
+                    and two["solo_at_tier"] == "3/3" and not two["pos_mismatches"]):
+                bad.append(f"{name}: two-group check {two}")
+            if per_tier["w2a8"]["spec_draft_tokens"] or not (
+                    per_tier["w8a8"]["spec_draft_tokens"]
+                    and per_tier["w4a8"]["spec_draft_tokens"]):
+                bad.append(f"{name}: drafted per tier {per_tier}")
+            if not watch["rounds"] or watch["round_mismatches"]:
+                bad.append(f"{name}: {watch['rounds']} rounds, verify calls != groups in "
+                           f"{watch['round_mismatches'][:4]}")
+            if not (verify["rows"] == st["spec_verify_rows"] and verify["calls"] ==
+                    st["spec_verify_calls"] and verify["launches"] ==
+                    verify["rows"] * engine.cfg.num_layers > 0):
+                bad.append(f"{name}: verify launches {verify} against "
+                           f"{st['spec_verify_rows']} rows in {st['spec_verify_calls']} calls")
+    if bad:
+        raise AssertionError(f"tiers: {bad}")
+    return out
+
+
+def two_group_rounds(engine, args, solo):
+    """The stream's greedy requests (rids 0, 2, 4: w8a8, w2a8, w4a8)
+    submitted together to a scheduler on `engine`'s weights and flags,
+    under ``watch_tiers``: its counts, and how many requests emitted
+    their `solo` (solo-at-tier) tokens."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler, assert_pool_invariants
+
+    sched = ContinuousScheduler(
+        engine.cfg, engine.params, max_batch=engine.max_batch, max_ctx=engine._sched.max_ctx,
+        bucket=engine.bucket, block_size=engine.block_size, pool_blocks=engine.pool_blocks,
+        prefix_cache=engine.prefix_cache, chunked_prefill=engine.chunked_prefill,
+        prefill_budget=engine.prefill_budget, speculate=engine.speculate,
+        draft_policy=engine.draft_policy, tiers=engine.tiers, device=engine.device)
+    reqs = [r for r in serve.assign_lifecycle(mixed_requests(engine.cfg, args), args)
+            if r.rid in (0, 2, 4)]
+    with watch_tiers() as watch:
+        done = sched.run(reqs)
+    assert_pool_invariants(sched)
+    same = sum(r.out_tokens == solo[r.rid] for r in done)
+    return {**watch, "solo_at_tier": f"{same}/{len(reqs)}"}
+
+
+def check_lifecycle(torch, engine, raw_params):
+    """The request lifecycle on full-width olmo-1b on the int8 pool
+    (`engine`: run chunked-int8's, its packed weights and config; its
+    `raw_params` unpacked), on the chip_smoke stream in one 4-slot scheduler,
+    against the same stream unperturbed in another: rid 0 cancels itself
+    from its ``on_token`` after 5 tokens, rid 7 is cancelled while queued,
+    rid 2 has a ``deadline_steps`` 10 steps past the step of its first
+    token in the unperturbed run (so it expires mid-decode), rid 4's
+    ``on_token`` raises at its third token. Gated: each of the four comes
+    back with its error and a prefix of its unperturbed tokens (rid 0
+    exactly 5, rid 2 between 1 and 31, rid 4 exactly 3, rid 7 none);
+    every other request's tokens (greedy and sampled) equal to the
+    unperturbed run's; cancellations 2, deadline misses 1, callback
+    errors 1; the pool invariants after every step, and after the drain
+    every block free or retained and the whole pool available. Then the
+    serve CLI with --tiers and --deadline-ms 1 (every request misses):
+    its per-tier and lifecycle lines print, every request comes back
+    with error "deadline", and the pool invariants hold."""
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler, assert_pool_invariants
+
+    args = serve.build_parser().parse_args(serve_argv("chunked-int8"))
+    cfg, params = engine.cfg, engine.params
+
+    def sched():
+        return ContinuousScheduler(cfg, params, max_batch=4, max_ctx=352, bucket=32,
+                                   block_size=16, prefill_budget=32, device=engine.device)
+
+    ref = sched()
+    first_step = {}
+    reqs = mixed_requests(cfg, args)
+    reqs[2].on_token = lambda req, tok: first_step.setdefault(req.rid, ref._step_calls)
+    ref_toks = {r.rid: r.out_tokens for r in ref.run(reqs)}
+
+    s = sched()
+
+    def cancel_at_5(req, tok):
+        if len(req.out_tokens) >= 5:
+            s.cancel(req.rid)
+
+    def boom(req, tok):
+        if len(req.out_tokens) >= 3:
+            raise RuntimeError("sink closed")
+
+    reqs = mixed_requests(cfg, args)
+    reqs[0].on_token = cancel_at_5
+    reqs[2].deadline_steps = first_step[2] + 10
+    reqs[4].on_token = boom
+    for r in reqs:
+        s.submit(r)
+    queued = s.cancel(7)
+    done = []
+    while s.num_active or s.num_waiting:
+        done.extend(s.step())
+        assert_pool_invariants(s)
+    got = {r.rid: r for r in done}
+    st = s.pool_stats()
+    drained = (s._live_blocks == 0 and s._avail == s.pool_blocks
+               and (s._block_tab == -1).all())
+    errors = {rid: got[rid].error for rid in (0, 2, 4, 7)}
+    lens = {rid: len(got[rid].out_tokens) for rid in (0, 2, 4, 7)}
+    prefix = all(got[rid].out_tokens == ref_toks[rid][:lens[rid]] for rid in lens)
+    others = sum(got[rid].out_tokens == ref_toks[rid] and got[rid].error is None
+                 for rid in (1, 3, 5, 6))
+    counts = (st["cancellations"], st["deadline_misses"], st["callback_errors"])
+    log(f"lifecycle: errors {errors}, tokens {lens} (prefixes of the unperturbed "
+        f"stream: {prefix}); other requests identical {others}/4; cancellations / "
+        f"deadline misses / callback errors {counts}; queue wait steps "
+        f"{st['queue_wait_steps']}; drained clean {drained}")
+    bad = []
+    if not (queued and errors == {0: "cancelled", 2: "deadline",
+                                  4: "on_token callback raised: RuntimeError('sink closed')",
+                                  7: "cancelled"}):
+        bad.append(f"errors {errors} (rid 7 queued at cancel: {queued})")
+    if not (prefix and lens[0] == 5 and 0 < lens[2] < 32 and lens[4] == 3 and lens[7] == 0):
+        bad.append(f"tokens {lens}, prefixes {prefix}")
+    if others != 4 or counts != (2, 1, 1) or not drained:
+        bad.append(f"others {others}/4, counters {counts}, drained {drained}")
+
+    cli = serve.build_parser().parse_args(serve_argv("m-tiers-prefix")
+                                          + ["--deadline-ms", "1"])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli_engine, cli_done, report = serve.run(cli, mixed_requests, params=raw_params)
+    printed = text.getvalue()
+    log(printed.rstrip())
+    assert_pool_invariants(cli_engine._sched)
+    misses = report["stats"]["deadline_misses"]
+    if not ("precision tiers:" in printed and "  lifecycle: " in printed
+            and all(r.error == "deadline" for r in cli_done) and misses == 16):
+        bad.append(f"serve --deadline-ms 1: {misses} misses, errors "
+                   f"{[r.error for r in cli_done]}")
+    if bad:
+        raise AssertionError(f"lifecycle: {bad}")
+    return {"errors": errors, "tokens": lens, "others_identical": others,
+            "counters": counts, "queue_wait_steps": st["queue_wait_steps"],
+            "cli_deadline_misses": misses}
 
 
 def compare_prefix(torch, runs):
@@ -2387,6 +2750,21 @@ def main() -> int:
     if sys.argv[1:2] == ["profile"]:
         profile_serve(torch, params_of, *([sys.argv[2:]] if sys.argv[2:] else []))
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["tiers"]:
+        from repro_torch.core.precision import parse_policy_spec
+        from repro_torch.serving import ServingEngine
+
+        build.build()
+        runs = {name: serve_run(torch, params_of(name), name) for name in TIER_RUNS}
+        tier_cmp = compare_tiers(torch, runs)
+        raw = params_of("chunked-int8")
+        cfg8 = dataclasses.replace(get_config("olmo-1b"), kv_cache_quant=True)
+        engine8 = ServingEngine(cfg8, raw, max_batch=4, quant=parse_policy_spec(POLICY),
+                                bucket=32, block_size=16, prefill_budget=32, device=dev)
+        write_detail("chip_smoke_tiers.json", {
+            "tiers": tier_cmp, "lifecycle": check_lifecycle(torch, engine8, raw),
+            "serve": {name: run[1] for name, run in runs.items()}})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -2458,11 +2836,14 @@ def main() -> int:
             "identical")
     prefix_cmp = compare_prefix(torch, runs)
     spec_cmp = compare_speculation(torch, runs)
+    tier_cmp = compare_tiers(torch, runs)
+    life_cmp = check_lifecycle(torch, runs["chunked-int8"][0], params_of("chunked-int8"))
     # The verify row's launches: paged_prefill's counter read inside the
-    # runs' verify calls (compare_speculation gates it at one a layer a row).
+    # speculating runs' verify calls (compare_speculation and compare_tiers
+    # gate it at one a layer a row).
     entries = results["paged_prefill"]["entries"]
-    entries["verify"]["launches"] = sum(runs[name][1]["verify"]["launches"]
-                                        for name in SPEC_RUNS)
+    entries["verify"]["launches"] = sum(run[1]["verify"]["launches"]
+                                        for run in runs.values())
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
     rwkv_cmp = compare_rwkv6(torch, runs)
     unpacked_cmp = compare_unpacked(torch, runs)
@@ -2480,7 +2861,8 @@ def main() -> int:
         "mixed_group_cases": mixed["cases"], "table3_launches": table3_launches,
         "serve": {name: run[1] for name, run in runs.items()},
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
-        "prefix_cache": prefix_cmp, "speculation": spec_cmp,
+        "prefix_cache": prefix_cmp, "speculation": spec_cmp, "tiers": tier_cmp,
+        "lifecycle": life_cmp,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

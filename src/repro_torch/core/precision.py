@@ -2,17 +2,17 @@
 to :class:`~repro_torch.core.quant.QuantConfig`.
 
 Port of the policy half of ``repro.core.precision`` (the spec grammar
-and path matching) and of the part of its precision-tier half that
-speculative drafts use: ``PLANE_BITS``, ``parse_tier_token``,
+and path matching) and of its precision-tier half: ``PLANE_BITS``,
+``parse_tier_token``, ``parse_tier_specs``, ``degrade_order``,
 ``plane_offset`` and ``truncate_policy_view``, the zero-copy
-plane-truncated view of packed serving params. Tier specs, the degrade
-order and ``PrecisionPolicy.view`` come with the tier slice of the port.
+plane-truncated view of packed serving params that speculative drafts
+and per-request tiers are served through.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import List, Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.quant import QuantConfig
 
@@ -113,8 +113,7 @@ def parse_policy_spec(spec: str) -> PrecisionPolicy:
 # (``repro_torch.core.bitplane``), and any precision at or below the
 # storage width is a *view*: contract only the top planes
 # (``PackedWeight.plane_lo``), never copy a byte. Speculative drafts and
-# (with the tier slice) per-request serving tiers both route through
-# :func:`truncate_policy_view`.
+# per-request serving tiers both route through :func:`truncate_policy_view`.
 
 PLANE_BITS = 2
 
@@ -133,6 +132,45 @@ def parse_tier_token(spec: Union[str, QuantConfig]) -> QuantConfig:
             "cannot be expressed as a plane subset"
         )
     return cfg
+
+
+def parse_tier_specs(
+    spec: Union[str, Sequence[Union[str, QuantConfig]]]
+) -> Tuple[QuantConfig, ...]:
+    """Parse a ``--tiers`` value ("w8a8,w4a8,w2a8", or a sequence of
+    tokens/QuantConfigs) into an ordered tuple of tier configs. Each
+    token goes through :func:`parse_tier_token` (no "rZZ"); duplicates
+    are rejected because tier keys name counter buckets and views."""
+    if isinstance(spec, str):
+        tokens: Sequence = [t.strip() for t in spec.split(",") if t.strip()]
+    else:
+        tokens = list(spec)
+    if not tokens:
+        raise ValueError(f"empty tier spec {spec!r}")
+    out: List[QuantConfig] = []
+    seen = set()
+    for tok in tokens:
+        cfg = parse_tier_token(tok)
+        key = quant_token(cfg)
+        if key in seen:
+            raise ValueError(f"duplicate precision tier {key!r} in {spec!r}")
+        seen.add(key)
+        out.append(cfg)
+    return tuple(out)
+
+
+def degrade_order(
+    tiers: Union[Sequence[QuantConfig], Sequence[str]]
+) -> Tuple[QuantConfig, ...]:
+    """Tiers sorted quality-descending — the order graceful degradation
+    walks under persistent pool pressure: widest weight planes first,
+    activations as tiebreak. The last entry is the floor a degraded
+    admission lands on, served through the same
+    :func:`truncate_policy_view` as any requested tier."""
+    cfgs = [parse_tier_token(t) for t in tiers]
+    if not cfgs:
+        raise ValueError("degrade_order needs at least one tier")
+    return tuple(sorted(cfgs, key=lambda c: (-c.w_bits, -c.a_bits)))
 
 
 def plane_offset(target_bits: int, view_bits: int) -> int:

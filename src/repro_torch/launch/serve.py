@@ -8,7 +8,8 @@ continuous scheduler.
       [--block-size 16] [--pool-blocks N] [--no-paged] \
       [--prefix-cache | --no-prefix-cache] [--shared-prefix N] \
       [--prefill-budget 32] [--no-chunked-prefill] \
-      [--speculate K] [--draft-policy w4a8] [--reduced] [--device cpu]
+      [--speculate K] [--draft-policy w4a8] [--tiers w8a8,w4a8,w2a8] \
+      [--deadline-ms MS] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -52,6 +53,22 @@ bitwise identical to --speculate 0; sampled requests decode normally.
 subset to keep). It needs --continuous, a quant policy (--quant /
 --policy) and the paged pool; anything else raises. Draft/acceptance
 counters are reported after the run.
+
+Per-request precision tiers: --tiers "w8a8,w4a8,w2a8" assigns the
+synthetic requests a tier round-robin, all served from the one packed
+weight set inside the same continuous batch: a tier is a plane-truncated
+view of the stored weights, and the scheduler runs one decode call per
+tier group per step. A request served at tier T emits the greedy tokens
+an engine serving only tier T emits. It composes with --speculate (the
+draft must sit strictly below a slot's tier) and with the prefix cache
+(digests are tier-scoped). It needs --continuous and a quant policy;
+per-tier counters are reported after the run.
+
+--deadline-ms gives every synthetic request a wall-clock deadline: one
+not finished that many ms after its arrival retires with
+error="deadline", its blocks freed like any retirement. A lifecycle line
+reports deadline misses, cancellations and pool-pressure events when a
+request failed or either of the last two happened.
 """
 from __future__ import annotations
 
@@ -115,6 +132,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft precision for --speculate: the plane "
                          "subset of the resident weights the draft "
                          "contracts (e.g. w4a8, w2a8)")
+    ap.add_argument("--tiers", default=None,
+                    help="per-request precision tiers, e.g. "
+                         "'w8a8,w4a8,w2a8': requests are assigned a tier "
+                         "round-robin and served through plane-truncated "
+                         "views of the one packed weight set inside the "
+                         "same continuous batch (needs --continuous and "
+                         "--quant/--policy)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request wall-clock deadline: requests not "
+                         "finished this many ms after arrival retire "
+                         "with error='deadline'")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -144,10 +172,24 @@ def synthetic_requests(cfg, args) -> list:
     return reqs
 
 
+def assign_lifecycle(reqs, args) -> list:
+    """Give the requests their --tiers tier, round-robin by position, and
+    the --deadline-ms deadline, as the JAX serve CLI does (requests keep
+    their own where neither flag is given). Returns `reqs`."""
+    tier_list = args.tiers.split(",") if args.tiers else None
+    for i, r in enumerate(reqs):
+        if tier_list:
+            r.tier = tier_list[i % len(tier_list)]
+        if args.deadline_ms:
+            r.deadline_s = args.deadline_ms / 1e3
+    return reqs
+
+
 def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
         params=None):
-    """Build the engine for `args` and serve `make_requests(cfg, args)`
-    twice (warmup, then timed). Returns (engine, done, report dict)."""
+    """Build the engine for `args` and serve `make_requests(cfg, args)`,
+    with --tiers and --deadline-ms applied, twice (warmup, then timed).
+    Returns (engine, done, report dict)."""
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_policy_spec, parse_quant_token
@@ -164,6 +206,12 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                          "scheduler; add --continuous")
     if args.speculate and not (args.quant or args.policy):
         raise SystemExit("--speculate drafts from the resident bit-plane "
+                         "weights; add a quant policy (e.g. --quant w8a8)")
+    if args.tiers and not args.continuous:
+        raise SystemExit("--tiers groups slots inside the continuous "
+                         "scheduler; add --continuous")
+    if args.tiers and not (args.quant or args.policy):
+        raise SystemExit("--tiers serves plane-truncated views of packed "
                          "weights; add a quant policy (e.g. --quant w8a8)")
     device = resolve_device(args.device)
     make_requests = make_requests or synthetic_requests
@@ -192,8 +240,12 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                            chunked_prefill=args.chunked_prefill,
                            prefill_budget=args.prefill_budget,
                            speculate=args.speculate,
-                           draft_policy=args.draft_policy, device=device)
+                           draft_policy=args.draft_policy, tiers=args.tiers,
+                           device=device)
     serve = engine.generate if args.continuous else engine.generate_static
+
+    def stream():
+        return assign_lifecycle(make_requests(cfg, args), args)
 
     def sync():
         if device.type == "cuda":
@@ -202,11 +254,11 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    warm = serve(make_requests(cfg, args))
+    warm = serve(stream())
     sync()
     t_warm = time.perf_counter() - t0
 
-    reqs = make_requests(cfg, args)       # identical stream, warm caches
+    reqs = stream()                       # identical stream, warm caches
     t1 = time.perf_counter()
     done = serve(reqs)
     sync()
@@ -255,7 +307,26 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                   f"{stats['spec_rounds']} rounds, "
                   f"{stats['spec_verify_rows']} rows in "
                   f"{stats['spec_verify_calls']} verify calls")
-        for r in [r for r in done if r.error][:4]:
+        if stats.get("tier_serving"):
+            print("  precision tiers:")
+            for name, tc in stats["tiers"].items():
+                if not tc["requests"]:
+                    continue
+                line = (f"    {name}: {tc['requests']} requests, "
+                        f"{tc['tokens']} tokens, "
+                        f"{tc['decode_calls']} decode calls")
+                if tc["spec_draft_tokens"]:
+                    line += (f", {tc['spec_accepted_tokens']}/"
+                             f"{tc['spec_draft_tokens']} drafts accepted "
+                             f"({tc['spec_acceptance_rate']:.0%})")
+                print(line)
+        failed = [r for r in done if r.error]
+        if failed or stats["deadline_misses"] or stats["pool_pressure_events"]:
+            print(f"  lifecycle: {stats['deadline_misses']} deadline misses, "
+                  f"{stats['cancellations']} cancellations, "
+                  f"{stats['pool_pressure_events']} pressure events, "
+                  f"{stats['callback_errors']} callback errors")
+        for r in failed[:4]:
             print(f"  req {r.rid} failed: {r.error}")
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:

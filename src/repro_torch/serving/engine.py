@@ -1,6 +1,7 @@
 """Serving engine over the packed-weight path.
 
-Port of ``repro.serving.engine`` without the later scheduler features.
+Port of ``repro.serving.engine`` without the later scheduler features
+(preemption, degradation, chaos, the host tier).
 The engine packs the weights once under a QuantConfig or a per-layer
 PrecisionPolicy and has two modes:
 
@@ -14,7 +15,10 @@ PrecisionPolicy and has two modes:
     self-speculate: a plane-truncated view of the packed weights
     (``draft_policy``) drafts k tokens a step and one full-policy verify
     call emits the longest matching prefix, bitwise the greedy tokens
-    without it.
+    without it. With ``tiers`` (e.g. "w8a8,w4a8,w2a8") a request may
+    name a precision tier and is served through a plane-truncated view
+    of the one packed weight set; ``cancel(rid)`` retires a queued or
+    live request at the next step.
   * ``generate_static`` — the static batch (whole-prompt prefill of up
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
@@ -55,7 +59,7 @@ class ServingEngine:
                  prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None,
                  prefill_budget: int = 32, speculate: int = 0,
-                 draft_policy="w4a8", device=None):
+                 draft_policy="w4a8", tiers=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -78,6 +82,7 @@ class ServingEngine:
         self.prefill_budget = prefill_budget
         self.speculate = speculate          # draft tokens a step (0 = off)
         self.draft_policy = draft_policy    # plane-truncation draft spec
+        self.tiers = tiers                  # per-request precision tiers
         self._sched: Optional[ContinuousScheduler] = None
 
     def _bucketed(self, n: int) -> int:
@@ -97,12 +102,19 @@ class ServingEngine:
                 prefix_cache=self.prefix_cache,
                 chunked_prefill=self.chunked_prefill,
                 prefill_budget=self.prefill_budget, speculate=self.speculate,
-                draft_policy=self.draft_policy, device=self.device)
+                draft_policy=self.draft_policy, tiers=self.tiers,
+                device=self.device)
         self._sched.on_token = self.on_token
         return self._sched
 
     def pool_stats(self) -> Optional[dict]:
         return self._sched.pool_stats() if self._sched is not None else None
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or live request of the continuous scheduler
+        (it comes back with ``error="cancelled"`` at the next step). False
+        before the first ``generate`` or for an unknown or retired rid."""
+        return self._sched.cancel(rid) if self._sched is not None else False
 
     def _ctx_needed(self, requests: List[Request]) -> int:
         return max(self._bucketed(len(r.prompt)) + max(r.max_new_tokens, 1)

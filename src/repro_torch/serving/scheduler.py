@@ -3,10 +3,11 @@ admission, paged KV allocation with reservation queueing, chunked
 prefill interleaved with decoding, and the cross-request prefix cache.
 
 Port of ``repro.serving.scheduler``'s paged pool, chunked prefill, solo
-whole-prompt admission, contiguous cache, prefix cache and
-self-speculative decoding. Later features — precision tiers,
-lifecycle/preemption/chaos and the host tier — come with later slices
-of the port.
+whole-prompt admission, contiguous cache, prefix cache, self-speculative
+decoding, per-request precision tiers and the request lifecycle
+(cancellation, deadlines, contained callbacks). Preemption, the
+head-of-line bypass, graceful degradation, chaos, the NaN-logits
+detector and the host tier come with later slices of the port.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
@@ -44,6 +45,20 @@ Design:
     drafts]`` window emits the longest matching prefix; positions roll
     back for the rejected tail. Greedy tokens are bitwise those without
     speculation; sampled slots decode normally.
+  * ``tiers`` (paged pool, packed weights): a request may name a "wXaY"
+    precision tier and is served through a plane-truncated view of the
+    one packed weight set (``truncate_policy_view``; every tensor shared
+    by identity). Each step decodes one call per tier group, every other
+    row masked out of the pushed block table, so a tier-T request in a
+    mixed batch emits what an engine serving only tier T emits. Prefix
+    digests are seeded with the tier, so tiers never share blocks; the
+    draft must sit strictly below a slot's tier for it to speculate, and
+    verify runs at the slot's tier, one call per tier group.
+  * Lifecycle: ``cancel(rid)`` and the ``deadline_s``/``deadline_steps``
+    of a request take effect at the start of the next ``step()`` (queued
+    requests leave the queue, live rows — chunk plans included — retire
+    with their blocks, reservation and plan freed); a user ``on_token``
+    callback that raises fails only its own request.
   * Sampling draws from per-request ``(seed, rid, step)`` streams, so a
     request's tokens do not depend on what else is in the batch.
 """
@@ -53,14 +68,21 @@ import collections
 import dataclasses
 import hashlib
 import time
-from typing import Callable, Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.precision import as_policy
+from repro_torch.core.precision import (
+    as_policy,
+    parse_tier_specs,
+    parse_tier_token,
+    quant_token,
+    truncate_policy_view,
+)
+from repro_torch.core.quant import QuantConfig
 from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import check_policy
@@ -80,7 +102,8 @@ from repro_torch.serving.speculative import derive_draft_params, greedy_accept
 class Request:
     """One generation request. ``arrival_time`` is seconds after the start
     of ``run()``; ``t_first``/``t_done`` are filled by the scheduler;
-    ``error`` is set (and the request returned) when it can never fit."""
+    ``error`` is set (and the request returned) when it can never fit, is
+    cancelled, misses a deadline, or its ``on_token`` callback raises."""
 
     rid: int
     prompt: np.ndarray            # (T,) int
@@ -99,8 +122,26 @@ class Request:
     # them greedy verification accepted.
     spec_drafted: int = 0
     spec_accepted: int = 0
+    # Per-request precision tier: a "wXaY" token (or QuantConfig) naming
+    # one of the scheduler's configured `tiers`, served as a plane-
+    # truncated view of the one packed weight set. None = the storage
+    # policy. An unconfigured or malformed tier fails the request.
+    tier: Union[None, str, QuantConfig] = None
+    # Completion deadlines: `deadline_s` is wall-clock seconds after
+    # `arrival_time` (evaluated only while `run()` drives the clock);
+    # `deadline_steps` is a budget of scheduler steps counted from
+    # `submit()`. A request past either — queued or live — is retired
+    # with error="deadline". None = no deadline.
+    deadline_s: Optional[float] = None
+    deadline_steps: Optional[int] = None
     # (key, chain digests) memo of ContinuousScheduler._req_hashes.
     _prefix_hashes: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # The canonical tier key `_tier_error` resolved, and the scheduler
+    # step at `submit()` (the epoch of `deadline_steps`).
+    _tier_key: Optional[str] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    _submit_step: Optional[int] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
     @property
@@ -122,7 +163,7 @@ class ContinuousScheduler:
                  on_token=None, paged: Optional[bool] = None, block_size: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None, prefill_budget: int = 32,
-                 speculate: int = 0, draft_policy="w4a8", device=None):
+                 speculate: int = 0, draft_policy="w4a8", tiers=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -188,6 +229,7 @@ class ContinuousScheduler:
             # Raises when the params carry no packed leaves (serve with a
             # quant policy) or the draft truncates nothing.
             self._draft_params, _ = derive_draft_params(self.params, draft_policy)
+            self._draft_bits = parse_tier_token(draft_policy).w_bits
         self.speculate = int(speculate)
         self.draft_policy = draft_policy
         self.spec_rounds = 0
@@ -195,6 +237,41 @@ class ContinuousScheduler:
         self.spec_accepted_tokens = 0
         self.spec_verify_calls = 0     # multi-row verify calls
         self.spec_verify_rows = 0      # slots verified across those calls
+
+        # Per-request precision tiers: each tier is a plane-truncated view
+        # of the one packed weight set (every tensor shared by identity),
+        # key None the storage policy itself.
+        tier_cfgs: Dict[str, QuantConfig] = {}
+        tier_views: Dict[Optional[str], object] = {None: self.params}
+        if tiers:
+            if not paged:
+                raise ValueError(f"{cfg.name}: per-request precision tiers need the "
+                                 "paged KV cache (tier groups are isolated by masked "
+                                 "block tables)")
+            for tcfg in parse_tier_specs(tiers):
+                key = quant_token(tcfg)
+                # Raises unless the tier is a pure plane truncation of the
+                # storage policy (packed params, whole planes, same a-bits).
+                tier_views[key], _ = truncate_policy_view(self.params, tcfg)
+                tier_cfgs[key] = tcfg
+        self._tier_cfgs = tier_cfgs
+        self._tier_views = tier_views
+        self.tiers = tuple(tier_cfgs)
+        self._slot_tier: List[Optional[str]] = [None] * max_batch
+        self.tier_counters: Dict[Optional[str], Dict[str, int]] = {
+            k: {"requests": 0, "tokens": 0, "decode_calls": 0,
+                "spec_draft_tokens": 0, "spec_accepted_tokens": 0}
+            for k in [None, *tier_cfgs]}
+
+        # Lifecycle: cancellations and deadlines are processed at the start
+        # of the next step(); `_step_calls` is the deadline_steps clock.
+        self._cancelled: set = set()
+        self._step_calls = 0
+        self.cancellations = 0
+        self.deadline_misses = 0
+        self.pool_pressure_events = 0
+        self.queue_wait_steps = 0
+        self.callback_errors = 0
 
         B = max_batch
         # Admission bound: max_ctx in every mode, so static, contiguous and
@@ -270,7 +347,75 @@ class ContinuousScheduler:
         return len(self.waiting)
 
     def submit(self, req: Request) -> None:
+        req._submit_step = self._step_calls     # the deadline_steps epoch
         self.waiting.append(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel request `rid`, at the start of the next ``step()`` —
+        nothing changes mid-step, so this is safe from an ``on_token``
+        callback. A queued request leaves the queue; a live one (a chunk
+        plan included) retires with its blocks freed like any retirement.
+        Either comes back with ``error="cancelled"`` and the tokens it had
+        emitted. Returns True iff `rid` is queued or live."""
+        known = (any(r.rid == rid for r in self.waiting)
+                 or any(r is not None and r.rid == rid for r in self._slots))
+        if known:
+            self._cancelled.add(rid)
+        return known
+
+    def _deadline_expired(self, req: Request, now: Optional[float]) -> bool:
+        if req.deadline_steps is not None and req._submit_step is not None:
+            if self._step_calls - req._submit_step > req.deadline_steps:
+                return True
+        if req.deadline_s is not None and now is not None:
+            return now - req.arrival_time > req.deadline_s
+        return False
+
+    def _retire_abnormal(self, b: int, reason: str) -> Request:
+        """Retire live row `b` off the normal finish path (cancellation,
+        deadline): mark it failed, free its blocks, reservation and chunk
+        plan as a normal retirement does, and return the request with the
+        tokens it emitted."""
+        req = self._slots[b]
+        self._fail(req, reason)
+        self._release_slot(b)
+        return req
+
+    def _lifecycle_phase(self) -> List[Request]:
+        """Process cancellations and deadline expiries before the step
+        admits or decodes anything: queued requests leave the queue, live
+        rows retire. Returns the requests retired."""
+        out: List[Request] = []
+        live = [r for r in self._slots if r is not None]
+        if not self._cancelled and not any(
+                r.deadline_s is not None or r.deadline_steps is not None
+                for r in [*self.waiting, *live]):
+            return out
+        now = self._now()
+        keep: Deque[Request] = collections.deque()
+        for r in self.waiting:
+            if r.rid in self._cancelled:
+                self.cancellations += 1
+                self._fail(r, "cancelled")
+                out.append(r)
+            elif self._deadline_expired(r, now):
+                self.deadline_misses += 1
+                self._fail(r, "deadline")
+                out.append(r)
+            else:
+                keep.append(r)
+        self.waiting = keep
+        for b, r in enumerate(self._slots):
+            if r is None:
+                continue
+            if r.rid in self._cancelled:
+                self.cancellations += 1
+                out.append(self._retire_abnormal(b, "cancelled"))
+            elif self._deadline_expired(r, now):
+                self.deadline_misses += 1
+                out.append(self._retire_abnormal(b, "deadline"))
+        self._cancelled.clear()     # rids already retired drop here
+        return out
 
     def _now(self) -> Optional[float]:
         return None if self._t0 is None else time.perf_counter() - self._t0
@@ -286,9 +431,31 @@ class ContinuousScheduler:
     def _bucketed(self, n: int) -> int:
         return max(self.bucket, -(-n // self.bucket) * self.bucket)
 
+    def _tier_error(self, req: Request) -> Optional[str]:
+        """Resolve `req.tier` into ``req._tier_key`` (the canonical "wXaY"
+        key of its view and counters; None = the storage policy). Non-None
+        iff the tier can never be served here."""
+        req._tier_key = None
+        if req.tier is None:
+            return None
+        try:
+            key = quant_token(parse_tier_token(req.tier))
+        except ValueError as e:
+            return f"request {req.rid}: bad precision tier: {e}"
+        if key not in self._tier_views:
+            have = sorted(self._tier_cfgs) or "none configured"
+            return (f"request {req.rid}: unknown precision tier {key!r}; "
+                    f"scheduler tiers: {have} — pass tiers= / --tiers to "
+                    "serve this class")
+        req._tier_key = key
+        return None
+
     def _reject_reason(self, req: Request) -> Optional[str]:
         """Non-None iff the request can never be served here (vs. waiting
         for pool blocks)."""
+        err = self._tier_error(req)
+        if err is not None:
+            return err
         if self._capacity is None:
             return None
         need = self._need_tokens(req)
@@ -440,14 +607,16 @@ class ContinuousScheduler:
         stopped appending into its tail block. A contiguous row is simply
         overwritten by its next admission."""
         req = self._slots[b]
+        tier = self._slot_tier[b]
         self._slots[b] = None
+        self._slot_tier[b] = None
         if not self.paged:
             return
         if self._chunk_plans.pop(b, None) is not None:
             self._chunk_queue.remove(b)
             self._slot_hashes[b] = None     # unwritten blocks hold nothing
         if self.prefix_cache:
-            self._register_retired(b, req)
+            self._register_retired(b, req, tier)
         self._slot_hashes[b] = None
         row = self._block_tab[b]
         for blk in row[row >= 0]:
@@ -459,15 +628,19 @@ class ContinuousScheduler:
 
     # -- prefix cache: digests, matching, claiming, registration -----------
 
-    def _hash_chunks(self, tokens) -> Tuple[List[bytes], Optional[bytes]]:
+    def _hash_chunks(self, tokens, tier: Optional[str] = None
+                     ) -> Tuple[List[bytes], Optional[bytes]]:
         """Chain digests of `tokens` at block granularity: one per full
         block-sized chunk (each covers every token up to the end of its
         chunk, so a hit at chunk j means the whole prefix matches) and one
         for a trailing partial chunk, tagged so it never aliases a full
-        block. Byte-equal to the JAX scheduler's (untiered) digests."""
+        block. The chain is seeded with the precision tier — a tier's K/V
+        bytes differ from another's, so tiers never share blocks — and
+        tier None keeps the untiered seed. Byte-equal to the JAX
+        scheduler's digests."""
         toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
         bs = self.block_size
-        full, h = [], b"m4bram-prefix"
+        full, h = [], b"m4bram-prefix" + (tier.encode() if tier else b"")
         for j in range(len(toks) // bs):
             h = hashlib.blake2b(h + toks[j * bs:(j + 1) * bs].tobytes(),
                                 digest_size=16).digest()
@@ -478,11 +651,11 @@ class ContinuousScheduler:
         return full, partial
 
     def _req_hashes(self, req: Request) -> Tuple[List[bytes], Optional[bytes]]:
-        """`req`'s prompt digests, memoized on the request: a pool-blocked
-        queue head is matched again every step."""
-        key = (self.block_size, len(req.prompt))
+        """`req`'s prompt digests at its tier, memoized on the request: a
+        pool-blocked queue head is matched again every step."""
+        key = (self.block_size, req._tier_key, len(req.prompt))
         if req._prefix_hashes is None or req._prefix_hashes[0] != key:
-            req._prefix_hashes = (key, self._hash_chunks(req.prompt))
+            req._prefix_hashes = (key, self._hash_chunks(req.prompt, req._tier_key))
         return req._prefix_hashes[1]
 
     def _match_prefix(self, req: Request):
@@ -554,14 +727,16 @@ class ContinuousScheduler:
         self._prefix_index[partial] = blk
         self._block_hash.setdefault(blk, set()).add(partial)
 
-    def _register_retired(self, b: int, req: Optional[Request]) -> None:
+    def _register_retired(self, b: int, req: Optional[Request],
+                          tier: Optional[str]) -> None:
         """Register what row `b` wrote, at retirement: first the prompt's
         chain (full blocks and the now-immutable partial tail, so a repeat
         of the prompt hits it whole and copies on write when it appends),
         then the chain over prompt ++ generated tokens up to the row's
         position (the last sampled token's K/V never lands), so a
         multi-turn follow-up that resubmits the conversation hits past
-        the prompt. Digests the chains share register once."""
+        the prompt. Both chains are hashed at the row's tier. Digests the
+        chains share register once."""
         if self._slot_hashes[b] is None or req is None:
             return
         self._register_full(b)
@@ -569,13 +744,31 @@ class ContinuousScheduler:
         pos = int(self._pos_host[b])
         toks = np.concatenate([np.asarray(req.prompt, np.int64),
                                np.asarray(req.out_tokens or (), np.int64)])[:pos]
-        self._slot_hashes[b] = self._hash_chunks(toks)
+        self._slot_hashes[b] = self._hash_chunks(toks, tier)
         self._register_full(b)
         self._register_partial(b)
 
+    def _lifecycle_stats(self) -> dict:
+        """Lifecycle counters, under the JAX scheduler's names: requests
+        cancelled, retired past a deadline, admission attempts the pool
+        could not cover, requests left queued summed over steps, and
+        user callbacks that raised."""
+        return {"cancellations": self.cancellations,
+                "deadline_misses": self.deadline_misses,
+                "pool_pressure_events": self.pool_pressure_events,
+                "queue_wait_steps": self.queue_wait_steps,
+                "callback_errors": self.callback_errors}
+
     def pool_stats(self) -> dict:
-        """KV-memory utilization, prefix-cache and chunked-prefill
-        counters."""
+        """KV-memory utilization, prefix-cache, chunked-prefill,
+        speculation, lifecycle and per-tier counters.
+
+        ``prefill_tokens_computed`` counts the token positions admission
+        runs through a prefill kernel, bucket padding included: a cold or
+        partial-hit admission its bucketed prompt or suffix (or its chunks
+        of ``prefill_budget``), a whole-prompt hit under chunked prefill 1
+        — the one token ``paged_prefill`` runs there with ``store=False``,
+        where the JAX scheduler runs and counts a suffix bucket."""
         kv = self.cache.kv
         if not self.paged:
             # The whole contiguous reservation (or recurrent state) is
@@ -586,7 +779,8 @@ class ContinuousScheduler:
             total = sum(a.numel() * a.element_size() for a in planes
                         if a is not None)
             return {"paged": False, "resident_kv_bytes": total,
-                    "reserved_kv_bytes": total, "chunked_prefill": False}
+                    "reserved_kv_bytes": total, "chunked_prefill": False,
+                    **self._lifecycle_stats()}
         per_token = (kv.k.shape[0] * int(np.prod(kv.k.shape[3:]))
                      * 2 * kv.k.element_size())
         if kv.quantized:
@@ -634,6 +828,13 @@ class ContinuousScheduler:
                                      if self.spec_draft_tokens else 0.0),
             "spec_verify_calls": self.spec_verify_calls,
             "spec_verify_rows": self.spec_verify_rows,
+            **self._lifecycle_stats(),
+            "tier_serving": bool(self._tier_cfgs),
+            "tiers": {
+                (k or "base"): {**tc, "spec_acceptance_rate":
+                                (tc["spec_accepted_tokens"] / tc["spec_draft_tokens"]
+                                 if tc["spec_draft_tokens"] else 0.0)}
+                for k, tc in self.tier_counters.items()},
         }
 
     # -- admission / retirement --------------------------------------------
@@ -643,6 +844,15 @@ class ContinuousScheduler:
         if req.out_tokens is None:
             req.out_tokens = []
         req.t_done = self._now()
+
+    def _claim_tier(self, req: Request, slot: int) -> Optional[str]:
+        """Record `req`'s (validated) tier on `slot` and count the
+        admission: every compute call of the slot — prefill, chunk,
+        decode group, verify — then runs the tier's view params."""
+        tier = req._tier_key
+        self._slot_tier[slot] = tier
+        self.tier_counters[tier]["requests"] += 1
+        return tier
 
     def _claim_row(self, req: Request, slot: int, match) -> None:
         """The allocator half of a paged admission: count the prompt and
@@ -670,6 +880,7 @@ class ContinuousScheduler:
         Returns the request if it finished on its first token."""
         n = len(req.prompt)
         resident = 0
+        tier = self._claim_tier(req, slot)
         if self.paged:
             match = match if match is not None else self._match_prefix(req)
             self._claim_row(req, slot, match)
@@ -681,7 +892,7 @@ class ContinuousScheduler:
             L = self._bucketed(n)
             tokens = np.zeros((1, L), np.int64)
             tokens[0, :n] = req.prompt
-            solo, logits = self.model.prefill(self.params, {
+            solo, logits = self.model.prefill(self._tier_views[tier], {
                 "tokens": torch.from_numpy(tokens).to(self.device),
                 "lengths": torch.tensor([n], dtype=torch.int32)})
             if self.paged:
@@ -697,23 +908,28 @@ class ContinuousScheduler:
         return self._first_token(req, slot, logits)
 
     def _prefill_suffix(self, req: Request, slot: int, resident: int):
-        """Prefill a prefix hit: at least the last prompt token is run (the
-        first token is sampled from its logits), and no resident position
-        is ever written. Whole-prompt admission runs ``prefill_suffix``
-        (the flash kernel over the gathered prefix ++ suffix) and scatters
-        the suffix into the row's fresh blocks, or, on a full hit, only
-        sets the row's table. Under chunked prefill a full hit runs its
-        last token through the chunk kernel with ``store=False`` over the
-        shared blocks, so each mode computes warm the function it computes
-        cold. Returns the logits."""
+        """Prefill a prefix hit at the slot's tier: at least the last prompt
+        token is run (the first token is sampled from its logits), and no
+        resident position is ever written. Whole-prompt admission runs
+        ``prefill_suffix`` (the flash kernel over the gathered prefix ++
+        suffix) and scatters the suffix into the row's fresh blocks, or, on
+        a full hit, only sets the row's table. Under chunked prefill a full
+        hit runs its last token through the chunk kernel with
+        ``store=False`` over the shared blocks, so each mode computes warm
+        the function it computes cold. ``prefill_tokens_computed`` counts
+        what runs: the bucketed suffix, or that one token. (The JAX
+        scheduler runs its suffix route there and counts a whole bucket, so
+        the port's count is JAX's less bucket - 1 for each such hit.)
+        Returns the logits."""
         toks = np.asarray(req.prompt)
         n = len(toks)
         start = min(resident, n - 1)
         bs = self.block_size
+        view = self._tier_views[self._slot_tier[slot]]
         if self.chunked_prefill:
             # Only a full hit comes here (a partial one gets a chunk plan).
             self.prefill_tokens_computed += 1
-            self.cache, logits = self.model.prefill_chunk(self.params, self.cache, {
+            self.cache, logits = self.model.prefill_chunk(view, self.cache, {
                 "tokens": torch.from_numpy(toks[None, start:].astype(np.int64)).to(
                     self.device),
                 "lengths": [1], "start": start, "slot": slot, "store": False,
@@ -736,7 +952,7 @@ class ContinuousScheduler:
         if kv.quantized:
             batch["pool_k_scale"] = kv.k_scale
             batch["pool_v_scale"] = kv.v_scale
-        solo, logits = self.model.prefill_suffix(self.params, batch)
+        solo, logits = self.model.prefill_suffix(view, batch)
         if resident < n:
             # Below a full hit only whole blocks are shared: the suffix
             # starts exactly at the block boundary `resident`.
@@ -752,6 +968,7 @@ class ContinuousScheduler:
         position: below a full hit that is a block boundary, so no chunk
         writes a block shared with other rows. The slot stays masked out
         of decoding until its last chunk lands."""
+        self._claim_tier(req, slot)
         self._claim_row(req, slot, match)
         self._pos_host[slot] = 0
         self._cur[slot, 0] = 0          # dummy decode input while prefilling
@@ -780,7 +997,8 @@ class ContinuousScheduler:
             "slot": slot,
             "blocks": torch.from_numpy(self._block_tab[slot, :covering].copy()),
         }
-        self.cache, logits = self.model.prefill_chunk(self.params, self.cache, batch)
+        self.cache, logits = self.model.prefill_chunk(
+            self._tier_views[self._slot_tier[slot]], self.cache, batch)
         self.prefill_chunks_run += 1
         self.prefill_chunk_tokens += t
         self.prefill_tokens_computed += Lc
@@ -815,10 +1033,19 @@ class ContinuousScheduler:
         return None
 
     def _emit(self, req: Request, tok: int) -> None:
+        """Count the token and stream it to the request's and the
+        scheduler's ``on_token`` callbacks. They are user code: one that
+        raises fails only this request (``_finished`` then retires it at
+        the caller), never the step."""
         self.tokens_emitted += 1
-        for cb in (req.on_token, self.on_token):
-            if cb is not None:
-                cb(req, tok)
+        self.tier_counters[req._tier_key]["tokens"] += 1
+        try:
+            for cb in (req.on_token, self.on_token):
+                if cb is not None:
+                    cb(req, tok)
+        except Exception as e:  # noqa: BLE001 — contain user-code faults
+            self.callback_errors += 1
+            req.error = f"on_token callback raised: {e!r}"
 
     @staticmethod
     def _finished(req: Request, tok: int) -> bool:
@@ -835,8 +1062,11 @@ class ContinuousScheduler:
         emit each slot's longest matching prefix.
 
         Eligibility: greedy slots only (acceptance compares argmaxes), not
-        mid-chunk-plan, and at least 2 tokens still owed (with 1 owed the
-        trailing decode is cheaper than draft + verify).
+        mid-chunk-plan, at a tier whose weight bits lie above the draft's
+        (a w2 slot has nothing cheaper than itself to draft with), and at
+        least 2 tokens still owed (with 1 owed the trailing decode is
+        cheaper than draft + verify). Verify runs one call per tier group,
+        at that tier's view.
 
         Rollback is a metadata write: verification recomputes all k+1
         positions at the full policy — its K/V overwrites the draft's bytes
@@ -849,6 +1079,9 @@ class ContinuousScheduler:
         spec: Dict[int, int] = {}       # slot -> draft count this round
         for b, req in enumerate(self._slots):
             if req is None or b in self._chunk_plans or req.temperature > 0:
+                continue
+            tier = self._slot_tier[b]
+            if tier is not None and self._tier_cfgs[tier].w_bits <= self._draft_bits:
                 continue
             k_eff = min(self.speculate, req.max_new_tokens - len(req.out_tokens) - 1)
             if k_eff >= 1:
@@ -881,16 +1114,17 @@ class ContinuousScheduler:
                 drafts[b].append(int(toks[b]))
                 cur[b, 0] = int(toks[b])
 
-        # Verify: one full-policy multi-row call over each group's windows
-        # [current token, d_1 .. d_k]; position i's argmax is the token
-        # sequential greedy decode would emit there. One group (key None)
-        # until precision tiers are ported: they verify each tier's slots
-        # with that tier's view params in a call of their own.
+        # Verify: one multi-row call per tier group, at the group's view,
+        # over its rows' windows [current token, d_1 .. d_k]; position i's
+        # argmax is the token sequential greedy decode would emit there.
         finished: List[Request] = []
         Lc = self.speculate + 1
         R = self.max_batch
-        vgroups: Dict[Optional[str], List[int]] = {None: sorted(spec)}
-        for slots_g in vgroups.values():
+        vgroups: Dict[Optional[str], List[int]] = {}
+        for b in spec:
+            vgroups.setdefault(self._slot_tier[b], []).append(b)
+        for tkey in sorted(vgroups, key=lambda k: (k is not None, k or "")):
+            slots_g = vgroups[tkey]
             nbp = min(self._max_blocks, max(
                 -(-(int(self._pos_host[b]) + spec[b] + 1) // self.block_size)
                 for b in slots_g))
@@ -908,13 +1142,14 @@ class ContinuousScheduler:
                 slot_ids[b] = b
                 btab[b] = self._block_tab[b, :nbp]
             self.cache, logits = self.model.prefill_chunk_logits_multi(
-                self.params, self.cache, {
+                self._tier_views[tkey], self.cache, {
                     "tokens": torch.from_numpy(tokens).to(self.device),
                     "lengths": lengths, "starts": starts, "slots": slot_ids,
                     "blocks": torch.from_numpy(btab)})
             self.spec_verify_calls += 1
             self.spec_verify_rows += len(slots_g)
             lg = logits.argmax(dim=-1).cpu().numpy()
+            tc = self.tier_counters[tkey]
             for b in slots_g:
                 k_eff = spec[b]
                 req = self._slots[b]
@@ -922,6 +1157,8 @@ class ContinuousScheduler:
                 emitted = greedy_accept(lg[b, :k_eff + 1], drafts[b])
                 self.spec_draft_tokens += k_eff
                 self.spec_accepted_tokens += len(emitted) - 1
+                tc["spec_draft_tokens"] += k_eff
+                tc["spec_accepted_tokens"] += len(emitted) - 1
                 req.spec_drafted += k_eff
                 req.spec_accepted += len(emitted) - 1
                 m, done = 0, False
@@ -950,16 +1187,52 @@ class ContinuousScheduler:
 
     # -- the decode loop ----------------------------------------------------
 
+    def _decode_tier_groups(self, groups: Dict[Optional[str], List[int]],
+                            cur: torch.Tensor) -> torch.Tensor:
+        """Mixed-tier decode: one decode call per tier group (sorted as in
+        JAX), each with the group's view params and every other row masked
+        to -1 in the device table (its writes go to the trash block and it
+        attends over nothing; :meth:`_push_spec_table`). A row's logits
+        depend on its own row alone, so a group call computes for its rows
+        what an engine serving only that tier computes.
+
+        Each decode call advances every row's device pos/length by one, so
+        before each later call they are reset to the pre-decode frontier,
+        and after the last set to frontier + 1: the state one decode call
+        leaves (one :func:`set_decode_positions` write each). Returns the
+        (B, V) last-position logits, each row from its group's call,
+        assembled on the device."""
+        pos0 = self._pos_host.copy()
+        out = None
+        for i, key in enumerate(sorted(groups, key=lambda k: (k is not None, k or ""))):
+            if i:
+                set_decode_positions(self.cache, pos0, pos0)
+            self._push_spec_table(set(groups[key]))
+            self.cache, logits = self.model.decode_step(self._tier_views[key],
+                                                        self.cache, cur)
+            self.tier_counters[key]["decode_calls"] += 1
+            last = logits[:, -1, :]
+            if out is None:
+                out = torch.zeros_like(last)
+            rows = torch.tensor(groups[key], dtype=torch.int64, device=last.device)
+            out.index_copy_(0, rows, last.index_select(0, rows))
+        set_decode_positions(self.cache, pos0 + 1, pos0 + 1)
+        self._table_dirty = True       # the real table goes back next step
+        return out
+
     def step(self) -> List[Request]:
-        """One scheduler step: admit waiting requests into free slots (at
-        most one new chunk plan per step; solo, suffix and full-hit
-        admissions into every free slot), run one budgeted prefill chunk,
-        then a speculation round (with ``speculate``) and one batched decode
-        step, sample, and retire finished slots.
+        """One scheduler step: process cancellations and deadline expiries,
+        admit waiting requests into free slots (at most one new chunk plan
+        per step; solo, suffix and full-hit admissions into every free
+        slot), run one budgeted prefill chunk, then a speculation round
+        (with ``speculate``) and one batched decode (one call per tier
+        group), sample, and retire finished slots.
         A request whose revive + reservation draw the pool cannot cover
-        waits, FIFO. Returns the requests that finished this step
-        (including rejected ones, which carry ``error``)."""
-        finished: List[Request] = []
+        waits, FIFO (a pool-pressure event). Returns the requests that
+        finished this step (including rejected, cancelled and expired
+        ones, which carry ``error``)."""
+        self._step_calls += 1
+        finished: List[Request] = self._lifecycle_phase()
         free = collections.deque(
             b for b in range(self.max_batch) if self._slots[b] is None)
         while free and self.waiting:
@@ -972,6 +1245,7 @@ class ContinuousScheduler:
                 continue
             match = self._match_prefix(head) if self.paged else None
             if self.paged and match[2] + match[3] > self._avail:
+                self.pool_pressure_events += 1
                 break                   # the head keeps FIFO priority: wait
             req = self.waiting.popleft()
             if self.chunked_prefill and match[1] < len(req.prompt):
@@ -987,6 +1261,7 @@ class ContinuousScheduler:
                 finished.append(done)   # finished on its first token: the
                 continue                # slot is free again this step
             free.popleft()
+        self.queue_wait_steps += len(self.waiting)
 
         chunk_ran = False
         if self._chunk_queue:
@@ -1018,9 +1293,20 @@ class ContinuousScheduler:
             self._alloc_boundary_blocks()
             self._sync_table()
         cur = torch.from_numpy(self._cur).to(self.device)
-        self.cache, logits = self.model.decode_step(self.params, self.cache, cur)
-        toks = sampling.sample_tokens(logits[:, -1, :], self._temps,
-                                      self._top_ks, self._keys,
+        groups: Dict[Optional[str], List[int]] = {}
+        for b in decoding:
+            groups.setdefault(self._slot_tier[b], []).append(b)
+        if len(groups) == 1:
+            # Homogeneous batch (the untiered engine included): one call at
+            # the group's view, what an engine serving only this tier runs.
+            key = next(iter(groups))
+            self.cache, logits = self.model.decode_step(self._tier_views[key],
+                                                        self.cache, cur)
+            self.tier_counters[key]["decode_calls"] += 1
+            last = logits[:, -1, :]
+        else:
+            last = self._decode_tier_groups(groups, cur)
+        toks = sampling.sample_tokens(last, self._temps, self._top_ks, self._keys,
                                       self._steps).cpu().numpy()
         self._steps += 1
         self.steps_run += 1

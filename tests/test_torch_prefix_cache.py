@@ -6,7 +6,11 @@ admission hit (suffix scatter, row metadata, copy-on-write) bitwise on
 bf16 and int8 pools, ``prefill_suffix`` logits within atol 1e-3 in
 float32 (the packed linears take another route there, see
 ``test_torch_model.py``), and one request sequence through both
-schedulers with equal greedy tokens and equal prefix counters. Against
+schedulers with equal greedy tokens and equal prefix counters (on the
+float32 and, run once per admission mode, the int8 pool; there
+``prefill_tokens_computed`` is pinned at JAX's less bucket - 1 per
+whole-prompt hit under chunked prefill, the port's recorded departure,
+and equal under whole-prompt admission). Against
 itself: ``prefill_suffix`` bitwise the cold prefill, and the
 counterparts of ``tests/test_prefix_cache.py`` (warm ≡ cold on bf16 and
 int8 pools, exclusive ownership with the cache off, copy-on-write,
@@ -40,7 +44,7 @@ from repro_torch.models import kv_cache as tkv
 from repro_torch.models import transformer as ttf
 from repro_torch.serving import (ContinuousScheduler, Request, ServingEngine,
                                  assert_pool_invariants)
-from torch_parity import np_of, to_numpy_tree
+from torch_parity import np_of, synced, to_numpy_tree
 
 POLICY = "w4a8;wo=w8a8"
 ATOL = 1e-3
@@ -251,6 +255,71 @@ def test_scheduler_counters_match_jax(chunked):
     assert ts["prefix_hit_blocks"] > 0 and ts["cow_copies"] > 0
     assert ts["prefix_evictions"] > 0
     assert_pool_invariants(tsched)
+
+
+# The same sequence on the int8 pool, both schedulers run once per mode. The
+# port's scheduler counts the `_prefill_suffix` calls: under chunked
+# prefill only a whole-prompt hit takes that route.
+@pytest.fixture(scope="module")
+def int8_prefix_runs():
+    jcfg, tcfg, params = _f32_models(True)
+    prompts = [PROMPT_A, PROMPT_B, PROMPT_C, PROMPT_A, PROMPT_C,
+               np.concatenate([[5, 1, 2, 8], SYS[:5]])]
+    news = [6, 4, 2, 5, 4, 6]
+    out = {}
+    for chunked in (True, False):
+        kw = dict(max_batch=2, max_ctx=32, block_size=4, prefill_budget=8, bucket=16,
+                  pool_blocks=12, chunked_prefill=chunked)
+        jsched = synced(JaxScheduler(jcfg, params, quant=jax_policy(POLICY), paged=True,
+                                     prefix_cache=True, preempt=False, max_head_bypass=0,
+                                     **kw))
+        want = {r.rid: r.out_tokens for r in jsched.run(
+            [JaxRequest(i, p, max_new_tokens=m)
+             for i, (p, m) in enumerate(zip(prompts, news))])}
+        tsched = ContinuousScheduler(
+            tcfg, convert.params_from_numpy(to_numpy_tree(params), "cpu"),
+            quant=parse_policy_spec(POLICY), device="cpu", **kw)
+        suffix_calls = []
+        inner = tsched._prefill_suffix
+        tsched._prefill_suffix = lambda *a: suffix_calls.append(a[2]) or inner(*a)
+        got = {r.rid: r.out_tokens for r in tsched.run(
+            [Request(i, p, max_new_tokens=m)
+             for i, (p, m) in enumerate(zip(prompts, news))])}
+        out[chunked] = (want, got, jsched.pool_stats(), tsched.pool_stats(),
+                        suffix_calls, tsched)
+    return out
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+def test_scheduler_counters_match_jax_int8(int8_prefix_runs, chunked):
+    """``test_scheduler_counters_match_jax``'s sequence on the int8 pool: the
+    port's scheduler emits JAX's greedy tokens and JAX's prefix counters,
+    in both admission modes (where the two reach a whole-prompt hit by
+    different functions under chunked prefill)."""
+    want, got, js, ts, _, tsched = int8_prefix_runs[chunked]
+    assert got == want
+    assert {k: ts[k] for k in COUNTERS} == {k: js[k] for k in COUNTERS}
+    assert ts["prefix_hit_blocks"] > 0 and ts["cow_copies"] > 0
+    assert ts["prefix_evictions"] > 0
+    assert_pool_invariants(tsched)
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+def test_prefill_tokens_computed_departure(int8_prefix_runs, chunked):
+    """The port counts the tokens its prefill kernels run: a whole-prompt
+    hit under chunked prefill runs one token (``paged_prefill`` with
+    ``store=False``) where JAX runs and counts a bucket of 16, so the
+    port's count is JAX's less bucket - 1 for each such hit; under
+    whole-prompt admission both run the same suffix bucket and count the
+    same."""
+    _, _, js, ts, suffix_calls, _ = int8_prefix_runs[chunked]
+    if chunked:
+        full_hits = len(suffix_calls)
+        assert full_hits > 0
+        assert ts["prefill_tokens_computed"] == js["prefill_tokens_computed"] - full_hits * 15
+    else:
+        assert suffix_calls
+        assert ts["prefill_tokens_computed"] == js["prefill_tokens_computed"]
 
 
 # -- the port against itself: tests/test_prefix_cache.py's contracts ----------

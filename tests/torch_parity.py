@@ -53,3 +53,25 @@ def assert_packed_equal(jp: JaxPacked, tp: TorchPacked, path: str = ""):
         assert tp.packed8 is None, path
     else:
         assert np.array_equal(np.asarray(jp.packed8), tp.packed8.numpy()), path
+
+
+def synced(jax_scheduler):
+    """`jax_scheduler` with each ``step()`` waited out on the device before
+    it returns. Under the CPU backend's asynchronous dispatch a chunk the
+    JAX scheduler dispatched last in a step may still be queued when the
+    next step rewrites its host block table (a cancel or deadline
+    retirement sets the row to -1), and that chunk then writes a block it
+    does not own; waiting after each step keeps the reference's runs
+    deterministic. The port's scheduler copies host state before it
+    hands it to a kernel."""
+    import jax
+
+    step = jax_scheduler.step
+
+    def synced_step():
+        out = step()
+        jax.block_until_ready(jax_scheduler.cache)
+        return out
+
+    jax_scheduler.step = synced_step
+    return jax_scheduler

@@ -101,7 +101,23 @@
    of their unperturbed stream, every other request its unperturbed
    tokens, the counters 2 / 1 / 1, no block leaked; and the serve CLI
    with --tiers and --deadline-ms prints its per-tier and lifecycle
-   reports.
+   reports. Preemption gates (``check_preemption``, in-process, the
+   same stream on pools too small for it: P1 chunked prefill on the int8
+   pool, P2 whole-prompt admission on the bf16 pool with the Table III
+   policy, P3 whole-prompt admission on the int8 pool behind the shared
+   prefix, each also a pair sized so that its victim resumes from its
+   registered blocks): every request's tokens, greedy and sampled, those
+   of the matching run without pressure, at least two preemptions on
+   the stream and one warm resume on the pair, the pool invariants after
+   every step; the gap between each first resume's logits and the
+   uninterrupted decode's is printed. Chaos gates (``check_chaos``, run
+   (k)'s flags on a small pool, a seeded ``FaultInjector`` at all four
+   seams): every seam fires, the requests no fault failed emit run (k)'s
+   tokens, each failed one a prefix of them with a nan-logits or
+   callback error, the counters equal the faults fired; and the serve
+   CLI with --chaos-seed prints its lifecycle and chaos lines. Every
+   serve run above has no preemption, re-dispatched decode call or
+   NaN-logits retirement.
    The read-only (store=False) form of ``paged_prefill`` is bitwise the
    storing call and leaves the pool unchanged. Gated across paths (see
    ``compare_paths``): chunked and whole-prompt first-token logits bitwise
@@ -130,7 +146,9 @@ paths`` measures how far the prefill paths' logits part (see
 ``paths_diagnostic``); ``python3 chip_smoke.py spec`` runs the fused,
 ``bitplane_matmul`` and paged-prefill checks, runs (k) and (l) and the
 speculation gates; ``python3 chip_smoke.py tiers`` builds the kernels and
-runs (m) and (n) with the tier gates and the lifecycle check.
+runs (m) and (n) with the tier gates and the lifecycle check;
+``python3 chip_smoke.py preempt`` builds the kernels and runs
+chunked-int8, (c), (j) and (k) with the preemption and chaos gates.
 """
 from __future__ import annotations
 
@@ -1557,9 +1575,15 @@ def serve_run(torch, params, name):
     prefix = (f"; prefix cache: hit rate {st['prefix_hit_rate']:.4f} "
               f"({st['prefix_hit_blocks']} block hits, {st['cow_copies']} CoW copies, "
               f"{st['prefix_evictions']} evictions)" if st.get("prefix_cache") else "")
+    # The default pool never runs short and nothing is injected: no
+    # preemption, re-dispatched decode call or non-finite logits row.
+    faults = {k: st[k] for k in ("preemptions", "kernel_fallbacks", "nan_logit_events")
+              if k in st}
     log(f"serve {engine.cfg.name} [{name}] policy {policy}: {report['tok_per_s']:.1f} tok/s "
         f"steady state; repeated pass: greedy identical, {same}/{len(done)} "
-        f"requests identical{prefix}; launches {counts}")
+        f"requests identical{prefix}; {faults or 'static'}; launches {counts}")
+    if any(faults.values()):
+        raise AssertionError(f"{name}: {faults} on a pool that never runs short")
     return engine, report, counts, tokens
 
 
@@ -1871,6 +1895,284 @@ def check_lifecycle(torch, engine, raw_params):
     return {"errors": errors, "tokens": lens, "others_identical": others,
             "counters": counts, "queue_wait_steps": st["queue_wait_steps"],
             "cli_deadline_misses": misses}
+
+
+# Preemption under pool pressure: name -> (the matching existing run, whose
+# tokens are the reference and whose weights, pool and admission mode it
+# shares; victim policy; pool of the stream phase; pool of the warm pair).
+# The stream's rows need 6, 22, 10, 18, 8, 14, 20 and 12 blocks of 16
+# (plus 13 shared ones under the 200-token prefix). Under a pool of 44 the
+# stream preempts 3-4 times, but every victim requeues behind the rest of
+# the queue, and the admissions before its turn evict the blocks it
+# registered (the LRU evicts a chain's first block first), so its resume
+# is cold. The pair (rid 1 decoding alone, then rid 0) is sized so that
+# rid 0's admission preempts rid 1 and rid 1 resumes from its registered
+# blocks: 27 blocks leave rid 0 its prompt and decode blocks in the free
+# list (one fewer and rid 0's last decode block evicts rid 1's first).
+PREEMPT_CONFIGS = {
+    "P1": ("chunked-int8", "most-blocks", 44, 27),
+    "P2": ("c-solo-paged", "most-blocks", 44, 27),
+    "P3": ("j-prefix-solo-int8", "latest-deadline", 44, 40),
+}
+# The runs check_preemption and check_chaos compare with.
+PREEMPT_RUNS = ("chunked-int8", "c-solo-paged", "j-prefix-solo-int8", "k-spec-int8")
+# The chaos run: run (k)'s flags, P1's pool, and a seed whose streams fire
+# every seam early, and the two seams that fail a request only once in
+# the run's visits: the alloc seam fires at its visits 0, 3 and 8
+# (0-based), the kernel seam at 10, 27 and 54, the nan seam at 15 (next
+# at 329) and the callback seam at 21 (none other in its first 400).
+CHAOS_SEED = 1848
+CHAOS_RATES = dict(p_alloc=0.25, p_kernel=0.02, p_nan=0.01, p_callback=0.005)
+CHAOS_MAX_FAULTS = 16
+CHAOS_POOL = 44
+
+
+def _sched_like(engine, args, **kw):
+    """A scheduler with run `args`'s engine's weights, pool dtype, slots,
+    block size, admission mode, speculation and context bound."""
+    from repro_torch.serving import ContinuousScheduler
+
+    return ContinuousScheduler(
+        engine.cfg, engine.params, max_batch=engine.max_batch,
+        max_ctx=engine._ctx_needed(mixed_requests(engine.cfg, args)),
+        bucket=engine.bucket, block_size=engine.block_size,
+        prefill_budget=engine.prefill_budget, chunked_prefill=engine.chunked_prefill,
+        speculate=engine.speculate, draft_policy=engine.draft_policy,
+        device=engine.device, **kw)
+
+
+def watch_resumes(sched):
+    """Record, on `sched`, each resumed admission's (rid, resident prefix
+    tokens) and the first resume's first-token logits with its step."""
+    resumes = {"claims": [], "first": None}
+    claim, first = sched._claim_row, sched._first_token
+
+    def claim_row(req, slot, match):
+        if req.out_tokens:
+            resumes["claims"].append((req.rid, int(match[1])))
+        return claim(req, slot, match)
+
+    def first_token(req, slot, logits):
+        if req.out_tokens and resumes["first"] is None:
+            resumes["first"] = {"rid": req.rid, "step": len(req.out_tokens),
+                                "logits": logits[0, -1].float().clone()}
+        return first(req, slot, logits)
+
+    sched._claim_row, sched._first_token = claim_row, first_token
+    return resumes
+
+
+def resume_gap(torch, engine, args, first):
+    """Largest |gap| between a resume's first-token logits and the decode
+    logits an uninterrupted scheduler (the default pool, the request
+    alone) samples the same position from, and whether they are bitwise
+    equal."""
+    from repro_torch.serving import sampling
+
+    solo = _sched_like(engine, args)
+    req = mixed_requests(engine.cfg, args)[first["rid"]]
+    rows, inner = {}, sampling.sample_tokens
+
+    def sample(logits, temps, top_ks, keys, steps):
+        for b, r in enumerate(solo._slots):
+            if (logits.shape[0] == solo.max_batch and r is not None
+                    and r.rid == req.rid and b not in solo._chunk_plans):
+                rows[int(steps[b])] = logits[b].float().clone()
+        return inner(logits, temps, top_ks, keys, steps)
+
+    sampling.sample_tokens = sample
+    try:
+        solo.run([req])
+    finally:
+        sampling.sample_tokens = inner
+    want = rows[first["step"]]
+    gap = float((first["logits"] - want).abs().max())
+    return gap, bool(torch.equal(first["logits"], want))
+
+
+def _drain_checked(sched, done=None):
+    """Step `sched` to empty, the pool invariants held after every step."""
+    from repro_torch.serving import assert_pool_invariants
+
+    done = [] if done is None else done
+    while sched.num_active or sched.num_waiting:
+        done.extend(sched.step())
+        assert_pool_invariants(sched)
+    return done
+
+
+def check_preemption(torch, runs):
+    """Preemption with warm resume on full-width olmo-1b, one configuration
+    per row of PREEMPT_CONFIGS: P1 chunked prefill on the int8 pool, P2
+    whole-prompt admission on the bf16 pool with the Table III policy, P3
+    whole-prompt admission on the int8 pool behind the 200-token shared
+    prefix (latest-deadline victims). Each serves the chip_smoke stream in
+    a fresh scheduler on a pool small enough that it preempts, then the
+    warm pair. Gated in each: every request's tokens (greedy and sampled)
+    equal to the matching run's, which had no pressure; the stream
+    preempts at least twice and the pair once; the pair's victim resumes
+    from its registered blocks (prefix hits > 0); the pool invariants
+    after every step and the pool drained clean. Printed: for the first
+    resume of the stream and of the pair, the largest gap between its
+    first-token logits and the uninterrupted decode logits at the same
+    position. Everything prints before a gate raises."""
+    from repro_torch.launch import serve
+
+    out, bad = {}, []
+    for cname, (ref_name, policy, pool, pair_pool) in PREEMPT_CONFIGS.items():
+        engine, _, _, ref = runs[ref_name]
+        args = serve.build_parser().parse_args(serve_argv(ref_name))
+        res = {"run": ref_name, "victim_policy": policy, "pool_blocks": pool,
+               "pair_pool_blocks": pair_pool}
+        for phase in ("stream", "pair"):
+            t0 = time.perf_counter()
+            s = _sched_like(engine, args, pool_blocks=pool if phase == "stream" else pair_pool,
+                            victim_policy=policy)
+            resumes = watch_resumes(s)
+            reqs = mixed_requests(engine.cfg, args)
+            done = []
+            if phase == "pair":
+                reqs = [reqs[1], reqs[0]]
+                s.submit(reqs[0])
+                while len(reqs[0].out_tokens or ()) < 4:
+                    done.extend(s.step())
+                s.submit(reqs[1])
+            else:
+                for r in reqs:
+                    s.submit(r)
+            _drain_checked(s, done)
+            torch.cuda.synchronize()
+            st = s.pool_stats()
+            same = sum(r.error is None and r.out_tokens == ref[r.rid] for r in reqs)
+            drained = (s._live_blocks == 0 and s._avail == s.pool_blocks
+                       and (s._block_tab == -1).all())
+            gap = (resume_gap(torch, engine, args, resumes["first"])
+                   if resumes["first"] else None)
+            res[phase] = {
+                "seconds": time.perf_counter() - t0,
+                "identical": f"{same}/{len(reqs)}",
+                "preemptions": st["preemptions"],
+                "per_request": {r.rid: r.preemptions for r in reqs},
+                "resumes": resumes["claims"], "prefix_hit_tokens": st["prefix_hit_tokens"],
+                "pool_pressure_events": st["pool_pressure_events"],
+                "head_bypasses": st["head_bypasses"], "drained": bool(drained),
+                "first_resume": None if gap is None else {
+                    "rid": resumes["first"]["rid"], "step": resumes["first"]["step"],
+                    "max_abs_gap": gap[0], "bitwise": gap[1]}}
+            log(f"preemption [{cname} {ref_name}, {policy}, {phase}, pool {s.pool_blocks}]: "
+                f"tokens identical to the unpressured run {same}/{len(reqs)}, "
+                f"{st['preemptions']} preemptions {res[phase]['per_request']}, resumes "
+                f"(rid, resident tokens) {resumes['claims']}, prefix hit tokens "
+                f"{st['prefix_hit_tokens']}, {st['pool_pressure_events']} pressure events, "
+                f"{st['head_bypasses']} bypasses, drained clean {bool(drained)}; first "
+                f"resume's first-token logits vs uninterrupted decode: "
+                f"{res[phase]['first_resume']}")
+            if same != len(reqs) or not drained:
+                bad.append(f"{cname} {phase}: identical {same}/{len(reqs)}, drained {drained}")
+        if res["stream"]["preemptions"] < 2 or not any(res["stream"]["per_request"].values()):
+            bad.append(f"{cname}: the stream preempted {res['stream']['preemptions']} times")
+        pair = res["pair"]
+        if pair["preemptions"] != 1 or not any(n > 0 for _, n in pair["resumes"]):
+            bad.append(f"{cname}: the pair preempted {pair['preemptions']} times, resumes "
+                       f"{pair['resumes']} (a warm resume has resident tokens > 0)")
+        out[cname] = res
+    if bad:
+        raise AssertionError(f"preemption: {bad}")
+    return out
+
+
+def check_chaos(torch, runs, raw_params):
+    """Seeded faults at all four seams on full-width olmo-1b with run (k)'s
+    flags (int8 pool, chunked prefill, --speculate 4, w4a8 draft) on
+    P1's pool, every request with an ``on_token`` so the callback seam
+    draws. Printed: the seed, the rates and every fault fired (seam,
+    visit, step). Gated: each seam fired at least once; every request no
+    fault failed emits run (k)'s tokens, and each failed one has error
+    "nan-logits" or a callback error and emits a prefix of them;
+    nan_logit_events, kernel_fallbacks and callback_errors equal the
+    faults fired at their seams, kernel_fallbacks >= 1, and the pressure
+    events at least the alloc faults; the pool invariants after every
+    step and the pool drained clean. Then the serve CLI with
+    --pool-blocks, --chaos-seed and --chaos-rate on the same stream:
+    its lifecycle and chaos lines print and it ends normally."""
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultInjector, assert_pool_invariants
+
+    name = "k-spec-int8"
+    engine, _, _, ref = runs[name]
+    args = serve.build_parser().parse_args(serve_argv(name))
+    chaos = FaultInjector(CHAOS_SEED, max_faults=CHAOS_MAX_FAULTS, **CHAOS_RATES)
+    schedule, fire = [], chaos.fire
+    s = _sched_like(engine, args, pool_blocks=CHAOS_POOL, chaos=chaos)
+
+    def logged_fire(kind):
+        hit = fire(kind)
+        if hit:
+            schedule.append((kind, chaos.draws[kind] - 1, s._step_calls))
+        return hit
+
+    chaos.fire = logged_fire
+    reqs = mixed_requests(engine.cfg, args)
+    for r in reqs:
+        r.on_token = lambda req, tok: None
+        s.submit(r)
+    t0 = time.perf_counter()
+    _drain_checked(s)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = s.pool_stats()
+    fired = st["chaos"]["fired"]
+    failed = {r.rid: r.error for r in reqs if r.error}
+    survivors = sum(r.out_tokens == ref[r.rid] for r in reqs if not r.error)
+    prefixes = all(r.out_tokens == ref[r.rid][:len(r.out_tokens)] for r in reqs)
+    drained = (s._live_blocks == 0 and s._avail == s.pool_blocks
+               and (s._block_tab == -1).all())
+    counters = {k: st[k] for k in ("kernel_fallbacks", "nan_logit_events", "callback_errors",
+                                   "pool_pressure_events", "preemptions", "head_bypasses")}
+    log(f"chaos [{name}, pool {CHAOS_POOL}]: seed {CHAOS_SEED}, rates {CHAOS_RATES}, "
+        f"max_faults {CHAOS_MAX_FAULTS}; fired {fired} of draws {st['chaos']['draws']}; "
+        f"schedule (seam, visit, step) {schedule}; failed {failed}; survivors identical "
+        f"to run (k) {survivors}/{len(reqs) - len(failed)}; failed requests emit a prefix "
+        f"{prefixes}; counters {counters}; drained clean {bool(drained)}; {seconds:.1f}s")
+    bad = []
+    if not all(fired[k] >= 1 for k in fired):
+        bad.append(f"a seam never fired: {fired}")
+    if survivors != len(reqs) - len(failed) or not prefixes or not drained:
+        bad.append(f"survivors {survivors}, prefixes {prefixes}, drained {drained}")
+    if not all(e == "nan-logits" or e.startswith("on_token callback raised")
+               for e in failed.values()):
+        bad.append(f"errors {failed}")
+    if not (counters["nan_logit_events"] == fired["nan"]
+            and counters["kernel_fallbacks"] == fired["kernel"] >= 1
+            and counters["callback_errors"] == fired["callback"]
+            and counters["pool_pressure_events"] >= fired["alloc"]):
+        bad.append(f"counters {counters} vs fired {fired}")
+
+    rate = CHAOS_RATES["p_kernel"]
+    cli = serve.build_parser().parse_args(serve_argv(name) + [
+        "--pool-blocks", str(CHAOS_POOL), "--chaos-seed", str(CHAOS_SEED),
+        "--chaos-rate", str(rate), "--chaos-max-faults", str(CHAOS_MAX_FAULTS)])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli_engine, cli_done, report = serve.run(cli, mixed_requests, params=raw_params)
+    printed = text.getvalue()
+    log(printed.rstrip())
+    assert_pool_invariants(cli_engine._sched)
+    if not ("  lifecycle: " in printed and "  chaos: seed=" in printed
+            and len(cli_done) == len(reqs)):
+        bad.append("serve --chaos-seed: no lifecycle or chaos line")
+    if bad:
+        raise AssertionError(f"chaos: {bad}")
+    return {"seed": CHAOS_SEED, "rates": CHAOS_RATES, "max_faults": CHAOS_MAX_FAULTS,
+            "pool_blocks": CHAOS_POOL, "fired": fired, "draws": st["chaos"]["draws"],
+            "schedule": schedule, "failed": failed, "counters": counters,
+            "survivors_identical": survivors, "seconds": seconds,
+            "cli_chaos": report["stats"]["chaos"],
+            "cli_lifecycle": {k: report["stats"][k] for k in (
+                "preemptions", "pool_pressure_events", "kernel_fallbacks",
+                "nan_logit_events", "callback_errors")}}
 
 
 def compare_prefix(torch, runs):
@@ -2765,6 +3067,14 @@ def main() -> int:
             "tiers": tier_cmp, "lifecycle": check_lifecycle(torch, engine8, raw),
             "serve": {name: run[1] for name, run in runs.items()}})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["preempt"]:
+        build.build()
+        runs = {name: serve_run(torch, params_of(name), name) for name in PREEMPT_RUNS}
+        write_detail("chip_smoke_preempt.json", {
+            "preemption": check_preemption(torch, runs),
+            "chaos": check_chaos(torch, runs, params_of("k-spec-int8")),
+            "serve": {name: run[1] for name, run in runs.items()}})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -2838,6 +3148,8 @@ def main() -> int:
     spec_cmp = compare_speculation(torch, runs)
     tier_cmp = compare_tiers(torch, runs)
     life_cmp = check_lifecycle(torch, runs["chunked-int8"][0], params_of("chunked-int8"))
+    preempt_cmp = check_preemption(torch, runs)
+    chaos_cmp = check_chaos(torch, runs, params_of("k-spec-int8"))
     # The verify row's launches: paged_prefill's counter read inside the
     # speculating runs' verify calls (compare_speculation and compare_tiers
     # gate it at one a layer a row).
@@ -2862,7 +3174,7 @@ def main() -> int:
         "serve": {name: run[1] for name, run in runs.items()},
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
         "prefix_cache": prefix_cmp, "speculation": spec_cmp, "tiers": tier_cmp,
-        "lifecycle": life_cmp,
+        "lifecycle": life_cmp, "preemption": preempt_cmp, "chaos": chaos_cmp,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

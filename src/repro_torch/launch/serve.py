@@ -9,7 +9,9 @@ continuous scheduler.
       [--prefix-cache | --no-prefix-cache] [--shared-prefix N] \
       [--prefill-budget 32] [--no-chunked-prefill] \
       [--speculate K] [--draft-policy w4a8] [--tiers w8a8,w4a8,w2a8] \
-      [--deadline-ms MS] [--reduced] [--device cpu]
+      [--deadline-ms MS] [--no-preempt] [--victim-policy most-blocks] \
+      [--degrade] [--chaos-seed S] [--chaos-rate 0.05] \
+      [--chaos-max-faults N] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -66,9 +68,21 @@ per-tier counters are reported after the run.
 
 --deadline-ms gives every synthetic request a wall-clock deadline: one
 not finished that many ms after its arrival retires with
-error="deadline", its blocks freed like any retirement. A lifecycle line
-reports deadline misses, cancellations and pool-pressure events when a
-request failed or either of the last two happened.
+error="deadline", its blocks freed like any retirement.
+
+Pool pressure: when --pool-blocks leaves the pool short for the queue
+head, the scheduler preempts one live victim a step (--victim-policy
+most-blocks, lowest-tier or latest-deadline; --no-preempt queues
+instead), requeues it as prompt ++ generated and resumes it warm from its
+registered blocks, bitwise the uninterrupted stream; a smaller request
+may admit past the blocked head at most 4 times in a row. --degrade
+(needs --tiers) admits under sustained pressure at the lowest tier.
+--chaos-seed arms the seeded fault injector at its four seams (alloc,
+kernel, nan, callback) with per-visit rate --chaos-rate, at most
+--chaos-max-faults faults. A lifecycle line reports deadline misses,
+cancellations, pressure events, preemptions, bypasses and degraded
+admissions when a request failed or any of the first four happened, and
+a chaos line the faults fired and what survived them.
 """
 from __future__ import annotations
 
@@ -143,6 +157,29 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-request wall-clock deadline: requests not "
                          "finished this many ms after arrival retire "
                          "with error='deadline'")
+    ap.add_argument("--no-preempt", dest="preempt", action="store_false",
+                    default=None,
+                    help="never preempt a live slot under pool pressure "
+                         "(queue instead; default: preempt on the paged "
+                         "pool, resume warm from prefix-cached blocks)")
+    ap.add_argument("--victim-policy", default="most-blocks",
+                    choices=("most-blocks", "lowest-tier", "latest-deadline",
+                             "block-to-host"),
+                    help="which live slot pool-pressure preemption evicts "
+                         "(block-to-host needs the host tier, which the "
+                         "port does not have yet)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="under sustained pool pressure admit new requests "
+                         "at the lowest precision tier (needs --tiers; "
+                         "sticky for the request's life)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="arm the seeded fault injector (alloc/kernel/nan/"
+                         "callback seams) with this seed")
+    ap.add_argument("--chaos-rate", type=float, default=0.05,
+                    help="per-seam-visit fault probability when "
+                         "--chaos-seed is set")
+    ap.add_argument("--chaos-max-faults", type=int, default=None,
+                    help="cap total injected faults (default unbounded)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -195,8 +232,11 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     from repro_torch.core.precision import parse_policy_spec, parse_quant_token
     from repro_torch.models import build_model
     from repro_torch.models.model_zoo import check_policy
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import FaultInjector, ServingEngine
 
+    if args.victim_policy == "block-to-host":
+        raise SystemExit("--victim-policy block-to-host spills to the host "
+                         "tier, which the PyTorch port does not have yet")
     if args.continuous and args.static:
         raise SystemExit("--continuous and --static are mutually exclusive")
     if args.quant and args.policy:
@@ -213,6 +253,9 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     if args.tiers and not (args.quant or args.policy):
         raise SystemExit("--tiers serves plane-truncated views of packed "
                          "weights; add a quant policy (e.g. --quant w8a8)")
+    if args.degrade and not args.tiers:
+        raise SystemExit("--degrade lowers admissions to the floor tier; "
+                         "add --tiers")
     device = resolve_device(args.device)
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
@@ -232,6 +275,11 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     if params is None:
         params = build_model(cfg).init(seed=0, device=device)
         print("serving randomly initialized weights (no --ckpt)")
+    chaos = None
+    if args.chaos_seed is not None:
+        p = args.chaos_rate
+        chaos = FaultInjector(args.chaos_seed, p_alloc=p, p_kernel=p, p_nan=p,
+                              p_callback=p, max_faults=args.chaos_max_faults)
     engine = ServingEngine(cfg, params, max_batch=args.max_batch, quant=quant,
                            bucket=32, paged=False if args.no_paged else None,
                            block_size=args.block_size,
@@ -241,7 +289,8 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                            prefill_budget=args.prefill_budget,
                            speculate=args.speculate,
                            draft_policy=args.draft_policy, tiers=args.tiers,
-                           device=device)
+                           preempt=args.preempt, victim_policy=args.victim_policy,
+                           degrade=args.degrade, chaos=chaos, device=device)
     serve = engine.generate if args.continuous else engine.generate_static
 
     def stream():
@@ -321,11 +370,23 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                              f"({tc['spec_acceptance_rate']:.0%})")
                 print(line)
         failed = [r for r in done if r.error]
-        if failed or stats["deadline_misses"] or stats["pool_pressure_events"]:
+        if (failed or stats["preemptions"] or stats["deadline_misses"]
+                or stats["pool_pressure_events"]):
             print(f"  lifecycle: {stats['deadline_misses']} deadline misses, "
                   f"{stats['cancellations']} cancellations, "
                   f"{stats['pool_pressure_events']} pressure events, "
-                  f"{stats['callback_errors']} callback errors")
+                  f"{stats['callback_errors']} callback errors, "
+                  f"{stats['preemptions']} preemptions "
+                  f"(policy={stats['victim_policy']}), "
+                  f"{stats['head_bypasses']} head-of-line bypasses, "
+                  f"{stats['degraded_requests']} degraded admissions")
+        if stats["chaos"]:
+            ch = stats["chaos"]
+            fired = ", ".join(f"{k}={v}" for k, v in ch["fired"].items())
+            print(f"  chaos: seed={ch['seed']} {ch['total_fired']} faults fired "
+                  f"({fired}); {stats['kernel_fallbacks']} re-dispatched decode "
+                  f"calls, {stats['nan_logit_events']} NaN-logit retirements, "
+                  f"{stats['callback_errors']} callback errors survived")
         for r in failed[:4]:
             print(f"  req {r.rid} failed: {r.error}")
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")

@@ -1,7 +1,7 @@
 """Serving engine over the packed-weight path.
 
-Port of ``repro.serving.engine`` without the later scheduler features
-(preemption, degradation, chaos, the host tier).
+Port of ``repro.serving.engine`` without the host tier and the durable
+prefix index.
 The engine packs the weights once under a QuantConfig or a per-layer
 PrecisionPolicy and has two modes:
 
@@ -18,7 +18,11 @@ PrecisionPolicy and has two modes:
     without it. With ``tiers`` (e.g. "w8a8,w4a8,w2a8") a request may
     name a precision tier and is served through a plane-truncated view
     of the one packed weight set; ``cancel(rid)`` retires a queued or
-    live request at the next step.
+    live request at the next step. On an overcommitted pool
+    (``pool_blocks``) the scheduler preempts (``preempt``,
+    ``victim_policy``), bypasses a blocked head (``max_head_bypass``) and,
+    with ``degrade``, admits under sustained pressure at the lowest tier;
+    ``chaos`` arms a seeded ``FaultInjector``.
   * ``generate_static`` — the static batch (whole-prompt prefill of up
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
@@ -59,7 +63,10 @@ class ServingEngine:
                  prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None,
                  prefill_budget: int = 32, speculate: int = 0,
-                 draft_policy="w4a8", tiers=None, device=None):
+                 draft_policy="w4a8", tiers=None, preempt: Optional[bool] = None,
+                 victim_policy: str = "most-blocks", max_head_bypass: int = 4,
+                 degrade: bool = False, degrade_after: int = 2, chaos=None,
+                 device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -83,6 +90,12 @@ class ServingEngine:
         self.speculate = speculate          # draft tokens a step (0 = off)
         self.draft_policy = draft_policy    # plane-truncation draft spec
         self.tiers = tiers                  # per-request precision tiers
+        self.preempt = preempt              # None = on when paged
+        self.victim_policy = victim_policy
+        self.max_head_bypass = max_head_bypass
+        self.degrade = degrade              # admit at the floor tier under pressure
+        self.degrade_after = degrade_after
+        self.chaos = chaos                  # FaultInjector (tests, chaos runs)
         self._sched: Optional[ContinuousScheduler] = None
 
     def _bucketed(self, n: int) -> int:
@@ -103,6 +116,9 @@ class ServingEngine:
                 chunked_prefill=self.chunked_prefill,
                 prefill_budget=self.prefill_budget, speculate=self.speculate,
                 draft_policy=self.draft_policy, tiers=self.tiers,
+                preempt=self.preempt, victim_policy=self.victim_policy,
+                max_head_bypass=self.max_head_bypass, degrade=self.degrade,
+                degrade_after=self.degrade_after, chaos=self.chaos,
                 device=self.device)
         self._sched.on_token = self.on_token
         return self._sched

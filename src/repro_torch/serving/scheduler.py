@@ -1,24 +1,38 @@
 """Continuous-batching scheduler: request queue, slot table, mid-decode
-admission, paged KV allocation with reservation queueing, chunked
-prefill interleaved with decoding, and the cross-request prefix cache.
+admission, paged KV allocation with reservation queueing, preemption and
+the head-of-line bypass under pool pressure, chunked prefill interleaved
+with decoding, the cross-request prefix cache, and fault containment.
 
 Port of ``repro.serving.scheduler``'s paged pool, chunked prefill, solo
 whole-prompt admission, contiguous cache, prefix cache, self-speculative
-decoding, per-request precision tiers and the request lifecycle
-(cancellation, deadlines, contained callbacks). Preemption, the
-head-of-line bypass, graceful degradation, chaos, the NaN-logits
-detector and the host tier come with later slices of the port.
+decoding, per-request precision tiers, the request lifecycle
+(cancellation, deadlines, contained callbacks), preemption with warm
+resume, the bounded head-of-line bypass, graceful degradation, seeded
+fault injection and the NaN-logits detector. The host tier (and with it
+the ``block-to-host`` victim policy) comes with a later slice of the port.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
     token batch. Free slots decode a dummy token whose output is ignored.
   * ``paged`` (default for full-attention archs): a KV pool shared by
     every slot. Admission reserves the blocks the request may still
-    allocate; if the pool cannot cover them the request waits (FIFO), so
-    a live row can never deadlock mid-decode. Blocks are allocated
-    lazily: prompt blocks at admission, one more whenever a decode step
-    crosses a boundary. ``paged=False``: a contiguous cache in which
-    every slot reserves a max_ctx row.
+    allocate, so a live row can never deadlock mid-decode. Blocks are
+    allocated lazily: prompt blocks at admission, one more whenever a
+    decode step crosses a boundary. ``paged=False``: a contiguous cache in
+    which every slot reserves a max_ctx row.
+  * Pool pressure: when the pool cannot cover the queue head, the step
+    (with ``preempt``, the default on the paged pool) preempts at most one
+    live victim (``victim_policy``) whose release alone covers the
+    shortfall, never for a head that was itself preempted; the victim's
+    written blocks are registered in the prefix index and it is requeued
+    at the back as prompt ++ generated, so its resume prefills only what
+    the pool no longer holds and emits bitwise the uninterrupted stream
+    (greedy and sampled: its next token is drawn at step
+    ``len(out_tokens)``). Otherwise a later request that fits may admit
+    past the blocked head, at most ``max_head_bypass`` times in a row, and
+    the head waits. With ``degrade``, after ``degrade_after`` consecutive
+    pressure steps admissions are served at the lowest configured tier,
+    for the request's whole life (``Request.degraded_to``).
   * ``prefix_cache`` (default on the paged pool): a host index maps
     chain digests of block-sized token chunks to resident pool blocks, so
     a request whose prompt prefix is already resident maps those blocks
@@ -59,6 +73,14 @@ Design:
     requests leave the queue, live rows — chunk plans included — retire
     with their blocks, reservation and plan freed); a user ``on_token``
     callback that raises fails only its own request.
+  * Faults: every decode call goes through one seam (``_decode_call``);
+    a row whose logits hold a non-finite value retires with
+    ``error="nan-logits"`` before its token is used, its neighbours
+    untouched. A :class:`~repro_torch.serving.chaos.FaultInjector`
+    (``chaos=``) fires seeded faults at the ``alloc``, ``kernel``, ``nan``
+    and ``callback`` seams; an injected decode fault fires before anything
+    is dispatched, and the same call is dispatched again through the same
+    kernels (``kernel_fallbacks``).
   * Sampling draws from per-request ``(seed, rid, step)`` streams, so a
     request's tokens do not depend on what else is in the batch.
 """
@@ -77,6 +99,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import (
     as_policy,
+    degrade_order,
     parse_tier_specs,
     parse_tier_token,
     quant_token,
@@ -95,7 +118,17 @@ from repro_torch.models.kv_cache import (
     set_paged_row,
 )
 from repro_torch.serving import sampling
+from repro_torch.serving.chaos import FaultInjector, InjectedFault
 from repro_torch.serving.speculative import derive_draft_params, greedy_accept
+
+#: Preemption victim-selection policies (JAX's names): `most-blocks` frees
+#: the most pool capacity per eviction, `lowest-tier` sheds the cheapest
+#: quality class first, `latest-deadline` preempts the request with the
+#: most slack (no-deadline requests first, then the latest deadline).
+#: `block-to-host` spills the victim's blocks to the host tier, which the
+#: port does not have yet: the scheduler refuses it.
+VICTIM_POLICIES = ("most-blocks", "lowest-tier", "latest-deadline",
+                   "block-to-host")
 
 
 @dataclasses.dataclass
@@ -103,7 +136,8 @@ class Request:
     """One generation request. ``arrival_time`` is seconds after the start
     of ``run()``; ``t_first``/``t_done`` are filled by the scheduler;
     ``error`` is set (and the request returned) when it can never fit, is
-    cancelled, misses a deadline, or its ``on_token`` callback raises."""
+    cancelled, misses a deadline, its logits turn non-finite, or its
+    ``on_token`` callback raises."""
 
     rid: int
     prompt: np.ndarray            # (T,) int
@@ -134,6 +168,12 @@ class Request:
     # with error="deadline". None = no deadline.
     deadline_s: Optional[float] = None
     deadline_steps: Optional[int] = None
+    # Times this request was preempted under pool pressure (each requeued
+    # it as prompt ++ generated for a warm, bitwise resume) and, when
+    # graceful degradation admitted it, the tier it was served at (sticky
+    # for the request's whole life).
+    preemptions: int = 0
+    degraded_to: Optional[str] = None
     # (key, chain digests) memo of ContinuousScheduler._req_hashes.
     _prefix_hashes: Optional[tuple] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
@@ -163,7 +203,10 @@ class ContinuousScheduler:
                  on_token=None, paged: Optional[bool] = None, block_size: int = 16,
                  pool_blocks: Optional[int] = None, prefix_cache: Optional[bool] = None,
                  chunked_prefill: Optional[bool] = None, prefill_budget: int = 32,
-                 speculate: int = 0, draft_policy="w4a8", tiers=None, device=None):
+                 speculate: int = 0, draft_policy="w4a8", tiers=None,
+                 preempt: Optional[bool] = None, victim_policy: str = "most-blocks",
+                 max_head_bypass: int = 4, degrade: bool = False, degrade_after: int = 2,
+                 chaos: Optional[FaultInjector] = None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -263,15 +306,54 @@ class ContinuousScheduler:
                 "spec_draft_tokens": 0, "spec_accepted_tokens": 0}
             for k in [None, *tier_cfgs]}
 
+        # Preemption (None: on whenever the pool is paged) evicts at most one
+        # live victim a step for a pool-blocked head; see the docstring.
+        if preempt is None:
+            preempt = paged
+        elif preempt and not paged:
+            raise ValueError(f"{cfg.name}: preemption needs the paged KV cache (the "
+                             "contiguous scheduler has no pool pressure to relieve)")
+        self.preempt = bool(preempt)
+        if victim_policy not in VICTIM_POLICIES:
+            raise ValueError(f"unknown victim_policy {victim_policy!r}; choose one of "
+                             f"{VICTIM_POLICIES}")
+        if victim_policy == "block-to-host":
+            raise ValueError("victim_policy='block-to-host' spills the victim's K/V "
+                             "to the host-RAM block tier, which the PyTorch port "
+                             "does not have yet; choose one of "
+                             f"{VICTIM_POLICIES[:3]}")
+        self.victim_policy = victim_policy
+        if max_head_bypass < 0:
+            raise ValueError("max_head_bypass must be >= 0 (0 disables "
+                             "head-of-line bypass)")
+        self.max_head_bypass = int(max_head_bypass)
+        if degrade_after < 1:
+            raise ValueError("degrade_after must be >= 1")
+        self.degrade = bool(degrade)
+        self.degrade_after = int(degrade_after)
+        if degrade:
+            if not tier_cfgs:
+                raise ValueError("degrade=True serves pressure admissions at the lowest "
+                                 "configured precision tier — pass tiers= / --tiers")
+            self._degrade_to = quant_token(degrade_order(tier_cfgs.values())[-1])
+        self.chaos = chaos
+
         # Lifecycle: cancellations and deadlines are processed at the start
         # of the next step(); `_step_calls` is the deadline_steps clock.
         self._cancelled: set = set()
         self._step_calls = 0
+        self._head_bypass = 0           # consecutive bypasses of the blocked head
+        self._pressure_streak = 0       # consecutive pool-blocked steps
+        self.preemptions = 0
         self.cancellations = 0
         self.deadline_misses = 0
         self.pool_pressure_events = 0
         self.queue_wait_steps = 0
+        self.head_bypasses = 0
+        self.degraded_requests = 0
         self.callback_errors = 0
+        self.nan_logit_events = 0
+        self.kernel_fallbacks = 0
 
         B = max_batch
         # Admission bound: max_ctx in every mode, so static, contiguous and
@@ -373,7 +455,7 @@ class ContinuousScheduler:
 
     def _retire_abnormal(self, b: int, reason: str) -> Request:
         """Retire live row `b` off the normal finish path (cancellation,
-        deadline): mark it failed, free its blocks, reservation and chunk
+        deadline, non-finite logits): mark it failed, free its blocks, reservation and chunk
         plan as a normal retirement does, and return the request with the
         tokens it emitted."""
         req = self._slots[b]
@@ -420,9 +502,27 @@ class ContinuousScheduler:
     def _now(self) -> Optional[float]:
         return None if self._t0 is None else time.perf_counter() - self._t0
 
+    @staticmethod
+    def _serve_tokens(req: Request) -> np.ndarray:
+        """The tokens admission serves for `req`: its prompt, plus the
+        tokens it generated before a preemption requeued it. Admitting
+        prompt ++ generated prefills (or hits) the positions an
+        uninterrupted run has resident, which is what makes a resume
+        bitwise the uninterrupted stream."""
+        if not req.out_tokens:
+            return np.asarray(req.prompt)
+        return np.concatenate([np.asarray(req.prompt, np.int64),
+                               np.asarray(req.out_tokens, np.int64)])
+
+    @staticmethod
+    def _serve_len(req: Request) -> int:
+        return len(req.prompt) + len(req.out_tokens or ())
+
     def _need_tokens(self, req: Request) -> int:
         # The first token comes from the prefill logits and writes no
         # cache slot; only the remaining max_new - 1 decode inputs do.
+        # Unchanged by a preemption: the served length grows by the tokens
+        # already emitted and the decode inputs still owed shrink by as many.
         return len(req.prompt) + max(req.max_new_tokens, 1) - 1
 
     def _need_blocks(self, req: Request) -> int:
@@ -436,19 +536,130 @@ class ContinuousScheduler:
         key of its view and counters; None = the storage policy). Non-None
         iff the tier can never be served here."""
         req._tier_key = None
-        if req.tier is None:
-            return None
-        try:
-            key = quant_token(parse_tier_token(req.tier))
-        except ValueError as e:
-            return f"request {req.rid}: bad precision tier: {e}"
-        if key not in self._tier_views:
-            have = sorted(self._tier_cfgs) or "none configured"
-            return (f"request {req.rid}: unknown precision tier {key!r}; "
-                    f"scheduler tiers: {have} — pass tiers= / --tiers to "
-                    "serve this class")
-        req._tier_key = key
+        if req.tier is not None:
+            try:
+                key = quant_token(parse_tier_token(req.tier))
+            except ValueError as e:
+                return f"request {req.rid}: bad precision tier: {e}"
+            if key not in self._tier_views:
+                have = sorted(self._tier_cfgs) or "none configured"
+                return (f"request {req.rid}: unknown precision tier {key!r}; "
+                        f"scheduler tiers: {have} — pass tiers= / --tiers to "
+                        "serve this class")
+            req._tier_key = key
+        # A degraded admission stays degraded for life: its tokens and its
+        # registered K/V are at the degraded tier, so a resume at the asked
+        # tier would splice two precisions into one stream.
+        if req.degraded_to is not None:
+            req._tier_key = req.degraded_to
         return None
+
+    def _degrade_tier(self, req: Request) -> bool:
+        """Point this admission attempt at the lowest configured tier
+        (graceful degradation under sustained pool pressure). Transient
+        until the request admits — `_tier_error` resolves `_tier_key` again
+        on every attempt — and committed to `req.degraded_to` by the
+        admission loop. True iff the attempt was newly lowered."""
+        low = self._degrade_to
+        cur = req._tier_key
+        cur_bits = self._tier_cfgs[cur].w_bits if cur is not None else 1 << 30
+        if req.degraded_to is None and self._tier_cfgs[low].w_bits < cur_bits:
+            req._tier_key = low
+            return True
+        return False
+
+    # -- preemption: victim choice, warm-resume requeue ---------------------
+
+    def _freeable(self, b: int) -> int:
+        """The `_avail` that releasing row `b` would add: its unclaimed
+        reservation plus every block only it references (a shared block
+        stays with its other referencers)."""
+        row = self._block_tab[b]
+        own = sum(1 for blk in row[row >= 0] if self._refcnt[int(blk)] == 1)
+        return int(own) + int(self._reserved[b])
+
+    @staticmethod
+    def _deadline_rank(req: Request):
+        """Slack order of the `latest-deadline` policy, larger = more slack
+        = the preferred victim: no deadline first, then wall-clock
+        deadlines by their absolute time, then step budgets by horizon."""
+        if req.deadline_s is None and req.deadline_steps is None:
+            return (2, 0.0)
+        if req.deadline_s is not None:
+            return (1, req.arrival_time + req.deadline_s)
+        return (0, float((req._submit_step or 0) + req.deadline_steps))
+
+    def _pick_victim(self, shortfall: int, exclude) -> Optional[int]:
+        """A victim whose release alone covers the blocked admission's
+        shortfall, or None (a cascade of evictions for one admission is
+        never worth the recompute: the head waits). Rows with a chunk plan
+        (their blocks are partly written) and rows admitted earlier in this
+        step are never victims."""
+        cands = [b for b, r in enumerate(self._slots)
+                 if r is not None and b not in self._chunk_plans
+                 and b not in exclude and self._freeable(b) >= shortfall]
+        if not cands:
+            return None
+        if self.victim_policy == "most-blocks":
+            def key(b):
+                return (self._freeable(b), -b)
+        elif self.victim_policy == "lowest-tier":
+            def key(b):
+                t = self._slot_tier[b]
+                bits = self._tier_cfgs[t].w_bits if t is not None else 1 << 30
+                return (-bits, self._freeable(b), -b)
+        else:  # latest-deadline
+            def key(b):
+                return (self._deadline_rank(self._slots[b]), self._freeable(b), -b)
+        return max(cands, key=key)
+
+    def _preempt(self, b: int) -> None:
+        """Preempt row `b`: release the slot — which registers its written
+        prompt and generated blocks in the prefix index
+        (`_register_retired`) — and requeue the request at the back of the
+        queue as prompt ++ generated. Its re-admission takes the ordinary
+        warm path over those blocks (or recomputes what was evicted
+        meanwhile); either way the resumed stream is bitwise the
+        uninterrupted one."""
+        req = self._slots[b]
+        self.preemptions += 1
+        req.preemptions += 1
+        self._release_slot(b)
+        self.waiting.append(req)
+
+    def _bypass_candidate(self, deg: bool):
+        """Head-of-line mitigation: when the queue head is pool-blocked,
+        the first later request that is admissible and fits, at most
+        `max_head_bypass` times in a row so the head is never starved.
+        Returns (queue index, match, newly degraded) or (None, None,
+        False)."""
+        if self._head_bypass >= self.max_head_bypass:
+            return None, None, False
+        for i in range(1, len(self.waiting)):
+            r = self.waiting[i]
+            if self._reject_reason(r) is not None:
+                continue            # rejected for real when it reaches the head
+            d = self._degrade_tier(r) if deg else False
+            m = self._match_prefix(r)
+            if m[2] + m[3] <= self._avail:
+                return i, m, d
+        return None, None, False
+
+    def _decode_call(self, params, cur: torch.Tensor) -> torch.Tensor:
+        """One decode dispatch, with the ``kernel`` fault seam. An injected
+        fault fires before anything is dispatched (the pool is untouched),
+        and the same call is dispatched again through the same kernels:
+        on the card there is no other backend to run, and a plain-version
+        re-run would not be bitwise. Only `InjectedFault` is caught here; a
+        real error propagates out of ``step()``."""
+        try:
+            if self.chaos is not None and self.chaos.fire("kernel"):
+                raise InjectedFault("kernel dispatch")
+            self.cache, logits = self.model.decode_step(params, self.cache, cur)
+        except InjectedFault:
+            self.kernel_fallbacks += 1
+            self.cache, logits = self.model.decode_step(params, self.cache, cur)
+        return logits
 
     def _reject_reason(self, req: Request) -> Optional[str]:
         """Non-None iff the request can never be served here (vs. waiting
@@ -651,15 +862,18 @@ class ContinuousScheduler:
         return full, partial
 
     def _req_hashes(self, req: Request) -> Tuple[List[bytes], Optional[bytes]]:
-        """`req`'s prompt digests at its tier, memoized on the request: a
-        pool-blocked queue head is matched again every step."""
-        key = (self.block_size, req._tier_key, len(req.prompt))
+        """The digests of `req`'s served tokens (prompt ++ generated) at its
+        tier, memoized on the request: a pool-blocked queue head is matched
+        again every step, and the served length in the key drops the memo
+        when a preemption requeues the request with more tokens."""
+        key = (self.block_size, req._tier_key, self._serve_len(req))
         if req._prefix_hashes is None or req._prefix_hashes[0] != key:
-            req._prefix_hashes = (key, self._hash_chunks(req.prompt, req._tier_key))
+            req._prefix_hashes = (key, self._hash_chunks(self._serve_tokens(req),
+                                                         req._tier_key))
         return req._prefix_hashes[1]
 
     def _match_prefix(self, req: Request):
-        """Longest resident prefix of `req`'s prompt, without touching the
+        """Longest resident prefix of `req`'s served tokens, without touching the
         allocator. Returns (hits [(virtual j, pool block)], resident token
         count, revive = hits that must leave the LRU, reserve = blocks the
         row may still allocate (uncovered blocks, plus one for a
@@ -682,7 +896,7 @@ class ContinuousScheduler:
             blk = self._prefix_index.get(partial)
             if blk is not None:
                 hits.append((n_full, blk))
-                resident = len(req.prompt)
+                resident = self._serve_len(req)
         revive = sum(1 for _, b in hits if self._refcnt[b] == 0)
         return hits, resident, revive, need - n_full, hashes
 
@@ -742,22 +956,30 @@ class ContinuousScheduler:
         self._register_full(b)
         self._register_partial(b)
         pos = int(self._pos_host[b])
-        toks = np.concatenate([np.asarray(req.prompt, np.int64),
-                               np.asarray(req.out_tokens or (), np.int64)])[:pos]
+        toks = self._serve_tokens(req)[:pos]
         self._slot_hashes[b] = self._hash_chunks(toks, tier)
         self._register_full(b)
         self._register_partial(b)
 
     def _lifecycle_stats(self) -> dict:
-        """Lifecycle counters, under the JAX scheduler's names: requests
-        cancelled, retired past a deadline, admission attempts the pool
-        could not cover, requests left queued summed over steps, and
-        user callbacks that raised."""
-        return {"cancellations": self.cancellations,
+        """Lifecycle and fault counters, under the JAX scheduler's names
+        (the preemption and pressure counters stay 0 off the pool).
+        ``kernel_fallbacks`` counts decode calls dispatched again after an
+        injected fault, through the same kernels."""
+        return {"preemptions": self.preemptions,
+                "cancellations": self.cancellations,
                 "deadline_misses": self.deadline_misses,
                 "pool_pressure_events": self.pool_pressure_events,
                 "queue_wait_steps": self.queue_wait_steps,
-                "callback_errors": self.callback_errors}
+                "head_bypasses": self.head_bypasses,
+                "degrade": self.degrade,
+                "degraded_requests": self.degraded_requests,
+                "preempt": self.preempt,
+                "victim_policy": self.victim_policy,
+                "callback_errors": self.callback_errors,
+                "nan_logit_events": self.nan_logit_events,
+                "kernel_fallbacks": self.kernel_fallbacks,
+                "chaos": self.chaos.counts() if self.chaos else None}
 
     def pool_stats(self) -> dict:
         """KV-memory utilization, prefix-cache, chunked-prefill,
@@ -857,8 +1079,9 @@ class ContinuousScheduler:
     def _claim_row(self, req: Request, slot: int, match) -> None:
         """The allocator half of a paged admission: count the prompt and
         its hits, reserve what the row may still allocate, map the hit
-        blocks and allocate the other prompt blocks into row `slot`."""
-        n = len(req.prompt)
+        blocks and allocate the other prompt blocks into row `slot` (the
+        prompt of a resumed request is its served tokens)."""
+        n = self._serve_len(req)
         hits, resident, _, reserve, hashes = match
         self.prompt_tokens_seen += n
         self.prefix_hit_blocks += len(hits)
@@ -877,31 +1100,25 @@ class ContinuousScheduler:
         """Prefill `req` — its whole prompt solo (right-padded to the
         bucket), or only the uncached suffix of a prefix hit — and scatter
         its cache into row `slot`: its pool blocks, or its contiguous row.
-        Returns the request if it finished on its first token."""
-        n = len(req.prompt)
+        A preempted request admits here with prompt ++ generated, so the
+        warm path picks up the blocks its preemption registered (see
+        `_resume_tail` for whole-prompt admission). Returns the request if
+        it finished on its first token."""
+        toks = self._serve_tokens(req)
+        n = len(toks)
         resident = 0
-        tier = self._claim_tier(req, slot)
+        self._claim_tier(req, slot)
         if self.paged:
             match = match if match is not None else self._match_prefix(req)
             self._claim_row(req, slot, match)
             resident = match[1]
         self._slots[slot] = req
-        if resident:
+        if self.paged and not self.chunked_prefill and n > len(req.prompt):
+            logits = self._resume_tail(req, slot, resident)
+        elif resident:
             logits = self._prefill_suffix(req, slot, resident)
         else:
-            L = self._bucketed(n)
-            tokens = np.zeros((1, L), np.int64)
-            tokens[0, :n] = req.prompt
-            solo, logits = self.model.prefill(self._tier_views[tier], {
-                "tokens": torch.from_numpy(tokens).to(self.device),
-                "lengths": torch.tensor([n], dtype=torch.int32)})
-            if self.paged:
-                self.prefill_tokens_computed += L
-                # The scatter writes this row's device table too;
-                # _table_dirty stays set so rows freed earlier sync.
-                scatter_into_paged(self.cache, solo, slot, self._block_tab[slot])
-            else:
-                scatter_into_slot(self.cache, solo, slot)
+            logits = self._flash_prefill(slot, toks, 0)
         if self.paged and self.prefix_cache:
             self._register_full(slot)
         self._pos_host[slot] = n
@@ -921,20 +1138,54 @@ class ContinuousScheduler:
         scheduler runs its suffix route there and counts a whole bucket, so
         the port's count is JAX's less bucket - 1 for each such hit.)
         Returns the logits."""
-        toks = np.asarray(req.prompt)
-        n = len(toks)
-        start = min(resident, n - 1)
-        bs = self.block_size
-        view = self._tier_views[self._slot_tier[slot]]
+        toks = self._serve_tokens(req)
         if self.chunked_prefill:
             # Only a full hit comes here (a partial one gets a chunk plan).
-            self.prefill_tokens_computed += 1
-            self.cache, logits = self.model.prefill_chunk(view, self.cache, {
-                "tokens": torch.from_numpy(toks[None, start:].astype(np.int64)).to(
+            return self._read_only_chunk(slot, toks)
+        return self._flash_prefill(slot, toks, resident)
+
+    def _read_only_chunk(self, slot: int, toks):
+        """The last token of `toks`, resident whole in row `slot`'s blocks,
+        through the chunk kernel with ``store=False``: its logits, nothing
+        written."""
+        n = len(toks)
+        self.prefill_tokens_computed += 1
+        self.cache, logits = self.model.prefill_chunk(
+            self._tier_views[self._slot_tier[slot]], self.cache, {
+                "tokens": torch.from_numpy(toks[None, n - 1:].astype(np.int64)).to(
                     self.device),
-                "lengths": [1], "start": start, "slot": slot, "store": False,
-                "blocks": torch.from_numpy(self._block_tab[slot, :-(-n // bs)].copy())})
+                "lengths": [1], "start": n - 1, "slot": slot, "store": False,
+                "blocks": torch.from_numpy(
+                    self._block_tab[slot, :-(-n // self.block_size)].copy())})
+        return logits
+
+    def _flash_prefill(self, slot: int, toks, resident: int):
+        """Whole-prompt admission's prefill of `toks` into row `slot`:
+        cold (``resident`` 0), the whole of it solo, right-padded to the
+        bucket, scattered into the row's pool blocks or contiguous row;
+        after a prefix hit, ``prefill_suffix`` (the flash kernel over the
+        gathered prefix ++ suffix) from the block boundary ``resident``,
+        scattered into the row's fresh blocks, or on a full hit the last
+        token alone, setting only the row's table. Returns the logits."""
+        n = len(toks)
+        bs = self.block_size
+        view = self._tier_views[self._slot_tier[slot]]
+        if not resident:
+            L = self._bucketed(n)
+            tokens = np.zeros((1, L), np.int64)
+            tokens[0, :n] = toks
+            solo, logits = self.model.prefill(view, {
+                "tokens": torch.from_numpy(tokens).to(self.device),
+                "lengths": torch.tensor([n], dtype=torch.int32)})
+            if self.paged:
+                self.prefill_tokens_computed += L
+                # The scatter writes this row's device table too;
+                # _table_dirty stays set so rows freed earlier sync.
+                scatter_into_paged(self.cache, solo, slot, self._block_tab[slot])
+            else:
+                scatter_into_slot(self.cache, solo, slot)
             return logits
+        start = min(resident, n - 1)
         ls = n - start
         Ls = self._bucketed(ls)
         self.prefill_tokens_computed += Ls
@@ -962,6 +1213,51 @@ class ContinuousScheduler:
             set_paged_row(self.cache, solo, slot, self._block_tab[slot])
         return logits
 
+    def _resume_tail(self, req: Request, slot: int, resident: int):
+        """A preempted request's resume under whole-prompt admission: every
+        position the pool no longer holds is recomputed by the function
+        that computed it in the uninterrupted run. The prompt positions
+        past `resident` go through whole-prompt prefill (the flash kernel,
+        `_flash_prefill`), the generated ones through the chunk kernel,
+        which is bitwise the decode step that wrote them (on the int8 pool
+        the flash kernel reads dequantized values, where decode scores the
+        codes and scales after: other bits). A resume resident whole runs
+        its last token read-only. (The JAX scheduler prefills the whole
+        served suffix through its suffix route.) Returns the logits of the
+        last served token."""
+        toks = self._serve_tokens(req)
+        n, n_prompt = len(toks), len(req.prompt)
+        if resident >= n:
+            return self._read_only_chunk(slot, toks)
+        start = resident
+        if start < n_prompt:
+            self._flash_prefill(slot, toks[:n_prompt], start)
+            start = n_prompt
+        while start < n:
+            t = min(self.prefill_budget, n - start)
+            logits = self._chunk_call(slot, toks, start, t)
+            start += t
+        return logits
+
+    def _chunk_call(self, slot: int, toks, start: int, t: int):
+        """Positions [start, start + t) of `toks` through the chunk kernel
+        into row `slot`'s blocks, one `prefill_budget`-wide call at the
+        slot's tier. Returns the logits of its last real token."""
+        Lc = self.prefill_budget
+        tokens = np.zeros((1, Lc), np.int64)
+        tokens[0, :t] = toks[start:start + t]
+        covering = -(-(start + t) // self.block_size)
+        self.cache, logits = self.model.prefill_chunk(
+            self._tier_views[self._slot_tier[slot]], self.cache, {
+                "tokens": torch.from_numpy(tokens).to(self.device),
+                "lengths": [t],
+                "start": start,
+                "slot": slot,
+                "blocks": torch.from_numpy(self._block_tab[slot, :covering].copy()),
+            })
+        self.prefill_tokens_computed += Lc
+        return logits
+
     def _admit_chunked(self, req: Request, slot: int, match) -> None:
         """Claim row `slot` as `_admit` does (reservation, hit claiming,
         prompt blocks) and enqueue a chunk plan from the first uncached
@@ -973,8 +1269,9 @@ class ContinuousScheduler:
         self._pos_host[slot] = 0
         self._cur[slot, 0] = 0          # dummy decode input while prefilling
         self._slots[slot] = req
-        self._chunk_plans[slot] = {"req": req, "next": match[1], "n": len(req.prompt),
-                                   "toks": np.asarray(req.prompt)}
+        toks = self._serve_tokens(req)
+        self._chunk_plans[slot] = {"req": req, "next": match[1], "n": len(toks),
+                                   "toks": toks}
         self._chunk_queue.append(slot)
         self._table_dirty = True
 
@@ -985,23 +1282,10 @@ class ContinuousScheduler:
         the request if it finished on that token."""
         plan = self._chunk_plans[slot]
         req, n, start = plan["req"], plan["n"], plan["next"]
-        Lc = self.prefill_budget
-        t = min(Lc, n - start)
-        tokens = np.zeros((1, Lc), np.int64)
-        tokens[0, :t] = plan["toks"][start:start + t]
-        covering = -(-(start + t) // self.block_size)
-        batch = {
-            "tokens": torch.from_numpy(tokens).to(self.device),
-            "lengths": [t],
-            "start": start,
-            "slot": slot,
-            "blocks": torch.from_numpy(self._block_tab[slot, :covering].copy()),
-        }
-        self.cache, logits = self.model.prefill_chunk(
-            self._tier_views[self._slot_tier[slot]], self.cache, batch)
+        t = min(self.prefill_budget, n - start)
+        logits = self._chunk_call(slot, plan["toks"], start, t)
         self.prefill_chunks_run += 1
         self.prefill_chunk_tokens += t
-        self.prefill_tokens_computed += Lc
         plan["next"] = start + t
         if self.prefix_cache:
             # Blocks this chunk completed are final: a same-prefix request
@@ -1015,15 +1299,24 @@ class ContinuousScheduler:
         return self._first_token(req, slot, logits)
 
     def _first_token(self, req: Request, slot: int, logits) -> Optional[Request]:
+        """Sample the admission's token from its prefill logits and arm the
+        slot's decode state. A resumed request keeps its earlier tokens and
+        draws at step ``len(out_tokens)``, the stream index an
+        uninterrupted run uses there, so a resume is bitwise even when
+        sampling. Returns the request if it finished on that token."""
+        step0 = len(req.out_tokens or ())
         key = sampling.request_key(self.seed, req.rid)
         tok = int(sampling.sample_tokens(
-            logits[:, -1, :], [req.temperature], [req.top_k], key[None], [0])[0])
+            logits[:, -1, :], [req.temperature], [req.top_k], key[None], [step0])[0])
         self._cur[slot, 0] = tok
         self._temps[slot] = req.temperature
         self._top_ks[slot] = req.top_k
         self._keys[slot] = key
-        self._steps[slot] = 1
-        req.out_tokens = [tok]
+        self._steps[slot] = step0 + 1
+        if req.out_tokens:
+            req.out_tokens.append(tok)      # resumed: extend, do not reset
+        else:
+            req.out_tokens = [tok]
         if req.t_first is None:
             req.t_first = self._now()
         self._emit(req, tok)
@@ -1036,13 +1329,18 @@ class ContinuousScheduler:
         """Count the token and stream it to the request's and the
         scheduler's ``on_token`` callbacks. They are user code: one that
         raises fails only this request (``_finished`` then retires it at
-        the caller), never the step."""
+        the caller), never the step. The ``callback`` fault seam draws only
+        when there is a callback to call."""
         self.tokens_emitted += 1
         self.tier_counters[req._tier_key]["tokens"] += 1
+        callbacks = [cb for cb in (req.on_token, self.on_token) if cb is not None]
+        if not callbacks:
+            return
         try:
-            for cb in (req.on_token, self.on_token):
-                if cb is not None:
-                    cb(req, tok)
+            if self.chaos is not None and self.chaos.fire("callback"):
+                raise InjectedFault("on_token callback")
+            for cb in callbacks:
+                cb(req, tok)
         except Exception as e:  # noqa: BLE001 — contain user-code faults
             self.callback_errors += 1
             req.error = f"on_token callback raised: {e!r}"
@@ -1107,8 +1405,8 @@ class ContinuousScheduler:
             if todo != active:
                 active = todo
                 self._push_spec_table(active)
-            self.cache, logits = self.model.decode_step(
-                self._draft_params, self.cache, torch.from_numpy(cur).to(self.device))
+            logits = self._decode_call(self._draft_params,
+                                       torch.from_numpy(cur).to(self.device))
             toks = logits[:, -1, :].to(torch.float32).argmax(dim=-1).cpu().numpy()
             for b in active:
                 drafts[b].append(int(toks[b]))
@@ -1208,8 +1506,7 @@ class ContinuousScheduler:
             if i:
                 set_decode_positions(self.cache, pos0, pos0)
             self._push_spec_table(set(groups[key]))
-            self.cache, logits = self.model.decode_step(self._tier_views[key],
-                                                        self.cache, cur)
+            logits = self._decode_call(self._tier_views[key], cur)
             self.tier_counters[key]["decode_calls"] += 1
             last = logits[:, -1, :]
             if out is None:
@@ -1226,16 +1523,23 @@ class ContinuousScheduler:
         per step; solo, suffix and full-hit admissions into every free
         slot), run one budgeted prefill chunk, then a speculation round
         (with ``speculate``) and one batched decode (one call per tier
-        group), sample, and retire finished slots.
-        A request whose revive + reservation draw the pool cannot cover
-        waits, FIFO (a pool-pressure event). Returns the requests that
-        finished this step (including rejected, cancelled and expired
-        ones, which carry ``error``)."""
+        group), retire rows whose logits are non-finite, sample, and retire
+        finished slots.
+        When the pool cannot cover the head's revive + reservation draw (a
+        pool-pressure event), the step may preempt one victim for it, or
+        admit a later request past it (the bounded bypass); otherwise the
+        head waits. Returns the requests that finished this step (including
+        rejected, cancelled, expired and failed ones, which carry
+        ``error``)."""
         self._step_calls += 1
         finished: List[Request] = self._lifecycle_phase()
+        pressure = chunk_admitted = preempted = False
+        admitted_now: set = set()
         free = collections.deque(
             b for b in range(self.max_batch) if self._slots[b] is None)
-        while free and self.waiting:
+        deg = self.degrade and self._pressure_streak >= self.degrade_after
+        while free and self.waiting and not chunk_admitted:
+            slot = free[0]
             head = self.waiting[0]
             reason = self._reject_reason(head)
             if reason is not None:
@@ -1243,24 +1547,57 @@ class ContinuousScheduler:
                 self._fail(head, reason)
                 finished.append(head)
                 continue
+            idx = 0
+            was_degraded = self._degrade_tier(head) if deg else False
             match = self._match_prefix(head) if self.paged else None
-            if self.paged and match[2] + match[3] > self._avail:
-                self.pool_pressure_events += 1
-                break                   # the head keeps FIFO priority: wait
-            req = self.waiting.popleft()
-            if self.chunked_prefill and match[1] < len(req.prompt):
+            if self.paged:
+                short = match[2] + match[3] > self._avail
+                if not short and self.chaos is not None and self.chaos.fire("alloc"):
+                    short = True        # an injected reservation failure
+                if short:
+                    pressure = True
+                    self.pool_pressure_events += 1
+                    shortfall = match[2] + match[3] - self._avail
+                    # (1) Preempt one victim a step, never for a head that
+                    # was itself preempted (no ping-pong).
+                    if self.preempt and not preempted and head.preemptions == 0:
+                        victim = self._pick_victim(shortfall, admitted_now)
+                        if victim is not None:
+                            self._preempt(victim)
+                            preempted = True
+                            free.append(victim)
+                            continue    # the head again, against the freed blocks
+                    # (2) The bounded bypass of the blocked head.
+                    idx, match, was_degraded = self._bypass_candidate(deg)
+                    if idx is None:
+                        break           # the head keeps FIFO priority: wait
+                    self.head_bypasses += 1
+                    self._head_bypass += 1
+            req = self.waiting[idx]
+            del self.waiting[idx]
+            if idx == 0:
+                self._head_bypass = 0   # the head itself admits
+            if was_degraded and req.degraded_to is None:
+                req.degraded_to = req._tier_key
+                self.degraded_requests += 1
+            if self.chunked_prefill and match[1] < self._serve_len(req):
                 # An uncached tail gets a chunk plan, one per step: a
                 # same-prefix follower admitted now would match an index
                 # this plan has not written yet; admitted next step, it
                 # hits the blocks the plan has landed by then. (A full hit
                 # writes nothing and admits at once.)
-                self._admit_chunked(req, free.popleft(), match)
-                break
-            done = self._admit(req, free[0], match)
+                self._admit_chunked(req, slot, match)
+                admitted_now.add(slot)
+                chunk_admitted = True
+                free.popleft()
+                continue
+            done = self._admit(req, slot, match)
             if done is not None:
                 finished.append(done)   # finished on its first token: the
                 continue                # slot is free again this step
+            admitted_now.add(slot)
             free.popleft()
+        self._pressure_streak = self._pressure_streak + 1 if pressure else 0
         self.queue_wait_steps += len(self.waiting)
 
         chunk_ran = False
@@ -1300,18 +1637,34 @@ class ContinuousScheduler:
             # Homogeneous batch (the untiered engine included): one call at
             # the group's view, what an engine serving only this tier runs.
             key = next(iter(groups))
-            self.cache, logits = self.model.decode_step(self._tier_views[key],
-                                                        self.cache, cur)
+            last = self._decode_call(self._tier_views[key], cur)[:, -1, :]
             self.tier_counters[key]["decode_calls"] += 1
-            last = logits[:, -1, :]
         else:
             last = self._decode_tier_groups(groups, cur)
+        if self.chaos is not None and self.chaos.fire("nan"):
+            # Poison one live row's logits: the detector below must fail
+            # that request alone.
+            last = last.clone()
+            last[decoding[self.chaos.pick(len(decoding))]] = float("nan")
+        # The always-on detector: a row with a non-finite logit cannot
+        # sample a meaningful token, so its request retires with
+        # error="nan-logits" (its K/V writes this step were its own row's).
+        # The mask is computed on the device and comes back with the
+        # sampled tokens in one copy.
         toks = sampling.sample_tokens(last, self._temps, self._top_ks, self._keys,
-                                      self._steps).cpu().numpy()
+                                      self._steps)
+        bad = ~torch.isfinite(last).all(dim=-1)
+        toks, bad = torch.stack([toks.to(torch.int64), bad.to(torch.int64)]).cpu().numpy()
         self._steps += 1
         self.steps_run += 1
         for b in decoding:
+            if bad[b]:
+                self.nan_logit_events += 1
+                finished.append(self._retire_abnormal(b, "nan-logits"))
+        for b in decoding:
             req = self._slots[b]
+            if req is None:
+                continue                # retired by the detector
             self._pos_host[b] += 1
             tok = int(toks[b])
             req.out_tokens.append(tok)

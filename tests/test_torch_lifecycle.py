@@ -177,7 +177,8 @@ def runs():
                                  max_head_bypass=0, **KW))
     want = _run(jsched, lambda rid, p, n, **k: JaxRequest(rid, p, max_new_tokens=n, **k))
     tsched = ContinuousScheduler(tcfg, convert.params_from_numpy(to_numpy_tree(params), "cpu"),
-                                 quant=parse_policy_spec(POLICY), device="cpu", **KW)
+                                 quant=parse_policy_spec(POLICY), preempt=False,
+                                 max_head_bypass=0, device="cpu", **KW)
     got = _run(tsched, lambda rid, p, n, **k: Request(rid, p, max_new_tokens=n, **k))
     return want, got
 

@@ -246,7 +246,8 @@ def test_scheduler_counters_match_jax(chunked):
         [JaxRequest(i, p, max_new_tokens=m) for i, (p, m) in enumerate(zip(prompts, news))])}
     tsched = ContinuousScheduler(
         tcfg, convert.params_from_numpy(to_numpy_tree(params), "cpu"),
-        quant=parse_policy_spec(POLICY), device="cpu", **kw)
+        quant=parse_policy_spec(POLICY), preempt=False, max_head_bypass=0,
+        device="cpu", **kw)
     got = {r.rid: r.out_tokens for r in tsched.run(
         [Request(i, p, max_new_tokens=m) for i, (p, m) in enumerate(zip(prompts, news))])}
     assert got == want
@@ -278,7 +279,8 @@ def int8_prefix_runs():
              for i, (p, m) in enumerate(zip(prompts, news))])}
         tsched = ContinuousScheduler(
             tcfg, convert.params_from_numpy(to_numpy_tree(params), "cpu"),
-            quant=parse_policy_spec(POLICY), device="cpu", **kw)
+            quant=parse_policy_spec(POLICY), preempt=False, max_head_bypass=0,
+            device="cpu", **kw)
         suffix_calls = []
         inner = tsched._prefill_suffix
         tsched._prefill_suffix = lambda *a: suffix_calls.append(a[2]) or inner(*a)

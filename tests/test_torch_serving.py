@@ -44,7 +44,8 @@ def test_greedy_tokens_match_jax_scheduler():
     want = {r.rid: r.out_tokens for r in jax_sched.run(
         [JaxRequest(i, p, max_new_tokens=6) for i, p in enumerate(PROMPTS)])}
     port = ContinuousScheduler(tcfg, convert.params_from_numpy(to_numpy_tree(params), "cpu"),
-                               quant=parse_policy_spec(POLICY), device="cpu", **kw)
+                               quant=parse_policy_spec(POLICY), preempt=False,
+                               device="cpu", **kw)
     got = {r.rid: r.out_tokens for r in port.run(
         [Request(i, p, max_new_tokens=6) for i, p in enumerate(PROMPTS)])}
     assert got == want
@@ -120,13 +121,13 @@ def test_solo_equals_mid_decode_admission_prefix_cache(olmo, kv_int8):
 
 def test_reservation_queueing_small_pool(olmo):
     """A pool too small for every request at once: admissions wait for
-    blocks (FIFO) instead of failing, and every stream is unchanged; a
-    request that can never fit comes back failed. Each row owns its
-    blocks (no prefix cache)."""
+    blocks (FIFO, preemption off) instead of failing, and every stream is
+    unchanged; a request that can never fit comes back failed. Each row
+    owns its blocks (no prefix cache)."""
     cfg, params = olmo
     reqs = lambda: [Request(i, p, max_new_tokens=8) for i, p in enumerate(PROMPTS)]
     big = {r.rid: r.out_tokens for r in _sched(cfg, params, prefix_cache=False).run(reqs())}
-    small = _sched(cfg, params, pool_blocks=6, prefix_cache=False)
+    small = _sched(cfg, params, pool_blocks=6, prefix_cache=False, preempt=False)
     got = {r.rid: r.out_tokens for r in small.run(reqs())}
     assert got == big
     assert small.pool_stats()["peak_allocated_blocks"] <= 6
@@ -136,15 +137,15 @@ def test_reservation_queueing_small_pool(olmo):
 
 def test_reservation_queueing_small_pool_prefix_cache(olmo):
     """The twin with the prefix cache on: prompts sharing 8 tokens queue
-    for a pool of 6 blocks, hit each other's retained blocks, evict them
-    when admissions need room, and emit the streams of a large pool with
-    the cache off; live blocks never pass the pool."""
+    for a pool of 6 blocks (preemption off), hit each other's retained
+    blocks, evict them when admissions need room, and emit the streams of
+    a large pool with the cache off; live blocks never pass the pool."""
     cfg, params = olmo
     shared = PROMPTS[0][:8]
     reqs = lambda: [Request(i, np.concatenate([shared, p[:5]]), max_new_tokens=8)
                     for i, p in enumerate(PROMPTS)]
     big = {r.rid: r.out_tokens for r in _sched(cfg, params, prefix_cache=False).run(reqs())}
-    small = _sched(cfg, params, pool_blocks=6)
+    small = _sched(cfg, params, pool_blocks=6, preempt=False)
     got = {r.rid: r.out_tokens for r in small.run(reqs())}
     assert got == big
     stats = small.pool_stats()
@@ -153,6 +154,35 @@ def test_reservation_queueing_small_pool_prefix_cache(olmo):
     too_big = small.run([Request(9, np.arange(40) % 512, max_new_tokens=8)])[0]
     assert too_big.failed and too_big.out_tokens == []
     assert_pool_invariants(small)
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True], ids=["no-cache", "cache"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+def test_small_pool_with_preemption(olmo, prefix_cache, chunked):
+    """The twins with preemption on (the default on the pool): a pool of 6
+    blocks preempts live rows for the queue head, and every stream, greedy
+    and sampled, is still the large pool's. A resume prefills prompt ++
+    generated: cold without the prefix cache, and with it from whatever of
+    the blocks its preemption registered the pool still holds (a pool this
+    small evicts them first, so it is cold here as well)."""
+    cfg, params = olmo
+    reqs = lambda: [Request(i, p, max_new_tokens=8, temperature=0.7 * (i % 2))
+                    for i, p in enumerate(PROMPTS)]
+    kw = dict(prefix_cache=prefix_cache, chunked_prefill=chunked)
+    big = {r.rid: r.out_tokens for r in _sched(cfg, params, **kw).run(reqs())}
+    small = _sched(cfg, params, pool_blocks=6, **kw)
+    done = []
+    for r in reqs():
+        small.submit(r)
+    while small.num_active or small.num_waiting:
+        done += small.step()
+        assert_pool_invariants(small)
+    assert {r.rid: r.out_tokens for r in done} == big
+    stats = small.pool_stats()
+    assert stats["preemptions"] >= 1 and stats["peak_allocated_blocks"] <= 6
+    assert all(r.error is None and r.preemptions <= 1 for r in done)
+    assert stats["prefix_cache"] == prefix_cache
+    assert stats["prefix_evictions"] > 0 if prefix_cache else stats["prefix_hit_tokens"] == 0
 
 
 def test_sample_stream_is_a_function_of_seed_rid_step():

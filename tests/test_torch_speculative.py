@@ -387,6 +387,7 @@ def test_scheduler_matches_jax_and_no_speculation(jax_params, jax_runs, name):
     got = {}
     for spec in (k, 0):
         sched = ContinuousScheduler(tcfg, tparams, quant=parse_policy_spec(policy),
+                                    preempt=False, max_head_bypass=0,
                                     speculate=spec, draft_policy=draft, device="cpu",
                                     **dict(KW, max_batch=mb))
         got[spec] = _serve(sched, _requests(name, lambda *a: Request(

@@ -230,7 +230,8 @@ def torch_runs(f32_params):
     for name, (kv_int8, kw, _) in CONFIGS.items():
         _, tcfg = _cfgs(kv_int8)
         sched = ContinuousScheduler(tcfg, params, quant=tprec.parse_policy_spec("w8a8"),
-                                    tiers=TIERS, device="cpu", **dict(KW, **kw))
+                                    tiers=TIERS, preempt=False, max_head_bypass=0,
+                                    device="cpu", **dict(KW, **kw))
         out[name] = _run_config(name, sched, lambda rid, p, n, **k: Request(
             rid, p, max_new_tokens=n, **k))
         assert_pool_invariants(sched)
@@ -295,7 +296,7 @@ def test_scheduler_tier_refusals_match_jax(f32_params, kwargs, match):
     tparams = convert.params_from_numpy(to_numpy_tree(f32_params), "cpu")
     want = _outcome(JaxScheduler, jcfg, f32_params, preempt=False,
                     quant=None if jq is None else jprec.parse_policy_spec(jq), **args)
-    got = _outcome(ContinuousScheduler, tcfg, tparams, device="cpu",
+    got = _outcome(ContinuousScheduler, tcfg, tparams, preempt=False, device="cpu",
                    quant=None if jq is None else tprec.parse_policy_spec(jq), **args)
     assert isinstance(got, str) and match in got
     assert got == want

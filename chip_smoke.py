@@ -115,9 +115,21 @@
    seams): every seam fires, the requests no fault failed emit run (k)'s
    tokens, each failed one a prefix of them with a nan-logits or
    callback error, the counters equal the faults fired; and the serve
-   CLI with --chaos-seed prints its lifecycle and chaos lines. Every
-   serve run above has no preemption, re-dispatched decode call or
-   NaN-logits retirement.
+   CLI with --chaos-seed prints its lifecycle and chaos lines. Host-tier
+   gates (``check_host_tier``, in-process, the same stream, 512 MiB of
+   host memory, the pool invariants — host half included — after every
+   step): H1 and H2 serve the stream twice through one scheduler on a
+   44-block pool with run (i)'s and run (j)'s flags, every request's
+   tokens those of the run in both rounds and round 2 swapping blocks in
+   from host; H3 re-serves P1-P3 under ``block-to-host``: tokens those of
+   the unpressured run, at least two preemptions each, every resume warm,
+   and with a budget of 8 blocks' bytes the host store evicts and stays
+   within it; H4 saves run (j)'s int8 prefix index from one engine and
+   loads it into a fresh one before its first generate: the same tokens,
+   host hits and fewer prefill tokens, and a bf16 pool refuses that
+   index; the serve CLI with --index run twice saves and then loads it,
+   with a host-tier line. Every serve run above has no preemption,
+   re-dispatched decode call or NaN-logits retirement.
    The read-only (store=False) form of ``paged_prefill`` is bitwise the
    storing call and leaves the pool unchanged. Gated across paths (see
    ``compare_paths``): chunked and whole-prompt first-token logits bitwise
@@ -148,7 +160,9 @@ paths`` measures how far the prefill paths' logits part (see
 speculation gates; ``python3 chip_smoke.py tiers`` builds the kernels and
 runs (m) and (n) with the tier gates and the lifecycle check;
 ``python3 chip_smoke.py preempt`` builds the kernels and runs
-chunked-int8, (c), (j) and (k) with the preemption and chaos gates.
+chunked-int8, (c), (j) and (k) with the preemption and chaos gates;
+``python3 chip_smoke.py host`` builds the kernels and runs (i), (j),
+chunked-int8 and (c) with the host-tier gates.
 """
 from __future__ import annotations
 
@@ -2175,6 +2189,268 @@ def check_chaos(torch, runs, raw_params):
                 "nan_logit_events", "callback_errors")}}
 
 
+# The host-RAM tier's phases: 512 MiB of host memory (256 bf16 or 496
+# int8 olmo-1b blocks: 2 097 152 and 1 081 344 bytes); H1 and H2 serve the
+# stream twice through one scheduler on a 44-block pool with run (i)'s and
+# run (j)'s flags; H3 re-serves P1-P3 under block-to-host, and P1 once
+# more with a budget of 8 blocks' bytes; H4 and the CLI persist run (j)'s
+# int8 index (about 1.08 MB a block, 1.44 MB as base64 JSON).
+HOST_BYTES = 512 << 20
+HOST_POOL = 44
+HOST_RUNS = {"H1": "i-prefix-chunked", "H2": "j-prefix-solo-int8"}
+HOST_BUDGET_BLOCKS = 8
+# The runs check_host_tier compares with.
+HOST_REF_RUNS = ("i-prefix-chunked", "j-prefix-solo-int8", "chunked-int8", "c-solo-paged")
+HOST_DELTAS = ("swap_ins", "swap_outs", "host_hit_blocks", "host_hit_tokens",
+               "host_evictions", "preemptions", "prefix_hit_tokens",
+               "prefill_tokens_computed", "pool_pressure_events")
+
+
+def watch_host(sched):
+    """Count, on `sched`, the spills and swap-ins and the host seconds they
+    take (the copies are queued without a wait, so this is what a step
+    pays for them on the host; a swap-in's time includes any spill its
+    allocation causes), and the largest ``host_bytes`` seen."""
+    w = {"spills": 0, "spill_s": 0.0, "swap_in_blocks": 0, "swap_in_s": 0.0,
+         "peak_host_bytes": 0}
+    spill, swap = sched._spill_block, sched._swap_in_hits
+
+    def timed_spill(blk):
+        t0 = time.perf_counter()
+        spill(blk)
+        w["spill_s"] += time.perf_counter() - t0
+        w["spills"] += 1
+        w["peak_host_bytes"] = max(w["peak_host_bytes"], sched.host_bytes)
+
+    def timed_swap(slot, host_hits, n_full):
+        t0 = time.perf_counter()
+        swap(slot, host_hits, n_full)
+        w["swap_in_s"] += time.perf_counter() - t0
+        w["swap_in_blocks"] += len(host_hits)
+
+    sched._spill_block, sched._swap_in_hits = timed_spill, timed_swap
+    return w
+
+
+def host_rounds(torch, engine, args, ref, rounds, **kw):
+    """Serve the stream `rounds` times through one scheduler like run
+    `args`'s engine (with `kw`), the pool invariants after every step.
+    Returns (scheduler, per-round records, resumes, host watch); each
+    record has the round's tokens identical to `ref`, its seconds, the
+    HOST_DELTAS counters it added and the host store after it."""
+    s = _sched_like(engine, args, **kw)
+    resumes, watch = watch_resumes(s), watch_host(s)
+    prev, out = {k: 0 for k in HOST_DELTAS}, []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        reqs = mixed_requests(engine.cfg, args)
+        for r in reqs:
+            s.submit(r)
+        _drain_checked(s)
+        torch.cuda.synchronize()
+        st = s.pool_stats()
+        same = sum(r.error is None and r.out_tokens == ref[r.rid] for r in reqs)
+        out.append({"seconds": time.perf_counter() - t0, "identical": same,
+                    "of": len(reqs), **{k: st[k] - prev[k] for k in HOST_DELTAS},
+                    "host_blocks": st["host_blocks"], "host_bytes": st["host_bytes"]})
+        prev = st
+    out[-1]["drained"] = _drained(s)
+    return s, out, resumes, watch
+
+
+@contextlib.contextmanager
+def invariants_every_step():
+    """Within the block, every ``ContinuousScheduler.step`` (an engine's
+    or the CLI's included) is followed by ``assert_pool_invariants``."""
+    from repro_torch.serving import ContinuousScheduler, assert_pool_invariants
+
+    step = ContinuousScheduler.step
+
+    def checked(self):
+        out = step(self)
+        assert_pool_invariants(self)
+        return out
+
+    ContinuousScheduler.step = checked
+    try:
+        yield
+    finally:
+        ContinuousScheduler.step = step
+
+
+def _drained(s) -> bool:
+    return bool(s._live_blocks == 0 and s._avail == s.pool_blocks
+                and (s._block_tab == -1).all())
+
+
+def check_host_tier(torch, runs, raw_params):
+    """The host-RAM block tier on full-width olmo-1b; every phase serves
+    the chip_smoke stream with the pool invariants (host half included:
+    digests on one side only, host bytes conserved and within the budget)
+    after every step and a clean drain.
+
+    H1/H2: run (i)'s and run (j)'s flags on a 44-block pool with 512 MiB of
+    host, the stream served twice through one scheduler: both rounds'
+    tokens (greedy and sampled) equal the run's, 8/8, and round 2 swaps
+    blocks in from host (swap_ins > 0, host_hit_tokens > 0).
+    H3: P1-P3 (PREEMPT_CONFIGS) with victim_policy="block-to-host" and
+    512 MiB: tokens equal the unpressured run's, at least two preemptions
+    each, every resume warm (resident tokens > 0) and swap_outs > 0; then
+    P1 with a budget of 8 blocks' bytes: tokens equal, host_evictions > 0
+    and host_bytes within the budget at every step.
+    H4: engine A serves run (j)'s stream with the tier on and saves its
+    index; a fresh engine B loads it before its first generate and
+    serves the stream: B's tokens and A's equal run (j)'s, B hits host
+    blocks and computes fewer prefill tokens than A. The int8 index then
+    loads 0 digests, with a warning, into a bf16-pool scheduler.
+    The CLI: serve with run (j)'s flags, --host-pool-bytes and --index
+    twice: the first saves N > 0 digests, the second loads them, prints
+    its host-tier line with block hits > 0, and both emit run (j)'s
+    tokens. Everything prints before a gate raises."""
+    import io
+    import tempfile
+    import warnings
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    out, bad = {}, []
+    for phase, name in HOST_RUNS.items():
+        engine, _, _, ref = runs[name]
+        args = serve.build_parser().parse_args(serve_argv(name))
+        s, rounds, resumes, watch = host_rounds(
+            torch, engine, args, ref, 2, pool_blocks=HOST_POOL, host_pool_bytes=HOST_BYTES)
+        out[phase] = {"run": name, "pool_blocks": HOST_POOL, "host_pool_bytes": HOST_BYTES,
+                      "block_bytes": s._host_block_nbytes(), "rounds": rounds,
+                      "resumes": resumes["claims"], "host": watch}
+        log(f"host tier [{phase} {name}, pool {HOST_POOL}, host {HOST_BYTES} B, block "
+            f"{s._host_block_nbytes()} B]: rounds {rounds}; resumes (rid, resident) "
+            f"{resumes['claims']}; host-side {watch}")
+        if any(r["identical"] != r["of"] for r in rounds) or not rounds[-1]["drained"]:
+            bad.append(f"{phase}: identical {[r['identical'] for r in rounds]}, drained "
+                       f"{rounds[-1]['drained']}")
+        if not (rounds[1]["swap_ins"] > 0 and rounds[1]["host_hit_tokens"] > 0):
+            bad.append(f"{phase}: round 2 swapped in {rounds[1]['swap_ins']} blocks, "
+                       f"{rounds[1]['host_hit_tokens']} host hit tokens")
+
+    h3 = {}
+    cases = [(c, ref, pool, HOST_BYTES) for c, (ref, _, pool, _) in PREEMPT_CONFIGS.items()]
+    cases.append(("P1-budget", PREEMPT_CONFIGS["P1"][0], PREEMPT_CONFIGS["P1"][2], None))
+    for cname, ref_name, pool, host in cases:
+        engine, _, _, ref = runs[ref_name]
+        args = serve.build_parser().parse_args(serve_argv(ref_name))
+        if host is None:            # the budget case: 8 of P1's blocks
+            host = HOST_BUDGET_BLOCKS * h3["P1"]["block_bytes"]
+        s, (rec,), resumes, watch = host_rounds(
+            torch, engine, args, ref, 1, pool_blocks=pool, host_pool_bytes=host,
+            victim_policy="block-to-host")
+        h3[cname] = {"run": ref_name, "pool_blocks": pool, "host_pool_bytes": host,
+                     "block_bytes": s._host_block_nbytes(), **rec, "resumes": resumes["claims"], "host": watch}
+        log(f"host tier [H3 {cname} {ref_name}, block-to-host, pool {pool}, host {host} B]: "
+            f"{rec}; resumes (rid, resident) {resumes['claims']}; host-side {watch}")
+        if rec["identical"] != rec["of"] or not rec["drained"]:
+            bad.append(f"H3 {cname}: identical {rec['identical']}/{rec['of']}, drained "
+                       f"{rec['drained']}")
+        if cname == "P1-budget":
+            if not (rec["host_evictions"] > 0 and watch["peak_host_bytes"] <= host):
+                bad.append(f"H3 {cname}: {rec['host_evictions']} host evictions, peak "
+                           f"host bytes {watch['peak_host_bytes']} of {host}")
+        elif (rec["preemptions"] < 2 or rec["swap_outs"] <= 0 or not resumes["claims"]
+              or not all(n > 0 for _, n in resumes["claims"])):
+            bad.append(f"H3 {cname}: {rec['preemptions']} preemptions, {rec['swap_outs']} "
+                       f"swap-outs, resumes {resumes['claims']} (each must be warm)")
+    out["H3"] = h3
+
+    name = "j-prefix-solo-int8"
+    eng_j, _, _, ref = runs[name]
+    args = serve.build_parser().parse_args(serve_argv(name))
+
+    def fresh():
+        return ServingEngine(eng_j.cfg, eng_j.params, max_batch=eng_j.max_batch,
+                             bucket=eng_j.bucket, block_size=eng_j.block_size,
+                             prefill_budget=eng_j.prefill_budget,
+                             chunked_prefill=eng_j.chunked_prefill,
+                             host_pool_bytes=HOST_BYTES, device=eng_j.device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.json")
+        t0 = time.perf_counter()
+        a = fresh()
+        with invariants_every_step():
+            done_a = a.generate(mixed_requests(eng_j.cfg, args))
+        t1 = time.perf_counter()
+        n_saved = a.save_index(path)
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+        b = fresh()
+        n_loaded = b.load_index(path)
+        t3 = time.perf_counter()
+        with invariants_every_step():
+            done_b = b.generate(mixed_requests(eng_j.cfg, args))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        sa, sb = a.pool_stats(), b.pool_stats()
+        same = [sum(r.out_tokens == ref[r.rid] for r in d) for d in (done_a, done_b)]
+        eng_i = runs["i-prefix-chunked"][0]
+        other = _sched_like(eng_i, serve.build_parser().parse_args(
+            serve_argv("i-prefix-chunked")), host_pool_bytes=HOST_BYTES)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            n_bf16 = other.load_index(path)
+        geo_warned = any("geometry" in str(w.message) for w in caught)
+        del other
+        h4 = {"digests_saved": n_saved, "digests_loaded": n_loaded, "index_bytes": size,
+              "identical_a": same[0], "identical_b": same[1],
+              "seconds": {"serve_a": t1 - t0, "save": t2 - t1, "load": t3 - t2,
+                          "serve_b": t4 - t3},
+              "a": {k: sa[k] for k in HOST_DELTAS}, "b": {k: sb[k] for k in HOST_DELTAS},
+              "bf16_pool_loaded": n_bf16, "bf16_pool_warned": geo_warned,
+              "drained": _drained(a._sched) and _drained(b._sched)}
+        log(f"host tier [H4 restart, {name}]: {h4}")
+        if not (same == [8, 8] and n_saved > 0 and n_loaded == n_saved and h4["drained"]
+                and sb["host_hit_tokens"] > 0
+                and sb["prefill_tokens_computed"] < sa["prefill_tokens_computed"]):
+            bad.append(f"H4: identical {same}, saved {n_saved}, loaded {n_loaded}, host hit "
+                       f"tokens {sb['host_hit_tokens']}, prefill tokens "
+                       f"{sb['prefill_tokens_computed']} vs {sa['prefill_tokens_computed']}")
+        if n_bf16 != 0 or not geo_warned:
+            bad.append(f"H4: the int8 index loaded {n_bf16} digests into a bf16 pool "
+                       f"(warned: {geo_warned})")
+        out["H4"] = h4
+
+        cli = []
+        path = os.path.join(tmp, "cli_index.json")
+        argv = serve_argv(name) + ["--host-pool-bytes", str(HOST_BYTES), "--index", path]
+        for i in range(2):
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text), invariants_every_step():
+                cli_engine, cli_done, report = serve.run(
+                    serve.build_parser().parse_args(argv), mixed_requests, params=raw_params)
+            printed = text.getvalue()
+            log(printed.rstrip())
+            st = report["stats"]
+            saved = re.search(r"saved (\d+) prefix digests", printed)
+            loaded = re.search(r"loaded (\d+) prefix digests", printed)
+            cli.append({"seconds": time.perf_counter() - t0,
+                        "identical": sum(r.out_tokens == ref[r.rid] for r in cli_done),
+                        "saved": int(saved.group(1)) if saved else None,
+                        "loaded": int(loaded.group(1)) if loaded else None,
+                        "host_tier_line": "  host tier: " in printed,
+                        "drained": _drained(cli_engine._sched),
+                        **{k: st[k] for k in HOST_DELTAS}})
+            del cli_engine
+        log(f"host tier [CLI --index, {name}]: {cli}")
+        if not (cli[0]["saved"] and cli[0]["loaded"] is None and cli[1]["loaded"]
+                and cli[1]["host_tier_line"] and cli[1]["host_hit_blocks"] > 0
+                and all(c["identical"] == 8 and c["drained"] for c in cli)):
+            bad.append(f"CLI --index: {cli}")
+        out["cli"] = cli
+    if bad:
+        raise AssertionError(f"host tier: {bad}")
+    return out
+
+
 def compare_prefix(torch, runs):
     """The prefix cache's gates on runs (i) and (j).
 
@@ -3075,6 +3351,13 @@ def main() -> int:
             "chaos": check_chaos(torch, runs, params_of("k-spec-int8")),
             "serve": {name: run[1] for name, run in runs.items()}})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["host"]:
+        build.build()
+        runs = {name: serve_run(torch, params_of(name), name) for name in HOST_REF_RUNS}
+        write_detail("chip_smoke_host.json", {
+            "host_tier": check_host_tier(torch, runs, params_of("j-prefix-solo-int8")),
+            "serve": {name: run[1] for name, run in runs.items()}})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -3150,6 +3433,7 @@ def main() -> int:
     life_cmp = check_lifecycle(torch, runs["chunked-int8"][0], params_of("chunked-int8"))
     preempt_cmp = check_preemption(torch, runs)
     chaos_cmp = check_chaos(torch, runs, params_of("k-spec-int8"))
+    host_cmp = check_host_tier(torch, runs, params_of("j-prefix-solo-int8"))
     # The verify row's launches: paged_prefill's counter read inside the
     # speculating runs' verify calls (compare_speculation and compare_tiers
     # gate it at one a layer a row).
@@ -3175,6 +3459,7 @@ def main() -> int:
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
         "prefix_cache": prefix_cmp, "speculation": spec_cmp, "tiers": tier_cmp,
         "lifecycle": life_cmp, "preemption": preempt_cmp, "chaos": chaos_cmp,
+        "host_tier": host_cmp,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

@@ -11,7 +11,8 @@ continuous scheduler.
       [--speculate K] [--draft-policy w4a8] [--tiers w8a8,w4a8,w2a8] \
       [--deadline-ms MS] [--no-preempt] [--victim-policy most-blocks] \
       [--degrade] [--chaos-seed S] [--chaos-rate 0.05] \
-      [--chaos-max-faults N] [--reduced] [--device cpu]
+      [--chaos-max-faults N] [--host-pool-bytes N] [--index FILE] \
+      [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -72,9 +73,9 @@ error="deadline", its blocks freed like any retirement.
 
 Pool pressure: when --pool-blocks leaves the pool short for the queue
 head, the scheduler preempts one live victim a step (--victim-policy
-most-blocks, lowest-tier or latest-deadline; --no-preempt queues
-instead), requeues it as prompt ++ generated and resumes it warm from its
-registered blocks, bitwise the uninterrupted stream; a smaller request
+most-blocks, lowest-tier, latest-deadline or block-to-host; --no-preempt
+queues instead), requeues it as prompt ++ generated and resumes it warm
+from its registered blocks, bitwise the uninterrupted stream; a smaller request
 may admit past the blocked head at most 4 times in a row. --degrade
 (needs --tiers) admits under sustained pressure at the lowest tier.
 --chaos-seed arms the seeded fault injector at its four seams (alloc,
@@ -83,11 +84,24 @@ kernel, nan, callback) with per-visit rate --chaos-rate, at most
 cancellations, pressure events, preemptions, bypasses and degraded
 admissions when a request failed or any of the first four happened, and
 a chaos line the faults fired and what survived them.
+
+Host-RAM block tier: --host-pool-bytes N puts a host store of N bytes
+under the paged pool. Prefix blocks the pool evicts move there instead
+of dying, and a prefix hit on a host-resident chain swaps them back into
+free pool blocks before admission: a warm-from-host stream's greedy
+tokens are bitwise the cold stream's. --victim-policy block-to-host
+spills a preempted victim's blocks there at once, so it resumes warm
+even when the pool reclaims its blocks before its turn. --index FILE
+persists the prefix index (digest chains and block bytes, the JAX
+package's format): loaded into the host tier at start-up if the file
+exists, saved back at exit, so a restarted server serves a repeated
+prefix warm from host. A host-tier line reports the swaps and host hits.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -166,8 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("most-blocks", "lowest-tier", "latest-deadline",
                              "block-to-host"),
                     help="which live slot pool-pressure preemption evicts "
-                         "(block-to-host needs the host tier, which the "
-                         "port does not have yet)")
+                         "(block-to-host picks like most-blocks and spills "
+                         "the victim's blocks to the host tier; needs "
+                         "--host-pool-bytes)")
     ap.add_argument("--degrade", action="store_true",
                     help="under sustained pool pressure admit new requests "
                          "at the lowest precision tier (needs --tiers; "
@@ -180,6 +195,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "--chaos-seed is set")
     ap.add_argument("--chaos-max-faults", type=int, default=None,
                     help="cap total injected faults (default unbounded)")
+    ap.add_argument("--host-pool-bytes", type=int, default=0,
+                    help="host-RAM block tier budget in bytes (0 = off): "
+                         "evicted prefix blocks move to a pinned host store "
+                         "and swap back bitwise on a prefix hit")
+    ap.add_argument("--index", default=None,
+                    help="prefix-index JSON (digest chains and block bytes): "
+                         "loaded into the host tier at start-up if it "
+                         "exists, saved back at exit (needs "
+                         "--host-pool-bytes)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -225,8 +249,9 @@ def assign_lifecycle(reqs, args) -> list:
 def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
         params=None):
     """Build the engine for `args` and serve `make_requests(cfg, args)`,
-    with --tiers and --deadline-ms applied, twice (warmup, then timed).
-    Returns (engine, done, report dict)."""
+    with --tiers and --deadline-ms applied, twice (warmup, then timed);
+    with --index, load the prefix index first (if the file exists) and
+    save it after. Returns (engine, done, report dict)."""
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_policy_spec, parse_quant_token
@@ -234,9 +259,12 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     from repro_torch.models.model_zoo import check_policy
     from repro_torch.serving import FaultInjector, ServingEngine
 
-    if args.victim_policy == "block-to-host":
+    if args.index and not args.host_pool_bytes:
+        raise SystemExit("--index persists blocks into the host tier; "
+                         "add --host-pool-bytes")
+    if args.victim_policy == "block-to-host" and not args.host_pool_bytes:
         raise SystemExit("--victim-policy block-to-host spills to the host "
-                         "tier, which the PyTorch port does not have yet")
+                         "tier; add --host-pool-bytes")
     if args.continuous and args.static:
         raise SystemExit("--continuous and --static are mutually exclusive")
     if args.quant and args.policy:
@@ -290,7 +318,11 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                            speculate=args.speculate,
                            draft_policy=args.draft_policy, tiers=args.tiers,
                            preempt=args.preempt, victim_policy=args.victim_policy,
-                           degrade=args.degrade, chaos=chaos, device=device)
+                           degrade=args.degrade, chaos=chaos,
+                           host_pool_bytes=args.host_pool_bytes, device=device)
+    if args.index and os.path.exists(args.index):
+        n = engine.load_index(args.index)
+        print(f"loaded {n} prefix digests from {args.index}")
     serve = engine.generate if args.continuous else engine.generate_static
 
     def stream():
@@ -338,6 +370,16 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
                       f"{stats['cow_copies']} CoW copies, "
                       f"{stats['prefix_evictions']} evictions, "
                       f"{stats['retained_prefix_blocks']} retained)")
+            if stats["host_tier"]:
+                print(f"  host tier: {stats['host_hit_rate']:.0%} of prompt "
+                      f"tokens served warm-from-host "
+                      f"({stats['host_hit_blocks']} block hits, "
+                      f"{stats['swap_outs']} swap-outs, "
+                      f"{stats['swap_ins']} swap-ins, "
+                      f"{stats['host_blocks']} resident / "
+                      f"{stats['host_bytes']/1e6:.2f} MB of "
+                      f"{stats['host_pool_bytes']/1e6:.2f} MB budget, "
+                      f"{stats['host_evictions']} host evictions)")
         else:
             what = "recurrent state" if cfg.family == "ssm" else "contiguous KV cache"
             print(f"  {what}: {stats['resident_kv_bytes']/1e6:.2f} MB resident "
@@ -392,6 +434,9 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {(r.out_tokens or [])[:10]}")
+    if args.index:
+        n = engine.save_index(args.index)
+        print(f"saved {n} prefix digests to {args.index}")
     report = {"requests": len(done), "tokens": total, "seconds": dt,
               "tok_per_s": total / dt, "warmup_s": t_warm, "stats": stats,
               "warmup_tokens": {r.rid: r.out_tokens for r in warm}}

@@ -403,6 +403,25 @@ def copy_pool_block(cache: DecodeCache, src: int, dst: int) -> DecodeCache:
     return cache
 
 
+def write_pool_block(cache: DecodeCache, dst: int, k, v, k_scale=None,
+                     v_scale=None) -> DecodeCache:
+    """Write one block's K/V into pool block `dst` in every layer, in
+    place: the swap-in half of the host-RAM block tier. `k`/`v` are
+    ``(L, block_size, NKV, H)`` in the pool's dtype (int8 codes on a
+    quantized pool, with its float32 ``(L, block_size, NKV, 1)`` scale
+    planes); they come back verbatim from the host copy the spill took, so
+    the block's bytes are the ones it held before. A pinned CPU source
+    is copied without blocking the host: the copy is ordered on the
+    current stream, and PyTorch's pinned allocator keeps the source's
+    memory until the copy has run."""
+    kv: PagedKVCache = cache.kv
+    planes = (kv.k, kv.v) + ((kv.k_scale, kv.v_scale) if kv.quantized else ())
+    blocks = (k, v) + ((k_scale, v_scale) if kv.quantized else ())
+    for a, blk in zip(planes, blocks):
+        a[:, dst].copy_(torch.as_tensor(blk), non_blocking=True)
+    return cache
+
+
 def grow_cache(cache: DecodeCache, size: int) -> DecodeCache:
     """Extend a full-attention contiguous cache's slot axis to at least
     `size` empty slots, so the static engine decodes past the prefill

@@ -1,7 +1,6 @@
 """Serving engine over the packed-weight path.
 
-Port of ``repro.serving.engine`` without the host tier and the durable
-prefix index.
+Port of ``repro.serving.engine``.
 The engine packs the weights once under a QuantConfig or a per-layer
 PrecisionPolicy and has two modes:
 
@@ -22,7 +21,12 @@ PrecisionPolicy and has two modes:
     (``pool_blocks``) the scheduler preempts (``preempt``,
     ``victim_policy``), bypasses a blocked head (``max_head_bypass``) and,
     with ``degrade``, admits under sustained pressure at the lowest tier;
-    ``chaos`` arms a seeded ``FaultInjector``.
+    ``chaos`` arms a seeded ``FaultInjector``. ``host_pool_bytes`` puts a
+    host-RAM block tier under the pool (evicted and ``block-to-host``-
+    preempted blocks spill there and swap back bitwise), and
+    ``save_index``/``load_index`` persist the prefix index across
+    processes (a load before the first ``generate`` is kept until the
+    scheduler exists) and carry it across a ``max_ctx`` rebuild.
   * ``generate_static`` — the static batch (whole-prompt prefill of up
     to ``max_batch`` right-padded prompts, then a decode loop on the
     contiguous cache, grown past the prefill headroom when needed), the
@@ -38,6 +42,8 @@ streams.
 """
 from __future__ import annotations
 
+import json
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -66,7 +72,7 @@ class ServingEngine:
                  draft_policy="w4a8", tiers=None, preempt: Optional[bool] = None,
                  victim_policy: str = "most-blocks", max_head_bypass: int = 4,
                  degrade: bool = False, degrade_after: int = 2, chaos=None,
-                 device=None):
+                 host_pool_bytes: int = 0, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -96,6 +102,8 @@ class ServingEngine:
         self.degrade = degrade              # admit at the floor tier under pressure
         self.degrade_after = degrade_after
         self.chaos = chaos                  # FaultInjector (tests, chaos runs)
+        self.host_pool_bytes = host_pool_bytes  # host-RAM tier budget (0 = off)
+        self._index_data = None             # a load_index payload held for the scheduler
         self._sched: Optional[ContinuousScheduler] = None
 
     def _bucketed(self, n: int) -> int:
@@ -104,9 +112,15 @@ class ServingEngine:
     def scheduler(self, max_ctx: Optional[int] = None) -> ContinuousScheduler:
         """The engine's (lazily built) continuous scheduler, rebuilt only if
         a larger context bound is requested. An explicit engine `max_ctx`
-        is a hard cap."""
+        is a hard cap. The prefix index survives the rebuild: a held
+        `load_index` payload seeds the first scheduler, and a rebuild
+        imports the old scheduler's index (fresher) into the new host
+        tier; the block geometry does not depend on max_ctx."""
         need = self.max_ctx if self.max_ctx is not None else (max_ctx or 128)
         if self._sched is None or need > self._sched.max_ctx:
+            carry, self._index_data = self._index_data, None
+            if self._sched is not None and self._sched.host_tier:
+                carry = self._sched.export_index()
             self._sched = ContinuousScheduler(
                 self.cfg, self.params, max_batch=self.max_batch, max_ctx=need,
                 quant=None, bucket=self.bucket, seed=self.seed,
@@ -119,7 +133,9 @@ class ServingEngine:
                 preempt=self.preempt, victim_policy=self.victim_policy,
                 max_head_bypass=self.max_head_bypass, degrade=self.degrade,
                 degrade_after=self.degrade_after, chaos=self.chaos,
-                device=self.device)
+                host_pool_bytes=self.host_pool_bytes, device=self.device)
+            if carry:
+                self._sched.import_index(carry)
         self._sched.on_token = self.on_token
         return self._sched
 
@@ -131,6 +147,41 @@ class ServingEngine:
         (it comes back with ``error="cancelled"`` at the next step). False
         before the first ``generate`` or for an unknown or retired rid."""
         return self._sched.cancel(rid) if self._sched is not None else False
+
+    def save_index(self, path) -> int:
+        """Write the scheduler's prefix index (device and host) to `path`
+        as JSON; before the first ``generate``, the payload `load_index`
+        holds. Returns the number of digests written (0 when there is
+        neither)."""
+        if self._sched is not None:
+            return self._sched.save_index(path)
+        if self._index_data:
+            with open(path, "w") as f:
+                json.dump(self._index_data, f)
+                f.write("\n")
+            return len(self._index_data.get("digests", {}))
+        return 0
+
+    def load_index(self, path) -> int:
+        """Load a `save_index` file. With a scheduler it goes into its host
+        tier at once (the digests loaded); before the first ``generate``
+        the parsed payload is held and imported when the scheduler is
+        built (the digests the file holds). A missing or corrupt file
+        warns and loads 0; nothing raises."""
+        if self._sched is not None:
+            return self._sched.load_index(path)
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError) as e:
+            warnings.warn(f"prefix-index load from {path!s} failed ({e}) — cold start")
+            return 0
+        if not isinstance(data, dict):
+            warnings.warn("prefix-index load: unrecognized payload — cold start")
+            return 0
+        self._index_data = data
+        digests = data.get("digests")
+        return len(digests) if isinstance(digests, dict) else 0
 
     def _ctx_needed(self, requests: List[Request]) -> int:
         return max(self._bucketed(len(r.prompt)) + max(r.max_new_tokens, 1)

@@ -1,6 +1,7 @@
 """Structural invariants of the paged KV block pool.
 
-Port of the device-pool half of ``repro.serving.invariants``.
+Port of ``repro.serving.invariants``: the device pool and the host-RAM
+tier under it.
 :func:`assert_pool_invariants` holds at any step boundary — mid-serve
 with live rows or fully drained — because the allocator keeps every
 property below at all times:
@@ -16,7 +17,12 @@ property below at all times:
     hashed block is resident (live or LRU);
   * reservation accounting: ``_avail`` equals free + LRU minus the
     outstanding reservations and is never negative; empty rows hold no
-    reservation and no blocks.
+    reservation and no blocks;
+  * host tier: a digest resolves to a device block or a host entry,
+    never both; ``_host_index`` (digest → entry) and the store's digest
+    sets are exact inverses with no empty entry; ``host_bytes`` equals
+    the entries' bytes and stays within ``host_pool_bytes``; with the
+    tier off the host state is empty.
 """
 from __future__ import annotations
 
@@ -77,3 +83,27 @@ def assert_pool_invariants(sched) -> None:
         f"_avail drift: {sched._avail} != {len(free)} free + {len(lru)} LRU "
         f"- {int(sched._reserved.sum())} reserved")
     assert sched._avail >= 0, "negative available-capacity accounting"
+
+    # -- the host-RAM tier ----------------------------------------------------
+    store = sched._host_store
+    if not sched.host_tier:
+        assert not store and not sched._host_index and not sched.host_bytes, (
+            "host tier disabled but host state is non-empty")
+        return
+    for hid, entry in store.items():
+        assert entry.digests, f"host entry {hid} holds an empty digest set"
+        for h in entry.digests:
+            assert sched._host_index.get(h) == hid, (
+                f"digest on host entry {hid} not indexed back to it")
+            assert h not in sched._prefix_index, (
+                f"digest resolves to both device block "
+                f"{sched._prefix_index.get(h)} and host entry {hid}")
+    assert len(sched._host_index) == sum(len(e.digests) for e in store.values()), (
+        "host index / host store digest-count mismatch")
+    for h, hid in sched._host_index.items():
+        assert hid in store, f"host index points at evicted entry {hid}"
+    got = sum(e.nbytes for e in store.values())
+    assert sched.host_bytes == got, (
+        f"host_bytes drift: tracked {sched.host_bytes} != resident {got}")
+    assert sched.host_bytes <= sched.host_pool_bytes, (
+        f"host tier over budget: {sched.host_bytes} > {sched.host_pool_bytes}")

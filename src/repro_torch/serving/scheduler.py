@@ -8,8 +8,8 @@ whole-prompt admission, contiguous cache, prefix cache, self-speculative
 decoding, per-request precision tiers, the request lifecycle
 (cancellation, deadlines, contained callbacks), preemption with warm
 resume, the bounded head-of-line bypass, graceful degradation, seeded
-fault injection and the NaN-logits detector. The host tier (and with it
-the ``block-to-host`` victim policy) comes with a later slice of the port.
+fault injection, the NaN-logits detector, the host-RAM block tier with
+the ``block-to-host`` victim policy, and the durable prefix index.
 
 Design:
   * ``max_batch`` decode slots; every step decodes the full (max_batch, 1)
@@ -42,6 +42,18 @@ Design:
     must append into a block it shares copies it first (copy-on-write).
     Admission prefills only the uncached suffix, and a warm request's
     tokens are bitwise a cold request's.
+  * ``host_pool_bytes`` > 0 (paged pool and prefix cache): a host-RAM
+    tier under the pool. A hashed block the LRU evicts moves to a host
+    store (CPU tensors, pinned when the pool is on CUDA) with its
+    digests instead of dying, the oldest evicted past the byte budget; a
+    prefix match falls back to the host index digest by digest, and
+    admission swaps a hit back into a fresh pool block verbatim, so a
+    warm-from-host request's tokens are bitwise a cold one's. Under
+    ``victim_policy="block-to-host"`` a preemption spills the victim's
+    hashed blocks at once, so its resume is warm from host at worst.
+    ``save_index``/``load_index`` persist every cached chunk (device and
+    host) as JSON in the JAX package's format, and a load fills the
+    host tier.
   * ``chunked_prefill`` (default on the paged pool): admission enqueues a
     chunk *plan* starting at the first uncached position; each step runs
     at most one ``prefill_budget``-token chunk (round-robin over plans)
@@ -86,10 +98,13 @@ Design:
 """
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
 import hashlib
+import json
 import time
+import warnings
 from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -116,6 +131,7 @@ from repro_torch.models.kv_cache import (
     scatter_suffix_into_paged,
     set_decode_positions,
     set_paged_row,
+    write_pool_block,
 )
 from repro_torch.serving import sampling
 from repro_torch.serving.chaos import FaultInjector, InjectedFault
@@ -125,10 +141,67 @@ from repro_torch.serving.speculative import derive_draft_params, greedy_accept
 #: the most pool capacity per eviction, `lowest-tier` sheds the cheapest
 #: quality class first, `latest-deadline` preempts the request with the
 #: most slack (no-deadline requests first, then the latest deadline).
-#: `block-to-host` spills the victim's blocks to the host tier, which the
-#: port does not have yet: the scheduler refuses it.
+#: `block-to-host` picks like `most-blocks` and spills the victim's hashed
+#: blocks to the host-RAM tier (needs ``host_pool_bytes``), so pool churn
+#: before its re-admission cannot evict them.
 VICTIM_POLICIES = ("most-blocks", "lowest-tier", "latest-deadline",
                    "block-to-host")
+
+#: Schema tag and version of the persisted prefix index (`save_index`),
+#: the JAX package's: an index written by either package loads in the
+#: other.
+INDEX_SCHEMA = "m4bram-prefix-index"
+INDEX_VERSION = 1
+
+# Each plane of an index block as the JAX package writes it: C order,
+# little-endian (bfloat16 as its 16-bit pattern).
+_LE_DTYPES = {torch.bfloat16: (np.dtype("<i2"), torch.int16),
+              torch.float32: (np.dtype("<f4"), torch.float32),
+              torch.int8: (np.dtype("i1"), torch.int8)}
+
+
+def _le_bytes(t: torch.Tensor) -> bytes:
+    """The bytes of CPU tensor `t`, C-contiguous and little-endian."""
+    le, as_int = _LE_DTYPES[t.dtype]
+    return t.contiguous().view(as_int).numpy().astype(le, copy=False).tobytes()
+
+
+def _from_le_bytes(buf: bytes, dtype: torch.dtype, shape, pin: bool) -> torch.Tensor:
+    """`_le_bytes`'s inverse: a CPU tensor of `dtype` and `shape` (pinned
+    with `pin`). Raises ValueError when `buf` is not that many bytes."""
+    le, as_int = _LE_DTYPES[dtype]
+    a = np.frombuffer(buf, dtype=le).astype(le.newbyteorder("="))
+    t = torch.from_numpy(a.reshape(shape)).view(dtype)
+    return t.pin_memory() if pin else t
+
+
+@dataclasses.dataclass
+class _HostBlock:
+    """One pool block's K/V parked in the host-RAM tier: CPU copies of
+    its ``(L, block_size, NKV, H)`` planes (int8 codes and the float32
+    ``(L, block_size, NKV, 1)`` scale planes on a quantized pool) and the
+    digests that can claim it. The bytes were frozen on the device when
+    the first digest was registered, so swapping them back
+    (`write_pool_block`) restores the block verbatim. ``ready`` is the
+    CUDA event recorded after the device-to-host copy was queued (None
+    on the CPU): a host read of the bytes waits on it first."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    digests: set
+    nbytes: int
+    ready: Optional[object] = None
+
+    def planes(self) -> tuple:
+        """The entry's tensors in index order (k, v[, k_scale, v_scale]),
+        once the copy that filled them has landed."""
+        if self.ready is not None:
+            self.ready.synchronize()
+            self.ready = None
+        return tuple(a for a in (self.k, self.v, self.k_scale, self.v_scale)
+                     if a is not None)
 
 
 @dataclasses.dataclass
@@ -206,7 +279,8 @@ class ContinuousScheduler:
                  speculate: int = 0, draft_policy="w4a8", tiers=None,
                  preempt: Optional[bool] = None, victim_policy: str = "most-blocks",
                  max_head_bypass: int = 4, degrade: bool = False, degrade_after: int = 2,
-                 chaos: Optional[FaultInjector] = None, device=None):
+                 chaos: Optional[FaultInjector] = None, host_pool_bytes: int = 0,
+                 device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg)
@@ -317,12 +391,35 @@ class ContinuousScheduler:
         if victim_policy not in VICTIM_POLICIES:
             raise ValueError(f"unknown victim_policy {victim_policy!r}; choose one of "
                              f"{VICTIM_POLICIES}")
-        if victim_policy == "block-to-host":
-            raise ValueError("victim_policy='block-to-host' spills the victim's K/V "
-                             "to the host-RAM block tier, which the PyTorch port "
-                             "does not have yet; choose one of "
-                             f"{VICTIM_POLICIES[:3]}")
         self.victim_policy = victim_policy
+
+        # The host-RAM block tier under the paged pool (see the docstring):
+        # spilled blocks are found again by their chain digests, so it
+        # rides on the prefix cache.
+        self.host_pool_bytes = int(host_pool_bytes or 0)
+        if self.host_pool_bytes < 0:
+            raise ValueError("host_pool_bytes must be >= 0 (0 disables the "
+                             "host-RAM tier)")
+        self.host_tier = bool(self.host_pool_bytes and paged and prefix_cache)
+        if self.host_pool_bytes and not self.host_tier:
+            raise ValueError(f"{cfg.name}: the host-RAM block tier rides on the "
+                             "paged pool and the prefix cache (spilled blocks are "
+                             "found by their chain digests); enable both or set "
+                             "host_pool_bytes=0")
+        if victim_policy == "block-to-host" and not self.host_tier:
+            raise ValueError("victim_policy='block-to-host' spills the victim's K/V "
+                             "to the host-RAM block tier; pass host_pool_bytes > 0 "
+                             "(and keep the paged pool and prefix cache on)")
+        self._host_store: "collections.OrderedDict[int, _HostBlock]" = (
+            collections.OrderedDict())      # insertion order = oldest first
+        self._host_index: Dict[bytes, int] = {}     # digest → host id
+        self._host_next_id = 0
+        self.host_bytes = 0
+        self.swap_ins = 0           # host → device block copies
+        self.swap_outs = 0          # device → host spills
+        self.host_evictions = 0     # host entries dropped by the budget
+        self.host_hit_blocks = 0
+        self.host_hit_tokens = 0
         if max_head_bypass < 0:
             raise ValueError("max_head_bypass must be >= 0 (0 disables "
                              "head-of-line bypass)")
@@ -600,7 +697,9 @@ class ContinuousScheduler:
                  and b not in exclude and self._freeable(b) >= shortfall]
         if not cands:
             return None
-        if self.victim_policy == "most-blocks":
+        if self.victim_policy in ("most-blocks", "block-to-host"):
+            # block-to-host picks like most-blocks; it differs in where the
+            # victim's K/V goes (`_preempt`).
             def key(b):
                 return (self._freeable(b), -b)
         elif self.victim_policy == "lowest-tier":
@@ -620,11 +719,23 @@ class ContinuousScheduler:
         queue as prompt ++ generated. Its re-admission takes the ordinary
         warm path over those blocks (or recomputes what was evicted
         meanwhile); either way the resumed stream is bitwise the
-        uninterrupted one."""
+        uninterrupted one. Under ``victim_policy="block-to-host"`` the
+        victim's blocks that the release left in the LRU (hashed, no
+        other referencer) spill to the host tier at once, so the
+        admissions ahead of the victim cannot evict them: its resume is
+        warm from host at worst."""
         req = self._slots[b]
         self.preemptions += 1
         req.preemptions += 1
+        row = self._block_tab[b]
+        row_blocks = [int(blk) for blk in row[row >= 0]]
         self._release_slot(b)
+        if self.victim_policy == "block-to-host":
+            for blk in row_blocks:
+                if blk in self._lru and blk in self._block_hash:
+                    self._lru.pop(blk)
+                    self._spill_block(blk)
+                    self._free.append(blk)
         self.waiting.append(req)
 
     def _bypass_candidate(self, deg: bool):
@@ -703,21 +814,278 @@ class ContinuousScheduler:
         digests leave the index and it joins the free list. Only
         refcount-0 blocks sit in the LRU, so eviction never takes a block
         from a live row or a reservation (``_avail`` counts LRU blocks as
-        reclaimable)."""
+        reclaimable). With the host tier on, the block's bytes and digests
+        move to the host store instead (`_spill_block`), and a later hit
+        on its chain swaps them back."""
         if not self._lru:
             raise RuntimeError("paged pool invariant violated: reservation "
                                "accounting should guarantee a free or "
                                "evictable block")
         blk, _ = self._lru.popitem(last=False)
-        for h in self._block_hash.pop(blk, ()):
-            self._prefix_index.pop(h, None)
-        self.prefix_evictions += 1
+        if self.host_tier and blk in self._block_hash:
+            self._spill_block(blk)
+        else:
+            for h in self._block_hash.pop(blk, ()):
+                self._prefix_index.pop(h, None)
+            self.prefix_evictions += 1
         self._free.append(blk)
 
     def _take_free_block(self) -> int:
         if not self._free:
             self._evict_lru()
         return self._free.pop()
+
+    # -- host-RAM block tier: spill, budget, swap-in -------------------------
+
+    def _host_block_nbytes(self) -> int:
+        """Host bytes one spilled block holds: K and V in every layer, and
+        a quantized pool's float32 scale planes."""
+        kv = self.cache.kv
+        per = 2 * kv.k.shape[0] * int(np.prod(kv.k.shape[2:])) * kv.k.element_size()
+        if kv.quantized:
+            per += (2 * kv.k_scale.shape[0] * int(np.prod(kv.k_scale.shape[2:]))
+                    * kv.k_scale.element_size())
+        return per
+
+    def _spill_block(self, blk: int) -> None:
+        """Move pool block `blk`'s bytes and digests to the host store. The
+        caller owns the block's pool bookkeeping (it is out of the LRU and
+        about to join the free list); its digests leave the device index
+        here and enter the host index, so no digest resolves to both.
+
+        On CUDA the copy goes into pinned memory without blocking the host,
+        queued on the current stream behind every kernel already queued —
+        a spill inside a step reads the block's final bytes, and a kernel
+        queued later that writes the block (once it is reallocated) runs
+        after the copy. The entry records an event so that a host read of
+        the bytes (`export_index`) waits for them; a swap-in is queued on
+        the same stream and needs no wait."""
+        kv = self.cache.kv
+        digests = self._block_hash.pop(blk)
+        for h in digests:
+            self._prefix_index.pop(h, None)
+        on_cuda = kv.k.is_cuda
+        planes = [kv.k, kv.v] + ([kv.k_scale, kv.v_scale] if kv.quantized else [])
+        copies = []
+        for a in planes:
+            src = a[:, blk]
+            dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=on_cuda)
+            copies.append(dst.copy_(src, non_blocking=on_cuda))
+        ready = None
+        if on_cuda:
+            ready = torch.cuda.Event()
+            ready.record()
+        k, v, *scales = copies
+        self._add_host_entry(_HostBlock(
+            k=k, v=v, k_scale=scales[0] if scales else None,
+            v_scale=scales[1] if scales else None, digests=set(digests),
+            nbytes=self._host_block_nbytes(), ready=ready))
+        self.swap_outs += 1
+
+    def _add_host_entry(self, entry: _HostBlock) -> None:
+        """Insert an entry at the newest end of the host store and hold
+        the byte budget by dropping the oldest entries (their chunks die:
+        a later request prefills them again)."""
+        hid = self._host_next_id
+        self._host_next_id += 1
+        self._host_store[hid] = entry
+        self.host_bytes += entry.nbytes
+        for h in entry.digests:
+            self._host_index[h] = hid
+        while self.host_bytes > self.host_pool_bytes and self._host_store:
+            _, old = self._host_store.popitem(last=False)
+            for h in old.digests:
+                self._host_index.pop(h, None)
+            self.host_bytes -= old.nbytes
+            self.host_evictions += 1
+            self.prefix_evictions += 1
+
+    def _pop_host_entry(self, hid: int) -> _HostBlock:
+        """Take a host entry out for a swap-in. Its digests leave the host
+        index first, so a spill the swap-in's allocation causes cannot
+        drop it under the budget."""
+        entry = self._host_store.pop(hid)
+        for h in entry.digests:
+            self._host_index.pop(h, None)
+        self.host_bytes -= entry.nbytes
+        return entry
+
+    def _drop_host_digest(self, h: bytes) -> None:
+        """A device registration of digest `h` supersedes its host copy:
+        drop the digest from its host entry, and the entry once no digest
+        reaches it (the two indexes stay disjoint)."""
+        hid = self._host_index.pop(h, None)
+        if hid is None:
+            return
+        entry = self._host_store[hid]
+        entry.digests.discard(h)
+        if not entry.digests:
+            del self._host_store[hid]
+            self.host_bytes -= entry.nbytes
+
+    def _swap_in_hits(self, slot: int, host_hits, n_full: int) -> None:
+        """Swap row `slot`'s host-resident prefix hits back into the pool:
+        each allocates a block from the row's reservation (`_alloc_block`,
+        whose eviction may spill another LRU block to host) and gets the
+        host bytes verbatim (`write_pool_block`). A full-chunk hit
+        registers its digests against the new block, so a same-prefix
+        admission shares it like any cached block; a partial-chunk hit
+        does not, because the row appends into that block in place (a
+        live row's partial block is never shared) and its retirement
+        registers the final bytes."""
+        for j, hid in host_hits:
+            entry = self._pop_host_entry(hid)
+            self._alloc_block(slot, j)
+            blk = int(self._block_tab[slot, j])
+            write_pool_block(self.cache, blk, entry.k, entry.v, entry.k_scale,
+                             entry.v_scale)
+            self.swap_ins += 1
+            self.host_hit_blocks += 1
+            if j < n_full:
+                for h in entry.digests:
+                    self._prefix_index[h] = blk
+                    self._block_hash.setdefault(blk, set()).add(h)
+
+    # -- durable prefix index: export, import, save, load ---------------------
+
+    def _pool_geometry(self) -> dict:
+        """The pool's block geometry under the JAX package's names: the
+        dtype as JAX spells it ("bfloat16", "int8", "float32") and
+        ``kv_shape`` = [L, block_size, NKV, H]."""
+        kv = self.cache.kv
+        return {"block_size": self.block_size,
+                "quantized": bool(kv.quantized),
+                "kv_shape": [int(kv.k.shape[0]), *(int(x) for x in kv.k.shape[2:5])],
+                "kv_dtype": str(kv.k.dtype).removeprefix("torch.")}
+
+    def export_index(self) -> dict:
+        """Every cached chunk the scheduler could serve a hit from — hashed
+        device blocks (live or in the LRU) and host entries — as a
+        JSON-able dict in the JAX package's format: the schema header
+        with the pool geometry, a list of blocks (each plane's bytes
+        C-contiguous, little-endian, base64) and a digest (hex) → block
+        map. `import_index` on a fresh scheduler puts them in its host
+        tier. Digests are tier-seeded, so a mixed-tier index round-trips
+        as it is."""
+        kv = self.cache.kv
+        names = ("k", "v", "k_scale", "v_scale")
+        blocks: List[dict] = []
+        digests: Dict[str, int] = {}
+
+        def add(planes, hs) -> None:
+            entry = {n: None for n in names}
+            for n, a in zip(names, planes):
+                entry[n] = base64.b64encode(_le_bytes(a)).decode("ascii")
+            for h in hs:
+                digests[h.hex()] = len(blocks)
+            blocks.append(entry)
+
+        if self.paged:
+            dev = [kv.k, kv.v] + ([kv.k_scale, kv.v_scale] if kv.quantized else [])
+            for blk, hs in self._block_hash.items():
+                add([a[:, blk].cpu() for a in dev], hs)
+            for hb in self._host_store.values():
+                add(hb.planes(), hb.digests)
+        return {"schema": INDEX_SCHEMA, "version": INDEX_VERSION,
+                **self._pool_geometry(), "blocks": blocks, "digests": digests}
+
+    def import_index(self, data) -> int:
+        """Load an `export_index` snapshot (the port's or the JAX
+        package's) into the host tier, where its entries count against
+        ``host_pool_bytes`` like spills (the oldest dropped first when it
+        exceeds the budget). Returns the number of digests now
+        resolvable. Never raises on bad input: a payload that is not an
+        index, another version, another pool geometry, a digest table
+        that is not hex or points past the blocks, or block bytes of the
+        wrong size each warn and load 0 — a stale index must not take
+        down a server that can prefill again."""
+        if not self.host_tier:
+            if data:
+                warnings.warn("prefix-index import skipped: the host-RAM tier is "
+                              "disabled (host_pool_bytes=0)")
+            return 0
+        if not isinstance(data, dict) or data.get("schema") != INDEX_SCHEMA:
+            warnings.warn("prefix-index import: unrecognized payload (not an index "
+                          "snapshot) — cold start")
+            return 0
+        if data.get("version") != INDEX_VERSION:
+            warnings.warn(f"prefix-index import: unsupported version "
+                          f"{data.get('version')!r} (want {INDEX_VERSION}) — cold start")
+            return 0
+        geo = self._pool_geometry()
+        theirs = {k: data.get(k) for k in geo}
+        if theirs != geo:
+            warnings.warn(f"prefix-index import: pool geometry mismatch ({theirs} != "
+                          f"{geo}) — cold start")
+            return 0
+        blocks, digests = data.get("blocks"), data.get("digests")
+        if not isinstance(blocks, list) or not isinstance(digests, dict):
+            warnings.warn("prefix-index import: malformed blocks/digests tables — "
+                          "cold start")
+            return 0
+        by_block: Dict[int, set] = {}
+        try:
+            for hx, idx in digests.items():
+                idx = int(idx)
+                if not 0 <= idx < len(blocks):
+                    warnings.warn(f"prefix-index import: digest {hx!r} references "
+                                  f"out-of-range block {idx} (have {len(blocks)}) — "
+                                  "cold start")
+                    return 0
+                by_block.setdefault(idx, set()).add(bytes.fromhex(hx))
+        except (TypeError, ValueError) as e:
+            warnings.warn(f"prefix-index import: bad digest table ({e}) — cold start")
+            return 0
+        L, bs, nkv, hd = geo["kv_shape"]
+        kv = self.cache.kv
+        specs = [("k", kv.k.dtype, hd), ("v", kv.k.dtype, hd)]
+        if geo["quantized"]:
+            specs += [("k_scale", torch.float32, 1), ("v_scale", torch.float32, 1)]
+        pin = kv.k.is_cuda
+        loaded, entries = 0, []
+        try:
+            for idx, hs in by_block.items():
+                e = blocks[idx]
+                planes = [_from_le_bytes(base64.b64decode(e[n]), dt, (L, bs, nkv, w), pin)
+                          for n, dt, w in specs]
+                live = {h for h in hs
+                        if h not in self._prefix_index and h not in self._host_index}
+                if not live:
+                    continue            # a resident copy is at least as fresh
+                k, v, *scales = planes
+                entries.append(_HostBlock(
+                    k=k, v=v, k_scale=scales[0] if scales else None,
+                    v_scale=scales[1] if scales else None, digests=live,
+                    nbytes=self._host_block_nbytes()))
+                loaded += len(live)
+        except (KeyError, TypeError, ValueError) as e:
+            warnings.warn(f"prefix-index import: corrupt block payload ({e}) — "
+                          "cold start")
+            return 0
+        for entry in entries:
+            self._add_host_entry(entry)
+        return loaded
+
+    def save_index(self, path) -> int:
+        """Write `export_index` to `path` as JSON. Returns the number of
+        digests written."""
+        data = self.export_index()
+        with open(path, "w") as f:
+            json.dump(data, f)
+            f.write("\n")
+        return len(data["digests"])
+
+    def load_index(self, path) -> int:
+        """Load a `save_index` file (either package's) into the host tier
+        through `import_index`. A missing, truncated or corrupt file warns
+        and loads 0; nothing raises."""
+        try:
+            with open(path) as f:
+                data = json.load(f)
+        except (OSError, ValueError) as e:
+            warnings.warn(f"prefix-index load from {path!s} failed ({e}) — cold start")
+            return 0
+        return self.import_index(data)
 
     def _alloc_block(self, slot: int, j: int) -> None:
         blk = self._take_free_block()
@@ -878,27 +1246,43 @@ class ContinuousScheduler:
         count, revive = hits that must leave the LRU, reserve = blocks the
         row may still allocate (uncovered blocks, plus one for a
         copy-on-write of a shared partial block), the (full, partial)
-        digests for registration)."""
+        digests for registration, host_hits [(virtual j, host id)] = chain
+        positions resident in the host tier).
+
+        The chain walk tries the device index and then the host index at
+        each digest, so a chain that is part device, part host matches
+        end to end. Host hits count in ``resident`` (their bytes land
+        before any prefill) but not against the reservation: each takes a
+        pool block through `_alloc_block` when it is swapped in."""
         need = self._need_blocks(req)
         if not self.prefix_cache:
-            return [], 0, 0, need, None
+            return [], 0, 0, need, None, []
         hashes = self._req_hashes(req)
         full, partial = hashes
         hits: List[Tuple[int, int]] = []
+        host_hits: List[Tuple[int, int]] = []
         for j, h in enumerate(full):
             blk = self._prefix_index.get(h)
-            if blk is None:
+            if blk is not None:
+                hits.append((j, blk))
+                continue
+            hid = self._host_index.get(h)
+            if hid is None:
                 break
-            hits.append((j, blk))
-        n_full = len(hits)
+            host_hits.append((j, hid))
+        dev_full = len(hits)        # device full-chunk hits claim for free
+        n_full = dev_full + len(host_hits)
         resident = n_full * self.block_size
         if n_full == len(full) and partial is not None:
             blk = self._prefix_index.get(partial)
             if blk is not None:
                 hits.append((n_full, blk))
                 resident = self._serve_len(req)
+            elif partial in self._host_index:
+                host_hits.append((n_full, self._host_index[partial]))
+                resident = self._serve_len(req)
         revive = sum(1 for _, b in hits if self._refcnt[b] == 0)
-        return hits, resident, revive, need - n_full, hashes
+        return hits, resident, revive, need - dev_full, hashes, host_hits
 
     def _claim_hits(self, slot: int, hits) -> None:
         """Map matched blocks into row `slot`, incref'ing each; a
@@ -924,6 +1308,8 @@ class ContinuousScheduler:
             blk = int(self._block_tab[slot, j])
             if blk < 0 or h in self._prefix_index:
                 continue
+            # The fresh device bytes supersede a host copy of the digest.
+            self._drop_host_digest(h)
             self._prefix_index[h] = blk
             self._block_hash.setdefault(blk, set()).add(h)
 
@@ -938,6 +1324,7 @@ class ContinuousScheduler:
         blk = int(self._block_tab[slot, j])
         if blk < 0 or partial in self._prefix_index:
             return
+        self._drop_host_digest(partial)
         self._prefix_index[partial] = blk
         self._block_hash.setdefault(blk, set()).add(partial)
 
@@ -982,7 +1369,7 @@ class ContinuousScheduler:
                 "chaos": self.chaos.counts() if self.chaos else None}
 
     def pool_stats(self) -> dict:
-        """KV-memory utilization, prefix-cache, chunked-prefill,
+        """KV-memory utilization, prefix-cache, host-tier, chunked-prefill,
         speculation, lifecycle and per-tier counters.
 
         ``prefill_tokens_computed`` counts the token positions admission
@@ -1035,6 +1422,17 @@ class ContinuousScheduler:
             "prefix_evictions": self.prefix_evictions,
             "cached_prefix_blocks": len(self._prefix_index),
             "prefill_tokens_computed": self.prefill_tokens_computed,
+            # The host-RAM block tier under the pool.
+            "host_tier": self.host_tier,
+            "host_pool_bytes": self.host_pool_bytes,
+            "host_blocks": len(self._host_store),
+            "host_bytes": self.host_bytes,
+            "swap_ins": self.swap_ins,
+            "swap_outs": self.swap_outs,
+            "host_evictions": self.host_evictions,
+            "host_hit_blocks": self.host_hit_blocks,
+            "host_hit_tokens": self.host_hit_tokens,
+            "host_hit_rate": self.host_hit_tokens / seen if seen else 0.0,
             "chunked_prefill": self.chunked_prefill,
             "prefill_budget": self.prefill_budget,
             "prefill_chunks_run": self.prefill_chunks_run,
@@ -1079,18 +1477,25 @@ class ContinuousScheduler:
     def _claim_row(self, req: Request, slot: int, match) -> None:
         """The allocator half of a paged admission: count the prompt and
         its hits, reserve what the row may still allocate, map the hit
-        blocks and allocate the other prompt blocks into row `slot` (the
-        prompt of a resumed request is its served tokens)."""
+        blocks, swap the host-resident hits back in and allocate the other
+        prompt blocks into row `slot` (the prompt of a resumed request is
+        its served tokens). The swap-ins are queued before any prefill of
+        the row, so a resume's or a suffix's recompute starts after
+        them."""
         n = self._serve_len(req)
-        hits, resident, _, reserve, hashes = match
+        hits, resident, _, reserve, hashes, host_hits = match
+        bs = self.block_size
         self.prompt_tokens_seen += n
-        self.prefix_hit_blocks += len(hits)
+        self.prefix_hit_blocks += len(hits) + len(host_hits)
         self.prefix_hit_tokens += resident
+        self.host_hit_tokens += sum(min(bs, n - j * bs) for j, _ in host_hits)
         if self.prefix_cache:
             self._slot_hashes[slot] = hashes
         self._avail -= reserve
         self._reserved[slot] = reserve
         self._claim_hits(slot, hits)       # revives pay into _avail here
+        if host_hits:
+            self._swap_in_hits(slot, host_hits, len(hashes[0]))
         for j in range(-(-n // self.block_size)):
             if self._block_tab[slot, j] < 0:
                 self._alloc_block(slot, j)

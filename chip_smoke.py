@@ -12,8 +12,8 @@
    activation scales, int8 pool bytes, scale planes) bitwise; attention
    outputs within atol = rtol = 2e-2 in bf16 (summation order, expf and
    P rounded to bf16 for the tensor cores differ from a one-pass float32
-   softmax) and 1e-4 in float32, also at head dims 80 and 256
-   (``check_head_dims``); ``quantize_rows`` bitwise on float32 and
+   softmax) and 1e-4 in float32, also at head dims 80, 256, 160 and
+   GQA 6 (``check_head_dims``); ``quantize_rows`` bitwise on float32 and
    bfloat16 rows; the Table III mixed-group matmul bitwise equal to its
    plain version and to the fused kernel's two-group route
    (``check_mixed_group``), and a Table III leaf launching exactly one
@@ -33,8 +33,11 @@
    share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
    chunked prefill, paged decode and contiguous decode must be bitwise
    whole-prompt flash attention on the same keys (``check_one_order``:
-   several splits, GQA 4 and 8, head dims 80 / 128 / 256, block sizes 16
-   / 32 / 64, NaN in every slot no row may see).
+   several splits, GQA 4, 6 and 8, head dims 80 / 128 / 160 / 256, block
+   sizes 16 / 32 / 64, NaN in every slot no row may see). At the widths
+   of nemotron-4-15b and stablelm-12b (K up to 24 576, N 1280-24 576,
+   ``check_new_widths``): ``quantize_rows``, the fused kernel under w4a8
+   and the Table III leaf bitwise their plain versions at M 4 and 32.
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function, at the
    decode and the prefill shape of the matmuls (CUDA events,
@@ -64,8 +67,21 @@
    prefix hits) and (n) "w4a8r25;wo=w8a8" on the int8 pool with
    --speculate 3 and a w2a8 draft (w8a8 and w4a8 slots speculate, each
    tier group verified in a call of its own, w2a8 slots do not; Table III
-   leaves at plane_lo 1 at w2a8). Each run must launch the kernels of its
-   path, a paged pool must hold its allocator invariants after the run,
+   leaves at plane_lo 1 at w2a8); and, first, nemotron-4-15b and
+   stablelm-12b at full width (every layer, head and vocab entry; raw
+   weights drawn, packed once per arch and dropped, both runs on the
+   packed tree, everything dropped before the next arch; ``ARCH_RUNS``,
+   ``serve_new_archs``) on the stream's first 4 requests: (o) nemotron
+   continuous, chunked, bf16 pool, Table III policy (K up to 24 576, GQA
+   48/8) and (p) static, gated greedy ≡ (o), chunked ≡ whole-prompt
+   first-token logits bitwise and solo ≡ mid-decode; (q) stablelm
+   (qk-norm, head dim 160) continuous on the int8 pool, "w4a8;wo=w8a8",
+   and (r) the same with --speculate 4 and a w4a8 draft, gated greedy ≡
+   (q) in both passes, the speculation counters, ``verify_vs_decode`` at
+   head dim 160, solo ≡ mid-decode on (q); each untied head's rows at M
+   = 1-9 bitwise its rows at M = 4 (``head_rows``); the peak device
+   memory of every init, pack and run printed. Each run must launch the
+   kernels of its path, a paged pool must hold its allocator invariants after the run,
    and each run's repeated pass must give identical greedy tokens. The
    prefix cache is on in every paged continuous run, but this gates warm
    against cold only where the pool keeps the warmup's blocks (runs (i)
@@ -140,8 +156,17 @@
    vs whole-prompt first-token logits bitwise equal and greedy (g) vs (h)
    identical (``compare_unpacked``); a greedy request served alone and
    admitted mid-decode emits identical tokens (olmo bf16 and int8 pools,
-   rwkv6); small float32 models (olmo-1b, rwkv6-3b) give the same logits
-   on the card (kernels) as on the CPU (plain versions).
+   rwkv6); small float32 models (olmo-1b, nemotron-4-15b, stablelm-12b,
+   rwkv6-3b) give the same logits on the card (kernels) as on the CPU
+   (plain versions).
+   The kernel registry (``check_registry``): ``autotune`` at run (o)'s
+   decode shape of the fused kernel, both groups of a Table III leaf and
+   two ``dense_matmul`` shapes, every candidate's output bitwise the
+   heuristic plan's; ``save_plans`` / ``load_plans`` into a fresh
+   registry give the same plans; the serve CLI with --plans twice on
+   chunked-int8's flags saves N >= 1 plans, then loads N and plans
+   nothing anew, both with that run's tokens; --backend reference on the
+   card exits with its message.
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels; each row's headline times the entry the
@@ -162,7 +187,10 @@ runs (m) and (n) with the tier gates and the lifecycle check;
 ``python3 chip_smoke.py preempt`` builds the kernels and runs
 chunked-int8, (c), (j) and (k) with the preemption and chaos gates;
 ``python3 chip_smoke.py host`` builds the kernels and runs (i), (j),
-chunked-int8 and (c) with the host-tier gates.
+chunked-int8 and (c) with the host-tier gates; ``python3 chip_smoke.py
+archs`` builds the kernels and runs the new-width, head-dim and
+one-order checks, runs (o)-(r) with their gates, chunked-int8 and the
+registry phase, and the reduced nemotron / stablelm card-vs-CPU checks.
 """
 from __future__ import annotations
 
@@ -282,6 +310,36 @@ SERVE_RUNS = {
     "f-rwkv6-continuous": (["--arch", "rwkv6-3b", "--continuous"], None,
                            ("wkv6", "dense_matmul")),
 }
+
+
+# Runs (o)-(r): nemotron-4-15b and stablelm-12b at full width (every layer,
+# every head, the full vocab; random weights from seed 0), each arch's two
+# runs on one packed weight set, on the stream's first 4 requests (prompts
+# of 64, 320, 128 and 256 tokens; the whole stream took the script to
+# 884.8 s of its 1200 s limit on the H100).
+ARCH_STREAM = ["--requests", "4"]
+ARCH_RUNS = {
+    # nemotron-4-15b: the bf16 pool, chunked prefill, Table III at K up to
+    # 24 576, GQA 48/8 (G = 6); (p) static, gated greedy ≡ (o).
+    "o-nemotron-chunked": (["--arch", "nemotron-4-15b", "--continuous", *ARCH_STREAM],
+                           MIXED_POLICY,
+                           ("fused_quantize_matmul", "paged_attention", "paged_prefill",
+                            "quantize_rows", "bitplane_matmul")),
+    "p-nemotron-static": (["--arch", "nemotron-4-15b", "--static", *ARCH_STREAM],
+                          MIXED_POLICY,
+                          ("flash_attention", "quantize_rows", "bitplane_matmul",
+                           "fused_quantize_matmul", "contig_attention")),
+    # stablelm-12b: qk-norm, head dim 160 on the int8 pool; (r) speculates,
+    # gated greedy ≡ (q).
+    "q-stablelm-int8": (["--arch", "stablelm-12b", "--continuous", "--kv-int8",
+                         *ARCH_STREAM], POLICY,
+                        ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
+    "r-stablelm-spec-int8": (["--arch", "stablelm-12b", "--continuous", "--kv-int8",
+                              "--speculate", "4", "--draft-policy", "w4a8", *ARCH_STREAM],
+                             POLICY,
+                             ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
+}
+RUNS = {**SERVE_RUNS, **ARCH_RUNS}
 
 
 def log(msg: str) -> None:
@@ -1181,17 +1239,23 @@ def check_flash(torch, dev, timer):
             "shape": f"B*NQ={B * 16} T={T} H={H} bf16 causal"}
 
 
+# check_head_dims cases: (head dim, KV heads, query heads per KV head): 80
+# and 256 under GQA, stablelm-12b's 160 (8 KV heads, G = 4) and
+# nemotron-4-15b's G = 6 (8 KV heads, 48 query heads of 128).
+HEAD_DIM_CASES = ((80, 4, 4), (256, 2, 8), (160, 8, 4), (128, 8, 6))
+
+
 def check_head_dims(torch, dev):
-    """Each attention kernel against its plain version at head dims 80 and
-    256 (GQA, bf16 and the int8 pool or cache): flash (T = 100), paged
-    decode (contexts 300 / 70 / 0), contiguous decode and paged prefill (a
-    32-token chunk at 70), within atol = rtol = 2e-2."""
+    """Each attention kernel against its plain version on each case of
+    HEAD_DIM_CASES (bf16 and the int8 pool or cache): flash (T = 100),
+    paged decode (contexts 300 / 70 / 0), contiguous decode and paged
+    prefill (a 32-token chunk at 70), within atol = rtol = 2e-2."""
     from repro_torch.kernels import flash_attention, paged_attention, paged_prefill, ref
     from repro_torch.models.common import decode_attention as decode_plain
 
     gen = torch.Generator(device=dev).manual_seed(13)
     worst = 0.0
-    for H, nkv, G in ((80, 4, 4), (256, 2, 8)):
+    for H, nkv, G in HEAD_DIM_CASES:
         nq = nkv * G
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q, k, v = rnd(2, 100, nq, H), rnd(2, 100, nkv, H), rnd(2, 100, nkv, H)
@@ -1233,17 +1297,20 @@ def check_head_dims(torch, dev):
             want = ref.paged_prefill_ref(qc, kn, vn, pk, pv, blk, 70, 32, ks, vs)
             worst = max(worst, _close(torch, got[0], want[0], f"paged_prefill {what}"))
         torch.cuda.synchronize()
-    log(f"head dims 80 and 256 (GQA 4 and 8): flash, paged and contiguous decode, paged "
-        f"prefill, bf16 and int8, within atol=rtol={ATOL} of their plain versions "
+    log(f"head dims (H, NKV, G) {HEAD_DIM_CASES}: flash, paged and contiguous decode, "
+        f"paged prefill, bf16 and int8, within atol=rtol={ATOL} of their plain versions "
         f"(max |err| {worst:.3g})")
     return worst
 
 
 # check_one_order cases: (head dim, KV heads, query heads per KV head,
 # prompt length, pool block sizes). The first is olmo-1b's head layout;
-# the others span several splits (>= 600 keys) under GQA.
+# the others span several splits (>= 600 keys) under GQA; the last two are
+# stablelm-12b's (160, 8 KV heads, G = 4) and nemotron-4-15b's (128, 8 KV
+# heads, G = 6).
 ONE_ORDER_CASES = ((128, 16, 1, 200, (16, 64)), (80, 4, 4, 640, (16, 32)),
-                   (256, 2, 8, 700, (32, 64)), (128, 4, 8, 610, (64,)))
+                   (256, 2, 8, 700, (32, 64)), (128, 4, 8, 610, (64,)),
+                   (160, 8, 4, 620, (16, 32)), (128, 8, 6, 630, (16, 64)))
 
 
 def check_one_order(torch, dev):
@@ -1468,12 +1535,107 @@ def check_dense_matmul(torch, dev, timer):
     return {**entries["decode"], "max_abs_err": worst, "entries": entries}
 
 
+
+# (name, K, N) of the leaves at widths no earlier gate ran: nemotron-4-15b's
+# relu2 FFN (d_ff 24 576) and stablelm-12b's K projection (8 KV heads of
+# 160) and FFN down projection (d_ff 13 824).
+NEW_KN = (("nemotron w_up", 6144, 24576), ("nemotron w_down", 24576, 6144),
+          ("stablelm wk", 5120, 1280), ("stablelm w_down", 13824, 5120))
+NEW_M = (4, 32)    # a decode step of 4 slots, a 32-token prefill chunk
+
+
+def check_new_widths(torch, dev, timer):
+    """The matmul kernels at the widths of NEW_KN, bitwise against their
+    plain versions at M in NEW_M: ``quantize_rows`` (a6 and a8 codes of
+    float32 and bfloat16 rows); the fused kernel under w4a8 on bf16 rows
+    (the serving path's), in both forms ((acc, scales) and the
+    dequantized bf16 product); the Table III leaf at w4a6r25 (one
+    ``quantize_rows``, two ``bitplane_matmul`` dequant launches) against
+    its plain version and the fused two-group route. Times the fused
+    kernel's dequant form at nemotron-4-15b's decode shape (w_up, M = 4,
+    w4a8, bf16 rows -> bf16 y) beside its bound and ``torch.matmul`` on
+    bf16 weights: returned as one timed entry."""
+    from repro_torch.core.bitplane import pack_weights, unpack_weights
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.quantized_linear import pack_weight
+    from repro_torch.kernels import fused_matmul, ops, pack_quant, ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    t3 = QuantConfig(w_bits=4, a_bits=6, mixed_ratio_8b=0.25)
+    kw = dict(w_bits=4, a_bits=8, act_signed=True, w_plane_lo=0)
+    cases = {"quantize_rows": 0, "fused": 0, "table3": 0}
+    for what, K, N in NEW_KN:
+        packed = pack_weights(torch.randint(-8, 8, (K, N), generator=gen, device=dev,
+                                            dtype=torch.int32), 4, axis=0)
+        scale = torch.rand((1, N), generator=gen, device=dev) * 0.01
+        pw = pack_weight(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5, t3)
+        p8, pl, s8, sl = pw.packed8, pw.packed, pw.scale[:, :pw.n8], pw.scale[:, pw.n8:]
+        wl = unpack_weights(pl, 4)
+        for M in NEW_M:
+            x = torch.randn((M, K), generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                for bits in (6, 8):
+                    got = pack_quant.launch(x.to(dtype), bits=bits, signed=True)
+                    want = ref.quantize_rows_ref(x.to(dtype), bits, True)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"quantize_rows {what} M={M} K={K} {dtype} "
+                                             f"a{bits}: not bitwise the plain version")
+                    cases["quantize_rows"] += 1
+            xb = x.to(torch.bfloat16)
+            acc, s = fused_matmul.launch(xb, packed, **kw)
+            acc_r, s_r = ref.fused_quantize_matmul_ref(xb.float(), packed, **kw)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+            fused_matmul.launch_dequant(xb, packed, scale, out, **kw)
+            want = ref.packed_matmul_ref(xb, packed, scale, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(acc, acc_r) and torch.equal(s, s_r) and torch.equal(out, want)):
+                raise AssertionError(f"fused {what} M={M} {K}->{N} w4a8 plan "
+                                     f"{fused_matmul.plan(M, K, N)}: not bitwise the plain "
+                                     f"versions ({(acc != acc_r).sum().item()} acc mismatches)")
+            cases["fused"] += 2
+            got = ops.mixed_group_matmul(xb, p8, pl, s8, sl, w_bits=4, a_bits=6)
+            plain = ref.mixed_group_matmul_ref(xb, p8, wl, s8, sl, 6).to(xb.dtype)
+            fused = ops.packed_matmul(xb, pl, sl, w_bits=4, a_bits=6, packed8=p8, scale8=s8)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, plain) and torch.equal(got, fused)):
+                raise AssertionError(f"Table III leaf {what} M={M} {K}->{N} (n8={pw.n8}): "
+                                     f"{(got != plain).sum().item()} elements differ from the "
+                                     f"plain version, {(got != fused).sum().item()} from the "
+                                     "fused two-group route")
+            cases["table3"] += 1
+        del packed, pw, p8, pl, wl
+    log(f"new widths {[w for w, _, _ in NEW_KN]} at M in {NEW_M}: quantize_rows "
+        f"{cases['quantize_rows']}, fused w4a8 {cases['fused']} (both forms) and Table III "
+        f"leaf {cases['table3']} cases bitwise equal to their plain versions (and the leaf "
+        "to the fused two-group route)")
+
+    _, K, N = NEW_KN[0]
+    codes = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int32)
+    packed = pack_weights(codes, 4, axis=0)
+    w_bf16 = (codes.float() * 0.01).to(torch.bfloat16)
+    del codes
+    scale = torch.rand((1, N), generator=gen, device=dev) * 0.01
+    M = 4
+    xb = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    b_ms, b_by = bound_ms(M * K * 2 + K * N // 2 + M * N * 2 + N * 4, 2 * M * K * N,
+                          INT8_OPS_PER_S)
+    entry = {"ms": timer(lambda: fused_matmul.launch_dequant(xb, packed, scale, out, **kw)),
+             "plain_ms": timer(lambda: ref.packed_matmul_ref(xb, packed, scale, **kw)),
+             "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
+             "library": "torch.matmul, bf16 W", "bound_ms": b_ms, "bound_by": b_by,
+             "plan": fused_matmul.plan(M, K, N)._asdict(),
+             "shape": f"nemotron-4-15b w_up M={M} {K}->{N} w4a8 bf16 rows -> bf16 y"}
+    return {"cases": cases, "entry": entry}
+
 # -- the serving path ---------------------------------------------------------
 
 def mixed_requests(cfg, args):
     """8 requests with prompts of 64-320 tokens (greedy and temperature
     0.7 alternating), after a common --shared-prefix prompt if one is
-    asked for, all queued at t=0; the same stream on every call."""
+    asked for, all queued at t=0; the same stream on every call. With
+    --requests n < 8, its first n requests."""
     import numpy as np
 
     from repro_torch.serving import Request
@@ -1485,7 +1647,7 @@ def mixed_requests(cfg, args):
                         [shared, rng.integers(0, cfg.vocab, n)]).astype(np.int64),
                     max_new_tokens=args.max_new,
                     temperature=0.0 if i % 2 == 0 else 0.7)
-            for i, n in enumerate(lens)]
+            for i, n in enumerate(lens)][:getattr(args, "requests", len(lens))]
 
 
 SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--max-new", "32",
@@ -1494,9 +1656,9 @@ SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--max-new", "32",
 
 
 def serve_argv(name):
-    """The serve CLI's arguments for run `name` of SERVE_RUNS (a later
-    --arch overrides olmo-1b)."""
-    flags, policy, _ = SERVE_RUNS[name]
+    """The serve CLI's arguments for run `name` of RUNS (a later --arch
+    overrides olmo-1b)."""
+    flags, policy, _ = RUNS[name]
     return SERVE_ARGS + (["--policy", policy] if policy else []) + flags
 
 
@@ -1515,7 +1677,7 @@ def check_outputs(name, engine, done):
 
 
 def serve_run(torch, params, name):
-    """Serve the stream above in run `name` of SERVE_RUNS (a warmup pass,
+    """Serve the stream above in run `name` of RUNS (a warmup pass,
     then the timed pass). Checks the outputs and the pool invariants, that
     the run launched every kernel of its path, and that the two passes
     emit identical greedy tokens. With the prefix cache on (every paged
@@ -1534,7 +1696,7 @@ def serve_run(torch, params, name):
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    flags, policy, needed = SERVE_RUNS[name]
+    flags, policy, needed = RUNS[name]
     args = serve.build_parser().parse_args(serve_argv(name))
     built = []                   # every Request of both passes
 
@@ -2767,6 +2929,7 @@ def first_token_logits(torch, model, params, prompts):
     import numpy as np
 
     bucket, bs, budget = 32, 16, 32
+    dev = params["embed"].device
 
     def prefill(batch):
         L = max(-(-len(p) // bucket) * bucket for p in batch)
@@ -2774,20 +2937,20 @@ def first_token_logits(torch, model, params, prompts):
         for i, p in enumerate(batch):
             toks[i, :len(p)] = p
         _, lg = model.prefill(params, {
-            "tokens": torch.from_numpy(toks).cuda(),
+            "tokens": torch.from_numpy(toks).to(dev),
             "lengths": torch.tensor([len(p) for p in batch], dtype=torch.int32)})
         return lg[:, -1].float()
 
     def chunked(p):
         nb = -(-len(p) // bs)
-        cache = model.init_paged_cache(1, nb + 1, bs, nb, device="cuda")
+        cache = model.init_paged_cache(1, nb + 1, bs, nb, device=dev)
         blocks = torch.arange(1, nb + 1, dtype=torch.int32)
         for start in range(0, len(p), budget):
             t = min(budget, len(p) - start)
             toks = np.zeros((1, budget), np.int64)
             toks[0, :t] = p[start:start + t]
             cache, lg = model.prefill_chunk(params, cache, {
-                "tokens": torch.from_numpy(toks).cuda(), "lengths": [t],
+                "tokens": torch.from_numpy(toks).to(dev), "lengths": [t],
                 "start": start, "slot": 0,
                 "blocks": blocks[:-(-(start + t) // bs)]})
         return lg[0, -1].float()
@@ -3111,7 +3274,7 @@ def solo_vs_mid_decode(engine):
 
     def sched():
         return ContinuousScheduler(cfg, engine.params, max_batch=4, max_ctx=256,
-                                   block_size=16, prefill_budget=32, device="cuda")
+                                   block_size=16, prefill_budget=32, device=engine.device)
 
     solo = sched()
     r = Request(rid=99, prompt=target, max_new_tokens=24)
@@ -3130,8 +3293,310 @@ def solo_vs_mid_decode(engine):
     return r.out_tokens
 
 
-def card_vs_cpu(torch):
-    """Reduced olmo-1b in float32 under both serve policies: one prefill
+HEAD_M = tuple(range(1, 10))
+
+
+def head_rows(torch, head):
+    """The untied bf16 LM head on the card at M in HEAD_M rows: through
+    ``models.common.logits_head`` (``torch.matmul``, the serving route)
+    and through ``ops.dense_matmul``. Returns, per route, the (M, row)
+    pairs whose logits are not bitwise the row's logits at M = 4."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import logits_head
+
+    gen = torch.Generator(device=head.device).manual_seed(16)
+    x = torch.randn((max(HEAD_M), head.shape[0]), generator=gen,
+                    device=head.device).to(torch.bfloat16)
+    routes = {"torch.matmul": lambda a: logits_head(a, head),
+              "dense_matmul": lambda a: ops.dense_matmul(a, head).to(torch.float32)}
+    parted = {}
+    for route, fn in routes.items():
+        at4 = fn(x[:4])
+        parted[route] = [(M, i) for M in HEAD_M for i in range(min(M, 4))
+                         if not torch.equal(fn(x[:M])[i], at4[i])]
+    torch.cuda.synchronize()
+    return parted
+
+
+def _mem_gb(torch):
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def serve_new_archs(torch, dev):
+    """Runs (o)-(r) of ARCH_RUNS and their gates, one arch at a time: the
+    raw bf16 weights (seed 0) are drawn, the head gate runs on them, they
+    are packed once under the arch's policy and dropped (the packed tree
+    keeps the embedding, head and norms), both runs serve that tree, and
+    the tree and the runs' engines are dropped before the next arch.
+
+    Gated (besides ``serve_run``'s checks): the untied head's rows at M =
+    1-9 bitwise its rows at M = 4 (``head_rows``, the serving route);
+    nemotron-4-15b: (p) static emits (o)'s greedy tokens, chunked and
+    whole-prompt first-token logits bitwise equal on the bf16 pool
+    (``first_token_logits``), solo ≡ mid-decode admission on (o)'s
+    engine; stablelm-12b: (r) emits (q)'s greedy tokens in both passes,
+    the draft/verify counters hold together, ``verify_vs_decode`` on (r)'s
+    int8 pool at head dim 160 (logits and pool bytes bitwise at Lc =
+    2-9), solo ≡ mid-decode admission on (q)'s engine. Prints the time and
+    peak device memory of each init, pack and run. Everything prints
+    before a gate raises. Returns (report, launch counts summed over the
+    four runs)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import parse_policy_spec
+    from repro_torch.core.quantized_linear import quantize_params_for_serving
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    plan = (("nemotron-4-15b", MIXED_POLICY, ("o-nemotron-chunked", "p-nemotron-static")),
+            ("stablelm-12b", POLICY, ("q-stablelm-int8", "r-stablelm-spec-int8")))
+    out, counts, bad = {}, {}, []
+    for arch, policy, names in plan:
+        rep = out[arch] = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        raw = build_model(get_config(arch)).init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        rep["init_s"], rep["init_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+        rep["head_parted"] = parted = head_rows(torch, raw["head"])
+        log(f"{arch}: init {rep['init_s']:.1f}s, peak {rep['init_peak_gb']:.2f} GB; untied "
+            f"head {tuple(raw['head'].shape)} rows at M in {HEAD_M} not bitwise M = 4: "
+            f"torch.matmul {parted['torch.matmul'] or 'none'} (gated), dense_matmul "
+            f"{parted['dense_matmul'] or 'none'}")
+        if parted["torch.matmul"]:
+            bad.append(f"{arch}: head rows part across M {parted['torch.matmul']}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        packed = quantize_params_for_serving(raw, parse_policy_spec(policy), min_size=1024)
+        del raw
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rep["pack_s"], rep["pack_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+        rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        log(f"{arch}: packed under {policy} in {rep['pack_s']:.1f}s, peak "
+            f"{rep['pack_peak_gb']:.2f} GB, {rep['resident_gb']:.2f} GB resident after "
+            "the raw weights were dropped")
+        runs = {}
+        for name in names:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[name] = serve_run(torch, packed, name)
+            run_s, peak = time.perf_counter() - t0, _mem_gb(torch)
+            rep[name] = {**runs[name][1], "run_seconds": run_s, "peak_gb": peak}
+            for k, n in runs[name][2].items():
+                counts[k] = counts.get(k, 0) + n
+            log(f"  [{name}] {run_s:.1f}s, peak memory {peak:.2f} GB "
+                "(torch.cuda.max_memory_allocated)")
+        reqs = mixed_requests(get_config(arch), serve.build_parser().parse_args(
+            serve_argv(names[0])))
+        greedy = [r.rid for r in reqs if r.temperature == 0]
+        full = f"{len(greedy)}/{len(greedy)}"
+        if arch == "nemotron-4-15b":
+            eng = runs["o-nemotron-chunked"][0]
+            share = _greedy_share(runs["p-nemotron-static"][3], runs["o-nemotron-chunked"][3],
+                                  greedy)
+            solo, chunk, batch = first_token_logits(torch, eng.model, eng.params,
+                                                    [r.prompt for r in reqs])
+            err_chunk = (chunk - solo).abs().max().item()
+            err_batch = (batch - solo).abs().max().item()
+            toks = solo_vs_mid_decode(eng)
+            rep.update(static_vs_continuous=share, logits_err_chunked_vs_whole=err_chunk,
+                       logits_err_batch_vs_solo=err_batch, solo_vs_mid_decode=len(toks))
+            log(f"{arch}: greedy (p) static vs (o) chunked {share} (gated at all); "
+                f"first-token logits chunked vs whole-prompt (bf16 pool) max |err| "
+                f"{err_chunk:.3g} (gated at 0), static batch of 4 vs solo {err_batch:.3g}; "
+                f"solo == mid-decode admission: {len(toks)} greedy tokens identical")
+            if share != full or err_chunk != 0.0:
+                bad.append(f"{arch}: (p) vs (o) {share}, chunked vs whole {err_chunk}")
+        else:
+            eng = runs["r-stablelm-spec-int8"][0]
+            _, report, _, tokens = runs["r-stablelm-spec-int8"]
+            ref_toks = runs["q-stablelm-int8"][3]
+            shares = {"warmup": _greedy_share(report["warmup_tokens"], ref_toks, greedy),
+                      "timed": _greedy_share(tokens, ref_toks, greedy)}
+            st, verify = report["stats"], report["verify"]
+            err = verify_vs_decode(torch, eng, "w4a8", VERIFY_KS)
+            toks = solo_vs_mid_decode(runs["q-stablelm-int8"][0])
+            rep.update(speculate_vs_none=shares, verify_vs_decode=err,
+                       solo_vs_mid_decode=len(toks))
+            worst = max(e["logits_max_err"] for e in err.values())
+            log(f"{arch}: greedy (r) --speculate 4 vs (q) without: warmup pass "
+                f"{shares['warmup']}, timed pass {shares['timed']} (gated at all); "
+                f"{st['spec_accepted_tokens']}/{st['spec_draft_tokens']} drafts accepted "
+                f"over {st['spec_rounds']} rounds, {st['spec_verify_rows']} rows in "
+                f"{st['spec_verify_calls']} verify calls, {verify['launches']} paged_prefill "
+                f"launches in {verify['rows']} verified rows x {eng.cfg.num_layers} layers; "
+                f"verify vs decode (int8 pool, head dim {eng.cfg.head_dim}) at Lc "
+                f"{[k + 1 for k in VERIFY_KS]}: logits max |err| {worst}, pool bitwise "
+                f"{all(e['pool_bitwise'] for e in err.values())}, dead rows kept "
+                f"{all(e['dead_rows_kept'] for e in err.values())}; solo == mid-decode "
+                f"admission: {len(toks)} greedy tokens identical")
+            bad += [f"{arch} greedy {p} {v}" for p, v in shares.items() if v != full]
+            if report["requests_spec"] != [st["spec_draft_tokens"], st["spec_accepted_tokens"]]:
+                bad.append(f"{arch}: requests' drafted/accepted {report['requests_spec']}")
+            if not (verify["rows"] == st["spec_verify_rows"] >= verify["calls"] ==
+                    st["spec_verify_calls"] > 0
+                    and verify["launches"] == verify["rows"] * eng.cfg.num_layers):
+                bad.append(f"{arch}: verify launches {verify} against {st}")
+            for k, e in err.items():
+                if e["logits_max_err"] != 0.0 or not e["pool_bitwise"] or not e["dead_rows_kept"]:
+                    bad.append(f"{arch}: verify vs decode at k={k} {e}")
+        del runs, packed, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"new archs: {bad}")
+    return out, counts
+
+
+def check_registry(torch, dev, params, ref_tokens):
+    """The kernel registry on the card.
+
+    (a) ``autotune`` on a fresh registry at (o)'s decode shape of the
+    fused kernel (nemotron-4-15b's `wo`, M = 4, 6144 -> 6144, w8a8, bf16
+    rows), at both groups of a Table III leaf (nemotron's w_up at M = 4,
+    w4a6r25: ``bitplane_matmul``'s dequant entry at n8 and at the 4-bit
+    columns) and at rwkv6-3b's two decode shapes of ``dense_matmul``:
+    every candidate, the winner included, gives bitwise the heuristic
+    plan's output (the int32 forms, and the dequantized one in float32).
+    (b) ``save_plans``, then ``load_plans`` into a fresh registry: the
+    same plans. (c) The serve CLI twice with --plans on chunked-int8's
+    flags, the process registry emptied before each: the first saves N >=
+    1 plans, the second loads N, plans nothing anew, and both emit
+    `ref_tokens` (chunked-int8's run). (d) --backend reference on the card
+    exits with its message. Raises after printing if any part fails."""
+    import io
+    import tempfile
+
+    from repro_torch.core.bitplane import pack_weights
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.quantized_linear import pack_weight
+    from repro_torch.kernels import bitplane_matmul, dense_matmul, fused_matmul, pack_quant
+    from repro_torch.kernels.registry import KernelRegistry, get_registry, heuristic
+    from repro_torch.launch import serve
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    reg, bad, tuned = KernelRegistry(), [], {}
+
+    def tune(what, op, mod, shape, run, forms):
+        """Autotune `op` at `shape` with `run(blocks)`; then each candidate's
+        `forms(blocks)` outputs against the heuristic's."""
+        win = reg.autotune(op, shape, run, backend="cuda")
+        heur = heuristic(op, shape)
+        want = [t.clone() for t in forms(heur)]
+        cands = list(dict.fromkeys([heur, win, *mod.candidates(*shape)]))
+        parted = [c for c in cands if not all(torch.equal(a, b)
+                                              for a, b in zip(forms(c), want))]
+        torch.cuda.synchronize()
+        tuned[what] = {"op": op, "shape": shape, "heuristic": heur, "winner": win,
+                       "candidates": len(cands), "parted": parted}
+        log(f"registry: autotune {what} {op} {shape}: {len(cands)} candidates, heuristic "
+            f"{heur}, winner {win}; outputs not bitwise the heuristic's: {parted or 'none'}")
+        if parted:
+            bad.append(f"{what}: {parted}")
+
+    # (o)'s decode shape of the fused kernel: nemotron's wo at w8a8.
+    K = N = 6144
+    w8 = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    ws = torch.rand((1, N), generator=gen, device=dev) * 1e-3
+    xb = torch.randn((4, K), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(w_bits=8, a_bits=8, act_signed=True, w_plane_lo=0)
+    yb = torch.empty((4, N), dtype=torch.bfloat16, device=dev)
+    yf = torch.empty((4, N), dtype=torch.float32, device=dev)
+
+    def fused_forms(b):
+        acc, scales = fused_matmul.launch(xb, w8, plan=b, **kw)
+        fused_matmul.launch_dequant(xb, w8, ws, yf, plan=b, **kw)
+        return [acc, scales, yf]
+
+    tune("(o) wo decode", "fused_matmul", fused_matmul, (4, K, N),
+         lambda b: fused_matmul.launch_dequant(xb, w8, ws, yb, plan=b, **kw), fused_forms)
+    # A Table III leaf: nemotron's w_up at decode, both filter groups.
+    K, N = 6144, 24576
+    pw = pack_weight(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5,
+                     QuantConfig(w_bits=4, a_bits=6, mixed_ratio_8b=0.25))
+    xq, xs = pack_quant.launch(torch.randn((4, K), generator=gen, device=dev)
+                               .to(torch.bfloat16), bits=6, signed=True)
+    for group, p, sc, wb in (("8-bit", pw.packed8, pw.scale[:, :pw.n8], 8),
+                             ("4-bit", pw.packed, pw.scale[:, pw.n8:], 4)):
+        n = p.shape[1]
+        ob = torch.empty((4, n), dtype=torch.bfloat16, device=dev)
+        of = torch.empty((4, n), dtype=torch.float32, device=dev)
+        ikw = dict(w_bits=wb, a_bits=6, act_signed=True, w_plane_lo=0)
+
+        def leaf_forms(b):
+            acc = bitplane_matmul.launch(xq, p, plan=b, **ikw)
+            bitplane_matmul.launch_dequant(xq, p, xs, sc, of, w_bits=wb, a_bits=6, plan=b)
+            return [acc, of]
+
+        tune(f"Table III w_up {group} group", "bitplane_matmul", bitplane_matmul, (4, K, n),
+             lambda b: bitplane_matmul.launch_dequant(xq, p, xs, sc, ob, w_bits=wb, a_bits=6,
+                                                      plan=b), leaf_forms)
+    del pw
+    # dense_matmul's tilings at rwkv6-3b's decode shapes (S never offered).
+    for K, N in ((2560, 8960), (8960, 2560)):
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        x = torch.randn((4, K), generator=gen, device=dev).to(torch.bfloat16)
+        tune(f"rwkv6 {K}->{N} decode", "dense_matmul", dense_matmul, (4, K, N),
+             lambda b: dense_matmul.launch(x, w, plan=b),
+             lambda b: [dense_matmul.launch(x, w, plan=b)])
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    path = os.path.join(tmp, "plans.json")
+    n = reg.save_plans(path)
+    fresh = KernelRegistry()
+    loaded = fresh.load_plans(path)
+    same = all(fresh.plan(t["op"], t["shape"], "cuda") == t["winner"] for t in tuned.values())
+    log(f"registry: save_plans wrote {n} plans, a fresh registry loaded {loaded}, the same "
+        f"plans: {same and loaded == n}")
+    if not (same and loaded == n == len(tuned)):
+        bad.append(f"save/load: {n} saved, {loaded} loaded, same {same}")
+
+    g = get_registry()
+    cli_path = os.path.join(tmp, "serve_plans.json")
+    argv = serve_argv("chunked-int8") + ["--plans", cli_path]
+    cli = []
+    for _ in range(2):
+        g.clear_plans()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, done, _ = serve.run(serve.build_parser().parse_args(argv), mixed_requests,
+                                   params=params)
+        text = buf.getvalue()
+        got = [int(m) if m else None for m in (
+            (re.search(r"loaded (\d+) block plans", text) or [None, None])[1],
+            (re.search(r"saved (\d+) block plans", text) or [None, None])[1])]
+        cli.append({"loaded": got[0], "saved": got[1], **g.cache_info(),
+                    "tokens_equal": {r.rid: r.out_tokens for r in done} == ref_tokens})
+    g.clear_plans()
+    log(f"registry: serve --plans on chunked-int8's flags: {cli}")
+    first, second = cli
+    if not (first["loaded"] is None and first["saved"] and first["saved"] >= 1
+            and second["loaded"] == first["saved"] == second["saved"]
+            and second["misses"] == 0 and first["tokens_equal"] and second["tokens_equal"]):
+        bad.append(f"serve --plans: {cli}")
+    try:
+        serve.main(serve_argv("chunked-int8") + ["--backend", "reference"])
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    log(f"registry: serve --backend reference on the card: exits with {refused!r}")
+    if not (isinstance(refused, str) and "--backend reference runs on cpu" in refused):
+        bad.append(f"--backend reference on the card: {refused!r}")
+    if bad:
+        raise AssertionError(f"registry: {bad}")
+    return {"autotune": tuned, "saved": n, "loaded": loaded, "serve_plans": cli,
+            "backend_reference_refused": refused}
+
+
+def card_vs_cpu(torch, arch="olmo-1b"):
+    """Reduced `arch` (olmo-1b, nemotron-4-15b, stablelm-12b) in float32
+    under both serve policies: one prefill
     chunk and two paged decode steps, and a whole-prompt prefill of two
     right-padded prompts and two contiguous decode steps, on the card
     (kernels) vs on the CPU (plain versions): logits within 1e-2 (a
@@ -3142,7 +3607,7 @@ def card_vs_cpu(torch):
     from repro_torch.core.quantized_linear import quantize_params_for_serving
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_reduced_config("olmo-1b"), dtype="float32")
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
     model = build_model(cfg)
     worst = 0.0
     for policy in (POLICY, MIXED_POLICY):
@@ -3176,7 +3641,7 @@ def card_vs_cpu(torch):
             out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
         err = (out["cpu"] - out["cuda"]).abs().max().item()
         if not err <= 1e-2:
-            raise AssertionError(f"reduced fp32 model ({policy}): card vs CPU "
+            raise AssertionError(f"reduced fp32 {arch} ({policy}): card vs CPU "
                                  f"logits differ by {err}")
         worst = max(worst, err)
     return worst
@@ -3358,6 +3823,27 @@ def main() -> int:
             "host_tier": check_host_tier(torch, runs, params_of("j-prefix-solo-int8")),
             "serve": {name: run[1] for name, run in runs.items()}})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["archs"]:
+        build.build()
+        timer = Timer(torch, dev)
+        t0 = time.perf_counter()
+        new_w = check_new_widths(torch, dev, timer)
+        check_head_dims(torch, dev)
+        check_one_order(torch, dev)
+        log(f"archs: kernel checks {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        arch_out, _ = serve_new_archs(torch, dev)
+        log(f"archs: runs (o)-(r) and their gates {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        ref = serve_run(torch, params_of("chunked-int8"), "chunked-int8")
+        reg_out = check_registry(torch, dev, params_of("chunked-int8"), ref[3])
+        log(f"archs: registry phase (with chunked-int8) {time.perf_counter() - t0:.1f}s")
+        errs = {a: card_vs_cpu(torch, a) for a in ("nemotron-4-15b", "stablelm-12b")}
+        log(f"reduced fp32 card vs CPU logits max |err|: {errs}")
+        write_detail("chip_smoke_archs.json", {
+            "new_widths": new_w, "new_archs": arch_out, "registry": reg_out,
+            "card_vs_cpu": errs})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -3397,6 +3883,8 @@ def main() -> int:
     dense = check_dense_matmul(torch, dev, timer)
     head_dim_err = check_head_dims(torch, dev)
     check_one_order(torch, dev)
+    new_w = check_new_widths(torch, dev, timer)
+    results["fused_quantize_matmul"]["entries"]["decode_nemotron_w_up"] = new_w["entry"]
     for name, r in [*results.items(), ("dense_matmul", dense)]:
         for what, e in [(name, r)] + [(f"{name}[{k}]", e)
                                       for k, e in r.get("entries", {}).items()]:
@@ -3410,7 +3898,9 @@ def main() -> int:
         return 3                 # a partial run: no result line
 
     t0 = time.perf_counter()
-    counts = {}
+    arch_out, counts = serve_new_archs(torch, dev)
+    log(f"runs (o)-(r) and their gates: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     runs = {}
     for name in SERVE_RUNS:
         runs[name] = serve_run(torch, params_of(name), name)
@@ -3438,14 +3928,21 @@ def main() -> int:
     # speculating runs' verify calls (compare_speculation and compare_tiers
     # gate it at one a layer a row).
     entries = results["paged_prefill"]["entries"]
-    entries["verify"]["launches"] = sum(run[1]["verify"]["launches"]
-                                        for run in runs.values())
+    entries["verify"]["launches"] = sum(run[1]["verify"]["launches"] for run in runs.values()) \
+        + arch_out["stablelm-12b"]["r-stablelm-spec-int8"]["verify"]["launches"]
     paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
     rwkv_cmp = compare_rwkv6(torch, runs)
     unpacked_cmp = compare_unpacked(torch, runs)
     log(f"serve phase: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    registry_out = check_registry(torch, dev, params_of("chunked-int8"),
+                                  runs["chunked-int8"][3])
+    log(f"registry phase: {time.perf_counter() - t0:.1f}s")
     err = card_vs_cpu(torch)
     log(f"reduced fp32 olmo-1b: card vs CPU logits max |err| {err:.3g}")
+    err_archs = {a: card_vs_cpu(torch, a) for a in ("nemotron-4-15b", "stablelm-12b")}
+    log(f"reduced fp32 nemotron-4-15b / stablelm-12b: card vs CPU logits max |err| "
+        f"{err_archs}")
     err_rwkv = card_vs_cpu_rwkv6(torch)
     log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err_rwkv:.3g}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3459,7 +3956,8 @@ def main() -> int:
         "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
         "prefix_cache": prefix_cmp, "speculation": spec_cmp, "tiers": tier_cmp,
         "lifecycle": life_cmp, "preemption": preempt_cmp, "chaos": chaos_cmp,
-        "host_tier": host_cmp,
+        "host_tier": host_cmp, "new_widths": new_w["cases"], "new_archs": arch_out,
+        "registry": registry_out, "card_vs_cpu_archs_max_err": err_archs,
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
     line = {"kernels": [

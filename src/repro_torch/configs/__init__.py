@@ -13,6 +13,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "olmo-1b": "olmo_1b",
     "rwkv6-3b": "rwkv6_3b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "stablelm-12b": "stablelm_12b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -8,17 +8,22 @@ the (K, N) codes themselves) → the exact (M, N) int32 product
 forms: the JAX signature's int32 product (:func:`launch`), and the Table
 III path's dequantized product ``(acc · xs) · ws`` written into a strided
 output at a column offset (:func:`launch_dequant`). The grid and the K
-split are :func:`plan`, a pure function of (M, K, N).
+split are a block plan (bm, 128, kb): the kernel registry's for the
+shape (``registry.plan``, from the heuristic :func:`plan` unless a plan
+file or ``autotune`` pinned another) or the caller's ``plan=``. Every
+plan gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build, split_k
+from repro_torch.kernels.common import cdiv, k_slice_lengths
+from repro_torch.kernels.registry import get_registry
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -32,6 +37,7 @@ _Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132      # streaming multiprocessors of an H100 SXM
 BN = 128       # output columns per block
 KT = 128       # K codes per shared tile: a K slice is a whole number of them
+ROWS = (32, 64, 128)   # the rows per block the kernel has
 
 
 class Plan(NamedTuple):
@@ -48,9 +54,23 @@ class Plan(NamedTuple):
         the int32 entry need not zero it (a split adds slices atomically)."""
         return self.grid[1] == 1
 
+    @property
+    def blocks(self) -> Tuple[int, int, int]:
+        """(bm, BN, kb): the plan as the registry and plan files hold it."""
+        return self.bm, BN, self.kb
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+
+@functools.lru_cache(maxsize=4096)
+def plan_from(M: int, K: int, N: int, blocks: Tuple[int, ...]) -> Plan:
+    """The plan of block shape ``blocks`` = (bm, BN, kb) at (M, K, N): bm
+    one of :data:`ROWS`, K slices of kb codes, a whole number of K tiles.
+    Raises ValueError for blocks the kernel cannot take."""
+    if (len(blocks) != 3 or blocks[0] not in ROWS or blocks[1] != BN or blocks[2] <= 0
+            or blocks[2] % KT):
+        raise ValueError(f"bitplane_matmul: no kernel for blocks {tuple(blocks)} (rows "
+                         f"{ROWS}, {BN} columns, K slices a positive multiple of {KT})")
+    bm, _, kb = blocks
+    return Plan(bm, kb, (cdiv(N, BN), cdiv(K, kb), cdiv(M, bm)))
 
 
 def plan(M: int, K: int, N: int) -> Plan:
@@ -59,10 +79,23 @@ def plan(M: int, K: int, N: int) -> Plan:
     bytes, so every SM should stream its share). The product is exact in
     integers, so the plan changes no bit of the result."""
     bm = 32 if M <= 32 else 64 if M <= 64 else 128
-    n_tiles, m_tiles, k_tiles = _cdiv(N, BN), _cdiv(M, bm), _cdiv(K, KT)
-    want = min(max(_cdiv(2 * SMS, n_tiles * m_tiles), 1), k_tiles)
-    per = _cdiv(k_tiles, want)
-    return Plan(bm, per * KT, (n_tiles, _cdiv(k_tiles, per), m_tiles))
+    n_tiles, m_tiles, k_tiles = cdiv(N, BN), cdiv(M, bm), cdiv(K, KT)
+    want = min(max(cdiv(2 * SMS, n_tiles * m_tiles), 1), k_tiles)
+    return plan_from(M, K, N, (bm, BN, cdiv(k_tiles, want) * KT))
+
+
+def candidates(M: int, K: int, N: int) -> List[Tuple[int, int, int]]:
+    """The blocks ``registry.autotune`` tries: every row count, K in 1, 2,
+    4, ... slices. The products are exact integers (a split adds its
+    slices' int32 partials), so none changes a bit of either entry."""
+    kbs = k_slice_lengths(K, KT)
+    return [(bm, BN, kb) for bm in ROWS for kb in kbs]
+
+
+def _plan(M: int, K: int, N: int, blocks, backend) -> Plan:
+    if blocks is None:
+        blocks = get_registry().plan("bitplane_matmul", (M, K, N), backend)
+    return plan_from(M, K, N, tuple(blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,12 +129,14 @@ def _check(x_codes: torch.Tensor, w_packed: torch.Tensor, w_bits: int, a_bits: i
 
 
 def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
-           a_bits: int, act_signed: bool, w_plane_lo: int) -> torch.Tensor:
+           a_bits: int, act_signed: bool, w_plane_lo: int, plan=None,
+           backend=None) -> torch.Tensor:
     """(M, K) int8 CUDA codes × (K·w_bits/8, N) int8 packed codes →
-    (M, N) int32."""
+    (M, N) int32. ``plan``: blocks (bm, BN, kb), else the registry's for
+    ``backend``."""
     global launches
     x_codes, w_packed, m, k, n = _check(x_codes, w_packed, w_bits, a_bits, w_plane_lo)
-    p = plan(m, k, n)
+    p = _plan(m, k, n, plan, backend)
     alloc = torch.empty if p.single_slice else torch.zeros
     acc = alloc((m, n), dtype=torch.int32, device=x_codes.device)
     rc = _lib().bitplane_matmul(
@@ -115,7 +150,7 @@ def launch(x_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
 
 def launch_dequant(x_codes: torch.Tensor, w_packed: torch.Tensor, x_scales: torch.Tensor,
                    scale: torch.Tensor, out: torch.Tensor, *, col: int = 0, w_bits: int,
-                   a_bits: int) -> None:
+                   a_bits: int, plan=None, backend=None) -> None:
     """``out[:, col:col + N] = (acc · x_scales) · scale`` in out's dtype
     (float32 or bfloat16): acc the exact int32 product of the (M, K)
     signed int8 codes and the (K·w_bits/8, N) packed codes (every weight
@@ -123,7 +158,7 @@ def launch_dequant(x_codes: torch.Tensor, w_packed: torch.Tensor, x_scales: torc
     float32 in that order, then one rounding. ``x_scales`` is the rows'
     (M, 1) float32 scales (``pack_quant.launch``), ``scale`` the N
     columns' float32 scales ((N,) or (1, N), unit stride). Nothing is
-    cast or copied: any other input raises."""
+    cast or copied: any other input raises. ``plan`` as in :func:`launch`."""
     global launches
     if not (x_codes.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("bitplane_dequant_matmul takes contiguous codes and packed weights")
@@ -140,7 +175,7 @@ def launch_dequant(x_codes: torch.Tensor, w_packed: torch.Tensor, x_scales: torc
             or scale.stride(-1) != 1 or scale.device != x_codes.device):
         raise ValueError(f"scale must hold N={n} float32 values with unit stride on "
                          f"{x_codes.device}")
-    p = plan(m, k, n)
+    p = _plan(m, k, n, plan, backend)
     stream = torch.cuda.current_stream(x_codes.device).cuda_stream
     part, part_p, ctr_p = split_k.scratch(p.grid, m, n, x_codes.device, stream)
     y = out.data_ptr() + col * out.element_size()

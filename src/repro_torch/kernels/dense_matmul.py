@@ -6,7 +6,9 @@ product (``csrc/dense_matmul.cu``). The summation order is :func:`plan`,
 a function of (K, N) alone: S slices of whole K tiles, each a chain of
 k16 tensor-core steps from zero, folded ((p0 + p1) + p2) + ... in fp32.
 The tile plan (:func:`tiles`) may follow M, since every plan runs those
-same chains. rwkv6 runs every dense product of its row path through it
+same chains: the kernel registry holds it as blocks (bm,) per (M, K, N)
+and may pin another from a plan file or ``autotune``; S is never part of
+a plan. rwkv6 runs every dense product of its row path through it
 on the card, which makes static batches and solo prefill, and so static
 and continuous serving, agree bitwise.
 """
@@ -14,11 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.registry import get_registry
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -34,24 +38,20 @@ DECODE = 16     # rows of a split decode block (16 x 128, one K slice each)
 WIDE = 128      # rows and columns of a wide tile (the prefill tiling)
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def plan(K: int, N: int) -> int:
     """S, the number of K slices: about two blocks per SM at decode if each
     32-column strip of N took S of them (S = 4 for 2560 or 8960 → 2560,
     1 for 2560 → 8960 and the 65 536-wide head, 20 for 2560 → 64), each
     slice a whole number of K tiles and none empty. It never reads M: a
     row's summation order is the same at every batch size."""
-    k_tiles = _cdiv(K, KT)
-    want = min(max(_cdiv(2 * SMS, _cdiv(N, STRIP_N)), 1), k_tiles)
-    return _cdiv(k_tiles, _cdiv(k_tiles, want))
+    k_tiles = cdiv(K, KT)
+    want = min(max(cdiv(2 * SMS, cdiv(N, STRIP_N)), 1), k_tiles)
+    return cdiv(k_tiles, cdiv(k_tiles, want))
 
 
 def slice_k(K: int, N: int) -> int:
     """K elements per slice of :func:`plan` (the last one may be shorter)."""
-    return _cdiv(_cdiv(K, KT), plan(K, N)) * KT
+    return cdiv(cdiv(K, KT), plan(K, N)) * KT
 
 
 def tiles(M: int, K: int, N: int) -> int:
@@ -59,7 +59,7 @@ def tiles(M: int, K: int, N: int) -> int:
     at decode (M <= 16) with K split, 16 × 128 blocks, one per K slice;
     else 64 × 32 strips. Wide tiles and strips walk all slices in one
     block. Every tiling gives the same bits."""
-    if M > 64 and _cdiv(M, WIDE) * _cdiv(N, WIDE) >= SMS // 2:
+    if M > 64 and cdiv(M, WIDE) * cdiv(N, WIDE) >= SMS // 2:
         return WIDE
     if M <= DECODE and plan(K, N) > 1:
         return DECODE
@@ -67,9 +67,29 @@ def tiles(M: int, K: int, N: int) -> int:
 
 
 def launch_plan(M: int, K: int, N: int) -> Tuple[int, int, int]:
-    """(S, slice length, rows per block) as :func:`launch` passes them:
-    the summation order from (K, N), the tiling from (M, K, N)."""
+    """(S, slice length, rows per block) as :func:`launch` passes them
+    under the heuristic tiling: the summation order from (K, N), the
+    tiling from (M, K, N)."""
     return plan(K, N), slice_k(K, N), tiles(M, K, N)
+
+
+def check_blocks(M: int, K: int, N: int, blocks: Tuple[int, ...]) -> int:
+    """The rows per block of blocks ``(bm,)`` at (M, K, N): 16 (split
+    decode, only where :func:`plan` splits K), 64 or 128. Raises
+    ValueError for blocks the kernel cannot take; a K split is not a
+    block plan."""
+    if len(blocks) != 1 or blocks[0] not in (DECODE, 64, WIDE) or (
+            blocks[0] == DECODE and plan(K, N) == 1):
+        raise ValueError(f"dense_matmul: no tiling {tuple(blocks)} at K={K}, N={N} (one "
+                         f"of (64,), ({WIDE},), and ({DECODE},) where K is split)")
+    return blocks[0]
+
+
+def candidates(M: int, K: int, N: int) -> List[Tuple[int]]:
+    """The tilings ``registry.autotune`` tries. Every tiling runs the same
+    chains in the same order, so none changes a bit; the K split S stays
+    :func:`plan`'s (it sets each row's summation order)."""
+    return [(bm,) for bm in (DECODE, 64, WIDE) if bm != DECODE or plan(K, N) > 1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,8 +100,9 @@ def _fn():
     return fn
 
 
-def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) and w (K, N) bfloat16 on one CUDA device → (M, N) bfloat16."""
+def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None) -> torch.Tensor:
+    """x (M, K) and w (K, N) bfloat16 on one CUDA device → (M, N) bfloat16.
+    ``plan``: the tiling (bm,), else the registry's for ``backend``."""
     global launches
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"dense_matmul expects x (M, K) and w (K, N), got "
@@ -95,7 +116,10 @@ def launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     M, K = x.shape
     N = w.shape[1]
-    S, sk, bm = launch_plan(M, K, N)
+    if plan is None:
+        plan = get_registry().plan("dense_matmul", (M, K, N), backend)
+    bm = check_blocks(M, K, N, tuple(plan))
+    S, sk, _ = launch_plan(M, K, N)       # the summation order: (K, N) alone
     y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     part = (torch.empty((S, M, N), dtype=torch.float32, device=x.device)
             if S > 1 and bm == DECODE else None)

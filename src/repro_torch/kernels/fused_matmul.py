@@ -7,18 +7,22 @@ packed 2/4/8-bit codes of a ``PackedWeight`` directly; see the source for
 its design and bound. Two output forms: the JAX signature's (int32
 accumulator, row scales) (:func:`launch`), and the serving path's
 dequantized product written into a strided output at a column offset
-(:func:`launch_dequant`). The grid and the K split are :func:`plan`, a
-pure function of (M, K, N).
+(:func:`launch_dequant`). The grid and the K split are a block plan
+(bm, bn, kb): the kernel registry's for the shape (``registry.plan``,
+from the heuristic :func:`plan` unless a plan file or ``autotune`` pinned
+another) or the caller's ``plan=``. Every plan gives the same bits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, split_k
+from repro_torch.kernels.common import cdiv, k_slice_lengths
+from repro_torch.kernels.registry import get_registry
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
@@ -32,6 +36,7 @@ _Y_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SMS = 132      # streaming multiprocessors of an H100 SXM
 KT = 64        # K codes per tile: a K slice is a whole number of them
+TILES = ((32, 128), (64, 128), (64, 256))   # the (bm, bn) tiles the kernel has
 
 
 class Plan(NamedTuple):
@@ -49,9 +54,22 @@ class Plan(NamedTuple):
         """Output tiles: one split counter each."""
         return self.grid[0] * self.grid[2]
 
+    @property
+    def blocks(self) -> Tuple[int, int, int]:
+        """(bm, bn, kb): the plan as the registry and plan files hold it."""
+        return self.bm, self.bn, self.kb
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+
+@functools.lru_cache(maxsize=4096)
+def plan_from(M: int, K: int, N: int, blocks: Tuple[int, ...]) -> Plan:
+    """The plan of block shape ``blocks`` = (bm, bn, kb) at (M, K, N): one
+    of :data:`TILES`, K slices of kb codes, a whole number of K tiles.
+    Raises ValueError for blocks the kernel cannot take."""
+    if len(blocks) != 3 or tuple(blocks[:2]) not in TILES or blocks[2] <= 0 or blocks[2] % KT:
+        raise ValueError(f"fused_matmul: no kernel for blocks {tuple(blocks)} (tiles "
+                         f"{TILES}, K slices a positive multiple of {KT})")
+    bm, bn, kb = blocks
+    return Plan(bm, bn, kb, (cdiv(N, bn), cdiv(K, kb), cdiv(M, bm)))
 
 
 def plan(M: int, K: int, N: int) -> Plan:
@@ -63,10 +81,23 @@ def plan(M: int, K: int, N: int) -> Plan:
     its share). The product is exact in integers, so the plan changes no
     bit of the result."""
     bm, bn = (32, 128) if M <= 32 else (64, 256) if M >= 512 and N >= 4096 else (64, 128)
-    n_tiles, m_tiles, k_tiles = _cdiv(N, bn), _cdiv(M, bm), _cdiv(K, KT)
-    want = min(max(_cdiv(2 * SMS, n_tiles * m_tiles), 1), k_tiles)
-    per = _cdiv(k_tiles, want)
-    return Plan(bm, bn, per * KT, (n_tiles, _cdiv(k_tiles, per), m_tiles))
+    n_tiles, m_tiles, k_tiles = cdiv(N, bn), cdiv(M, bm), cdiv(K, KT)
+    want = min(max(cdiv(2 * SMS, n_tiles * m_tiles), 1), k_tiles)
+    return plan_from(M, K, N, (bm, bn, cdiv(k_tiles, want) * KT))
+
+
+def candidates(M: int, K: int, N: int) -> List[Tuple[int, int, int]]:
+    """The blocks ``registry.autotune`` tries: every tile, K in 1, 2, 4, ...
+    slices. The products are exact integers, summed over the slices in
+    slice order, so none changes a bit of either output form."""
+    kbs = k_slice_lengths(K, KT)
+    return [(bm, bn, kb) for bm, bn in TILES for kb in kbs]
+
+
+def _plan(M: int, K: int, N: int, blocks, backend) -> Plan:
+    if blocks is None:
+        blocks = get_registry().plan("fused_matmul", (M, K, N), backend)
+    return plan_from(M, K, N, tuple(blocks))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,12 +131,13 @@ def _check(x: torch.Tensor, w_packed: torch.Tensor, w_bits: int, a_bits: int,
 
 
 def launch(x: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
-           a_bits: int, act_signed: bool, w_plane_lo: int):
+           a_bits: int, act_signed: bool, w_plane_lo: int, plan=None, backend=None):
     """(M, K) float32 or bfloat16 CUDA activations × (K·w_bits/8, N) int8
-    packed codes → ((M, N) int32 accumulator, (M, 1) float32 scales)."""
+    packed codes → ((M, N) int32 accumulator, (M, 1) float32 scales).
+    ``plan``: blocks (bm, bn, kb), else the registry's for ``backend``."""
     global launches
     x, w_packed, m, k, n = _check(x, w_packed, w_bits, a_bits, w_plane_lo)
-    p = plan(m, k, n)
+    p = _plan(m, k, n, plan, backend)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     acc = torch.empty((m, n), dtype=torch.int32, device=x.device)
     scales = torch.empty((m, 1), dtype=torch.float32, device=x.device)
@@ -122,12 +154,13 @@ def launch(x: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int,
 def launch_dequant(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
                    out: torch.Tensor, *, col: int = 0, w_bits: int, a_bits: int,
                    act_signed: bool, w_plane_lo: int,
-                   x_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   x_scales: Optional[torch.Tensor] = None, plan=None,
+                   backend=None) -> torch.Tensor:
     """``out[:, col:col + N] = ((acc · xs) · (scale · 4**w_plane_lo))`` in
     out's dtype (float32 or bfloat16), each product rounded to float32 in
     that order. ``x_scales``: the rows' (M, 1) scales from an earlier call
     on the same x at the same activation precision (the row pass is then
-    skipped). Returns the rows' scales."""
+    skipped). ``plan`` as in :func:`launch`. Returns the rows' scales."""
     global launches
     x, w_packed, m, k, n = _check(x, w_packed, w_bits, a_bits, w_plane_lo)
     if out.dtype not in _Y_DTYPES or out.ndim != 2 or out.stride(1) != 1:
@@ -145,7 +178,7 @@ def launch_dequant(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
             raise ValueError("x_scales must be a contiguous (M, 1) float32 tensor on x's device")
     else:
         x_scales = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    p = plan(m, k, n)
+    p = _plan(m, k, n, plan, backend)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     part, part_p, ctr_p = split_k.scratch(p.grid, m, n, x.device, stream)
     y = out.data_ptr() + col * out.element_size()

@@ -1,21 +1,26 @@
 """The only kernel entry point the rest of the port uses.
 
-Same signatures as ``repro.kernels.ops``. Dispatch is by device alone: a
-tensor on the CPU runs the plain PyTorch version (:mod:`.ref`); a CUDA
-tensor launches the hand-written kernel, or the call raises — there is
-no fallback. Each kernel module counts its launches
-(:func:`launch_counts`), so a run can show that its main path went
-through the kernels. Every Pallas kernel of the JAX package is ported:
-the fused quantize → packed matmul, paged decode attention (also run
-over the contiguous cache by ``decode_attention``), paged chunked
+Same signatures as ``repro.kernels.ops``, each with a per-call
+``backend=``. Every op resolves its backend through the kernel registry
+(:mod:`.registry`): by default a tensor on the CPU runs the plain
+PyTorch version (:mod:`.ref`, the ``reference`` backend) and a CUDA
+tensor launches the hand-written kernel (``cuda``); a backend chosen by
+``backend=``, ``registry.use`` or ``set_active`` must match the device,
+or the call raises — there is no fallback. The tiled matmuls take their
+block plan from the registry (``registry.plan``; plan files and
+``autotune`` pin others, none changing a bit). Each kernel module counts
+its launches (:func:`launch_counts`), so a run can show that its main
+path went through the kernels. Every Pallas kernel of the JAX package is
+ported: the fused quantize → packed matmul, paged decode attention (also
+run over the contiguous cache by ``decode_attention``), paged chunked
 prefill, the row quantizer and the unfused integer matmul (the Table
 III mixed-group path: one row pass, then one integer matmul per filter
 group with the dequant in its store), flash attention (whole-prompt
-prefill) and the RWKV-6 chunked recurrence ``wkv6``. The attention kernels share one
-tile routine, so every attention path sums in one order. One kernel has
-no Pallas counterpart: ``dense_matmul``, the batch-invariant bf16
-product that rwkv6's dense layers run on the card. The JAX
-registry (block plans, autotune, plan files) is not part of the port.
+prefill) and the RWKV-6 chunked recurrence ``wkv6``. The attention
+kernels share one tile routine, so every attention path sums in one
+order. One kernel has no Pallas counterpart: ``dense_matmul``, the
+batch-invariant bf16 product of rwkv6's and unpacked models' dense
+layers on the card.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.kernels.registry import KernelBackend, get_registry
 
 _MODULES = {
     "fused_quantize_matmul": _fused,
@@ -56,18 +62,15 @@ def reset_launch_counts() -> None:
     _paged.contig_launches = 0
 
 
-def _on_cpu(t: torch.Tensor, name: str) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return False
+def _backend(t: torch.Tensor, name: str, backend) -> KernelBackend:
+    """The backend op `name` runs on t's device (ValueError on a mismatch)."""
+    return get_registry().resolve(backend, t.device, name)
 
 
 def fused_quantize_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
                           w_bits: int = 8, a_bits: int = 8,
                           act_signed: bool = True, plane_bits: int = 2,
-                          w_plane_lo: int = 0):
+                          w_plane_lo: int = 0, backend=None):
     """(M, K) float × (K·w_bits/8, N) packed int8 weight codes →
     ((M, N) int32 accumulator, (M, 1) float32 per-row scales).
 
@@ -79,9 +82,10 @@ def fused_quantize_matmul(x: torch.Tensor, w_packed: torch.Tensor, *,
         raise ValueError("the kernel decomposes 2-bit planes only")
     kw = dict(w_bits=w_bits, a_bits=a_bits, act_signed=act_signed,
               w_plane_lo=w_plane_lo)
-    if _on_cpu(x, "fused_quantize_matmul"):
+    be = _backend(x, "fused_quantize_matmul", backend)
+    if be.is_reference:
         return _ref.fused_quantize_matmul_ref(x.to(torch.float32), w_packed, **kw)
-    return _fused.launch(_kernel_rows(x), w_packed, **kw)
+    return _fused.launch(_kernel_rows(x), w_packed, backend=be, **kw)
 
 
 def _kernel_rows(x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +97,7 @@ def _kernel_rows(x: torch.Tensor) -> torch.Tensor:
 def packed_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                   *, w_bits: int, a_bits: int = 8, act_signed: bool = True,
                   w_plane_lo: int = 0, packed8: Optional[torch.Tensor] = None,
-                  scale8: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  scale8: Optional[torch.Tensor] = None, backend=None) -> torch.Tensor:
     """float x (M, K) × packed weights ((K·bits/8), N) → (M, N) in x's
     dtype: the fused kernel with ``(acc · xs) · ws`` per element in its
     store (``ws`` = scale · 4**w_plane_lo), one rounding to x's dtype.
@@ -107,7 +111,8 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     groups = [(packed, scale, w_bits)]
     if packed8 is not None:
         groups.insert(0, (packed8, scale8, 8))
-    if _on_cpu(x, "packed_matmul"):
+    be = _backend(x, "packed_matmul", backend)
+    if be.is_reference:
         ys = [_ref.packed_matmul_ref(x, p, s, w_bits=b, **kw) for p, s, b in groups]
         return torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
@@ -115,17 +120,18 @@ def packed_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                       dtype=out_dtype, device=x.device)
     xk, xs, col = _kernel_rows(x), None, 0
     for p, s, b in groups:
-        xs = _fused.launch_dequant(xk, p, s, out, col=col, w_bits=b, x_scales=xs, **kw)
+        xs = _fused.launch_dequant(xk, p, s, out, col=col, w_bits=b, x_scales=xs,
+                                   backend=be, **kw)
         col += p.shape[1]
     return out.to(x.dtype)
 
 
-def quantize_rows(x: torch.Tensor, *, bits: int = 8, signed: bool = True):
+def quantize_rows(x: torch.Tensor, *, bits: int = 8, signed: bool = True, backend=None):
     """Per-row (per-token) quantization: (M, K) float → ((M, K) int8
     codes, (M, 1) float32 scales), the codes of x as float32. Unsigned
     8-bit codes are stored wrapped (255 as -1). float32 and bfloat16 rows
     are read as they are (bf16 → f32 is exact)."""
-    if _on_cpu(x, "quantize_rows"):
+    if _backend(x, "quantize_rows", backend).is_reference:
         return _ref.quantize_rows_ref(x, bits, signed)
     return _pq.launch(_kernel_rows(x), bits=bits, signed=signed)
 
@@ -133,7 +139,7 @@ def quantize_rows(x: torch.Tensor, *, bits: int = 8, signed: bool = True):
 def bitplane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
                     a_bits: int = 8, act_signed: bool = True,
                     plane_bits: int = 2, w_plane_lo: int = 0,
-                    w_bits: int = 8) -> torch.Tensor:
+                    w_bits: int = 8, backend=None) -> torch.Tensor:
     """Exact int product of (M, K) activation codes × weight codes →
     (M, N) int32. ``w_codes`` is the (K, N) codes for ``w_bits=8`` (the
     JAX signature) and the packed (K·w_bits/8, N) bytes otherwise;
@@ -142,16 +148,17 @@ def bitplane_matmul(x_codes: torch.Tensor, w_codes: torch.Tensor, *,
     if plane_bits != 2:
         raise ValueError("the kernel decomposes 2-bit planes only")
     kw = dict(a_bits=a_bits, act_signed=act_signed, w_plane_lo=w_plane_lo)
-    if _on_cpu(x_codes, "bitplane_matmul"):
+    be = _backend(x_codes, "bitplane_matmul", backend)
+    if be.is_reference:
         return _ref.bitplane_matmul_ref(x_codes, w_codes, w_bits=w_bits, **kw)
     return _bpm.launch(x_codes.to(torch.int8), w_codes.to(torch.int8),
-                       w_bits=w_bits, **kw)
+                       w_bits=w_bits, backend=be, **kw)
 
 
 def mixed_group_matmul(x: torch.Tensor, w8_codes: torch.Tensor,
                        wl_packed: torch.Tensor, scale8: torch.Tensor,
                        scalel: torch.Tensor, *, w_bits: int,
-                       a_bits: int = 8) -> torch.Tensor:
+                       a_bits: int = 8, backend=None) -> torch.Tensor:
     """Intra-layer mixed 8-bit / low-bit filter groups (paper Table III):
     one signed per-row quantization of x shared by both groups, then one
     integer matmul per group — the 8-bit codes (K, N8) and the low group
@@ -164,10 +171,11 @@ def mixed_group_matmul(x: torch.Tensor, w8_codes: torch.Tensor,
     group, each storing its columns of one output (plus a fold launch
     where the plan splits K above M = 8): no concatenation, cast, product
     or fill around them."""
-    if _on_cpu(x, "mixed_group_matmul"):
-        xq, xs = quantize_rows(x, bits=a_bits, signed=True)
-        acc8 = bitplane_matmul(xq, w8_codes, a_bits=a_bits)
-        accl = bitplane_matmul(xq, wl_packed, a_bits=a_bits, w_bits=w_bits)
+    be = _backend(x, "mixed_group_matmul", backend)
+    if be.is_reference:
+        xq, xs = quantize_rows(x, bits=a_bits, signed=True, backend=be)
+        acc8 = bitplane_matmul(xq, w8_codes, a_bits=a_bits, backend=be)
+        accl = bitplane_matmul(xq, wl_packed, a_bits=a_bits, w_bits=w_bits, backend=be)
         y8 = acc8.to(torch.float32) * xs * scale8.reshape(1, -1)
         yl = accl.to(torch.float32) * xs * scalel.reshape(1, -1)
         return torch.cat([y8, yl], dim=1).to(x.dtype)
@@ -175,21 +183,23 @@ def mixed_group_matmul(x: torch.Tensor, w8_codes: torch.Tensor,
     xq, xs = _pq.launch(xk, bits=a_bits, signed=True)
     n8 = w8_codes.shape[1]
     out = torch.empty((x.shape[0], n8 + wl_packed.shape[1]), dtype=xk.dtype, device=x.device)
-    _bpm.launch_dequant(xq, w8_codes, xs, scale8, out, col=0, w_bits=8, a_bits=a_bits)
-    _bpm.launch_dequant(xq, wl_packed, xs, scalel, out, col=n8, w_bits=w_bits, a_bits=a_bits)
+    _bpm.launch_dequant(xq, w8_codes, xs, scale8, out, col=0, w_bits=8, a_bits=a_bits,
+                        backend=be)
+    _bpm.launch_dequant(xq, wl_packed, xs, scalel, out, col=n8, w_bits=w_bits,
+                        a_bits=a_bits, backend=be)
     return out.to(x.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, backend=None) -> torch.Tensor:
     """GQA flash attention: q (B, T, NQ, H) over k/v (B, S, NKV, H), query
     head h reading KV head h // (NQ // NKV); causal and sliding-window
     masks at query positions q_offset + i; keys past S never seen.
     Returns (B, T, NQ, H) in q's dtype; a query that sees no key gets
     zeros. K/V may be float32 under a bfloat16 q (an int8 cache's
     prefill reads dequantized K/V)."""
-    if _on_cpu(q, "flash_attention"):
+    if _backend(q, "flash_attention", backend).is_reference:
         return _ref.flash_attention_gqa_ref(q, k, v, causal, window, q_offset)
     return _flash.launch(q, k, v, causal=causal, window=window,
                          q_offset=int(q_offset))
@@ -198,12 +208,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def paged_attention(q, pool_k, pool_v, block_table, q_pos, *,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, backend=None) -> torch.Tensor:
     """Flash-decode attention over one layer's paged KV pool: q (B, 1, NQ,
     H), pools (num_blocks, block_size, NKV, H), block_table (B, max_blocks)
     int32 (-1 = unallocated), q_pos (B,). Returns (B, 1, NQ, H) in q's
     dtype; rows that see no key output zeros."""
-    if _on_cpu(q, "paged_attention"):
+    if _backend(q, "paged_attention", backend).is_reference:
         return _ref.paged_attention_ref(q, pool_k, pool_v, block_table, q_pos,
                                         k_scale=k_scale, v_scale=v_scale,
                                         softcap=softcap)
@@ -214,7 +224,7 @@ def paged_attention(q, pool_k, pool_v, block_table, q_pos, *,
 def paged_prefill(q, k_new, v_new, pool_k, pool_v, blocks, start, length, *,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None,
-                  softcap: float = 0.0, store: bool = True):
+                  softcap: float = 0.0, store: bool = True, backend=None):
     """Chunked prefill over one layer's paged pool: the chunk (1, Lc, NQ,
     H) attends causally over [pool-resident prefix ++ chunk], and its K/V
     (1, Lc, NKV, H) is written into the row's destination blocks ``blocks``
@@ -225,7 +235,7 @@ def paged_prefill(q, k_new, v_new, pool_k, pool_v, blocks, start, length, *,
     prefix-cache hit, whose blocks are shared). Returns (attn (1, Lc, NQ,
     H) in q's dtype, pool_k, pool_v, k_scale, v_scale)."""
     start, length = int(start), int(length)
-    if _on_cpu(q, "paged_prefill"):
+    if _backend(q, "paged_prefill", backend).is_reference:
         return _ref.paged_prefill_ref(q, k_new, v_new, pool_k, pool_v, blocks,
                                       start, length, k_scale=k_scale,
                                       v_scale=v_scale, softcap=softcap,
@@ -237,7 +247,7 @@ def paged_prefill(q, k_new, v_new, pool_k, pool_v, blocks, start, length, *,
 
 def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
                      softcap: float = 0.0, k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None, backend=None) -> torch.Tensor:
     """One-token attention over one layer of the contiguous cache: q (B, 1,
     NQ, H), k/v_cache (B, S, NKV, H) (int8 codes with (B, S, NKV, 1)
     float32 scales for an int8 cache), kpos (B, S) slot positions (-1 =
@@ -245,7 +255,7 @@ def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
     ``models.common.decode_attention``; on the card the paged decode
     kernel's code runs with each row's slots as its tiles. A windowed
     (ring-buffer) cache has no kernel yet and raises on the card."""
-    if _on_cpu(q, "decode_attention"):
+    if _backend(q, "decode_attention", backend).is_reference:
         from repro_torch.models.common import decode_attention as plain
 
         return plain(q, k_cache, v_cache, kpos, q_pos, window=window,
@@ -257,7 +267,7 @@ def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
                                 v_scale=v_scale, softcap=softcap)
 
 
-def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, backend=None) -> torch.Tensor:
     """``x @ w`` over the last dim of x: (..., K) × (K, N) → (..., N) in
     x's dtype, each row's bits independent of how many rows share the
     product. The plain version is ``x @ w.to(x.dtype)``. On the card a
@@ -265,16 +275,17 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``torch.matmul`` in full float32, a dtype route, not a fallback: the
     port's float32 models serve the card-vs-CPU checks, which hold logits
     within a tolerance, not bitwise."""
-    if _on_cpu(x, "dense_matmul"):
+    be = _backend(x, "dense_matmul", backend)
+    if be.is_reference:
         return _ref.dense_matmul_ref(x, w)
     if x.dtype == torch.float32:
         return x @ w.to(torch.float32)
     lead = x.shape[:-1]
-    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype), backend=be)
     return y.reshape(*lead, w.shape[1])
 
 
-def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64):
+def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64, backend=None):
     """RWKV-6 recurrence over (B, T) tokens with the state carried in and
     out: r/k (B, T, H, K) and v (B, T, H, V) in their own dtype, w (B, T,
     H, K) decays in (0, 1], u (H, K), state (B, H, K, V) float32. Chunk
@@ -282,33 +293,34 @@ def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64):
     outputs and final state never depend on the length its batch was
     padded to (pad tokens: k = 0, w = 1). Returns (out (B, T, H, V)
     float32, state (B, H, K, V) float32)."""
-    if _on_cpu(r, "wkv6"):
+    if _backend(r, "wkv6", backend).is_reference:
         return _ref.wkv6_chunked_ref(r, k, v, w, u, state, chunk)
     return _wkv6.launch(r, k, v, w, u, state, chunk=chunk)
 
 
-def wkv6_step(r, k, v, w, u, state):
+def wkv6_step(r, k, v, w, u, state, *, backend=None):
     """One token of the recurrence: r/k/w (B, H, K), v (B, H, V), state
     (B, H, K, V) → (out (B, H, V), state) float32. The plain version is
     ``ref.wkv6_step``; on the card the wkv6 kernel runs at T = 1 with the
     carried state (one thread block per (row, head), whatever the batch)."""
-    if _on_cpu(r, "wkv6"):
+    if _backend(r, "wkv6", backend).is_reference:
         return _ref.wkv6_step(r, k, v, w, u, state)
     out, state = _wkv6.launch(r[:, None], k[:, None], v[:, None], w[:, None], u,
                               state, chunk=1)
     return out[:, 0], state
 
 
-def wkv6(r, k, v, w, u, *, chunk: int = 32) -> torch.Tensor:
+def wkv6(r, k, v, w, u, *, chunk: int = 32, backend=None) -> torch.Tensor:
     """Chunked WKV6 with the JAX signature: r/k/w (T, H, K), v (T, H, V),
     u (H, K), zero initial state → (T, H, V) float32."""
-    return wkv6_batched(r[None], k[None], v[None], w[None], u, chunk=chunk)[0]
+    return wkv6_batched(r[None], k[None], v[None], w[None], u, chunk=chunk,
+                        backend=backend)[0]
 
 
-def wkv6_batched(r, k, v, w, u, *, chunk: int = 32) -> torch.Tensor:
+def wkv6_batched(r, k, v, w, u, *, chunk: int = 32, backend=None) -> torch.Tensor:
     """``wkv6`` over a batch: r/k/w (B, T, H, K), v (B, T, H, V) → (B, T,
     H, V) float32, each row from a zero state."""
     B, _, H, K = r.shape
     state = torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32,
                         device=r.device)
-    return wkv6_chunked(r, k, v, w, u, state, chunk=chunk)[0]
+    return wkv6_chunked(r, k, v, w, u, state, chunk=chunk, backend=backend)[0]

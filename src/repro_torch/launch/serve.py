@@ -12,7 +12,7 @@ continuous scheduler.
       [--deadline-ms MS] [--no-preempt] [--victim-policy most-blocks] \
       [--degrade] [--chaos-seed S] [--chaos-rate 0.05] \
       [--chaos-max-faults N] [--host-pool-bytes N] [--index FILE] \
-      [--reduced] [--device cpu]
+      [--backend cuda|reference] [--plans FILE] [--reduced] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -20,9 +20,19 @@ given, serving with the hand-written kernels on the card and their plain
 PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
 paths (a wXaYrZZ token packs Table III mixed-group layers).
-``--arch rwkv6-3b`` serves the RWKV-6 family unquantized (as the JAX
-package does; --policy/--quant raise), on its constant-size recurrent
-state: static, or --continuous with solo whole-prompt admission.
+``--arch`` is olmo-1b, nemotron-4-15b, stablelm-12b (qk-norm) or
+rwkv6-3b; ``--arch rwkv6-3b`` serves the RWKV-6 family unquantized (as
+the JAX package does; --policy/--quant raise), on its constant-size
+recurrent state: static, or --continuous with solo whole-prompt
+admission.
+
+--backend selects the kernel registry's backend for the run: ``cuda``
+(the hand-written kernels, CUDA tensors only) or ``reference`` (the
+plain PyTorch versions, which needs --device cpu); without it the
+backend follows the device. --plans FILE persists the registry's block
+plans (the matmul kernels' tiles and K splits, none changing a bit):
+loaded before serving if the file exists, saved back on exit, in the
+JAX package's schema.
 
 Without --continuous (or with --static) the engine serves static batches
 of --max-batch requests: whole-prompt prefill, then a decode loop on the
@@ -100,6 +110,7 @@ prefix warm from host. A host-tier line reports the swaps and host hits.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -204,6 +215,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "loaded into the host tier at start-up if it "
                          "exists, saved back at exit (needs "
                          "--host-pool-bytes)")
+    ap.add_argument("--backend", default=None, choices=("cuda", "reference"),
+                    help="kernel backend: the CUDA kernels, or the plain "
+                         "PyTorch versions (needs --device cpu); default: "
+                         "the device's own")
+    ap.add_argument("--plans", default=None,
+                    help="block-plan cache JSON: loaded at startup if it "
+                         "exists, saved back (with any new plans) on exit")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -251,13 +269,13 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     """Build the engine for `args` and serve `make_requests(cfg, args)`,
     with --tiers and --deadline-ms applied, twice (warmup, then timed);
     with --index, load the prefix index first (if the file exists) and
-    save it after. Returns (engine, done, report dict)."""
+    save it after; with --plans, likewise the kernel registry's block
+    plans; with --backend, serve under that backend. Returns (engine,
+    done, report dict)."""
+    import torch
+
     from repro_torch import resolve_device
-    from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.core.precision import parse_policy_spec, parse_quant_token
-    from repro_torch.models import build_model
-    from repro_torch.models.model_zoo import check_policy
-    from repro_torch.serving import FaultInjector, ServingEngine
+    from repro_torch.kernels.registry import get_registry
 
     if args.index and not args.host_pool_bytes:
         raise SystemExit("--index persists blocks into the host tier; "
@@ -284,7 +302,26 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     if args.degrade and not args.tiers:
         raise SystemExit("--degrade lowers admissions to the floor tier; "
                          "add --tiers")
+    want = {"reference": "cpu", "cuda": "cuda"}.get(args.backend)
+    if want and torch.device(args.device or "cuda").type != want:
+        raise SystemExit(f"--backend {args.backend} runs on {want} tensors; the "
+                         f"device is {args.device or 'cuda'} (add --device {want})")
     device = resolve_device(args.device)
+    with get_registry().use(args.backend) if args.backend else contextlib.nullcontext():
+        return _serve(args, device, make_requests, params)
+
+
+def _serve(args, device, make_requests, params):
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core.precision import parse_policy_spec, parse_quant_token
+    from repro_torch.kernels.registry import get_registry
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import check_policy
+    from repro_torch.serving import FaultInjector, ServingEngine
+
+    if args.plans and os.path.exists(args.plans):
+        n = get_registry().load_plans(args.plans)
+        print(f"loaded {n} block plans from {args.plans}")
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     quant = None
@@ -434,6 +471,9 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
     print(f"  quant={args.policy or args.quant or 'off'} kv_int8={args.kv_int8}")
     for r in sorted(done, key=lambda r: r.rid)[:4]:
         print(f"  req {r.rid}: {(r.out_tokens or [])[:10]}")
+    if args.plans:
+        n = get_registry().save_plans(args.plans)
+        print(f"saved {n} block plans to {args.plans}")
     if args.index:
         n = engine.save_index(args.index)
         print(f"saved {n} prefix digests to {args.index}")

@@ -1,5 +1,6 @@
-"""Shared model components: linear, norms, rotary embeddings, whole-
-sequence and decode attention, FFN, embeddings and the logits head.
+"""Shared model components: linear, norms (and the per-head qk-norm),
+rotary embeddings, whole-sequence and decode attention, FFN, embeddings
+and the logits head.
 
 Port of the parts of ``repro.models.common`` the dense serving path uses.
 Dtype rules follow the JAX code op by op (norms and softmax in float32,
@@ -9,6 +10,7 @@ with JAX to rounding and a bfloat16 model rounds at the same places.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -18,12 +20,34 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.core.quantized_linear import PackedWeight, qmatmul
 
 
+# The largest float32 draw an init makes: a leaf up to this size (every
+# leaf of olmo-1b and rwkv6-3b) is drawn in one call, a larger one in
+# slices along its first dim (other values, the same law), each cast as
+# it is drawn, so a full-width init (one (32, 6144, 24576) leaf is 19.3
+# GB in float32) never holds more float32 than this beside its weights.
+DRAW_BYTES = 4 << 30
+
+
+def normal_init(gen: torch.Generator, shape, std: float, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """N(0, std²) values of `shape` in `dtype`, drawn in float32."""
+    numel = math.prod(shape)
+    if numel * 4 <= DRAW_BYTES:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return w.mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_BYTES // (4 * (numel // shape[0])))
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = normal_init(gen, (min(rows, shape[0] - i), *shape[1:]), std,
+                                      dtype, device)
+    return out
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, device=None, layers: Optional[int] = None):
     """N(0, 1/d_in) weights, (d_in, d_out) or stacked (layers, d_in, d_out)."""
     shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * (1.0 / d_in) ** 0.5).to(dtype)
+    return normal_init(gen, shape, (1.0 / d_in) ** 0.5, dtype, device)
 
 
 def linear(x: torch.Tensor, w, quant: Optional[QuantConfig] = None) -> torch.Tensor:
@@ -67,6 +91,16 @@ def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float = 1e-6):
         y = y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
     # nonparam_ln (olmo): no affine parameters at all
     return y.to(x.dtype)
+
+
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head qk-norm (stablelm): x (..., H) scaled by the reciprocal RMS
+    over H and by ``1 + scale``, in float32, cast back to x's dtype. Plain
+    PyTorch, as JAX computes it outside any Pallas kernel; row-local, so a
+    row's bits do not depend on its batch."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -173,8 +207,7 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
-    return (w * 0.02).to(dtype)
+    return normal_init(gen, (vocab, d), 0.02, dtype, device)
 
 
 def last_token_slice(x: torch.Tensor, lengths) -> torch.Tensor:

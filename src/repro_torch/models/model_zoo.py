@@ -33,7 +33,8 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         mod = transformer
     else:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                         "(the port serves dense transformers and rwkv6)")
+                         "(the port serves the dense transformers olmo-1b, "
+                         "nemotron-4-15b and stablelm-12b, and rwkv6-3b)")
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),

@@ -48,10 +48,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_dense(cfg: ModelConfig) -> None:
     if (cfg.moe_experts or cfg.frontend != "none" or cfg.attn_window
-            or cfg.qk_norm or cfg.family != "dense"):
+            or cfg.family != "dense"):
         raise ValueError(f"{cfg.name}: the port serves full-attention dense "
-                         "token transformers without qk-norm only (other "
-                         "families come later)")
+                         "token transformers only (other families come later)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -73,6 +72,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         "wo": cm.dense_init(gen, cfg.n_heads * hd, d, dt, dev, L),
         "ffn": cm.ffn_init(gen, cfg, d, cfg.d_ff, dt, dev, L),
     }
+    if cfg.qk_norm:
+        blocks["q_norm"] = torch.zeros((L, hd), dtype=dt, device=dev)
+        blocks["k_norm"] = torch.zeros((L, hd), dtype=dt, device=dev)
     params = {
         "embed": cm.embed_init(gen, cfg.vocab, d, dt, dev),
         "blocks": blocks,
@@ -102,6 +104,9 @@ def _attention_qkv(p, cfg: ModelConfig, x, positions):
     q = cm.linear(x, p["wq"]).reshape(B, T, cfg.n_heads, hd)
     k = cm.linear(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
     v = cm.linear(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = cm.rms_head_norm(q, p["q_norm"])
+        k = cm.rms_head_norm(k, p["k_norm"])
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -89,3 +89,25 @@ def test_prefill_chunks_and_decode_match_jax(kv_int8):
     live = [b for row in TABLE for b in row if b >= 0]
     diff = np.abs(tk[:, live].astype(np.float32) - jk[:, live].astype(np.float32))
     assert diff.max() <= (1 if kv_int8 else ATOL)
+
+
+def test_init_draws_large_leaves_in_bounded_slices(monkeypatch):
+    """A leaf up to ``DRAW_BYTES`` of float32 is one draw (the values of
+    one ``torch.randn`` call); a larger one is drawn slice by slice along
+    its first dim, each slice at most ``DRAW_BYTES``, into a tensor of the
+    leaf's dtype with the same law."""
+    from repro_torch.models import common as tcm
+
+    gen = torch.Generator().manual_seed(3)
+    one = tcm.normal_init(gen, (4, 32, 48), 0.5, torch.bfloat16)
+    want = (torch.randn((4, 32, 48), generator=torch.Generator().manual_seed(3)) * 0.5)
+    assert torch.equal(one, want.to(torch.bfloat16))
+    sizes = []
+    real = torch.randn
+    monkeypatch.setattr(tcm, "DRAW_BYTES", 4 * 32 * 48 * 3)
+    monkeypatch.setattr(torch, "randn", lambda shape, **kw: sizes.append(shape) or real(
+        shape, **kw))
+    big = tcm.normal_init(torch.Generator().manual_seed(3), (8, 32, 48), 0.5, torch.bfloat16)
+    assert sizes == [(3, 32, 48), (3, 32, 48), (2, 32, 48)]
+    assert big.shape == (8, 32, 48) and big.dtype == torch.bfloat16
+    assert abs(big.float().std().item() - 0.5) < 0.02

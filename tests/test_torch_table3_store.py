@@ -246,6 +246,7 @@ def test_card_route_is_one_row_pass_and_two_dequant_stores(monkeypatch, dtype, M
     dequant calls writing their columns of one output in x's dtype, no
     concatenation; bitwise the CPU route."""
     from repro_torch.kernels import pack_quant
+    from repro_torch.kernels.registry import get_registry
 
     K, n8, nl = 256, 64, 96
     w8, wl, s8, sl = _leaf_np(K, n8, nl, 4)
@@ -260,7 +261,7 @@ def test_card_route_is_one_row_pass_and_two_dequant_stores(monkeypatch, dtype, M
         calls.append(("quantize_rows", xk.dtype))
         return ref.quantize_rows_ref(xk, bits, signed)
 
-    def dequant(xq, w, xs, scale, out, *, col=0, w_bits, a_bits):
+    def dequant(xq, w, xs, scale, out, *, col=0, w_bits, a_bits, backend=None):
         calls.append(("dequant", col, out.dtype, out.data_ptr()))
         acc = ref.bitplane_matmul_ref(xq, w, a_bits, True, w_bits=w_bits)
         dequant_out = (acc.to(torch.float32) * xs) * scale.reshape(1, -1)
@@ -271,7 +272,8 @@ def test_card_route_is_one_row_pass_and_two_dequant_stores(monkeypatch, dtype, M
 
     monkeypatch.setattr(pack_quant, "launch", quantize)
     monkeypatch.setattr(bpm, "launch_dequant", dequant)
-    monkeypatch.setattr(ops, "_on_cpu", lambda t, name: False)
+    cuda = get_registry().get("cuda")
+    monkeypatch.setattr(ops, "_backend", lambda t, name, backend: cuda)
     monkeypatch.setattr(torch, "cat", no_cat)
     got = ops.mixed_group_matmul(x, *args, w_bits=4, a_bits=6)
     assert calls[0] == ("quantize_rows", dtype) and len(calls) == 3

@@ -3,10 +3,11 @@
 
   python3 chip_smoke.py
 
-1. Builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together): the seven ports of the
-   Pallas kernels and ``dense_matmul``, rwkv6's batch-invariant bf16
-   product.
+   Pallas kernels, ``dense_matmul`` (the batch-invariant bf16 product,
+   with a float32 store for Griffin's gate projections) and ``rglru``
+   (Griffin's gates and recurrence in one pass).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
@@ -38,14 +39,28 @@
    of nemotron-4-15b and stablelm-12b (K up to 24 576, N 1280-24 576,
    ``check_new_widths``): ``quantize_rows``, the fused kernel under w4a8
    and the Table III leaf bitwise their plain versions at M 4 and 32.
+   At recurrentgemma-9b's shapes: paged_attention's ring entry (B = 4,
+   a 2048-slot ring wrapped once and twice, NQ 16 / NKV 1 / H 256, and
+   the reduced ring of 16 in bf16 and float32) within tolerance of its
+   plain version and bitwise the windowed flash kernel's rows with NaN in
+   every empty slot (``check_ring_decode``); windowed flash at T 320 and
+   2304 within tolerance, its key tiles wholly outside every row's
+   window never read (``check_windowed_flash``); the RG-LRU within 1e-4
+   at T 320 and 2304, two calls with the carry bitwise one, the step
+   bitwise the call, a row alone bitwise its row in a batch
+   (``check_rglru``); ``dense_matmul``'s float32 store at 4096 -> 4096
+   within 1e-4, its rows at M = 1-9 and 1280 bitwise their M = 4 rows
+   (``check_dense_f32``); the norms' row mean bitwise across M = 1-9 at
+   every width (``check_norm_rows``).
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function, at the
    decode and the prefill shape of the matmuls (CUDA events,
    median of 20, L2 flushed before each, the card held until the host
    has enqueued the call).
-4. Serves full-size olmo-1b and full-size rwkv6-3b (random weights from
-   a seed) through ``repro_torch.launch.serve``: 8 requests with prompts
-   of 64-320 tokens, 32 new tokens each, 4 slots, in sixteen runs — olmo
+4. Serves olmo-1b and rwkv6-3b at full width, cut to 4 and 8 layers
+   (``DEPTH``; random weights from a seed) through
+   ``repro_torch.launch.serve``: 8 requests with prompts of 64-320
+   tokens, 32 new tokens each, 4 slots, in sixteen runs — olmo
    continuous with chunked prefill on a bf16 pool (Table III policy
    "w4a6r25;wo=w8a8") and an int8 pool ("w4a8;wo=w8a8"); (a) static,
    Table III policy; (b) static, int8 cache; (c) continuous with solo
@@ -68,8 +83,8 @@
    --speculate 3 and a w2a8 draft (w8a8 and w4a8 slots speculate, each
    tier group verified in a call of its own, w2a8 slots do not; Table III
    leaves at plane_lo 1 at w2a8); and, first, nemotron-4-15b and
-   stablelm-12b at full width (every layer, head and vocab entry; raw
-   weights drawn, packed once per arch and dropped, both runs on the
+   stablelm-12b at full width, 8 layers each (every head and vocab
+   entry; raw weights drawn, packed once per arch and dropped, both runs on the
    packed tree, everything dropped before the next arch; ``ARCH_RUNS``,
    ``serve_new_archs``) on the stream's first 4 requests: (o) nemotron
    continuous, chunked, bf16 pool, Table III policy (K up to 24 576, GQA
@@ -167,12 +182,24 @@
    chunked-int8's flags saves N >= 1 plans, then loads N and plans
    nothing anew, both with that run's tokens; --backend reference on the
    card exits with its message.
+   recurrentgemma-9b (Griffin: RG-LRU recurrence, local attention over
+   2048-slot rings) at full width (10.4 B parameters, random bf16
+   weights, unquantized as the JAX package serves it; ``GRIFFIN_RUNS``,
+   ``serve_griffin``), after (o)-(r), on the stream's first 4 requests:
+   (s) static and (t) continuous, gated greedy (t) ≡ (s), first-token
+   logits bitwise static batch vs solo, solo ≡ mid-decode, the untied
+   head's rows at M = 1-9 bitwise M = 4, and the ring-wrap pair (a
+   2300-token prompt that wraps the ring inside prefill, a 2040-token one
+   that wraps it while decoding 24 tokens) static ≡ continuous; reduced
+   float32 card vs CPU within 1e-3 (``card_vs_cpu_griffin``).
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
-(the seven ports of TPU kernels; each row's headline times the entry the
-serve paths launch, so ``bitplane_matmul``'s is its dequant entry and
-the JAX-signature int32 entry is a sub-entry) as another, then the card's name and
-power limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
+(the seven ports of TPU kernels, then ``rglru`` and ``dense_matmul``,
+which replace XLA code, with a ``note`` saying so; each row's headline
+times the entry the serve paths launch, so ``bitplane_matmul``'s is its
+dequant entry and the JAX-signature int32 entry is a sub-entry;
+paged_attention's entries time the paged, contiguous and ring entries)
+as another, then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
 failed check raises, so the exit code is non-zero and no result prints.
 With ``CHIP_SMOKE_OUT=<dir>`` set, the detailed numbers are also
 written to ``<dir>/chip_smoke.json``. Partial runs, which print no
@@ -190,7 +217,11 @@ chunked-int8, (c), (j) and (k) with the preemption and chaos gates;
 chunked-int8 and (c) with the host-tier gates; ``python3 chip_smoke.py
 archs`` builds the kernels and runs the new-width, head-dim and
 one-order checks, runs (o)-(r) with their gates, chunked-int8 and the
-registry phase, and the reduced nemotron / stablelm card-vs-CPU checks.
+registry phase, and the reduced nemotron / stablelm card-vs-CPU checks;
+``python3 chip_smoke.py griffin`` builds the kernels and runs the
+paged-decode, one-order and ``dense_matmul`` checks, the griffin kernel
+checks (printing their times), runs (s) and (t) with their gates and the
+reduced griffin card-vs-CPU check.
 """
 from __future__ import annotations
 
@@ -226,7 +257,13 @@ REPLACES = {
     "bitplane_matmul": "src/repro/kernels/bitplane_matmul.py:109",
     "flash_attention": "src/repro/kernels/flash_attention.py:89",
     "wkv6": "src/repro/kernels/wkv6.py:85",
+    # No Pallas kernel: the JAX package leaves these to XLA.
+    "dense_matmul": "src/repro/models/common.py:49",
+    "rglru": "src/repro/models/griffin.py:126",
 }
+NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
+              "rglru": "XLA _rglru_coeffs + associative_scan _rglru_scan (no Pallas "
+                       "kernel)"}
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -235,6 +272,8 @@ SOURCES = {
     "bitplane_matmul": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
+    "dense_matmul": "src/repro_torch/kernels/csrc/dense_matmul.cu",
+    "rglru": "src/repro_torch/kernels/csrc/rglru.cu",
 }
 SHARED_PREFIX = 200
 TIERS = "w8a8,w4a8,w2a8"
@@ -312,11 +351,11 @@ SERVE_RUNS = {
 }
 
 
-# Runs (o)-(r): nemotron-4-15b and stablelm-12b at full width (every layer,
-# every head, the full vocab; random weights from seed 0), each arch's two
-# runs on one packed weight set, on the stream's first 4 requests (prompts
-# of 64, 320, 128 and 256 tokens; the whole stream took the script to
-# 884.8 s of its 1200 s limit on the H100).
+# Runs (o)-(r): nemotron-4-15b and stablelm-12b at full width, cut to
+# DEPTH's 8 layers (every head, the full vocab; random weights from seed
+# 0), each arch's two runs on one packed weight set, on the stream's
+# first 4 requests (prompts of 64, 320, 128 and 256 tokens; the whole
+# stream took the script to 884.8 s of its 1200 s limit on the H100).
 ARCH_STREAM = ["--requests", "4"]
 ARCH_RUNS = {
     # nemotron-4-15b: the bf16 pool, chunked prefill, Table III at K up to
@@ -339,7 +378,34 @@ ARCH_RUNS = {
                              POLICY,
                              ("fused_quantize_matmul", "paged_attention", "paged_prefill")),
 }
-RUNS = {**SERVE_RUNS, **ARCH_RUNS}
+# Runs (s) and (t): recurrentgemma-9b (Griffin) at full width (38 layers,
+# d_model and rnn_width 4096, 16 query heads of 256 over 1 KV head, vocab
+# 256 000, window 2048; random bf16 weights from seed 0, no policy: the
+# JAX package serves griffin unquantized), on the stream's first 4
+# requests: windowed flash prefill, ring decode, the RG-LRU kernel and
+# every dense product on dense_matmul (the gate projections with its
+# float32 store). (t) is gated greedy ≡ (s).
+GRIFFIN_KERNELS = ("flash_attention", "ring_attention", "dense_matmul", "rglru")
+GRIFFIN_RUNS = {
+    "s-griffin-static": (["--arch", "recurrentgemma-9b", "--static", *ARCH_STREAM], None,
+                         GRIFFIN_KERNELS),
+    "t-griffin-continuous": (["--arch", "recurrentgemma-9b", "--continuous", *ARCH_STREAM],
+                             None, GRIFFIN_KERNELS),
+}
+RUNS = {**SERVE_RUNS, **ARCH_RUNS, **GRIFFIN_RUNS}
+# The depth at which the earlier paths are served (``serve --layers``;
+# every width, head and vocab entry kept). Served at full depth, the
+# whole script took 912.7 s of its 1200 s limit on the H100, so only
+# recurrentgemma-9b, the newest path, keeps all its layers (38).
+DEPTH = {"olmo-1b": 4, "rwkv6-3b": 8, "nemotron-4-15b": 8, "stablelm-12b": 8}
+
+
+def serve_config(arch):
+    """`arch`'s config at the depth its runs serve (DEPTH)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=DEPTH.get(arch, cfg.num_layers))
 
 
 def log(msg: str) -> None:
@@ -1657,9 +1723,11 @@ SERVE_ARGS = ["--arch", "olmo-1b", "--requests", "8", "--max-new", "32",
 
 def serve_argv(name):
     """The serve CLI's arguments for run `name` of RUNS (a later --arch
-    overrides olmo-1b)."""
+    overrides olmo-1b), with --layers at the arch's DEPTH."""
     flags, policy, _ = RUNS[name]
-    return SERVE_ARGS + (["--policy", policy] if policy else []) + flags
+    argv = SERVE_ARGS + (["--policy", policy] if policy else []) + flags
+    arch = argv[max(i for i, a in enumerate(argv) if a == "--arch") + 1]
+    return argv + (["--layers", str(DEPTH[arch])] if arch in DEPTH else [])
 
 
 def check_outputs(name, engine, done):
@@ -1731,6 +1799,7 @@ def serve_run(torch, params, name):
     counts = ops.launch_counts()
     # The contiguous entry's share of paged_attention's launches.
     counts["contig_attention"] = paged_attention.contig_launches
+    counts["ring_attention"] = paged_attention.ring_launches
     report["verify"] = verify
     report["requests_spec"] = [sum(r.spec_drafted for r in built),
                                sum(r.spec_accepted for r in built)]
@@ -1973,9 +2042,9 @@ def two_group_rounds(engine, args, solo):
 
 
 def check_lifecycle(torch, engine, raw_params):
-    """The request lifecycle on full-width olmo-1b on the int8 pool
-    (`engine`: run chunked-int8's, its packed weights and config; its
-    `raw_params` unpacked), on the chip_smoke stream in one 4-slot scheduler,
+    """The request lifecycle on full-width olmo-1b (DEPTH's 4 layers) on
+    the int8 pool (`engine`: run chunked-int8's, its packed weights and
+    config; its `raw_params` unpacked), on the chip_smoke stream in one 4-slot scheduler,
     against the same stream unperturbed in another: rid 0 cancels itself
     from its ``on_token`` after 5 tokens, rid 7 is cancelled while queued,
     rid 2 has a ``deadline_steps`` 10 steps past the step of its first
@@ -2178,10 +2247,10 @@ def _drain_checked(sched, done=None):
 
 
 def check_preemption(torch, runs):
-    """Preemption with warm resume on full-width olmo-1b, one configuration
-    per row of PREEMPT_CONFIGS: P1 chunked prefill on the int8 pool, P2
-    whole-prompt admission on the bf16 pool with the Table III policy, P3
-    whole-prompt admission on the int8 pool behind the 200-token shared
+    """Preemption with warm resume on full-width olmo-1b (DEPTH's 4
+    layers), one configuration per row of PREEMPT_CONFIGS: P1 chunked
+    prefill on the int8 pool, P2 whole-prompt admission on the bf16 pool
+    with the Table III policy, P3 whole-prompt admission on the int8 pool behind the 200-token shared
     prefix (latest-deadline victims). Each serves the chip_smoke stream in
     a fresh scheduler on a pool small enough that it preempts, then the
     warm pair. Gated in each: every request's tokens (greedy and sampled)
@@ -2258,9 +2327,9 @@ def check_preemption(torch, runs):
 
 
 def check_chaos(torch, runs, raw_params):
-    """Seeded faults at all four seams on full-width olmo-1b with run (k)'s
-    flags (int8 pool, chunked prefill, --speculate 4, w4a8 draft) on
-    P1's pool, every request with an ``on_token`` so the callback seam
+    """Seeded faults at all four seams on full-width olmo-1b (DEPTH's 4
+    layers) with run (k)'s flags (int8 pool, chunked prefill, --speculate
+    4, w4a8 draft) on P1's pool, every request with an ``on_token`` so the callback seam
     draws. Printed: the seed, the rates and every fault fired (seam,
     visit, step). Gated: each seam fired at least once; every request no
     fault failed emits run (k)'s tokens, and each failed one has error
@@ -2446,9 +2515,9 @@ def _drained(s) -> bool:
 
 
 def check_host_tier(torch, runs, raw_params):
-    """The host-RAM block tier on full-width olmo-1b; every phase serves
-    the chip_smoke stream with the pool invariants (host half included:
-    digests on one side only, host bytes conserved and within the budget)
+    """The host-RAM block tier on full-width olmo-1b (DEPTH's 4 layers);
+    every phase serves the chip_smoke stream with the pool invariants
+    (host half included: digests on one side only, host bytes conserved and within the budget)
     after every step and a clean drain.
 
     H1/H2: run (i)'s and run (j)'s flags on a 44-block pool with 512 MiB of
@@ -3034,20 +3103,11 @@ def compare_paths(torch, engine, runs):
             "logits_err_kernels_vs_plain": vs_plain, "greedy_shares": shares}
 
 
-def compare_rwkv6(torch, runs):
-    """rwkv6-3b on engine (e)'s weights: first-token logits of the static
-    batch of 4 vs solo prefill, and the greedy tokens of static (e) vs
-    continuous (f). Every dense product runs the batch-invariant
-    dense_matmul kernel and wkv6 is row- and padding-independent, so a
-    row computes the same bits in a batch and alone. Gated: the logits
-    bitwise equal (max |err| 0) and every greedy request's tokens the
-    same in (e) and (f). Both print before the gate raises."""
-    import types
-
+def batch_and_solo_logits(torch, eng, prompts):
+    """First-token logits of `prompts` prefilled alone and in static
+    batches of 4 (right-padded to 32-token buckets), through engine
+    `eng`'s model and weights: (solo, batch), float32."""
     import numpy as np
-
-    eng = runs["e-rwkv6-static"][0]
-    reqs = mixed_requests(eng.cfg, types.SimpleNamespace(max_new=32))
 
     def prefill(batch):
         L = max(-(-len(p) // 32) * 32 for p in batch)
@@ -3059,9 +3119,25 @@ def compare_rwkv6(torch, runs):
             "lengths": torch.tensor([len(p) for p in batch], dtype=torch.int32)})
         return lg[:, -1].float()
 
-    prompts = [r.prompt for r in reqs]
     solo = torch.stack([prefill([p])[0] for p in prompts])
     batch = torch.cat([prefill(prompts[i:i + 4]) for i in range(0, len(prompts), 4)])
+    return solo, batch
+
+
+def compare_rwkv6(torch, runs):
+    """rwkv6-3b on engine (e)'s weights: first-token logits of the static
+    batch of 4 vs solo prefill, and the greedy tokens of static (e) vs
+    continuous (f). Every dense product runs the batch-invariant
+    dense_matmul kernel and wkv6 is row- and padding-independent, so a
+    row computes the same bits in a batch and alone. Gated: the logits
+    bitwise equal (max |err| 0) and every greedy request's tokens the
+    same in (e) and (f). Both print before the gate raises."""
+    import types
+
+    eng = runs["e-rwkv6-static"][0]
+    reqs = mixed_requests(eng.cfg, types.SimpleNamespace(max_new=32))
+    prompts = [r.prompt for r in reqs]
+    solo, batch = batch_and_solo_logits(torch, eng, prompts)
     err = (batch - solo).abs().max().item()
     argmax_same = int((batch.argmax(-1) == solo.argmax(-1)).sum())
     greedy = [r.rid for r in reqs if r.temperature == 0]
@@ -3358,7 +3434,7 @@ def serve_new_archs(torch, dev):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        raw = build_model(get_config(arch)).init(seed=0, device=dev)
+        raw = build_model(serve_config(arch)).init(seed=0, device=dev)
         torch.cuda.synchronize()
         rep["init_s"], rep["init_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
         rep["head_parted"] = parted = head_rows(torch, raw["head"])
@@ -3675,6 +3751,441 @@ def card_vs_cpu_rwkv6(torch):
     return err
 
 
+# -- recurrentgemma-9b (Griffin): its kernels and runs (s), (t) --------------
+
+GRIFFIN = "recurrentgemma-9b"
+# Full-width ring decode rows: wrapped once mid-window, just full, not yet
+# full, wrapped twice.
+RING_Q_POS = (2299, 2047, 500, 4100)
+RING_TIMED_POS = (2299, 2540, 3071, 4100)     # every row sees 2048 keys
+
+
+def check_ring_decode(torch, dev, timer):
+    """paged_attention's ring entry (``launch_contig(window=...)``) against
+    its plain version ``common.decode_attention`` on rings built by
+    ``ring_align``: recurrentgemma-9b's decode (B = 4, ring and window 2048,
+    q_pos RING_Q_POS: wrapped once, full, partial, wrapped twice; NQ 16 /
+    NKV 1 / H 256, bf16) within atol = rtol = 2e-2, and the reduced shape
+    (ring 16, NQ 4 / NKV 1 / H 16; q_pos 40, 15, 3, 0) in bf16 and, within
+    1e-4, float32. One order: with NaN in every empty ring slot, each row
+    is bitwise the windowed flash kernel's row at its position over the
+    whole sequence (bf16 and float32). Times the full-width entry with
+    every row seeing 2048 keys, its plain version and SDPA (K/V expanded
+    to the 16 query heads, the window as a mask)."""
+    from repro_torch.kernels import flash_attention, paged_attention
+    from repro_torch.models.common import decode_attention as plain
+    from repro_torch.models.kv_cache import ring_align
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    worst, orders = 0.0, []
+
+    def ring(k, v, pos, w):
+        B = pos.shape[0]
+        kr, vr, sp = ring_align(k.expand(B, *k.shape[1:])[None],
+                                v.expand(B, *v.shape[1:])[None], pos + 1, w)
+        return kr[0].contiguous(), vr[0].contiguous(), sp[0].contiguous()
+
+    cases = [(16, 1, 256, 2048, RING_Q_POS, torch.bfloat16),
+             (4, 1, 16, 16, (40, 15, 3, 0), torch.bfloat16),
+             (4, 1, 16, 16, (40, 15, 3, 0), torch.float32)]
+    for nq, nkv, H, w, qpos, dt in cases:
+        T = max(qpos) + 1
+        what = f"ring decode NQ={nq} NKV={nkv} H={H} window={w} {dt}"
+        qa = torch.randn((1, T, nq, H), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        pos = torch.tensor(qpos, dtype=torch.int32, device=dev)
+        q = qa[0, pos.long()][:, None].contiguous()
+        kr, vr, sp = ring(k, v, pos, w)
+        got = paged_attention.launch_contig(q, kr, vr, sp, pos, window=w)
+        want = plain(q, kr, vr, sp, pos, window=w)
+        torch.cuda.synchronize()
+        worst = max(worst, _close(torch, got, want, what,
+                                  ATOL if dt == torch.bfloat16 else F32_TOL))
+        whole = flash_attention.launch(qa, k, v, causal=True, window=w, q_offset=0)
+        empty = (sp < 0)[..., None, None]
+        nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+        dec = paged_attention.launch_contig(q, torch.where(empty, nan, kr),
+                                            torch.where(empty, nan, vr), sp, pos, window=w)
+        torch.cuda.synchronize()
+        if not torch.equal(dec[:, 0], whole[0, pos.long()]):
+            err = (dec[:, 0].float() - whole[0, pos.long()].float()).abs().max().item()
+            raise AssertionError(f"{what}: not bitwise windowed flash's rows (max |err| "
+                                 f"{err})")
+        orders.append(f"H={H} window={w} {str(dt).split('.')[-1]}")
+    log(f"ring decode: full width (q_pos {RING_Q_POS}) and reduced within atol=rtol="
+        f"{ATOL} (bf16) / {F32_TOL} (f32) of the plain version (max |err| {worst:.3g}); "
+        f"bitwise windowed flash's rows with NaN in every empty slot: {orders}")
+
+    B, nq, nkv, H, w = 4, 16, 1, 256, 2048
+    T = max(RING_TIMED_POS) + 1
+    k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.tensor(RING_TIMED_POS, dtype=torch.int32, device=dev)
+    q = torch.randn((B, 1, nq, H), generator=gen, device=dev).to(torch.bfloat16)
+    kr, vr, sp = ring(k, v, pos, w)
+    ms = timer(lambda: paged_attention.launch_contig(q, kr, vr, sp, pos, window=w))
+    plain_ms = timer(lambda: plain(q, kr, vr, sp, pos, window=w))
+    mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - w))[:, None, None, :]
+    qs = q.transpose(1, 2)
+    ks, vs = (a.transpose(1, 2).expand(B, nq, w, H).contiguous() for a in (kr, vr))
+    F = torch.nn.functional
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    keys = int(mask.sum())
+    nbytes = 2 * q.numel() * 2 + keys * nkv * H * 2 * 2 + B * w * 4 + B * 4
+    b_ms, b_by = bound_ms(nbytes, 4 * nq * H * keys, BF16_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst,
+            "shape": f"B={B} ring={w} window={w} keys/row=2048 NQ={nq} NKV={nkv} H={H} bf16"}
+
+
+def check_windowed_flash(torch, dev, timer):
+    """The flash kernel at recurrentgemma-9b's prefill: B = 4, T = 320 and
+    T = 2304 (past the window), NQ 16 / NKV 1 / H 256, bf16, window 2048,
+    within atol = rtol = 2e-2 of ``ref.flash_attention_gqa_ref``. Key tiles
+    wholly outside the window of every row of a query block are never
+    loaded (the JAX kernel's ``visible`` test): 64 queries at q_offset 2240
+    over 2304 keys give finite output, bitwise the same, when keys 0-191
+    (6 tiles before the first row's window) are NaN. Times T = 2304, its
+    plain version and SDPA (K/V expanded to 16 heads, the window as a
+    mask)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    B, nq, nkv, H, w = 4, 16, 1, 256, 2048
+    worst = 0.0
+    data = {}
+    for T in (320, 2304):
+        q = torch.randn((B, T, nq, H), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((B, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=True, window=w, q_offset=0)
+        got = flash_attention.launch(q, k, v, **kw)
+        want = ref.flash_attention_gqa_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, _close(torch, got, want, f"windowed flash T={T}"))
+        data[T] = (q, k, v)
+        del want
+    q, k, v = data[2304]
+    qt = q[:, 2240:].contiguous()
+    kw = dict(causal=True, window=w, q_offset=2240)
+    clean = flash_attention.launch(qt, k, v, **kw)
+    kn, vn = k.clone(), v.clone()
+    kn[:, :192] = float("nan")
+    vn[:, :192] = float("nan")
+    dirty = flash_attention.launch(qt, kn, vn, **kw)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(dirty).all()) and torch.equal(dirty, clean)):
+        raise AssertionError("windowed flash: key tiles wholly outside the window were read")
+    log(f"flash_attention windowed (recurrentgemma-9b: B={B} NQ={nq} NKV={nkv} H={H} "
+        f"window {w}) at T 320 and 2304 within atol=rtol={ATOL} (max |err| {worst:.3g}); "
+        "the 6 key tiles before every row's window never read (NaN there: bitwise)")
+    T = 2304
+    kw = dict(causal=True, window=w, q_offset=0)
+    ms = timer(lambda: flash_attention.launch(q, k, v, **kw))
+    plain_ms = timer(lambda: ref.flash_attention_gqa_ref(q, k, v, **kw), iters=5)
+    i = torch.arange(T, device=dev)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    qs = q.transpose(1, 2)
+    ks, vs = (a.transpose(1, 2).expand(B, nq, T, H).contiguous() for a in (k, v))
+    F = torch.nn.functional
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    pairs = int(mask.sum())
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    b_ms, b_by = bound_ms(nbytes, 4 * B * nq * H * pairs, BF16_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst,
+            "shape": f"B*NQ={B * nq} NKV={nkv} T={T} H={H} bf16 causal window {w}"}
+
+
+def check_rglru(torch, dev, timer):
+    """The RG-LRU kernel against ``ref.rglru_scan_ref`` on the card at
+    recurrentgemma-9b's width (W = 4096, B = 4, bf16 y, float32 gate
+    projections) for T = 320 and T = 2304, with a carried h0 and ragged
+    lengths: h and h at lengths - 1 within atol = rtol = 1e-4 (other
+    transcendental roundings); a prompt run as two calls (T1 = 100, then
+    the rest from the carry) bitwise one call; the step (T = 1 from h at t
+    - 1) bitwise the call's h at t; a row alone bitwise its row in the
+    batch. Times T = 320 and the T = 1 step."""
+    from repro_torch.kernels import ref, rglru
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    B, W = 4, 4096
+
+    def inputs(T):
+        ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
+        y = torch.randn((B, T, W), generator=gen, device=dev).to(torch.bfloat16)
+        ab, ib = (torch.randn(W, generator=gen, device=dev) * 0.5 for _ in range(2))
+        lam = torch.rand(W, generator=gen, device=dev) + 0.1
+        h0 = torch.randn((B, W), generator=gen, device=dev)
+        return ga, gi, y, ab, ib, lam, h0
+
+    worst = 0.0
+    for T in (320, 2304):
+        a = inputs(T)
+        lengths = torch.tensor([T, T - 7, 1, T // 2], dtype=torch.int32, device=dev)
+        for h0 in (None, a[6]):
+            got = rglru.launch(*a[:6], h0, lengths)
+            want = ref.rglru_scan_ref(*a[:6], h0, lengths)
+            torch.cuda.synchronize()
+            what = f"rglru B={B} T={T} W={W} h0={h0 is not None}"
+            worst = max(worst, _close(torch, got[0], want[0], what + " h", F32_TOL),
+                        _close(torch, got[1], want[1], what + " h_last", F32_TOL))
+        h, last = rglru.launch(*a[:6], a[6])
+        h1, last1 = rglru.launch(*(t[:, :100] for t in a[:3]), *a[3:6], a[6])
+        h2, last2 = rglru.launch(*(t[:, 100:] for t in a[:3]), *a[3:6], last1)
+        step, _ = rglru.launch(*(t[:, 150:151] for t in a[:3]), *a[3:6], h[:, 149])
+        solo, _ = rglru.launch(*(t[2:3] for t in a[:3]), *a[3:6], a[6][2:3])
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(last2, last)):
+            raise AssertionError(f"rglru T={T}: two calls with the carry are not one call")
+        if not torch.equal(step[:, 0], h[:, 150]):
+            raise AssertionError(f"rglru T={T}: the T = 1 step is not the call's h at t")
+        if not torch.equal(solo[0], h[2]):
+            raise AssertionError(f"rglru T={T}: a row alone is not its row in the batch")
+    log(f"rglru: B={B} W={W} T in (320, 2304), zero and carried h0, ragged lengths, "
+        f"within atol=rtol={F32_TOL} of the plain version (max |err| {worst:.3g}); split "
+        "= whole, step = T=1 call, row alone = row in batch: bitwise")
+
+    def timed(T):
+        a = inputs(T)
+        ms = timer(lambda: rglru.launch(*a))
+        plain_ms = timer(lambda: ref.rglru_scan_ref(*a))
+        n = B * T * W
+        nbytes = 2 * n * 4 + n * 2 + n * 4 + 2 * B * W * 4 + 3 * W * 4
+        b_ms, b_by = bound_ms(nbytes, 18 * n, FP32_FLOPS_PER_S)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "shape": f"B={B} T={T} W={W} f32 gates, bf16 y, carried h0"}
+
+    entries = {"prefill": timed(320), "decode": timed(1)}
+    return {**entries["prefill"], "max_abs_err": worst, "entries": entries}
+
+
+def check_dense_f32(torch, dev, timer):
+    """``dense_matmul``'s float32 store at recurrentgemma-9b's gate
+    projections (4096 -> 4096, bf16 y and W): within 1e-4 of the float32
+    product JAX computes (``y.float() @ W.float()``), each row at M in
+    HEAD_M (decode, up to 9 rows) and at M = 1280 (a static prefill of 4 x
+    320) bitwise the same row at M = 4, and the bf16 store bitwise the
+    float32 store rounded. Times M = 4 and M = 1280."""
+    from repro_torch.kernels import dense_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    K = N = 4096
+    f32 = torch.float32
+    w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+    x = torch.randn((1280, K), generator=gen, device=dev).to(torch.bfloat16)
+    full = dense_matmul.launch(x, w, out_dtype=f32)
+    want = x.float() @ w.float()
+    bf = dense_matmul.launch(x, w)
+    at4 = dense_matmul.launch(x[:4], w, out_dtype=f32)
+    torch.cuda.synchronize()
+    err = _close(torch, full, want, "dense_matmul f32 store 4096x4096", F32_TOL)
+    if not torch.equal(bf, full.to(torch.bfloat16)):
+        raise AssertionError("dense_matmul: the bf16 store is not the f32 store rounded")
+    parted = []
+    for M in (*HEAD_M, 1280):
+        rows = full[:M] if M == 1280 else dense_matmul.launch(x[:M], w, out_dtype=f32)
+        torch.cuda.synchronize()
+        parted += [(M, i) for i in range(min(M, 4)) if not torch.equal(rows[i], at4[i])]
+    if parted:
+        raise AssertionError(f"dense_matmul f32 store: rows part from M = 4 at {parted}")
+    log(f"dense_matmul float32 store (griffin gate projections 4096 -> 4096): within "
+        f"{F32_TOL} of the f32 product (max |err| {err:.3g}); rows at M in {HEAD_M} and "
+        "1280 bitwise their M = 4 rows; bf16 store = f32 store rounded")
+
+    def timed(M):
+        xm = x[:M].contiguous()
+        ms = timer(lambda: dense_matmul.launch(xm, w, out_dtype=f32))
+        plain_ms = timer(lambda: xm.float() @ w.float())
+        lib_ms = timer(lambda: torch.matmul(xm, w))
+        b_ms, b_by = bound_ms(2 * (M * K + K * N) + 4 * M * N, 2 * M * K * N,
+                              BF16_FLOPS_PER_S)
+        S, _, bm = dense_matmul.launch_plan(M, K, N)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "slices": S, "rows_per_block": bm,
+                "shape": f"M={M} {K}->{N} bf16 in, f32 out"}
+
+    return {"max_abs_err": err,
+            "entries": {"gate_f32_decode": timed(4), "gate_f32_prefill": timed(1280)}}
+
+
+NORM_D = (4096, 6144, 5120, 2560, 2048, 160)   # the archs' d_model, stablelm's head dim
+
+
+def check_norm_rows(torch, dev):
+    """The norms' row mean (``common.row_mean``: 32-wide sums in stages on
+    the card) at every width a norm of the port reduces: each row at M in
+    HEAD_M rows bitwise its row at M = 4 (gated), and within 1e-6 of
+    ``x.mean`` relative to the rows' mean |x|. Also reports where
+    ``x.mean`` itself parts across M (not gated: PyTorch sizes the
+    reduction's blocks from the row count, which is why the norms do not
+    use it on the card)."""
+    from repro_torch.models.common import row_mean
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    parted, plain_parted, worst = [], {}, 0.0
+    for d in NORM_D:
+        x = torch.randn((max(HEAD_M), d), generator=gen, device=dev) * 3
+        at4, mean4 = row_mean(x[:4]), x[:4].mean(-1, keepdim=True)
+        scale = x[:4].abs().mean(-1, keepdim=True)
+        worst = max(worst, ((at4 - mean4).abs() / scale).max().item())
+        for M in HEAD_M:
+            got, ref = row_mean(x[:M]), x[:M].mean(-1, keepdim=True)
+            n = min(M, 4)
+            if not torch.equal(got[:n], at4[:n]):
+                parted.append((d, M))
+            if not torch.equal(ref[:n], mean4[:n]):
+                plain_parted.setdefault(d, []).append(M)
+    torch.cuda.synchronize()
+    log(f"norm row mean at d in {NORM_D}: rows at M in {HEAD_M} not bitwise M = 4: "
+        f"{parted or 'none'} (gated); x.mean's: {plain_parted or 'none'} (not used); "
+        f"gap to x.mean {worst:.3g} of the mean |x|")
+    if parted or worst > 1e-6:
+        raise AssertionError(f"row_mean: rows part across M at {parted}, gap {worst}")
+    return {"plain_mean_parted": plain_parted, "max_rel_gap": worst}
+
+
+# The ring-wrap pair: a prompt past the window (it wraps inside prefill)
+# and one 8 short of it decoding 24 tokens (it wraps while decoding).
+WRAP_PROMPTS = ((2300, 24), (2040, 24))
+
+
+def serve_griffin(torch, dev):
+    """Runs (s) and (t) of GRIFFIN_RUNS and their gates: the raw bf16
+    weights (seed 0) are drawn once and served unquantized by both runs,
+    then dropped with the engines.
+
+    Gated (besides ``serve_run``'s checks): the untied 4096 -> 256 000
+    head's rows at M = 1-9 bitwise its rows at M = 4 (``head_rows``); (t)
+    continuous emits (s) static's greedy tokens; first-token logits of the
+    stream's prompts bitwise equal in a static batch and alone; solo ≡
+    mid-decode admission on (t)'s engine; the ring-wrap pair (a 2300-token
+    prompt, which wraps the 2048-slot ring inside prefill, and a
+    2040-token prompt decoding 24 tokens, which wraps it while decoding),
+    static vs continuous on (s)'s engine: the same greedy tokens. Prints
+    the time and peak device memory of the init and of each run; every
+    gate prints before one raises. Returns (report, launch counts summed
+    over the two runs)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request
+
+    cfg = get_config(GRIFFIN)
+    rep, counts, bad = {}, {}, []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    rep["init_s"], rep["init_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+    rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    def numel(tree):
+        return (sum(numel(v) for v in tree.values()) if isinstance(tree, dict)
+                else tree.numel())
+
+    rep["parameters"] = numel(params)
+    rep["head_parted"] = parted = head_rows(torch, params["head"])
+    log(f"{GRIFFIN}: {rep['parameters']} parameters, init {rep['init_s']:.1f}s, peak "
+        f"{rep['init_peak_gb']:.2f} GB, {rep['resident_gb']:.2f} GB resident; untied head "
+        f"{tuple(params['head'].shape)} rows at M in {HEAD_M} not bitwise M = 4: "
+        f"torch.matmul {parted['torch.matmul'] or 'none'} (gated), dense_matmul "
+        f"{parted['dense_matmul'] or 'none'}")
+    if parted["torch.matmul"]:
+        bad.append(f"head rows part across M {parted['torch.matmul']}")
+    runs = {}
+    for name in GRIFFIN_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[name] = serve_run(torch, params, name)
+        run_s, peak = time.perf_counter() - t0, _mem_gb(torch)
+        rep[name] = {**runs[name][1], "run_seconds": run_s, "peak_gb": peak}
+        for k, n in runs[name][2].items():
+            counts[k] = counts.get(k, 0) + n
+        log(f"  [{name}] {run_s:.1f}s, peak memory {peak:.2f} GB "
+            "(torch.cuda.max_memory_allocated)")
+    reqs = mixed_requests(cfg, serve.build_parser().parse_args(
+        serve_argv("s-griffin-static")))
+    greedy = [r.rid for r in reqs if r.temperature == 0]
+    share = _greedy_share(runs["s-griffin-static"][3], runs["t-griffin-continuous"][3],
+                          greedy)
+    eng = runs["s-griffin-static"][0]
+    t0 = time.perf_counter()
+    solo, batch = batch_and_solo_logits(torch, eng, [r.prompt for r in reqs])
+    err = (batch - solo).abs().max().item()
+    toks = solo_vs_mid_decode(runs["t-griffin-continuous"][0])
+    rng = np.random.default_rng(25)
+    wrap = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int64),
+                    max_new_tokens=m) for i, (n, m) in enumerate(WRAP_PROMPTS)]
+
+    def fresh():
+        return [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in wrap]
+
+    static = {r.rid: r.out_tokens for r in eng.generate_static(fresh())}
+    cont = {r.rid: r.out_tokens for r in eng.generate(fresh())}
+    torch.cuda.synchronize()
+    rep.update(static_vs_continuous=share, logits_err_batch_vs_solo=err,
+               solo_vs_mid_decode=len(toks), ring_wrap_static=static,
+               ring_wrap_continuous=cont, gates_s=time.perf_counter() - t0)
+    log(f"{GRIFFIN}: greedy (t) continuous vs (s) static {share} (gated at all); "
+        f"first-token logits static batch of 4 vs solo max |err| {err:.3g} (gated at 0); "
+        f"solo == mid-decode admission: {len(toks)} greedy tokens identical; ring-wrap "
+        f"pair {WRAP_PROMPTS} (prompt, new tokens) static vs continuous: "
+        f"{sum(static[i] == cont[i] for i in static)}/{len(static)} identical (gated), "
+        f"{[len(t) for t in static.values()]} tokens; gates {rep['gates_s']:.1f}s")
+    if share != f"{len(greedy)}/{len(greedy)}":
+        bad.append(f"(t) vs (s) {share}")
+    if err != 0.0:
+        bad.append(f"static batch vs solo logits {err}")
+    if static != cont or any(len(t) != m for t, (_, m) in zip(static.values(),
+                                                             WRAP_PROMPTS)):
+        bad.append(f"ring-wrap pair static {static} vs continuous {cont}")
+    del runs, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"{GRIFFIN}: {bad}")
+    return rep, counts
+
+
+def card_vs_cpu_griffin(torch):
+    """Reduced recurrentgemma-9b in float32 (window 16): a whole-prompt
+    prefill of two right-padded prompts (40 and 21 tokens, past the
+    window) and five decode steps on the card (windowed flash, the ring
+    entry, the RG-LRU kernel) vs on the CPU (their plain versions):
+    logits within 1e-3 (float32 sums in other orders)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_reduced_config(GRIFFIN), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        toks = (torch.arange(2 * 40, device=dev).reshape(2, 40) * 11) % cfg.vocab
+        cache, lg = model.prefill(p, {"tokens": toks, "lengths": torch.tensor([40, 21])})
+        lgs = [lg]
+        for t in range(5):
+            cache, lg = model.decode_step(p, cache, torch.tensor([[3 + t], [5 + t]],
+                                                                 device=dev))
+            lgs.append(lg)
+        out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"reduced fp32 {GRIFFIN}: card vs CPU logits differ by {err}")
+    return err
+
+
 def _to(tree, dev):
     from repro_torch.core.quantized_linear import PackedWeight
 
@@ -3772,7 +4283,6 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build, ops
     from repro_torch.models import build_model
-    from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions in full
     torch.backends.cudnn.allow_tf32 = False
@@ -3784,7 +4294,7 @@ def main() -> int:
 
         arch = serve.build_parser().parse_args(serve_argv(name)).arch
         if arch not in params:
-            params[arch] = build_model(get_config(arch)).init(seed=0, device=dev)
+            params[arch] = build_model(serve_config(arch)).init(seed=0, device=dev)
         return params[arch]
 
     if sys.argv[1:] == ["paths"]:
@@ -3801,7 +4311,7 @@ def main() -> int:
         runs = {name: serve_run(torch, params_of(name), name) for name in TIER_RUNS}
         tier_cmp = compare_tiers(torch, runs)
         raw = params_of("chunked-int8")
-        cfg8 = dataclasses.replace(get_config("olmo-1b"), kv_cache_quant=True)
+        cfg8 = dataclasses.replace(serve_config("olmo-1b"), kv_cache_quant=True)
         engine8 = ServingEngine(cfg8, raw, max_batch=4, quant=parse_policy_spec(POLICY),
                                 bucket=32, block_size=16, prefill_budget=32, device=dev)
         write_detail("chip_smoke_tiers.json", {
@@ -3844,6 +4354,37 @@ def main() -> int:
             "new_widths": new_w, "new_archs": arch_out, "registry": reg_out,
             "card_vs_cpu": errs})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["griffin"]:
+        t0 = time.perf_counter()
+        build.build()
+        timer = Timer(torch, dev)
+        # The attention and dense sources this slice changed keep their gates.
+        check_paged_attention(torch, dev, timer)
+        check_one_order(torch, dev)
+        check_dense_matmul(torch, dev, timer)
+        kern = {"norm_rows": check_norm_rows(torch, dev),
+                "ring": check_ring_decode(torch, dev, timer),
+                "flash_windowed": check_windowed_flash(torch, dev, timer),
+                "rglru": check_rglru(torch, dev, timer),
+                "dense_f32": check_dense_f32(torch, dev, timer)}
+        for line in build.build_logs.get("rglru", "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas rglru: {line.strip()}")
+        for what, e in [("ring", kern["ring"]), ("flash_windowed", kern["flash_windowed"]),
+                        *[(f"rglru[{k}]", v) for k, v in kern["rglru"]["entries"].items()],
+                        *[(f"dense_matmul[{k}]", v)
+                          for k, v in kern["dense_f32"]["entries"].items()]]:
+            log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
+                f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {e['library_ms']})")
+        log(f"griffin: build and kernel checks {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        out, counts = serve_griffin(torch, dev)
+        err = card_vs_cpu_griffin(torch)
+        log(f"griffin: runs (s), (t) and their gates {time.perf_counter() - t0:.1f}s; "
+            f"launches {counts}; reduced fp32 card vs CPU logits max |err| {err:.3g}")
+        write_detail("chip_smoke_griffin.json", {"kernels": kern, "serve": out,
+                                                 "card_vs_cpu": err})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -3876,11 +4417,19 @@ def main() -> int:
         "bitplane_matmul": check_bitplane(torch, dev, timer),
         "flash_attention": check_flash(torch, dev, timer),
         "wkv6": check_wkv6(torch, dev, timer),
+        "rglru": check_rglru(torch, dev, timer),
     }
+    results["paged_attention"]["entries"]["ring"] = check_ring_decode(torch, dev, timer)
+    results["flash_attention"]["entries"] = {
+        "windowed_prefill": check_windowed_flash(torch, dev, timer)}
     mixed = check_mixed_group(torch, dev, timer)
     results["bitplane_matmul"]["entries"].update(mixed.pop("entries"))
     table3_launches = check_table3_launches(torch, dev)
     dense = check_dense_matmul(torch, dev, timer)
+    dense_f32 = check_dense_f32(torch, dev, timer)
+    norm_rows = check_norm_rows(torch, dev)
+    dense["entries"].update(dense_f32["entries"])
+    dense["max_abs_err"] = max(dense["max_abs_err"], dense_f32["max_abs_err"])
     head_dim_err = check_head_dims(torch, dev)
     check_one_order(torch, dev)
     new_w = check_new_widths(torch, dev, timer)
@@ -3901,18 +4450,27 @@ def main() -> int:
     arch_out, counts = serve_new_archs(torch, dev)
     log(f"runs (o)-(r) and their gates: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    griffin_out, griffin_counts = serve_griffin(torch, dev)
+    for k, n in griffin_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    log(f"runs (s), (t) and their gates: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     runs = {}
     for name in SERVE_RUNS:
         runs[name] = serve_run(torch, params_of(name), name)
         for k, n in runs[name][2].items():
             counts[k] = counts.get(k, 0) + n
+    log(f"serve phase, runs {len(SERVE_RUNS)}: {time.perf_counter() - t0:.1f}s")
     for k in results:
         results[k]["launches"] = counts[k]
     dense["launches"] = counts["dense_matmul"]
-    # One TPU kernel, two entries: paged decode and contiguous decode.
+    # One TPU kernel, three entries: paged decode, contiguous decode over a
+    # full cache and over a ring.
     entries = results["paged_attention"]["entries"]
     entries["contiguous"]["launches"] = counts["contig_attention"]
-    entries["paged"]["launches"] = counts["paged_attention"] - counts["contig_attention"]
+    entries["ring"]["launches"] = counts["ring_attention"]
+    entries["paged"]["launches"] = (counts["paged_attention"] - counts["contig_attention"]
+                                    - counts["ring_attention"])
     for name in ("chunked-bf16", "chunked-int8", "f-rwkv6-continuous"):
         toks = solo_vs_mid_decode(runs[name][0])
         log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
@@ -3945,6 +4503,8 @@ def main() -> int:
         f"{err_archs}")
     err_rwkv = card_vs_cpu_rwkv6(torch)
     log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err_rwkv:.3g}")
+    err_griffin = card_vs_cpu_griffin(torch)
+    log(f"reduced fp32 {GRIFFIN}: card vs CPU logits max |err| {err_griffin:.3g}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -3959,15 +4519,18 @@ def main() -> int:
         "host_tier": host_cmp, "new_widths": new_w["cases"], "new_archs": arch_out,
         "registry": registry_out, "card_vs_cpu_archs_max_err": err_archs,
         "card_vs_cpu_max_err": err,
-        "card_vs_cpu_rwkv6_max_err": err_rwkv, "nvidia_smi": smi})
+        "card_vs_cpu_rwkv6_max_err": err_rwkv, "griffin": griffin_out,
+        "card_vs_cpu_griffin_max_err": err_griffin, "norm_rows": norm_rows,
+        "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
+         **({"note": NOT_PALLAS[name]} if name in NOT_PALLAS else {}),
          **({"entries": r["entries"]} if "entries" in r else {})}
-        for name, r in results.items()]}
+        for name, r in [*results.items(), ("dense_matmul", dense)]]}
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"dense_matmul": {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/dense_matmul.cu",

@@ -15,6 +15,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "rwkv6-3b": "rwkv6_3b",
     "nemotron-4-15b": "nemotron_4_15b",
     "stablelm-12b": "stablelm_12b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -296,18 +296,25 @@ __device__ void attend_mma(const __nv_bfloat16* __restrict__ q, __nv_bfloat16* _
 
 // Fold the splits of decode (written by attend_mma with split >= 0) in
 // increasing order, and normalise: one thread per (query row, dim) of one
-// (row b, KV head n). part_o [B][NKV][ns][16][H], part_ml [..][16][2];
-// out (B, NKV * G, H) in q's layout.
+// (row b, KV head n), blocks (b, n, z) sharing a (b, n)'s G * H elements
+// (z along them), so a few KV heads (MQA: one) still fill the card. part_o [B][NKV][ns][16][H], part_ml [..][16][2];
+// out (B, NKV * G, H) in q's layout. Slot z of a row's scratch holds
+// split first / kSplit + z, first = max(0, q_pos - window + 1) under a
+// sliding window (window > 0), else 0: the splits before it hold no key
+// the row sees, and folding such a split leaves the total as it was.
 template <int H>
 __global__ void fold_splits_kernel(const float* __restrict__ part_o,
                                    const float* __restrict__ part_ml,
                                    const int* __restrict__ q_pos,
-                                   __nv_bfloat16* __restrict__ out, int NKV, int G, int ns) {
+                                   __nv_bfloat16* __restrict__ out, int NKV, int G, int ns,
+                                   int window) {
   const int b = blockIdx.x, n = blockIdx.y;
   const int qp = q_pos[b];
-  const int nsb = qp < 0 ? 0 : min(ns, qp / kSplit + 1);
+  const int sp0 = window > 0 ? max(0, qp - window + 1) / kSplit : 0;
+  const int nsb = qp < 0 ? 0 : min(ns, qp / kSplit + 1 - sp0);
   const long bn = (long)b * NKV + n;
-  for (int e = threadIdx.x; e < G * H; e += blockDim.x) {
+  for (int e = blockIdx.z * blockDim.x + threadIdx.x; e < G * H;
+       e += gridDim.z * blockDim.x) {
     const int r = e / H, d = e % H;
     float M = -INFINITY, L = 0.f, O = 0.f;
     for (int sp = 0; sp < nsb; ++sp) {

@@ -7,7 +7,11 @@
 // algorithm from M and splits K at small M, so a row's sum moved with M.
 //
 // x (M, K) bf16, W (K, N) bf16 row-major, fp32 accumulation, y (M, N) bf16
-// rounded to nearest. The summation order of an element depends on (K, N)
+// rounded to nearest, or (the dense_matmul_f32 entry) the fp32 sums
+// themselves: Griffin's RG-LRU gate projections, which the JAX package
+// computes in float32 (repro/models/griffin.py:128-129, yf @ W.astype(f32),
+// whose bf16 operands make every product exact), keep their fp32 sums
+// in the same order, so they too are the same bits at every M. The summation order of an element depends on (K, N)
 // only (kernels/dense_matmul.py::plan): K, padded with zeros to a multiple
 // of 128, is cut into S slices of whole 128-wide tiles; each slice's
 // partial starts from zero and runs its k16 `mma.sync.aligned.m16n8k16`
@@ -90,15 +94,23 @@ __device__ __forceinline__ int swz(int r, int c, int chunks) {
   return chunks >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
 }
 
+// Two adjacent elements of y: rounded to bf16, or the fp32 sums as they are.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Block (x, y, z) owns columns [BN x, BN x + BN) and rows [BM y, BM y + BM)
-// of y. kOne: K slice z; y (bf16) when the grid has one slice along z, else
-// the fp32 partial part[z]. Walk modes: every slice, y (bf16). K runs to
+// of y. kOne: K slice z; y (OT) when the grid has one slice along z, else
+// the fp32 partial part[z]. Walk modes: every slice, y (OT). K runs to
 // its padded end (a multiple of 128, staged as zeros), so every tile plan
 // runs the same k16 steps.
-template <typename T, int MODE>
+template <typename T, int MODE, typename OT>
 __global__ void __launch_bounds__(T::kThreads)
 dense_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-             __nv_bfloat16* __restrict__ y, float* __restrict__ part, int M, int K, int N,
+             OT* __restrict__ y, float* __restrict__ part, int M, int K, int N,
              int slice_k) {
   constexpr int BM = T::BM, BN = T::BN, BK = T::BK, kStages = T::kStages;
   constexpr int kMI = T::kMI, kNJ = T::kNJ, kThreads = T::kThreads;
@@ -214,15 +226,15 @@ dense_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
         if (pz)
           *reinterpret_cast<float2*>(pz + (size_t)row * N + col) = make_float2(v0, v1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
-              __floats2bfloat162_rn(v0, v1);
+          store2(y + (size_t)row * N + col, v0, v1);
       }
     }
 }
 
-// y = bf16(((p0 + p1) + p2) + ...) over the S partials of a split decode
+// y = OT(((p0 + p1) + p2) + ...) over the S partials of a split decode
 // (`pairs` = M N / 2 float2 a slice), two adjacent elements a thread.
-__global__ void fold_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
+template <typename OT>
+__global__ void fold_kernel(const float* __restrict__ part, OT* __restrict__ y,
                             long long pairs, int slices) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < pairs;
        i += (long long)gridDim.x * blockDim.x) {
@@ -232,24 +244,53 @@ __global__ void fold_kernel(const float* __restrict__ part, __nv_bfloat16* __res
       tot.x = __fadd_rn(tot.x, p.x);
       tot.y = __fadd_rn(tot.y, p.y);
     }
-    reinterpret_cast<__nv_bfloat162*>(y)[i] = __floats2bfloat162_rn(tot.x, tot.y);
+    store2(y + 2 * i, tot.x, tot.y);
   }
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, typename OT>
 cudaError_t launch(const void* x, const void* w, void* y, float* part, int M, int K, int N,
                    int blocks_z, int slice_k, cudaStream_t st) {
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, blocks_z);
   constexpr int bytes = (int)sizeof(Smem<T, MODE>);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        dense_kernel<T, MODE, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
   }
-  dense_kernel<T, MODE><<<grid, T::kThreads, bytes, st>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y, part, M, K, N,
-      slice_k);
+  dense_kernel<T, MODE, OT><<<grid, T::kThreads, bytes, st>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (OT*)y, part, M, K, N, slice_k);
   return cudaGetLastError();
+}
+
+// Both entries: check the plan, launch its tiling with OT stores.
+template <typename OT>
+int run(const void* x, const void* w, void* y, void* part, int M, int K, int N, int slices,
+        int slice_k, int bm, void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (K <= 0 || K % 8 || N % 8 || slices < 1 || slice_k <= 0 || slice_k % kSliceTile ||
+      (long long)slice_k * slices < K || (long long)slice_k * (slices - 1) >= K ||
+      (bm != Decode::BM && bm != Strip::BM && bm != Wide::BM) ||
+      (bm == Decode::BM && (slices == 1 || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool one = slices == 1;
+  if (bm == Wide::BM)
+    return (int)(one ? launch<Wide, kOne, OT>(x, w, y, nullptr, M, K, N, 1, slice_k, st)
+                     : launch<WideSplit, kWalkSmem, OT>(x, w, y, nullptr, M, K, N, 1,
+                                                        slice_k, st));
+  if (bm == Strip::BM)
+    return (int)(one ? launch<Strip, kOne, OT>(x, w, y, nullptr, M, K, N, 1, slice_k, st)
+                     : launch<Strip, kWalkRegs, OT>(x, w, y, nullptr, M, K, N, 1, slice_k,
+                                                    st));
+  // Split decode: one block per K slice, then the fold over the partials.
+  float* pf = (float*)part;
+  cudaError_t e = launch<Decode, kOne, OT>(x, w, y, pf, M, K, N, slices, slice_k, st);
+  if (e != cudaSuccess) return (int)e;
+  const long long pairs = (long long)M * N / 2;
+  const int blocks = (int)((pairs + 255) / 256 < 4096 ? (pairs + 255) / 256 : 4096);
+  fold_kernel<OT><<<blocks, 256, 0, st>>>(pf, (OT*)y, pairs, slices);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -262,26 +303,12 @@ cudaError_t launch(const void* x, const void* w, void* y, float* part, int M, in
 // decode (else null). Returns the CUDA error code of the launches.
 extern "C" int dense_matmul(const void* x, const void* w, void* y, void* part, int M, int K,
                             int N, int slices, int slice_k, int bm, void* stream) {
-  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  if (K <= 0 || K % 8 || N % 8 || slices < 1 || slice_k <= 0 || slice_k % kSliceTile ||
-      (long long)slice_k * slices < K || (long long)slice_k * (slices - 1) >= K ||
-      (bm != Decode::BM && bm != Strip::BM && bm != Wide::BM) ||
-      (bm == Decode::BM && (slices == 1 || part == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool one = slices == 1;
-  if (bm == Wide::BM)
-    return (int)(one ? launch<Wide, kOne>(x, w, y, nullptr, M, K, N, 1, slice_k, st)
-                     : launch<WideSplit, kWalkSmem>(x, w, y, nullptr, M, K, N, 1, slice_k, st));
-  if (bm == Strip::BM)
-    return (int)(one ? launch<Strip, kOne>(x, w, y, nullptr, M, K, N, 1, slice_k, st)
-                     : launch<Strip, kWalkRegs>(x, w, y, nullptr, M, K, N, 1, slice_k, st));
-  // Split decode: one block per K slice, then the fold over the partials.
-  float* pf = (float*)part;
-  cudaError_t e = launch<Decode, kOne>(x, w, y, pf, M, K, N, slices, slice_k, st);
-  if (e != cudaSuccess) return (int)e;
-  const long long pairs = (long long)M * N / 2;
-  const int blocks = (int)((pairs + 255) / 256 < 4096 ? (pairs + 255) / 256 : 4096);
-  fold_kernel<<<blocks, 256, 0, st>>>(pf, (__nv_bfloat16*)y, pairs, slices);
-  return (int)cudaGetLastError();
+  return run<__nv_bfloat16>(x, w, y, part, M, K, N, slices, slice_k, bm, stream);
+}
+
+// The same product with y (M, N) float32: the fp32 sums, unrounded.
+extern "C" int dense_matmul_f32(const void* x, const void* w, void* y, void* part, int M,
+                                int K, int N, int slices, int slice_k, int bm,
+                                void* stream) {
+  return run<float>(x, w, y, part, M, K, N, slices, slice_k, bm, stream);
 }

@@ -1,6 +1,7 @@
 // Shared pieces of the decode and chunked-prefill attention kernels: the
-// key sources (the paged pool through a row's block table, or one row of
-// the contiguous cache) and the query rows of a thread block.
+// key sources (the paged pool through a row's block table, one row of the
+// full contiguous cache, or one row of a ring cache) and the query rows of
+// a thread block.
 //
 // A key source maps an absolute key position to its token slot (-1: an
 // unallocated block or an empty slot), so a tile of attn::kBK keys at
@@ -59,6 +60,22 @@ struct ContigSrc {
   __device__ bool tile_live(int kt) const { return kt * kBK < S; }
 };
 
+// Keys of row b of a ring cache (B, S, NKV, H) (a windowed cache, S =
+// window): position pos lives in slot pos % S iff that slot's slot_pos is
+// pos; otherwise the slot holds another position of the ring or is empty
+// (-1) and pos has no key. Tiles stay at absolute positions, so a ring row
+// folds its keys in the order a full row (or flash) folds the same keys.
+struct RingSrc {
+  const int* slot_pos;   // the row's (S,) slot positions
+  int S;
+  long base;             // b * S
+  __device__ long slot(int pos) const {
+    const int s = pos % S;
+    return slot_pos[s] == pos ? base + s : -1;
+  }
+  __device__ bool tile_live(int) const { return true; }
+};
+
 // Query rows of a block: row r = ii * G + g (r < R) reads q at
 // ii * ii_stride + g * H (relative to the block's base) and sits at
 // absolute position pos0 + ii * pos_step if ii < n_valid; a padded query
@@ -73,6 +90,14 @@ struct Rows {
     return ii < n_valid ? pos0 + ii * pos_step : -1;
   }
   __device__ long q_off(int r) const { return (long)(r / G) * ii_stride + (long)(r % G) * H; }
+};
+
+// The one query position of a decode row (Rows with n_valid 1) and the
+// first key position it sees: `first` is 0 for a full cache and
+// max(0, q_pos - window + 1) under a sliding window.
+struct DecodeRows : Rows {
+  int first;
+  __device__ int lo(int) const { return first; }
 };
 
 }  // namespace paged

@@ -10,7 +10,10 @@ same chains: the kernel registry holds it as blocks (bm,) per (M, K, N)
 and may pin another from a plan file or ``autotune``; S is never part of
 a plan. rwkv6 runs every dense product of its row path through it
 on the card, which makes static batches and solo prefill, and so static
-and continuous serving, agree bitwise.
+and continuous serving, agree bitwise. A second entry stores the fp32
+sums unrounded (``out_dtype=torch.float32``, ``dense_matmul_f32``):
+Griffin's RG-LRU gate projections, which JAX computes in float32, run
+it with the same order.
 """
 from __future__ import annotations
 
@@ -28,8 +31,12 @@ from repro_torch.kernels.registry import get_registry
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: ctypes signature of the C entry (checked against its source by the tests).
+#: ctypes signature of the C entries (checked against their source by the
+#: tests): ``dense_matmul`` and ``dense_matmul_f32``.
 ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+DENSE_MATMUL_F32_ARGTYPES = ARGTYPES
+#: The C entry storing each output dtype.
+_ENTRIES = {torch.bfloat16: "dense_matmul", torch.float32: "dense_matmul_f32"}
 
 SMS = 132       # streaming multiprocessors of an H100 SXM
 KT = 128        # K elements per tile: a slice is a whole number of them
@@ -93,16 +100,19 @@ def candidates(M: int, K: int, N: int) -> List[Tuple[int]]:
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.load("dense_matmul").dense_matmul
+def _fn(entry: str = "dense_matmul"):
+    fn = getattr(build.load("dense_matmul"), entry)
     fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None) -> torch.Tensor:
-    """x (M, K) and w (K, N) bfloat16 on one CUDA device → (M, N) bfloat16.
-    ``plan``: the tiling (bm,), else the registry's for ``backend``."""
+def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None,
+           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (M, K) and w (K, N) bfloat16 on one CUDA device → (M, N) in
+    ``out_dtype``: bfloat16 (rounded once) or float32 (the fp32 sums of
+    the same order). ``plan``: the tiling (bm,), else the registry's for
+    ``backend``."""
     global launches
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"dense_matmul expects x (M, K) and w (K, N), got "
@@ -111,6 +121,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None) -> torc
         raise ValueError(f"K and N must be multiples of 8, got {tuple(w.shape)}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"dense_matmul kernel takes bfloat16, got {x.dtype}, {w.dtype}")
+    if out_dtype not in _ENTRIES:
+        raise ValueError(f"dense_matmul stores bfloat16 or float32, not {out_dtype}")
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("dense_matmul kernel needs CUDA tensors on one device")
     x, w = x.contiguous(), w.contiguous()
@@ -120,12 +132,13 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None) -> torc
         plan = get_registry().plan("dense_matmul", (M, K, N), backend)
     bm = check_blocks(M, K, N, tuple(plan))
     S, sk, _ = launch_plan(M, K, N)       # the summation order: (K, N) alone
-    y = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     part = (torch.empty((S, M, N), dtype=torch.float32, device=x.device)
             if S > 1 and bm == DECODE else None)
-    rc = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-               0 if part is None else part.data_ptr(), M, K, N, S, sk, bm,
-               torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(rc, "dense_matmul")
+    entry = _ENTRIES[out_dtype]
+    rc = _fn(entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    0 if part is None else part.data_ptr(), M, K, N, S, sk, bm,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(rc, entry)
     launches += 1
     return y

@@ -18,9 +18,11 @@ III mixed-group path: one row pass, then one integer matmul per filter
 group with the dequant in its store), flash attention (whole-prompt
 prefill) and the RWKV-6 chunked recurrence ``wkv6``. The attention
 kernels share one tile routine, so every attention path sums in one
-order. One kernel has no Pallas counterpart: ``dense_matmul``, the
-batch-invariant bf16 product of rwkv6's and unpacked models' dense
-layers on the card.
+order. Two kernels have no Pallas counterpart: ``dense_matmul``, the
+batch-invariant bf16 product of rwkv6's, griffin's and unpacked models'
+dense layers on the card (with a float32 store for griffin's gate
+projections), and ``rglru``, griffin's gates and recurrence in one
+sequential pass.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.kernels import pack_quant as _pq
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import paged_prefill as _paged_pf
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rglru as _rglru
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.registry import KernelBackend, get_registry
 
@@ -48,6 +51,7 @@ _MODULES = {
     "flash_attention": _flash,
     "wkv6": _wkv6,
     "dense_matmul": _dense,
+    "rglru": _rglru,
 }
 
 
@@ -60,6 +64,7 @@ def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
     _paged.contig_launches = 0
+    _paged.ring_launches = 0
 
 
 def _backend(t: torch.Tensor, name: str, backend) -> KernelBackend:
@@ -253,35 +258,47 @@ def decode_attention(q, k_cache, v_cache, kpos, q_pos, *, window: int = 0,
     float32 scales for an int8 cache), kpos (B, S) slot positions (-1 =
     empty), q_pos (B,). The plain version is
     ``models.common.decode_attention``; on the card the paged decode
-    kernel's code runs with each row's slots as its tiles. A windowed
-    (ring-buffer) cache has no kernel yet and raises on the card."""
+    kernel's code runs with each row's slots as its tiles. With ``window``
+    > 0 the cache is a ring (position p in slot p % S iff kpos there is
+    p) and the kernel's ring entry runs: each row sees the positions of
+    its window, in the tiles and splits of a full row."""
     if _backend(q, "decode_attention", backend).is_reference:
         from repro_torch.models.common import decode_attention as plain
 
         return plain(q, k_cache, v_cache, kpos, q_pos, window=window,
                      softcap=softcap, k_scale=k_scale, v_scale=v_scale)
-    if window:
-        raise ValueError("decode_attention: the contiguous-decode kernel "
-                         "takes full (non-ring) caches only")
     return _paged.launch_contig(q, k_cache, v_cache, kpos, q_pos, k_scale=k_scale,
-                                v_scale=v_scale, softcap=softcap)
+                                v_scale=v_scale, softcap=softcap, window=window)
 
 
-def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, backend=None) -> torch.Tensor:
+def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
+                 backend=None) -> torch.Tensor:
     """``x @ w`` over the last dim of x: (..., K) × (K, N) → (..., N) in
     x's dtype, each row's bits independent of how many rows share the
     product. The plain version is ``x @ w.to(x.dtype)``. On the card a
     bfloat16 x launches the batch-invariant kernel; a float32 x goes to
     ``torch.matmul`` in full float32, a dtype route, not a fallback: the
     port's float32 models serve the card-vs-CPU checks, which hold logits
-    within a tolerance, not bitwise."""
+    within a tolerance, not bitwise.
+
+    ``out_dtype=torch.float32`` is JAX's ``x.astype(f32) @
+    w.astype(f32)`` (griffin's gate projections): the plain version
+    computes exactly that; on the card a bfloat16 x launches the same
+    kernel with its float32 sums stored unrounded (the products of bf16
+    operands are exact, only the order of the sums differs)."""
     be = _backend(x, "dense_matmul", backend)
+    f32_out = out_dtype == torch.float32
+    if out_dtype not in (None, x.dtype) and not f32_out:
+        raise ValueError(f"dense_matmul: out_dtype {out_dtype} (x's dtype or float32)")
     if be.is_reference:
+        if f32_out:
+            return x.to(torch.float32) @ w.to(torch.float32)
         return _ref.dense_matmul_ref(x, w)
     if x.dtype == torch.float32:
         return x @ w.to(torch.float32)
     lead = x.shape[:-1]
-    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype), backend=be)
+    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype), backend=be,
+                      out_dtype=torch.float32 if f32_out else x.dtype)
     return y.reshape(*lead, w.shape[1])
 
 
@@ -324,3 +341,26 @@ def wkv6_batched(r, k, v, w, u, *, chunk: int = 32, backend=None) -> torch.Tenso
     state = torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32,
                         device=r.device)
     return wkv6_chunked(r, k, v, w, u, state, chunk=chunk, backend=backend)[0]
+
+
+def rglru_scan(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None, *,
+               backend=None):
+    """Griffin's RG-LRU over (B, T, W) with the state carried in: ga, gi
+    the float32 gate projections y A_r, y A_i; y the conv output (float32
+    or bfloat16); a_bias, i_bias, lam (W,) float32; h0 (B, W) or None
+    (zero); lengths (B,) real tokens of right-padded rows or None. Returns
+    (h (B, T, W), h at each row's lengths - 1 (B, W)), float32. The plain
+    version is ``ref.rglru_scan_ref``; on the card the ``rglru`` kernel,
+    whose rows never depend on their padding or batch."""
+    if _backend(ga, "rglru", backend).is_reference:
+        return _ref.rglru_scan_ref(ga, gi, y, a_bias, i_bias, lam, h0, lengths)
+    return _rglru.launch(ga, gi, y, a_bias, i_bias, lam, h0, lengths)
+
+
+def rglru_step(ga, gi, y, a_bias, i_bias, lam, h0, *, backend=None):
+    """One token of the RG-LRU: ga, gi, y (B, W), h0 (B, W) → h (B, W)
+    float32; :func:`rglru_scan` at T = 1 with the carried state (on the
+    card one launch of the same kernel)."""
+    h, _ = rglru_scan(ga[:, None], gi[:, None], y[:, None], a_bias, i_bias, lam, h0,
+                      backend=backend)
+    return h[:, 0]

@@ -11,8 +11,12 @@ The same kernel code has a second entry, :func:`launch_contig`: one
 token per row attends one layer of the contiguous cache (B, S, NKV, H),
 each row's slots standing in for its blocks. The static engine and the
 contiguous scheduler decode through it, so contiguous and paged decode
-sum in one order. Its plain version is ``models.common.decode_attention``,
-which the JAX package computes outside any Pallas kernel.
+sum in one order. With a ``window`` it runs the ring entry over a ring
+cache (Griffin's local attention): the row sees the positions of its
+window, position p in slot p % S iff the slot's slot_pos is p, in the
+same tiles and splits at absolute positions. Its plain version is
+``models.common.decode_attention``, which the JAX package computes
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -24,15 +28,21 @@ import torch
 from repro_torch.kernels import build
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts),
-#: through either entry; ``contig_launches`` is the contiguous entry's share.
+#: through any entry; ``contig_launches`` is the full contiguous entry's
+#: share, ``ring_launches`` the ring entry's.
 launches = 0
 contig_launches = 0
+ring_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signatures of the C entries (checked against their source by the
-#: tests): ``paged_attention`` and ``contig_attention``.
+#: tests): ``paged_attention``, ``contig_attention`` and ``ring_attention``.
 ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
 CONTIG_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 8 + [_F, _F, _P]
+RING_ATTENTION_ARGTYPES = [_P] * 10 + [_I] * 9 + [_F, _F, _P]
+_ENTRY_ARGTYPES = {"paged_attention": ARGTYPES,
+                   "contig_attention": CONTIG_ATTENTION_ARGTYPES,
+                   "ring_attention": RING_ATTENTION_ARGTYPES}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Keys per tile of every attention kernel (csrc/attend_tile.cuh): tiles sit
 #: at absolute positions, whatever the pool's block size.
@@ -61,12 +71,18 @@ def check_heads(NQ: int, NKV: int, H: int) -> None:
                          f"KV heads {NKV}, head dim one of {HEAD_DIMS} (got {H})")
 
 
-def _scratch(q, B, NKV, H, keys):
+def ring_splits(window: int) -> int:
+    """Splits a window of `window` positions may span, wherever it starts."""
+    return -(-(window - 1) // SPLIT) + 1
+
+
+def _scratch(q, B, NKV, H, keys, window: int = 0):
     """Split scratch of bf16 decode (None, None for float32): each split's
-    (O, (m, l)) for the 16 rows of a (row, KV head) tile, float32."""
+    (O, (m, l)) for the 16 rows of a (row, KV head) tile, float32; one
+    slot per split of the `keys` a row may hold, or of one window."""
     if q.dtype != torch.bfloat16:
         return None, None, 0
-    ns = max(1, -(-keys // SPLIT))
+    ns = ring_splits(window) if window else max(1, -(-keys // SPLIT))
     part_o = torch.empty((B, NKV, ns, 16, H), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, NKV, ns, 16, 2), dtype=torch.float32, device=q.device)
     return part_o, part_ml, ns
@@ -75,7 +91,7 @@ def _scratch(q, B, NKV, H, keys):
 @functools.lru_cache(maxsize=None)
 def _fn(entry: str = "paged_attention"):
     fn = getattr(build.load("paged_attention"), entry)
-    fn.argtypes = ARGTYPES if entry == "paged_attention" else CONTIG_ATTENTION_ARGTYPES
+    fn.argtypes = _ENTRY_ARGTYPES[entry]
     fn.restype = _I
     return fn
 
@@ -131,11 +147,13 @@ def launch(q, pool_k, pool_v, block_table, q_pos, k_scale=None, v_scale=None,
 
 
 def launch_contig(q, k_cache, v_cache, slot_pos, q_pos, k_scale=None, v_scale=None,
-                  softcap: float = 0.0) -> torch.Tensor:
+                  softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """q (B, 1, NQ, H); k/v_cache (B, S, NKV, H); slot_pos (B, S) int32
-    (-1 = empty, else the slot's own position); q_pos (B,) → (B, 1, NQ, H)
-    in q's dtype."""
-    global launches, contig_launches
+    (-1 = empty, else the slot's own position; with ``window`` > 0 a ring:
+    position p in slot p % S iff slot_pos there is p); q_pos (B,) → (B,
+    1, NQ, H) in q's dtype. A window limits row b to the positions
+    q_pos[b] - window + 1 .. q_pos[b]."""
+    global launches, contig_launches, ring_launches
     quant = check_pool(q, k_cache, v_cache, k_scale, v_scale)
     B, _, NQ, H = q.shape
     _, S, NKV, _ = k_cache.shape
@@ -146,17 +164,23 @@ def launch_contig(q, k_cache, v_cache, slot_pos, q_pos, k_scale=None, v_scale=No
     sp = slot_pos.to(device=q.device, dtype=torch.int32).contiguous()
     pos = torch.as_tensor(q_pos).to(device=q.device, dtype=torch.int32).reshape(B)
     out = torch.empty_like(q)
-    part_o, part_ml, ns = _scratch(q, B, NKV, H, S)
+    window = int(window)
+    part_o, part_ml, ns = _scratch(q, B, NKV, H, S, window)
     null = 0
-    rc = _fn("contig_attention")(
+    entry = "ring_attention" if window else "contig_attention"
+    extent = (S, window) if window else (S,)
+    rc = _fn(entry)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else null, v_scale.data_ptr() if quant else null,
         sp.data_ptr(), pos.contiguous().data_ptr(), out.data_ptr(),
         null if part_o is None else part_o.data_ptr(),
         null if part_ml is None else part_ml.data_ptr(),
-        B, NQ, NKV, H, S, ns, _DTYPES[q.dtype], int(quant), H ** -0.5, softcap,
+        B, NQ, NKV, H, *extent, ns, _DTYPES[q.dtype], int(quant), H ** -0.5, softcap,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "contig_attention")
+    build.check(rc, entry)
     launches += 1
-    contig_launches += 1
+    if window:
+        ring_launches += 1
+    else:
+        contig_launches += 1
     return out

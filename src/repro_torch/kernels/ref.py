@@ -3,8 +3,9 @@
 Ported from ``repro.kernels.ref`` (``quantize_pack_ref``,
 ``bitplane_matmul_ref``, ``mixed_group_matmul_ref``,
 ``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``,
-``wkv6_ref``) and ``repro.models.rwkv6`` (``wkv6_chunked``,
-``wkv6_step``).
+``wkv6_ref``), ``repro.models.rwkv6`` (``wkv6_chunked``,
+``wkv6_step``) and ``repro.models.griffin`` (``_rglru_coeffs`` with
+``_rglru_scan``, as ``rglru_scan_ref``).
 They are the semantic specification: on the CPU the kernel entry points
 in :mod:`repro_torch.kernels.ops` run them, and on the card
 ``chip_smoke.py`` holds each CUDA kernel against them. Integer outputs
@@ -12,7 +13,7 @@ in :mod:`repro_torch.kernels.ops` run them, and on the card
 planes) are bitwise those of the JAX package; float outputs agree within
 the tolerances stated in ``tests/test_torch_kernels.py``,
 ``tests/test_torch_mixed_matmul.py``, ``tests/test_torch_flash.py`` and
-``tests/test_torch_rwkv6.py``.
+``tests/test_torch_rwkv6.py`` and ``tests/test_torch_griffin.py``.
 """
 from __future__ import annotations
 
@@ -298,3 +299,40 @@ def wkv6_step(r, k, v, w, u, state):
     out = torch.einsum("bhk,bhkv->bhv", rf,
                        state + u.to(torch.float32)[None, ..., None] * kv)
     return out, wf[..., None] * state + kv
+
+
+RGLRU_C = 8.0   # the RG-LRU's c: a = exp(-c softplus(Lambda) r)
+
+
+def rglru_coeffs_ref(ga, gi, y, a_bias, i_bias, lam):
+    """``repro.models.griffin._rglru_coeffs`` from the gate projections ga
+    = y A_r, gi = y A_i: (a, b) float32 with r = sigmoid(ga + b_r), i =
+    sigmoid(gi + b_i), a = exp((-c softplus(Lambda)) r), b = sqrt(max(1 -
+    a², 1e-12)) (i y). softplus as JAX's logaddexp(x, 0)."""
+    lam = lam.to(torch.float32)
+    softplus = torch.clamp(lam, min=0.0) + torch.log1p(torch.exp(-lam.abs()))
+    r = torch.sigmoid(ga.to(torch.float32) + a_bias.to(torch.float32))
+    i = torch.sigmoid(gi.to(torch.float32) + i_bias.to(torch.float32))
+    a = torch.exp((-RGLRU_C * softplus) * r)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * y.to(torch.float32))
+    return a, b
+
+
+def rglru_scan_ref(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None):
+    """The RG-LRU over (B, T, W): h_t = a_t h_{t-1} + b_t from h0 (B, W)
+    (zero if None), the coefficients of :func:`rglru_coeffs_ref`, a loop
+    over t. Returns (h (B, T, W), h at each row's lengths - 1 (B, W)),
+    float32 (T - 1 without lengths)."""
+    a, b = rglru_coeffs_ref(ga, gi, y, a_bias, i_bias, lam)
+    B, T, W = a.shape
+    hv = (torch.zeros((B, W), dtype=torch.float32, device=a.device) if h0 is None
+          else h0.to(torch.float32))
+    hs = []
+    for t in range(T):
+        hv = a[:, t] * hv + b[:, t]
+        hs.append(hv)
+    h = torch.stack(hs, dim=1)
+    if lengths is None:
+        return h, h[:, -1]
+    idx = (torch.as_tensor(lengths, device=a.device).long() - 1).clamp(min=0)
+    return h, h[torch.arange(B, device=a.device), idx]

@@ -12,7 +12,8 @@ continuous scheduler.
       [--deadline-ms MS] [--no-preempt] [--victim-policy most-blocks] \
       [--degrade] [--chaos-seed S] [--chaos-rate 0.05] \
       [--chaos-max-faults N] [--host-pool-bytes N] [--index FILE] \
-      [--backend cuda|reference] [--plans FILE] [--reduced] [--device cpu]
+      [--backend cuda|reference] [--plans FILE] [--reduced] [--layers N] \
+      [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -20,11 +21,16 @@ given, serving with the hand-written kernels on the card and their plain
 PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
 paths (a wXaYrZZ token packs Table III mixed-group layers).
-``--arch`` is olmo-1b, nemotron-4-15b, stablelm-12b (qk-norm) or
-rwkv6-3b; ``--arch rwkv6-3b`` serves the RWKV-6 family unquantized (as
-the JAX package does; --policy/--quant raise), on its constant-size
-recurrent state: static, or --continuous with solo whole-prompt
-admission.
+``--arch`` is olmo-1b, nemotron-4-15b, stablelm-12b (qk-norm), rwkv6-3b
+or recurrentgemma-9b; ``--arch rwkv6-3b`` serves the RWKV-6 family
+unquantized (as the JAX package does; --policy/--quant raise), on its
+constant-size recurrent state: static, or --continuous with solo
+whole-prompt admission. ``--arch recurrentgemma-9b`` serves the Griffin
+hybrid the same way (unquantized, static or --continuous with solo
+whole-prompt admission) on its recurrent states and window-sized ring KV
+caches; --kv-int8 leaves the rings in bf16, as the JAX package does.
+--layers N serves the config's first N layers (every width unchanged): a
+cut of depth for quick runs at full width.
 
 --backend selects the kernel registry's backend for the run: ``cuda``
 (the hand-written kernels, CUDA tensors only) or ``reference`` (the
@@ -123,6 +129,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first N layers (widths unchanged)")
     ap.add_argument("--quant", default=None)
     ap.add_argument("--policy", default=None,
                     help="per-layer precision spec, e.g. 'w4a8;wo=w8a8'")
@@ -324,6 +332,10 @@ def _serve(args, device, make_requests, params):
         print(f"loaded {n} block plans from {args.plans}")
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    if args.layers is not None:
+        if not 1 <= args.layers <= cfg.num_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has {cfg.num_layers} layers")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     quant = None
     if args.policy:
         quant = parse_policy_spec(args.policy)
@@ -335,7 +347,8 @@ def _serve(args, device, make_requests, params):
         raise SystemExit(str(e)) from None
     if args.policy:
         print(f"precision policy: {quant.describe()}")
-    # --kv-int8 is accepted for every arch; a recurrent state ignores it.
+    # --kv-int8 is accepted for every arch; a recurrent state ignores it,
+    # and so does griffin's ring cache (kept in the model dtype, as in JAX).
     cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_int8)
     if params is None:
         params = build_model(cfg).init(seed=0, device=device)
@@ -418,7 +431,9 @@ def _serve(args, device, make_requests, params):
                       f"{stats['host_pool_bytes']/1e6:.2f} MB budget, "
                       f"{stats['host_evictions']} host evictions)")
         else:
-            what = "recurrent state" if cfg.family == "ssm" else "contiguous KV cache"
+            what = {"ssm": "recurrent state",
+                    "hybrid": "ring KV cache + recurrent state"}.get(
+                        cfg.family, "contiguous KV cache")
             print(f"  {what}: {stats['resident_kv_bytes']/1e6:.2f} MB resident "
                   "(full per-slot reservation)")
         if stats["chunked_prefill"]:

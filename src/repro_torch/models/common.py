@@ -78,14 +78,38 @@ def norm_init(kind: str, d: int, dtype=torch.float32, device=None,
     raise ValueError(kind)
 
 
+def chunked_row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim (keepdim) as stages of 32-wide sums: each
+    stage zero-pads the last dim to a multiple of 32 and sums its 32-wide
+    chunks, until one value per row is left, then divides by the width."""
+    d = x.shape[-1]
+    while x.shape[-1] > 1:
+        pad = -x.shape[-1] % 32
+        if pad:
+            x = F.pad(x, (0, pad))
+        x = x.reshape(*x.shape[:-1], -1, 32).sum(dim=-1)
+    return x / d
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim (keepdim), each row's bits independent of
+    how many rows there are. On the card PyTorch's reduction sizes its
+    thread blocks from the number of rows (a 4096-wide row is summed by
+    512, 256 or 128 lanes at 1, 2 or 4 rows), so a decode row's norm moved
+    with the batch; :func:`chunked_row_mean` reduces 32 values a warp at
+    every stage, the same adds at every batch size. The CPU's mean is
+    row-local already and stays as it is."""
+    return chunked_row_mean(x) if x.is_cuda else x.mean(dim=-1, keepdim=True)
+
+
 def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float = 1e-6):
     xf = x.to(torch.float32)
     if kind == "rmsnorm":
-        var = (xf * xf).mean(dim=-1, keepdim=True)
+        var = row_mean(xf * xf)
         y = xf * torch.rsqrt(var + eps)
         return (y * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    mean = row_mean(xf)
+    var = row_mean((xf - mean).square())
     y = (xf - mean) * torch.rsqrt(var + eps)
     if kind == "layernorm":
         y = y * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
@@ -99,7 +123,7 @@ def rms_head_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> to
     PyTorch, as JAX computes it outside any Pallas kernel; row-local, so a
     row's bits do not depend on its batch."""
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = row_mean(xf * xf)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 

@@ -1,11 +1,14 @@
-"""Decode-time state: the contiguous KV cache, the paged KV pool, the
-RWKV recurrent state and the decode carry.
+"""Decode-time state: the contiguous KV cache (full or a ring buffer),
+the paged KV pool, the Griffin and RWKV recurrent states and the decode
+carry.
 
-Port of ``repro.models.kv_cache`` for full attention and RWKV (ring
-buffers — ``ring_align`` — and the Griffin state come with the windowed
-and hybrid families). The
-contiguous cache is ``(L, B, S, NKV, H)`` with per-row slot positions
-(slot == absolute position, -1 = empty). The pool is ``(L, num_blocks,
+Port of ``repro.models.kv_cache``. The contiguous cache is ``(L, B, S,
+NKV, H)`` with per-row slot positions (-1 = empty). A full cache keeps
+absolute position p in slot p (slot == position); a windowed cache
+(``window > 0``, Griffin's local attention) is a ring of S = window
+slots that keeps position p in slot p % window (``ring_align``,
+``write_slot``), so a live position never collides with another one the
+window still sees. The pool is ``(L, num_blocks,
 block_size, NKV, H)`` shared by every batch slot, with a ``(B,
 max_blocks)`` block table per slot (-1 = unallocated). Pool block 0 is
 the reserved trash block: writes from free slots and unallocated virtual
@@ -59,8 +62,10 @@ class KVCache:
     def init(layers: int, batch: int, size: int, n_kv: int, head_dim: int,
              window: int = 0, dtype=torch.bfloat16, quantized: bool = False,
              device=None) -> "KVCache":
-        if window:
-            raise ValueError("ring-buffer (windowed) caches are not ported yet")
+        # A windowed cache is always a window-sized ring (slot p % window
+        # must never hold two positions the window still sees), whatever
+        # `size` asks for, as in JAX.
+        size = window if window else size
         kd = torch.int8 if quantized else dtype
         shape = (layers, batch, size, n_kv, head_dim)
         sshape = (layers, batch, size, n_kv, 1)
@@ -74,6 +79,7 @@ class KVCache:
                      if quantized else None),
             v_scale=(torch.zeros(sshape, dtype=torch.float32, device=device)
                      if quantized else None),
+            window=window,
         )
 
 
@@ -127,6 +133,17 @@ class PagedKVCache:
 
 
 @dataclasses.dataclass
+class RecurrentState:
+    """Griffin recurrent-block state, stacked over the recurrent layers in
+    execution order: h (n_rec, B, W) float32, the RG-LRU hidden state;
+    conv_tail (n_rec, B, conv_width - 1, W), the causal conv's last
+    inputs. Constant size whatever the context."""
+
+    h: torch.Tensor
+    conv_tail: torch.Tensor
+
+
+@dataclasses.dataclass
 class RwkvState:
     """RWKV-6 recurrent state, stacked over layers: wkv (L, B, H, K, V)
     float32, tm_shift / cm_shift (L, B, d) the last token of each row's
@@ -141,10 +158,12 @@ class RwkvState:
 class DecodeCache:
     """Top-level decode carry: pos (B,) int32, the absolute position each
     batch slot decodes at, plus the contiguous cache or the paged pool
-    (attention) or the recurrent state (RWKV)."""
+    (attention), the Griffin recurrent state beside a ring cache (hybrid)
+    or the RWKV state."""
 
     pos: torch.Tensor
     kv: Optional[Union[KVCache, PagedKVCache]] = None
+    rec: Optional[RecurrentState] = None
     rwkv: Optional[RwkvState] = None
 
 
@@ -178,6 +197,31 @@ def full_slot_pos(layers: int, batch: int, size: int, lengths,
         sp = torch.where(s[None, :] < lengths[:, None], s[None, :],
                          torch.full_like(s, -1)[None, :])
     return sp[None].expand(layers, batch, size).contiguous()
+
+
+def ring_align(k_full, v_full, lengths, window: int):
+    """Pack whole-prompt K/V (L, B, S, NKV, H) into a ring of `window`
+    slots, the invariant ``cache_write`` keeps: position p lives in slot
+    p % window. ``lengths`` (B,) counts each row's real (right-padded)
+    tokens, None for every row at S. Each row keeps its own last
+    min(length, window) positions; empty slots carry slot_pos -1 (their
+    values are never read). Returns (k (L, B, window, NKV, H), v,
+    slot_pos (L, B, window) int32)."""
+    L, Bk, S = k_full.shape[:3]
+    dev = k_full.device
+    if lengths is None:
+        lengths = torch.full((Bk,), S, dtype=torch.int32, device=dev)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+    B = max(Bk, lengths.shape[0])       # degenerate layer stacks keep batch 1
+    r = torch.arange(window, dtype=torch.int32, device=dev)
+    base = torch.clamp(lengths - window, min=0)[:, None]          # (B, 1)
+    # p[b, r]: the one position of [len - window, len) in ring slot r.
+    p = base + torch.remainder(r[None, :] - base, window)         # (B, window)
+    idx = torch.clamp(p, max=S - 1).long()
+    rows = torch.clamp(torch.arange(B, device=dev), max=Bk - 1)[:, None]
+    slot_pos = torch.where(p < lengths[:, None], p, torch.full_like(p, -1))
+    return (k_full[:, rows, idx], v_full[:, rows, idx],
+            slot_pos[None].expand(L, B, window).contiguous())
 
 
 def write_slot(pos, size: int, window: int):
@@ -278,10 +322,12 @@ def paged_gather(pool_k, pool_v, block_table, k_scale=None, v_scale=None,
 
 def scatter_into_slot(batch: DecodeCache, solo: DecodeCache, slot: int) -> DecodeCache:
     """Admit a solo-prefilled request (batch axis of size 1) into row
-    `slot` of a live contiguous decode cache or recurrent state, in place.
-    Only row `slot` changes: its KV slots past the solo cache's are
-    emptied, or its wkv state and both token-shift tails are replaced;
-    every other row's state and position is untouched."""
+    `slot` of a live contiguous decode cache and/or recurrent state, in
+    place. Only row `slot` changes: its KV slots past the solo cache's
+    are emptied (a ring row is replaced whole: both rings hold `window`
+    slots), its Griffin h and conv tail, or its wkv state and both
+    token-shift tails, are replaced; every other row's state and
+    position is untouched."""
     if batch.kv is not None:
         big, small = batch.kv, solo.kv
         size, s = big.k.shape[2], small.k.shape[2]
@@ -297,6 +343,10 @@ def scatter_into_slot(batch: DecodeCache, solo: DecodeCache, slot: int) -> Decod
             dst[:, slot, :s] = src[:, 0].to(dst.dtype)
             dst[:, slot, s:] = fill
         big.length[slot] = small.length[0]
+    if batch.rec is not None:
+        for name in ("h", "conv_tail"):
+            dst = getattr(batch.rec, name)
+            dst[:, slot] = getattr(solo.rec, name)[:, 0].to(dst.dtype)
     if batch.rwkv is not None:
         for name in ("wkv", "tm_shift", "cm_shift"):
             dst = getattr(batch.rwkv, name)
@@ -399,7 +449,9 @@ def copy_pool_block(cache: DecodeCache, src: int, dst: int) -> DecodeCache:
     planes = (kv.k, kv.v) + ((kv.k_scale, kv.v_scale) if kv.quantized else ())
     idx = torch.tensor([dst], dtype=torch.long, device=kv.k.device)
     for a in planes:
-        a.index_copy_(1, idx, a[:, src:src + 1])
+        # A copy of the source: with one layer its view is contiguous, and
+        # index_copy_ refuses a source that overlaps the tensor it writes.
+        a.index_copy_(1, idx, a[:, src:src + 1].clone())
     return cache
 
 

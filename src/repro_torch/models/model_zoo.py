@@ -1,40 +1,53 @@
 """build_model(cfg) — the model surface the serving stack drives.
 
-Port of ``repro.models.model_zoo`` for the dense transformer and the
-RWKV-6 family: ``init(seed, device)``, ``prefill``, ``decode_step`` and
+Port of ``repro.models.model_zoo`` for the dense transformer, the RWKV-6
+family and the Griffin hybrid: ``init(seed, device)``, ``prefill``,
+``decode_step`` and
 ``init_cache``; for the dense transformer also ``init_paged_cache`` and,
 behind the same eligibility gate as JAX (full attention, no MoE, token
 inputs), ``prefill_chunk``, ``prefill_suffix`` (the prefix cache's
 suffix-only prefill) and the speculative verify entries
 ``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6 keeps a constant-size recurrent state
-and has neither, as in JAX.
+and has neither, as in JAX; nor has Griffin, whose recurrent states and
+window-sized ring caches are constant-size too.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import griffin, rwkv6, transformer
 
 
 def check_policy(cfg: ModelConfig, policy) -> None:
     """Refuse a precision policy for a family the JAX package serves
-    unquantized only (rwkv6: its packed (L, K, N) leaves meet ``.astype``
-    in ``time_mix`` there)."""
-    if policy is not None and cfg.family == "ssm":
+    unquantized only: rwkv6 (its packed (L, K, N) leaves meet ``.astype``
+    in ``time_mix`` there) and the Griffin hybrid (the packed stacked
+    ``rg_a_proj``/``rg_i_proj`` leaves meet ``.astype`` in
+    ``_rglru_coeffs``, repro/models/griffin.py:128)."""
+    if policy is None:
+        return
+    if cfg.family == "ssm":
         raise ValueError(f"{cfg.name}: the JAX package serves rwkv6 unquantized "
                          "only; no --policy/--quant")
+    if cfg.family == "hybrid":
+        raise ValueError(f"{cfg.name}: the JAX package serves griffin unquantized only "
+                         "(repro/models/griffin.py:128 calls .astype on a packed "
+                         "rg_a_proj); no --policy/--quant")
 
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
     if cfg.family == "ssm":
         mod = rwkv6
+    elif cfg.family == "hybrid":
+        mod = griffin
     elif cfg.family == "dense":
         mod = transformer
     else:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                          "(the port serves the dense transformers olmo-1b, "
-                         "nemotron-4-15b and stablelm-12b, and rwkv6-3b)")
+                         "nemotron-4-15b and stablelm-12b, rwkv6-3b and "
+                         "recurrentgemma-9b)")
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),

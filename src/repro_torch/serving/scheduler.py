@@ -125,6 +125,7 @@ from repro_torch.core.quantized_linear import quantize_params_for_serving
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import check_policy
 from repro_torch.models.kv_cache import (
+    KVCache,
     copy_pool_block,
     scatter_into_paged,
     scatter_into_slot,
@@ -453,10 +454,6 @@ class ContinuousScheduler:
         self.kernel_fallbacks = 0
 
         B = max_batch
-        # Admission bound: max_ctx in every mode, so static, contiguous and
-        # paged agree on which requests fit; a recurrent state is
-        # position-unbounded (None).
-        self._capacity = max_ctx if cfg.family != "ssm" else None
         if paged:
             self._max_blocks = -(-max_ctx // block_size)
             usable = (pool_blocks if pool_blocks is not None
@@ -495,6 +492,12 @@ class ContinuousScheduler:
         else:
             # Every slot reserves a full max_ctx (+ headroom) row for life.
             self.cache = self.model.init_cache(B, max_ctx, device=self.device)
+        # Admission bound: max_ctx in every mode, so static, contiguous and
+        # paged agree on which requests fit; ring buffers and recurrent
+        # states are position-unbounded (None).
+        kv = self.cache.kv
+        self._capacity = (max_ctx if paged or (isinstance(kv, KVCache) and not kv.window)
+                          else None)
 
         self._chunk_plans: Dict[int, dict] = {}     # slot → in-flight plan
         self._chunk_queue: Deque[int] = collections.deque()
@@ -1380,11 +1383,13 @@ class ContinuousScheduler:
         where the JAX scheduler runs and counts a suffix bucket."""
         kv = self.cache.kv
         if not self.paged:
-            # The whole contiguous reservation (or recurrent state) is
-            # resident for life.
-            st = self.cache.rwkv
-            planes = ((kv.k, kv.v, kv.k_scale, kv.v_scale) if kv is not None
-                      else (st.wkv, st.tm_shift, st.cm_shift))
+            # The whole contiguous reservation (a ring) and/or recurrent
+            # state is resident for life.
+            planes = (kv.k, kv.v, kv.k_scale, kv.v_scale) if kv is not None else ()
+            for st, names in ((self.cache.rec, ("h", "conv_tail")),
+                              (self.cache.rwkv, ("wkv", "tm_shift", "cm_shift"))):
+                if st is not None:
+                    planes += tuple(getattr(st, n) for n in names)
             total = sum(a.numel() * a.element_size() for a in planes
                         if a is not None)
             return {"paged": False, "resident_kv_bytes": total,

@@ -235,6 +235,50 @@ def test_serve_cli_shared_prefix_hits_on_cpu(capsys):
     assert "prefix cache: " in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch,layers,flags", [
+    ("olmo-1b", 1, ["--continuous"]),
+    ("rwkv6-3b", 1, ["--static"]),
+    ("recurrentgemma-9b", 2, ["--continuous"]),   # no whole group: the remainder only
+])
+def test_serve_cli_layers_cuts_depth_only(arch, layers, flags):
+    """--layers N serves the config's first N layers and keeps every
+    width; a depth the config does not have is refused."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--requests", "2",
+            "--max-new", "3", "--max-batch", "2", *flags]
+    engine, done, _ = serve.run(serve.build_parser().parse_args(argv + ["--layers",
+                                                                          str(layers)]))
+    full = get_reduced_config(arch)
+    assert engine.cfg == dataclasses.replace(full, num_layers=layers)
+    assert all(len(r.out_tokens) == 3 for r in done)
+    for bad in (0, full.num_layers + 1):
+        with pytest.raises(SystemExit, match="layers"):
+            serve.run(serve.build_parser().parse_args(argv + ["--layers", str(bad)]))
+
+
+def test_chip_smoke_serves_each_arch_at_its_depth():
+    """chip_smoke's serve runs pass --layers at DEPTH for the earlier
+    archs, and none for recurrentgemma-9b, which keeps all 38 layers."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro_torch.launch import serve
+
+    seen = set()
+    for name in chip_smoke.RUNS:
+        args = serve.build_parser().parse_args(chip_smoke.serve_argv(name))
+        assert args.layers == chip_smoke.DEPTH.get(args.arch)
+        assert chip_smoke.serve_config(args.arch).num_layers == (
+            args.layers or chip_smoke.serve_config(args.arch).num_layers)
+        seen.add(args.arch)
+    assert seen == {*chip_smoke.DEPTH, "recurrentgemma-9b"}
+    assert chip_smoke.serve_config("recurrentgemma-9b").num_layers == 38
+
+
 def test_port_never_loads_jax():
     """Importing every module of the port, and chip_smoke, loads no JAX
     and nothing of the JAX package."""

@@ -51,7 +51,13 @@
    (``check_rglru``); ``dense_matmul``'s float32 store at 4096 -> 4096
    within 1e-4, its rows at M = 1-9 and 1280 bitwise their M = 4 rows
    (``check_dense_f32``); the norms' row mean bitwise across M = 1-9 at
-   every width (``check_norm_rows``).
+   every width, hubert-xlarge's 1280 and rwkv6's 64-wide group-norm rows
+   (40 a token) among them (``check_norm_rows``). At the frontend
+   families' masks (``check_frontend_flash``): the flash kernel under
+   prefix-LM at MQA 8/1, H 256 (P = 8 and 256, with and without a window,
+   q_offset 0 and 16) and bidirectional (causal = 0) at MHA 16/16, H 80,
+   in bf16 and float32, its rows bitwise independent of padding and of
+   the 64-row block they share.
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function, at the
    decode and the prefill shape of the matmuls (CUDA events,
@@ -192,6 +198,21 @@
    2300-token prompt that wraps the ring inside prefill, a 2040-token one
    that wraps it while decoding 24 tokens) static ≡ continuous; reduced
    float32 card vs CPU within 1e-3 (``card_vs_cpu_griffin``).
+   The frontend families at full width and depth through
+   ``build_model(cfg)`` (``serve_frontends``; the serve CLI refuses both,
+   as the JAX package's does), after (s) and (t): paligemma-3b (18
+   layers, 2.51 B parameters, tied 257 216-wide head) under the Table
+   III policy on the contiguous bf16 cache, 4 rows of 256 random patch
+   embeddings and 64-320 text tokens, prefill (flash under the prefix-LM
+   mask) and 8 greedy decode steps, gated bitwise: its tied head's rows
+   at M = 1-9, teacher-forced prefill ≡ decode step, each row alone ≡ its
+   batch row (logits and tokens), the prefix-LM visibility;
+   hubert-xlarge (48 layers, 0.95 B) under "w4a8;wo=w8a8", 4 clips of
+   500 frames through ``forward_hidden``, its logits and ``prefill``
+   (flash with causal = 0), gated: each clip alone ≡ its batch row's
+   hidden states bitwise, logits within 1e-2, the last frame moves the
+   first position; reduced float32 card vs CPU within 1e-3 for both
+   (``card_vs_cpu_frontends``).
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels, then ``rglru`` and ``dense_matmul``,
@@ -221,7 +242,11 @@ registry phase, and the reduced nemotron / stablelm card-vs-CPU checks;
 ``python3 chip_smoke.py griffin`` builds the kernels and runs the
 paged-decode, one-order and ``dense_matmul`` checks, the griffin kernel
 checks (printing their times), runs (s) and (t) with their gates and the
-reduced griffin card-vs-CPU check.
+reduced griffin card-vs-CPU check; ``python3 chip_smoke.py frontends``
+builds the kernels and runs the flash, head-dim, one-order and windowed
+checks, the frontend flash checks (printing their times), the norm-row
+check, the frontend phase and its card-vs-CPU check, and run (f) with
+solo ≡ mid-decode admission.
 """
 from __future__ import annotations
 
@@ -1760,7 +1785,7 @@ def serve_run(torch, params, name):
     of both passes) and, in a run with --tiers, ``tier_steps``
     (``watch_tiers``). Returns (engine, report, launch counts, tokens by
     rid)."""
-    from repro_torch.kernels import ops, paged_attention
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
@@ -1796,10 +1821,7 @@ def serve_run(torch, params, name):
             engine, done, report = serve.run(args, make_requests, params=params)
     finally:
         transformer.prefill_chunk_logits_multi = multi
-    counts = ops.launch_counts()
-    # The contiguous entry's share of paged_attention's launches.
-    counts["contig_attention"] = paged_attention.contig_launches
-    counts["ring_attention"] = paged_attention.ring_launches
+    counts = launch_counts()
     report["verify"] = verify
     report["requests_spec"] = [sum(r.spec_drafted for r in built),
                                sum(r.spec_accepted for r in built)]
@@ -3372,19 +3394,21 @@ def solo_vs_mid_decode(engine):
 HEAD_M = tuple(range(1, 10))
 
 
-def head_rows(torch, head):
-    """The untied bf16 LM head on the card at M in HEAD_M rows: through
+def head_rows(torch, head, transpose=False):
+    """The bf16 LM head on the card at M in HEAD_M rows: through
     ``models.common.logits_head`` (``torch.matmul``, the serving route)
-    and through ``ops.dense_matmul``. Returns, per route, the (M, row)
+    and through ``ops.dense_matmul``; an untied (d, V) head, or with
+    `transpose` a tied (V, d) embedding. Returns, per route, the (M, row)
     pairs whose logits are not bitwise the row's logits at M = 4."""
     from repro_torch.kernels import ops
     from repro_torch.models.common import logits_head
 
     gen = torch.Generator(device=head.device).manual_seed(16)
-    x = torch.randn((max(HEAD_M), head.shape[0]), generator=gen,
+    w = head.t().contiguous() if transpose else head
+    x = torch.randn((max(HEAD_M), w.shape[0]), generator=gen,
                     device=head.device).to(torch.bfloat16)
-    routes = {"torch.matmul": lambda a: logits_head(a, head),
-              "dense_matmul": lambda a: ops.dense_matmul(a, head).to(torch.float32)}
+    routes = {"torch.matmul": lambda a: logits_head(a, head, transpose=transpose),
+              "dense_matmul": lambda a: ops.dense_matmul(a, w).to(torch.float32)}
     parted = {}
     for route, fn in routes.items():
         at4 = fn(x[:4])
@@ -3396,6 +3420,66 @@ def head_rows(torch, head):
 
 def _mem_gb(torch):
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+def launch_counts():
+    """The kernels' launch counts since the last reset, with the
+    contiguous and ring entries' shares of paged_attention's count as
+    keys of their own."""
+    from repro_torch.kernels import ops, paged_attention
+
+    counts = ops.launch_counts()
+    counts["contig_attention"] = paged_attention.contig_launches
+    counts["ring_attention"] = paged_attention.ring_launches
+    return counts
+
+
+def _draw_and_pack(torch, dev, cfg, policy, rep, smi, head_check=None):
+    """Draw `cfg`'s raw bf16 weights (seed 0) on the card, run
+    `head_check` on them, pack them under `policy` and drop them; the
+    times and peaks go into `rep`. Returns the packed tree."""
+    import gc
+
+    from repro_torch.core.precision import parse_policy_spec
+    from repro_torch.core.quantized_linear import quantize_params_for_serving
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    raw = build_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    rep["init_s"], rep["init_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+    rep["parameters"] = _numel(raw)
+    if head_check:
+        head_check(raw)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = quantize_params_for_serving(raw, parse_policy_spec(policy), min_size=1024)
+    del raw
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep["pack_s"], rep["pack_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+    rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+    log(f"{cfg.name}: {rep['parameters']} parameters, init {rep['init_s']:.2f}s (peak "
+        f"{rep['init_peak_gb']:.2f} GB), packed under {policy} in {rep['pack_s']:.2f}s "
+        f"(peak {rep['pack_peak_gb']:.2f} GB), {rep['resident_gb']:.2f} GB resident "
+        f"[{smi}]")
+    return packed
+
+
+def _counted(torch, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after (the contiguous and ring entries' shares of paged_attention's
+    count as their own keys). Returns (fn's result, counts)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
 
 
 def serve_new_archs(torch, dev):
@@ -3420,42 +3504,25 @@ def serve_new_archs(torch, dev):
     import gc
 
     from repro_torch.configs import get_config
-    from repro_torch.core.precision import parse_policy_spec
-    from repro_torch.core.quantized_linear import quantize_params_for_serving
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
 
     plan = (("nemotron-4-15b", MIXED_POLICY, ("o-nemotron-chunked", "p-nemotron-static")),
             ("stablelm-12b", POLICY, ("q-stablelm-int8", "r-stablelm-spec-int8")))
     out, counts, bad = {}, {}, []
+    smi = nvidia_smi()
     for arch, policy, names in plan:
         rep = out[arch] = {}
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        raw = build_model(serve_config(arch)).init(seed=0, device=dev)
-        torch.cuda.synchronize()
-        rep["init_s"], rep["init_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
-        rep["head_parted"] = parted = head_rows(torch, raw["head"])
-        log(f"{arch}: init {rep['init_s']:.1f}s, peak {rep['init_peak_gb']:.2f} GB; untied "
-            f"head {tuple(raw['head'].shape)} rows at M in {HEAD_M} not bitwise M = 4: "
-            f"torch.matmul {parted['torch.matmul'] or 'none'} (gated), dense_matmul "
-            f"{parted['dense_matmul'] or 'none'}")
-        if parted["torch.matmul"]:
-            bad.append(f"{arch}: head rows part across M {parted['torch.matmul']}")
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        packed = quantize_params_for_serving(raw, parse_policy_spec(policy), min_size=1024)
-        del raw
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        rep["pack_s"], rep["pack_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
-        rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
-        log(f"{arch}: packed under {policy} in {rep['pack_s']:.1f}s, peak "
-            f"{rep['pack_peak_gb']:.2f} GB, {rep['resident_gb']:.2f} GB resident after "
-            "the raw weights were dropped")
+
+        def untied_head(raw):
+            parted = rep["head_parted"] = head_rows(torch, raw["head"])
+            log(f"{arch}: untied head {tuple(raw['head'].shape)} rows at M in {HEAD_M} not "
+                f"bitwise M = 4: torch.matmul {parted['torch.matmul'] or 'none'} (gated), "
+                f"dense_matmul {parted['dense_matmul'] or 'none'}")
+            if parted["torch.matmul"]:
+                bad.append(f"{arch}: head rows part across M {parted['torch.matmul']}")
+
+        packed = _draw_and_pack(torch, dev, serve_config(arch), policy, rep, smi,
+                                untied_head)
         runs = {}
         for name in names:
             torch.cuda.reset_peak_memory_stats()
@@ -4011,36 +4078,43 @@ def check_dense_f32(torch, dev, timer):
             "entries": {"gate_f32_decode": timed(4), "gate_f32_prefill": timed(1280)}}
 
 
-NORM_D = (4096, 6144, 5120, 2560, 2048, 160)   # the archs' d_model, stablelm's head dim
+# The archs' d_model (hubert-xlarge's 1280 among them), stablelm's head
+# dim, and rwkv6's group norm: 64-wide rows, 40 heads a token.
+NORM_D = (4096, 6144, 5120, 2560, 2048, 1280, 160, 64)
+NORM_ROWS_PER = {64: 40}     # rows a batch row at width d (the group norm's heads)
 
 
 def check_norm_rows(torch, dev):
     """The norms' row mean (``common.row_mean``: 32-wide sums in stages on
     the card) at every width a norm of the port reduces: each row at M in
-    HEAD_M rows bitwise its row at M = 4 (gated), and within 1e-6 of
-    ``x.mean`` relative to the rows' mean |x|. Also reports where
+    HEAD_M batch rows (times NORM_ROWS_PER: rwkv6's group norm reduces 40
+    rows of 64 a token) bitwise its row at M = 4 (gated), and within 1e-6
+    of ``x.mean`` relative to the rows' mean |x|. Also reports where
     ``x.mean`` itself parts across M (not gated: PyTorch sizes the
     reduction's blocks from the row count, which is why the norms do not
-    use it on the card)."""
+    use it on the card; at width 64 it is what rwkv6's ``_group_norm``
+    runs)."""
     from repro_torch.models.common import row_mean
 
     gen = torch.Generator(device=dev).manual_seed(29)
     parted, plain_parted, worst = [], {}, 0.0
     for d in NORM_D:
-        x = torch.randn((max(HEAD_M), d), generator=gen, device=dev) * 3
-        at4, mean4 = row_mean(x[:4]), x[:4].mean(-1, keepdim=True)
-        scale = x[:4].abs().mean(-1, keepdim=True)
+        per = NORM_ROWS_PER.get(d, 1)
+        x = torch.randn((max(HEAD_M) * per, d), generator=gen, device=dev) * 3
+        at4, mean4 = row_mean(x[:4 * per]), x[:4 * per].mean(-1, keepdim=True)
+        scale = x[:4 * per].abs().mean(-1, keepdim=True)
         worst = max(worst, ((at4 - mean4).abs() / scale).max().item())
         for M in HEAD_M:
-            got, ref = row_mean(x[:M]), x[:M].mean(-1, keepdim=True)
-            n = min(M, 4)
+            got, ref = row_mean(x[:M * per]), x[:M * per].mean(-1, keepdim=True)
+            n = min(M, 4) * per
             if not torch.equal(got[:n], at4[:n]):
                 parted.append((d, M))
             if not torch.equal(ref[:n], mean4[:n]):
                 plain_parted.setdefault(d, []).append(M)
     torch.cuda.synchronize()
-    log(f"norm row mean at d in {NORM_D}: rows at M in {HEAD_M} not bitwise M = 4: "
-        f"{parted or 'none'} (gated); x.mean's: {plain_parted or 'none'} (not used); "
+    log(f"norm row mean at d in {NORM_D} (rows x {NORM_ROWS_PER} where given): rows at "
+        f"M in {HEAD_M} not bitwise M = 4: {parted or 'none'} (gated); x.mean's: "
+        f"{plain_parted or 'none'} (not used; at d = 64 rwkv6's _group_norm's); "
         f"gap to x.mean {worst:.3g} of the mean |x|")
     if parted or worst > 1e-6:
         raise AssertionError(f"row_mean: rows part across M at {parted}, gap {worst}")
@@ -4184,6 +4258,392 @@ def card_vs_cpu_griffin(torch):
     if not err <= 1e-3:
         raise AssertionError(f"reduced fp32 {GRIFFIN}: card vs CPU logits differ by {err}")
     return err
+
+
+# -- the frontend families: paligemma-3b (VLM) and hubert-xlarge (encoder) ---
+
+VLM, ENCODER = "paligemma-3b", "hubert-xlarge"
+# paligemma's rows: 256 patch embeddings, then text of the stream's first
+# 4 prompt lengths, right-padded to 320 (lengths count the patches).
+VLM_TEXT = (64, 320, 128, 256)
+ENCODER_T = 500           # 10 s clips at HuBERT's 20 ms frame stride
+FRONTEND_KERNELS = {
+    VLM: ("flash_attention", "contig_attention", "quantize_rows", "bitplane_matmul",
+          "fused_quantize_matmul", "dense_matmul"),
+    ENCODER: ("flash_attention", "fused_quantize_matmul", "dense_matmul"),
+}
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def check_frontend_flash(torch, dev, timer):
+    """The flash kernel on the frontend families' masks, within atol = rtol
+    = 2e-2 (bf16) and 1e-4 (float32) of ``ref.flash_attention_gqa_ref``:
+    prefix-LM at paligemma's MQA 8/1, H 256, with P = 8 (the first 64-row
+    block straddles it) at T 300 and P = 256 (on a tile edge) at T 576,
+    with and without a window of 128, at q_offset 0 and 16 (a tail whose
+    prefix lies before it); bidirectional (causal = 0) at hubert's MHA
+    16/16, H 80, T 37 and 500. Bitwise, in bf16: a prefix-LM prompt cut to
+    n >= P positions gives its longer batch's rows; bidirectional rows
+    among fewer queries (every key kept); rows computed as a tail at
+    q_offset 37 (grouped into other 64-row blocks) are the whole prompt's
+    rows, for both masks. Times paligemma's prefill (B·NQ 32, NKV 1, T 576
+    = 256 + 320, H 256, prefix 256) and hubert's encoder (B·NQ 64, T 500,
+    H 80, non-causal) beside their plain versions and SDPA (K/V expanded
+    to the query heads; the prefix-LM mask as a boolean mask). Returns
+    (entries, max |err|, cases)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    F = torch.nn.functional
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    cases = 0
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for dt in (torch.bfloat16, torch.float32):
+        tol = ATOL if dt == torch.bfloat16 else F32_TOL
+        specs = [(8, 1, 256, T, dict(causal=True, window=w, q_offset=o, prefix_len=P))
+                 for P, T in ((8, 300), (256, 576)) for w in (0, 128) for o in (0, 16)]
+        specs += [(16, 16, 80, T, dict(causal=False, window=0, q_offset=o, prefix_len=0))
+                  for T in (37, 500) for o in (0, 16)]
+        for nq, nkv, H, T, kw in specs:
+            Tk = T + kw["q_offset"]
+            q, k, v = rand(2, T, nq, H, dt=dt), rand(2, Tk, nkv, H, dt=dt), rand(2, Tk, nkv, H, dt=dt)
+            got = flash_attention.launch(q, k, v, **kw)
+            want = ref.flash_attention_gqa_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            worst[dt] = max(worst[dt], _close(torch, got, want, f"flash NQ={nq} NKV={nkv} "
+                                              f"H={H} T={T} {dt} {kw}", tol))
+            cases += 1
+    bad = []
+    for nq, nkv, H, T, kw in ((8, 1, 256, 576, dict(causal=True, window=0, prefix_len=256)),
+                              (16, 16, 80, 500, dict(causal=False, window=0, prefix_len=0))):
+        q, k, v = rand(2, T, nq, H), rand(2, T, nkv, H), rand(2, T, nkv, H)
+        full = flash_attention.launch(q, k, v, q_offset=0, **kw)
+        for n in (300, 320):
+            if kw["causal"]:
+                part = flash_attention.launch(q[:, :n].contiguous(), k[:, :n].contiguous(),
+                                              v[:, :n].contiguous(), q_offset=0, **kw)
+            else:
+                part = flash_attention.launch(q[:, :n].contiguous(), k, v, q_offset=0, **kw)
+            if not torch.equal(part, full[:, :n]):
+                bad.append(f"{kw} cut to {n}")
+        tail = flash_attention.launch(q[:, 37:].contiguous(), k, v, q_offset=37, **kw)
+        if not torch.equal(tail, full[:, 37:]):
+            bad.append(f"{kw} tail at q_offset 37")
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"flash_attention: rows depend on padding or grouping: {bad}")
+    log(f"flash_attention frontends: {cases} cases (prefix-LM NQ 8 / NKV 1 / H 256 at P 8 "
+        f"and 256, window 0/128, q_offset 0/16; bidirectional 16/16 / H 80 at T 37 and "
+        f"500) within atol=rtol={ATOL} (bf16, max |err| {worst[torch.bfloat16]:.3g}) and "
+        f"{F32_TOL} (f32, max |err| {worst[torch.float32]:.3g}); rows bitwise independent "
+        "of padding and of their 64-row block, both masks")
+
+    entries = {}
+    B, P, T, nq, H = 4, 256, 576, 8, 256
+    q, k, v = rand(B, T, nq, H), rand(B, T, 1, H), rand(B, T, 1, H)
+    kw = dict(causal=True, window=0, q_offset=0, prefix_len=P)
+    i = torch.arange(T, device=dev)
+    mask = (i[None, :] <= i[:, None]) | (i[None, :] < P)
+    qs = q.transpose(1, 2)
+    ks, vs = (a.transpose(1, 2).expand(B, nq, T, H).contiguous() for a in (k, v))
+    b_ms, b_by = bound_ms(2 * q.numel() * 2 + 2 * k.numel() * 2,
+                          4 * B * nq * H * int(mask.sum()), BF16_FLOPS_PER_S)
+    entries["prefix_lm_prefill"] = {
+        "ms": timer(lambda: flash_attention.launch(q, k, v, **kw)),
+        "plain_ms": timer(lambda: ref.flash_attention_gqa_ref(q, k, v, **kw), iters=5),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                   attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": worst[torch.bfloat16],
+        "shape": f"B*NQ={B * nq} NKV=1 T={T} H={H} bf16 prefix-LM {P}"}
+    B, T, nq, H = 4, ENCODER_T, 16, 80
+    q, k, v = rand(B, T, nq, H), rand(B, T, nq, H), rand(B, T, nq, H)
+    kw = dict(causal=False, window=0, q_offset=0)
+    qs, ks, vs = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    b_ms, b_by = bound_ms(4 * q.numel() * 2, 4 * B * nq * H * T * T, BF16_FLOPS_PER_S)
+    entries["bidirectional_encoder"] = {
+        "ms": timer(lambda: flash_attention.launch(q, k, v, **kw)),
+        "plain_ms": timer(lambda: ref.flash_attention_gqa_ref(q, k, v, **kw), iters=5),
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": worst[torch.bfloat16],
+        "shape": f"B*NQ={B * nq} NKV={nq} T={T} H={H} bf16 non-causal"}
+    return entries, max(worst.values()), cases
+
+
+def _numel(tree):
+    return (sum(_numel(v) for v in tree.values()) if isinstance(tree, dict)
+            else tree.numel())
+
+
+def serve_frontends(torch, dev):
+    """paligemma-3b and hubert-xlarge at full width and depth (18 and 48
+    layers, random bf16 weights from seed 0, packed; each arch's weights
+    dropped before the next) through ``build_model(cfg)``'s entries.
+
+    paligemma-3b under the Table III policy "w4a6r25;wo=w8a8" on the
+    contiguous bf16 cache: B = 4 rows of 256 random patch embeddings (1152
+    wide) and 64-320 text tokens, right-padded with lengths; prefill, then
+    8 greedy decode steps (DECODE_HEADROOM), its launches counted (flash
+    under the prefix-LM mask, the contiguous decode entry, the Table III
+    and uniform packed linears, ``dense_matmul`` for ``patch_proj``).
+    Gated, bitwise: the tied 2048 -> 257 216 head's rows at M = 1-9 its
+    rows at M = 4 (``head_rows``); teacher forcing (prefill of each row's
+    text and its first greedy token gives the logits of the decode step
+    that took that token, both at M = B); each row alone (prefill and 8
+    steps) gives its batch row's logits and tokens; the prefix-LM mask
+    (the last patch moves position 0; a text token leaves every earlier
+    position unchanged).
+
+    hubert-xlarge under "w4a8;wo=w8a8": B = 4 clips of 500 frames (512
+    wide); ``forward_hidden`` → ``compute_logits`` and ``prefill``, its
+    launches counted (flash with causal = 0, the fused kernel,
+    ``dense_matmul`` for ``frame_proj``). Gated: each clip alone gives its
+    batch row's hidden states bitwise and its logits within 1e-2 (the
+    untied head is ``torch.matmul`` at B·T rows); the last frame moves
+    the first position; ``prefill``'s logits within 1e-2 of the forward's
+    last position.
+
+    Prints each arch's parameters, init and pack time and peak memory,
+    paligemma's prefill time and greedy tokens/s over the 8 steps, and
+    the phase's seconds, each beside the card's name and power limit.
+    Every gate prints before one raises. Returns (report, launch counts
+    summed over the two archs' counted drives)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+
+    smi = nvidia_smi()
+    steps = transformer.DECODE_HEADROOM          # the cache's free slots after prefill
+    t_phase = time.perf_counter()
+    out, counts, bad = {VLM: {}, ENCODER: {}}, {}, []
+
+    def add(c):
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    # -- paligemma-3b -------------------------------------------------------
+    rep = out[VLM]
+    cfg = get_config(VLM)
+    model = build_model(cfg)
+
+    def tied_head(raw):
+        parted = rep["head_parted"] = head_rows(torch, raw["embed"], transpose=True)
+        log(f"{VLM}: tied head {tuple(raw['embed'].shape)}^T rows at M in {HEAD_M} not "
+            f"bitwise M = 4: torch.matmul {parted['torch.matmul'] or 'none'} (gated), "
+            f"dense_matmul {parted['dense_matmul'] or 'none'}")
+        if parted["torch.matmul"]:
+            bad.append(f"{VLM}: tied head rows part across M {parted['torch.matmul']}")
+
+    params = _draw_and_pack(torch, dev, cfg, MIXED_POLICY, rep, smi, tied_head)
+    P = cfg.num_prefix_embeds
+    rng = np.random.default_rng(26)
+    patches = torch.from_numpy(rng.standard_normal(
+        (len(VLM_TEXT), P, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    texts = [rng.integers(0, cfg.vocab, n) for n in VLM_TEXT]
+
+    def batch(rows, ts):
+        toks = np.zeros((len(ts), max(len(t) for t in ts)), np.int64)
+        for i, t in enumerate(ts):
+            toks[i, :len(t)] = t
+        return {"patches": patches[rows], "tokens": torch.from_numpy(toks).to(dev),
+                "lengths": torch.tensor([P + len(t) for t in ts], dtype=torch.int32)}
+
+    def generate(rows, ts):
+        """Prefill, then `steps` greedy steps: (prefill s, decode s,
+        [first-token logits, each step's logits] (B, V) float32, tokens
+        (B, steps + 1))."""
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(params, batch(rows, ts))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lgs = [lg[:, -1].float()]
+        toks = [lg[:, -1].argmax(-1, keepdim=True)]
+        for _ in range(steps):
+            cache, lg = model.decode_step(params, cache, toks[-1])
+            lgs.append(lg[:, -1].float())
+            toks.append(lg[:, -1].argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1, lgs, torch.cat(toks, dim=1)
+
+    rows = list(range(len(VLM_TEXT)))
+    generate(rows, texts)                                    # warm up
+    torch.cuda.reset_peak_memory_stats()
+    (pre_s, dec_s, lgs, toks), c = _counted(torch, lambda: generate(rows, texts))
+    add(c)
+    rep.update(peak_gb=_mem_gb(torch), prefill_s=pre_s, decode_s=dec_s,
+               decode_tok_per_s=len(rows) * steps / dec_s, launches=c,
+               tokens=toks.tolist())
+    log(f"{VLM}: prefill B={len(rows)} ({P} patches + {VLM_TEXT} text) {pre_s * 1e3:.1f} ms, "
+        f"{steps} greedy steps {dec_s * 1e3:.1f} ms = "
+        f"{rep['decode_tok_per_s']:.1f} tok/s, peak {rep['peak_gb']:.2f} GB "
+        f"[{smi}]; launches {c}")
+    missing = [k for k in FRONTEND_KERNELS[VLM] if c.get(k, 0) <= 0]
+    if missing:
+        bad.append(f"{VLM}: {missing} never launched")
+    t0 = time.perf_counter()
+    # Teacher forcing: each text and its first greedy token, prefilled.
+    forced = [np.concatenate([t, toks[i, :1].cpu().numpy()]) for i, t in enumerate(texts)]
+    _, lg = model.prefill(params, batch(rows, forced))
+    tf_err = (lg[:, -1].float() - lgs[1]).abs().max().item()
+    # Each row alone.
+    solo_err, solo_toks = 0.0, 0
+    for i in rows:
+        _, _, s_lgs, s_toks = generate([i], [texts[i]])
+        solo_err = max(solo_err, max((a[0] - b[i]).abs().max().item()
+                                     for a, b in zip(s_lgs, lgs)))
+        solo_toks += int(torch.equal(s_toks[0], toks[i]))
+    # The mask: prefix-LM over the patches, causal over the text.
+    one = batch([0], [texts[0]])
+    base = transformer.forward_hidden(params, cfg, one)
+    moved = dict(one, patches=one["patches"].clone())
+    moved["patches"][:, P - 1] += 1.0
+    h_patch = transformer.forward_hidden(params, cfg, moved)
+    j = 10
+    edited = dict(one, tokens=one["tokens"].clone())
+    edited["tokens"][:, j] = (edited["tokens"][:, j] + 1) % cfg.vocab
+    h_text = transformer.forward_hidden(params, cfg, edited)
+    mask_ok = {"last_patch_moves_position_0": not torch.equal(h_patch[:, 0], base[:, 0]),
+               "text_token_keeps_earlier": torch.equal(h_text[:, :P + j], base[:, :P + j]),
+               "text_token_moves_itself": not torch.equal(h_text[:, P + j], base[:, P + j])}
+    torch.cuda.synchronize()
+    rep.update(teacher_forcing_err=tf_err, batch_vs_solo_err=solo_err,
+               batch_vs_solo_tokens=f"{solo_toks}/{len(rows)}", mask=mask_ok,
+               gates_s=time.perf_counter() - t0)
+    log(f"{VLM}: teacher-forced prefill vs decode step logits max |err| {tf_err:.3g} "
+        f"(gated at 0); each row alone vs its batch row: logits max |err| {solo_err:.3g} "
+        f"(gated at 0), greedy tokens {solo_toks}/{len(rows)} identical; prefix-LM "
+        f"mask {mask_ok}; gates {rep['gates_s']:.1f}s")
+    if tf_err != 0.0 or solo_err != 0.0 or solo_toks != len(rows) or not all(mask_ok.values()):
+        bad.append(f"{VLM}: teacher forcing {tf_err}, solo {solo_err} / {solo_toks}, "
+                   f"mask {mask_ok}")
+    del params, patches, base, h_patch, h_text, lg, lgs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- hubert-xlarge ------------------------------------------------------
+    rep = out[ENCODER]
+    cfg = get_config(ENCODER)
+    model = build_model(cfg)
+    params = _draw_and_pack(torch, dev, cfg, POLICY, rep, smi)
+    rng = np.random.default_rng(27)
+    frames = torch.from_numpy(rng.standard_normal(
+        (4, ENCODER_T, cfg.frontend_dim)).astype(np.float32)).to(dev)
+
+    def encode(f):
+        hidden = transformer.forward_hidden(params, cfg, {"frames": f})
+        return hidden, transformer.compute_logits(params, cfg, hidden)
+
+    def drive():
+        t0 = time.perf_counter()
+        hidden, logits = encode(frames)
+        _, last = model.prefill(params, {"frames": frames})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, hidden, logits, last
+
+    drive()                                                  # warm up
+    torch.cuda.reset_peak_memory_stats()
+    (enc_s, hidden, logits, last), c = _counted(torch, drive)
+    add(c)
+    rep.update(peak_gb=_mem_gb(torch), forward_and_prefill_s=enc_s, launches=c)
+    log(f"{ENCODER}: forward_hidden + logits + prefill, B=4 x T={ENCODER_T} frames, "
+        f"{enc_s * 1e3:.1f} ms, peak {rep['peak_gb']:.2f} GB [{smi}]; launches {c}")
+    missing = [k for k in FRONTEND_KERNELS[ENCODER] if c.get(k, 0) <= 0]
+    if missing:
+        bad.append(f"{ENCODER}: {missing} never launched")
+    t0 = time.perf_counter()
+    solo_hidden, solo_logits = 0, 0.0
+    for i in range(frames.shape[0]):
+        h, lg = encode(frames[i:i + 1])
+        solo_hidden += int(torch.equal(h[0], hidden[i]))
+        solo_logits = max(solo_logits, (lg[0] - logits[i]).abs().max().item())
+    f2 = frames[:1].clone()
+    f2[:, -1] += 1.0
+    moves = not torch.equal(encode(f2)[0][0, 0], hidden[0, 0])
+    prefill_err = (last[:, 0] - logits[:, -1]).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    rep.update(batch_vs_solo_hidden=f"{solo_hidden}/4", batch_vs_solo_logits_err=solo_logits,
+               last_frame_moves_first=moves, prefill_vs_forward_err=prefill_err,
+               gates_s=time.perf_counter() - t0)
+    log(f"{ENCODER}: each clip alone vs its batch row: hidden states {solo_hidden}/4 "
+        f"bitwise (gated), logits max |err| {solo_logits:.3g} (gated at 1e-2); the last "
+        f"frame moves position 0: {moves}; prefill vs forward last-position logits max "
+        f"|err| {prefill_err:.3g} (gated at 1e-2); finite {finite}; gates "
+        f"{rep['gates_s']:.1f}s")
+    if (solo_hidden != 4 or not solo_logits <= 1e-2 or not moves
+            or not prefill_err <= 1e-2 or not finite):
+        bad.append(f"{ENCODER}: solo {solo_hidden}/4, {solo_logits}, moves {moves}, "
+                   f"prefill {prefill_err}, finite {finite}")
+    del params, frames, hidden, logits, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"frontends phase (paligemma-3b, hubert-xlarge): {out['phase_s']:.1f}s [{smi}]")
+    if bad:
+        raise AssertionError(f"frontends: {bad}")
+    return out, counts
+
+
+def card_vs_cpu_frontends(torch):
+    """Reduced paligemma-3b and hubert-xlarge in float32, unpacked, on the
+    card (the float32 flash kernel under the prefix-LM and bidirectional
+    masks, the contiguous decode entry) vs on the CPU (plain versions):
+    paligemma's right-padded prefill of two rows and three decode steps,
+    hubert's forward logits at every position and its prefill. Logits
+    within 1e-3 (float32 sums in other orders). Returns arch → max |err|."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model, transformer
+
+    errs = {}
+    for arch in (VLM, ENCODER):
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu")
+        rng = np.random.default_rng(4)
+        if arch == VLM:
+            P = cfg.num_prefix_embeds
+            patches = torch.from_numpy(rng.standard_normal(
+                (2, P, cfg.frontend_dim)).astype(np.float32))
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
+        else:
+            frames = torch.from_numpy(rng.standard_normal(
+                (2, 40, cfg.frontend_dim)).astype(np.float32))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            if arch == VLM:
+                cache, lg = model.prefill(p, {"patches": patches.to(dev),
+                                              "tokens": toks.to(dev),
+                                              "lengths": torch.tensor([P + 24, P + 13])})
+                lgs = [lg]
+                for t in range(3):
+                    cache, lg = model.decode_step(p, cache, torch.tensor(
+                        [[3 + t], [5 + t]], device=dev))
+                    lgs.append(lg)
+            else:
+                hidden = transformer.forward_hidden(p, cfg, {"frames": frames.to(dev)})
+                lgs = [transformer.compute_logits(p, cfg, hidden),
+                       model.prefill(p, {"frames": frames.to(dev)})[1]]
+            out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+        err = errs[arch] = (out["cpu"] - out["cuda"]).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"reduced fp32 {arch}: card vs CPU logits differ by {err}")
+    return errs
 
 
 def _to(tree, dev):
@@ -4385,6 +4845,33 @@ def main() -> int:
         write_detail("chip_smoke_griffin.json", {"kernels": kern, "serve": out,
                                                  "card_vs_cpu": err})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["frontends"]:
+        t0 = time.perf_counter()
+        build.build()
+        timer = Timer(torch, dev)
+        # The flash source this slice changed keeps its earlier gates.
+        check_flash(torch, dev, timer)
+        check_head_dims(torch, dev)
+        check_one_order(torch, dev)
+        check_windowed_flash(torch, dev, timer)
+        entries, _, _ = check_frontend_flash(torch, dev, timer)
+        for what, e in entries.items():
+            log(f"  flash_attention[{what}]: {e['shape']}: {e['ms']:.4g} ms (bound "
+                f"{e['bound_ms']:.3g} ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, "
+                f"library {e['library_ms']:.4g} ms)")
+        norm = check_norm_rows(torch, dev)
+        log(f"frontends: build and kernel checks {time.perf_counter() - t0:.1f}s")
+        out, counts = serve_frontends(torch, dev)
+        errs = card_vs_cpu_frontends(torch)
+        log(f"reduced fp32 card vs CPU logits max |err|: {errs}")
+        run_f = serve_run(torch, params_of("f-rwkv6-continuous"), "f-rwkv6-continuous")
+        toks = solo_vs_mid_decode(run_f[0])
+        log(f"solo == mid-decode admission [f-rwkv6-continuous]: {len(toks)} greedy "
+            "tokens identical")
+        write_detail("chip_smoke_frontends.json", {
+            "flash": entries, "norm_rows": norm, "frontends": out, "launches": counts,
+            "card_vs_cpu": errs, "nvidia_smi": nvidia_smi()})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -4420,8 +4907,12 @@ def main() -> int:
         "rglru": check_rglru(torch, dev, timer),
     }
     results["paged_attention"]["entries"]["ring"] = check_ring_decode(torch, dev, timer)
+    front_flash, front_err, front_cases = check_frontend_flash(torch, dev, timer)
     results["flash_attention"]["entries"] = {
-        "windowed_prefill": check_windowed_flash(torch, dev, timer)}
+        "windowed_prefill": check_windowed_flash(torch, dev, timer), **front_flash}
+    results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"],
+                                                    front_err)
+    results["flash_attention"]["cases"] += front_cases
     mixed = check_mixed_group(torch, dev, timer)
     results["bitplane_matmul"]["entries"].update(mixed.pop("entries"))
     table3_launches = check_table3_launches(torch, dev)
@@ -4454,6 +4945,9 @@ def main() -> int:
     for k, n in griffin_counts.items():
         counts[k] = counts.get(k, 0) + n
     log(f"runs (s), (t) and their gates: {time.perf_counter() - t0:.1f}s")
+    frontends_out, front_counts = serve_frontends(torch, dev)
+    for k, n in front_counts.items():
+        counts[k] = counts.get(k, 0) + n
     t0 = time.perf_counter()
     runs = {}
     for name in SERVE_RUNS:
@@ -4505,9 +4999,9 @@ def main() -> int:
     log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err_rwkv:.3g}")
     err_griffin = card_vs_cpu_griffin(torch)
     log(f"reduced fp32 {GRIFFIN}: card vs CPU logits max |err| {err_griffin:.3g}")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    err_front = card_vs_cpu_frontends(torch)
+    log(f"reduced fp32 {VLM} / {ENCODER}: card vs CPU logits max |err| {err_front}")
+    smi = nvidia_smi()
     write_detail("chip_smoke.json", {
         "kernels": results, "dense_matmul": dense, "head_dims_max_err": head_dim_err,
         "hmma_in_sass": hmma, "timer_floor_ms": timer_floor,
@@ -4521,6 +5015,7 @@ def main() -> int:
         "card_vs_cpu_max_err": err,
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "griffin": griffin_out,
         "card_vs_cpu_griffin_max_err": err_griffin, "norm_rows": norm_rows,
+        "frontends": frontends_out, "card_vs_cpu_frontends_max_err": err_front,
         "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

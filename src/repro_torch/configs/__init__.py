@@ -16,6 +16,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "nemotron-4-15b": "nemotron_4_15b",
     "stablelm-12b": "stablelm_12b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "paligemma-3b": "paligemma_3b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

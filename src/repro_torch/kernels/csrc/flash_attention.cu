@@ -4,8 +4,11 @@
 // with the GQA dispatch of repro/kernels/ops.py::flash_attention folded in:
 // q (B, Tq, NQ, H) attends k/v (B, Tk, NKV, H), query head h reading KV
 // head h / (NQ / NKV) (no repeated K/V in device memory). Key j is
-// visible to query i iff j < Tk, j <= q_offset + i (causal) and
-// j > q_offset + i - window (window > 0). Scores q.k * H^-0.5 and an
+// visible to query position p = q_offset + i iff j < Tk, j <= p or
+// j < prefix_len (causal; prefix-LM, the rule JAX computes in XLA,
+// repro/models/common.py::_mask_block) and j > p - window (window > 0):
+// one contiguous range (p - window, max(p, prefix_len - 1)] a row, so
+// the tile skip below covers every mask. Scores q.k * H^-0.5 and an
 // online softmax in float32, masked keys excluded, a row that sees no key
 // outputs zeros; the output has q's dtype. K/V may be float32 while q is
 // bf16 (an int8 cache's prefill reads dequantized K/V): they are read in
@@ -47,26 +50,32 @@ struct FlashSrc {
 };
 
 // Query rows t0 + r (r < nrows) of (batch b, head h): key j is visible to
-// query position p = q_offset + t0 + r iff j < Tk, j <= p (causal) and
-// j > p - window (window > 0).
+// query position p = q_offset + t0 + r iff j < Tk, j <= max(p,
+// prefix_len - 1) (causal) and j > p - window (window > 0). A prefix row
+// (p < prefix_len - 1) sees keys past its own position, up to the
+// prefix's last: in a block of rows that straddles the prefix, the tile
+// range reaches past the diagonal and each row masks its own keys.
 struct FlashRows {
   long base;   // (b * Tq + t0) * NQ + h
-  int nrows, NQ, H, qpos0, Tk, causal, window;
+  int nrows, NQ, H, qpos0, Tk, causal, window, prefix_len;
   __device__ bool exists(int r) const { return r < nrows; }
   __device__ int lo(int r) const { return window ? max(0, qpos0 + r - window + 1) : 0; }
-  __device__ int hi(int r) const { return causal ? min(qpos0 + r, Tk - 1) : Tk - 1; }
+  __device__ int hi(int r) const {
+    return causal ? min(max(qpos0 + r, prefix_len - 1), Tk - 1) : Tk - 1;
+  }
   __device__ long q_off(int r) const { return (base + (long)r * NQ) * H; }
 };
 
 template <int ROWS>
 __device__ __forceinline__ void flash_coords(int Tq, int Tk, int NQ, int NKV, int H,
                                              int causal, int window, int q_offset,
-                                             FlashRows& rows, FlashSrc& src, int& kvh) {
+                                             int prefix_len, FlashRows& rows,
+                                             FlashSrc& src, int& kvh) {
   const int b = blockIdx.y / NQ, h = blockIdx.y % NQ;
   const int t0 = blockIdx.x * ROWS;
   kvh = h / (NQ / NKV);
   rows = FlashRows{((long)b * Tq + t0) * NQ + h, min(ROWS, Tq - t0), NQ, H,
-                   q_offset + t0, Tk, causal, window};
+                   q_offset + t0, Tk, causal, window, prefix_len};
   src = FlashSrc{(long)b * Tk, Tk};
 }
 
@@ -74,11 +83,12 @@ template <int H>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 flash_mma_kernel(const bf* __restrict__ q, const bf* __restrict__ k, const bf* __restrict__ v,
                  bf* __restrict__ out, int Tq, int Tk, int NQ, int NKV, int causal,
-                 int window, int q_offset, float scale) {
+                 int window, int q_offset, int prefix_len, float scale) {
   FlashRows rows;
   FlashSrc src;
   int kvh;
-  flash_coords<kMmaRows>(Tq, Tk, NQ, NKV, H, causal, window, q_offset, rows, src, kvh);
+  flash_coords<kMmaRows>(Tq, Tk, NQ, NKV, H, causal, window, q_offset, prefix_len, rows,
+                         src, kvh);
   attn::attend_mma<H, kMmaWarps, false, true>(q, out, rows, k, v, nullptr, nullptr, src,
                                               NKV, kvh, scale, 0.f, -1, nullptr, nullptr);
 }
@@ -87,20 +97,20 @@ template <int H, typename QT, typename KT>
 __global__ void __launch_bounds__(attn::kF32Threads)
 flash_f32_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
                  QT* __restrict__ out, int Tq, int Tk, int NQ, int NKV, int causal,
-                 int window, int q_offset, float scale) {
+                 int window, int q_offset, int prefix_len, float scale) {
   FlashRows rows;
   FlashSrc src;
   int kvh;
-  flash_coords<attn::kF32Rows>(Tq, Tk, NQ, NKV, H, causal, window, q_offset, rows, src,
-                               kvh);
+  flash_coords<attn::kF32Rows>(Tq, Tk, NQ, NKV, H, causal, window, q_offset, prefix_len,
+                               rows, src, kvh);
   attn::attend_f32<H, false>(q, out, rows, k, v, nullptr, nullptr, src, NKV, kvh, scale,
                              0.f);
 }
 
 template <int H, typename QT, typename KT>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk,
-           int NQ, int NKV, int causal, int window, int q_offset, float scale,
-           cudaStream_t st) {
+           int NQ, int NKV, int causal, int window, int q_offset, int prefix_len,
+           float scale, cudaStream_t st) {
   if constexpr (std::is_same<QT, bf>::value && std::is_same<KT, bf>::value) {
     using SM = attn::MmaSmem<H, kMmaWarps, false, true>;
     auto kern = flash_mma_kernel<H>;
@@ -108,7 +118,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
     if (e) return e;
     kern<<<dim3((Tq + kMmaRows - 1) / kMmaRows, B * NQ), kMmaWarps * 32, SM::bytes, st>>>(
         (const bf*)q, (const bf*)k, (const bf*)v, (bf*)out, Tq, Tk, NQ, NKV, causal, window,
-        q_offset, scale);
+        q_offset, prefix_len, scale);
   } else {
     using SM = attn::F32Smem<H>;
     auto kern = flash_f32_kernel<H, QT, KT>;
@@ -116,7 +126,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
     if (e) return e;
     kern<<<dim3((Tq + attn::kF32Rows - 1) / attn::kF32Rows, B * NQ), attn::kF32Threads,
            SM::bytes, st>>>((const QT*)q, (const KT*)k, (const KT*)v, (QT*)out, Tq, Tk, NQ,
-                            NKV, causal, window, q_offset, scale);
+                            NKV, causal, window, q_offset, prefix_len, scale);
   }
   return (int)cudaGetLastError();
 }
@@ -125,22 +135,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
 
 // q/out (B, Tq, NQ, H), k/v (B, Tk, NKV, H), all contiguous; q_dtype and
 // kv_dtype are 0 = float32, 1 = bfloat16; H in {16, 64, 80, 128, 160,
-// 192, 256}, NQ % NKV == 0. Returns the CUDA error code of the launch (0 =
-// launched).
+// 192, 256}, NQ % NKV == 0; prefix_len >= 0 (0: plain causal). Returns
+// the CUDA error code of the launch (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int Tq, int Tk, int NQ, int NKV,
                                int H, int q_dtype, int kv_dtype, int causal,
-                               int window, int q_offset, float scale, void* stream) {
+                               int window, int q_offset, int prefix_len, float scale,
+                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || Tq <= 0) return (int)cudaGetLastError();
   if (!attn::head_dim_ok(H) || NKV <= 0 || NQ % NKV) return (int)cudaErrorInvalidValue;
   const int sel = 2 * q_dtype + kv_dtype;
   return attn::with_head_dim(H, [&](auto hd) -> int {
     constexpr int HH = decltype(hd)::value;
-    if (sel == 0) return launch<HH, float, float>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, scale, st);
-    if (sel == 1) return launch<HH, float, bf>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, scale, st);
-    if (sel == 2) return launch<HH, bf, float>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, scale, st);
-    if (sel == 3) return launch<HH, bf, bf>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, scale, st);
+    if (sel == 0) return launch<HH, float, float>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, prefix_len, scale, st);
+    if (sel == 1) return launch<HH, float, bf>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, prefix_len, scale, st);
+    if (sel == 2) return launch<HH, bf, float>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, prefix_len, scale, st);
+    if (sel == 3) return launch<HH, bf, bf>(q, k, v, out, B, Tq, Tk, NQ, NKV, causal, window, q_offset, prefix_len, scale, st);
     return (int)cudaErrorInvalidValue;
   });
 }

@@ -2,8 +2,12 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` together
 with the GQA dispatch of ``repro/kernels/ops.py::flash_attention``: q
-(B, Tq, NQ, H) attends k/v (B, Tk, NKV, H) under causal / window masks
-and a query-position offset (``csrc/flash_attention.cu``).
+(B, Tq, NQ, H) attends k/v (B, Tk, NKV, H) under causal, prefix-LM and
+window masks and a query-position offset (``csrc/flash_attention.cu``).
+JAX computes the prefix-LM mask outside its Pallas kernel (XLA code in
+``repro.models.common.chunked_attention``); the port runs every
+whole-prompt mask through this one kernel, so prefill and decode rows
+sum in one order.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of the C entry (checked against its source by the tests).
-ARGTYPES = [_P] * 4 + [_I] * 11 + [_F, _P]
+ARGTYPES = [_P] * 4 + [_I] * 12 + [_F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -32,9 +36,11 @@ def _fn():
     return fn
 
 
-def launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor:
+def launch(q, k, v, *, causal: bool, window: int, q_offset: int,
+           prefix_len: int = 0) -> torch.Tensor:
     """q (B, Tq, NQ, H), k/v (B, Tk, NKV, H) on one CUDA device, float32
-    or bfloat16 each → (B, Tq, NQ, H) in q's dtype."""
+    or bfloat16 each → (B, Tq, NQ, H) in q's dtype. Under ``causal``,
+    keys < ``prefix_len`` are visible to every query (prefix-LM)."""
     global launches
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError("flash_attention expects q (B, T, NQ, H) and k/v "
@@ -55,7 +61,7 @@ def launch(q, k, v, *, causal: bool, window: int, q_offset: int) -> torch.Tensor
     out = torch.empty_like(q)
     rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tk,
                NQ, NKV, H, _DTYPES[q.dtype], _DTYPES[k.dtype], int(causal),
-               int(window), int(q_offset), H ** -0.5,
+               int(window), int(q_offset), int(prefix_len), H ** -0.5,
                torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
     launches += 1

@@ -197,17 +197,20 @@ def mixed_group_matmul(x: torch.Tensor, w8_codes: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    q_offset: int = 0, backend=None) -> torch.Tensor:
+                    q_offset: int = 0, prefix_len: int = 0,
+                    backend=None) -> torch.Tensor:
     """GQA flash attention: q (B, T, NQ, H) over k/v (B, S, NKV, H), query
-    head h reading KV head h // (NQ // NKV); causal and sliding-window
-    masks at query positions q_offset + i; keys past S never seen.
-    Returns (B, T, NQ, H) in q's dtype; a query that sees no key gets
-    zeros. K/V may be float32 under a bfloat16 q (an int8 cache's
-    prefill reads dequantized K/V)."""
+    head h reading KV head h // (NQ // NKV); causal, prefix-LM (under
+    causal, keys < prefix_len are visible to every query) and
+    sliding-window masks at query positions q_offset + i; keys past S
+    never seen. Returns (B, T, NQ, H) in q's dtype; a query that sees no
+    key gets zeros. K/V may be float32 under a bfloat16 q (an int8
+    cache's prefill reads dequantized K/V)."""
     if _backend(q, "flash_attention", backend).is_reference:
-        return _ref.flash_attention_gqa_ref(q, k, v, causal, window, q_offset)
+        return _ref.flash_attention_gqa_ref(q, k, v, causal, window, q_offset,
+                                            prefix_len)
     return _flash.launch(q, k, v, causal=causal, window=window,
-                         q_offset=int(q_offset))
+                         q_offset=int(q_offset), prefix_len=int(prefix_len))
 
 
 def paged_attention(q, pool_k, pool_v, block_table, q_pos, *,

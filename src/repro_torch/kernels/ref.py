@@ -86,10 +86,12 @@ def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """Naive float32 softmax attention over (BH, T, D): key j is visible
-    to query i iff j < Tk, j <= q_offset + i (causal) and j > q_offset +
-    i - window (window > 0). A query that sees no key outputs zeros.
+    to query p = q_offset + i iff j < Tk, j <= p or j < prefix_len
+    (causal; prefix-LM over the first prefix_len positions, the rule of
+    ``repro.models.common._mask_block``) and j > p - window (window > 0).
+    A query that sees no key outputs zeros.
 
     Queries and keys are zero-padded to a multiple of ``_TILE`` (the tail
     masked) before the products: CPU kernels take another summation path
@@ -107,7 +109,7 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
     kpos = torch.arange(tk, device=q.device)[None, :]
     mask = (kpos < Tk).expand(tq, tk)
     if causal:
-        mask = mask & (kpos <= qpos)
+        mask = mask & ((kpos <= qpos) | (kpos < prefix_len))
     if window:
         mask = mask & (kpos > qpos - window)
     s = torch.where(mask[None], s, torch.tensor(float("-inf"), device=q.device))
@@ -117,7 +119,7 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
 
 
 def flash_attention_gqa_ref(q, k, v, causal: bool = True, window: int = 0,
-                            q_offset: int = 0) -> torch.Tensor:
+                            q_offset: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """``flash_attention_ref`` in the model layout with the GQA dispatch of
     ``repro.kernels.ops.flash_attention``: q (B, T, NQ, H), k/v (B, S,
     NKV, H), KV heads repeated to the query heads. Returns (B, T, NQ, H)
@@ -127,7 +129,7 @@ def flash_attention_gqa_ref(q, k, v, causal: bool = True, window: int = 0,
     qf = q.transpose(1, 2).reshape(B * NQ, T, H)
     kf = k.transpose(1, 2).repeat_interleave(G, dim=1).reshape(B * NQ, -1, H)
     vf = v.transpose(1, 2).repeat_interleave(G, dim=1).reshape(B * NQ, -1, H)
-    out = flash_attention_ref(qf, kf, vf, causal, window, q_offset)
+    out = flash_attention_ref(qf, kf, vf, causal, window, q_offset, prefix_len)
     return out.reshape(B, NQ, T, H).transpose(1, 2).to(q.dtype)
 
 

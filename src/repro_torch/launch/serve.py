@@ -22,7 +22,11 @@ PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
 paths (a wXaYrZZ token packs Table III mixed-group layers).
 ``--arch`` is olmo-1b, nemotron-4-15b, stablelm-12b (qk-norm), rwkv6-3b
-or recurrentgemma-9b; ``--arch rwkv6-3b`` serves the RWKV-6 family
+or recurrentgemma-9b. paligemma-3b and hubert-xlarge exit before any
+weights are drawn: an encoder has no decode step (the JAX package's
+words), and the serving stack passes no patch embeddings to the VLM
+(JAX's serve fails there with a KeyError); both run through the model
+API (``models.build_model``). ``--arch rwkv6-3b`` serves the RWKV-6 family
 unquantized (as the JAX package does; --policy/--quant raise), on its
 constant-size recurrent state: static, or --continuous with solo
 whole-prompt admission. ``--arch recurrentgemma-9b`` serves the Griffin
@@ -127,7 +131,10 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="olmo-1b, nemotron-4-15b, stablelm-12b, rwkv6-3b or "
+                         "recurrentgemma-9b (paligemma-3b and hubert-xlarge "
+                         "are refused: the model API serves them)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="serve the config's first N layers (widths unchanged)")
@@ -332,6 +339,13 @@ def _serve(args, device, make_requests, params):
         print(f"loaded {n} block plans from {args.plans}")
     make_requests = make_requests or synthetic_requests
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
+    if cfg.family == "encoder":
+        raise SystemExit("encoder-only arch has no decode step")
+    if cfg.frontend == "patch_stub":
+        raise SystemExit(f"{cfg.name}: the serving stack passes no patches (the JAX "
+                         "package's serve fails on it with KeyError: 'patches'); "
+                         "drive the VLM through build_model(cfg).prefill with "
+                         "batch['patches'] and decode_step")
     if args.layers is not None:
         if not 1 <= args.layers <= cfg.num_layers:
             raise SystemExit(f"--layers {args.layers}: {cfg.name} has {cfg.num_layers} layers")

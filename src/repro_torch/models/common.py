@@ -151,26 +151,26 @@ class AttnMask:
 def chunked_attention(q, k, v, mask: AttnMask, *, q_offset: int = 0,
                       softcap: float = 0.0, kpos=None) -> torch.Tensor:
     """Whole-sequence attention: q (B, T, NQ, H) over k/v (B, S, NKV, H),
-    GQA, causal / sliding-window masks at query positions q_offset + i;
-    key slot s holds absolute position s. The function of
-    ``repro.models.common.chunked_attention``, computed by
-    ``ops.flash_attention`` (the kernel on a CUDA tensor, its plain
-    version on the CPU). Explicit key positions (``kpos``), prefix-LM
-    masks and a logit softcap are not ported and raise on every device
-    alike: the port's suffix prefill gathers exactly the resident prefix
-    positions and needs no ``kpos``; the other two are gemma's."""
+    GQA, at query positions q_offset + i; key slot s holds absolute
+    position s. The function of ``repro.models.common.chunked_attention``,
+    computed by ``ops.flash_attention`` (the kernel on a CUDA tensor, its
+    plain version on the CPU) for every mask JAX builds there: causal,
+    bidirectional (``causal=False``), sliding-window and prefix-LM
+    (``prefix_len``: under causal, keys < prefix_len are visible to every
+    query, with a window if one is set). Explicit key positions (``kpos``)
+    and a logit softcap are not ported and raise on every device alike:
+    the port's suffix prefill gathers exactly the resident prefix
+    positions and needs no ``kpos``; the softcap is gemma's."""
     from repro_torch.kernels import ops
 
     if kpos is not None:
         raise ValueError("chunked_attention: explicit key positions (kpos) are "
                          "not ported (prefill_suffix gathers exactly the resident "
                          "positions instead)")
-    if mask.prefix_len:
-        raise ValueError("chunked_attention: prefix-LM masks are not ported yet")
     if softcap:
         raise ValueError("chunked_attention: a logit softcap is not ported yet")
     return ops.flash_attention(q, k, v, causal=mask.causal, window=mask.window,
-                               q_offset=q_offset)
+                               q_offset=q_offset, prefix_len=mask.prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, kpos, q_pos, window: int = 0,

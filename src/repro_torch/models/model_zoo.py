@@ -1,15 +1,18 @@
 """build_model(cfg) — the model surface the serving stack drives.
 
-Port of ``repro.models.model_zoo`` for the dense transformer, the RWKV-6
-family and the Griffin hybrid: ``init(seed, device)``, ``prefill``,
-``decode_step`` and
-``init_cache``; for the dense transformer also ``init_paged_cache`` and,
-behind the same eligibility gate as JAX (full attention, no MoE, token
-inputs), ``prefill_chunk``, ``prefill_suffix`` (the prefix cache's
-suffix-only prefill) and the speculative verify entries
-``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6 keeps a constant-size recurrent state
-and has neither, as in JAX; nor has Griffin, whose recurrent states and
-window-sized ring caches are constant-size too.
+Port of ``repro.models.model_zoo`` for the families ``dense`` (olmo-1b,
+nemotron-4-15b, stablelm-12b), ``vlm`` (paligemma-3b) and ``encoder``
+(hubert-xlarge), all three through ``models.transformer``, ``ssm``
+(rwkv6-3b) and ``hybrid`` (recurrentgemma-9b, Griffin): ``init(seed,
+device)``, ``prefill``, ``decode_step`` and ``init_cache``; for the
+transformer also ``init_paged_cache`` and, behind the same eligibility
+gate as JAX (full attention, no MoE, token inputs: no ``vlm`` or
+``encoder`` arch passes it), ``prefill_chunk``, ``prefill_suffix`` (the
+prefix cache's suffix-only prefill) and the speculative verify entries
+``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6
+keeps a constant-size recurrent state and has neither, as in JAX; nor
+has Griffin, whose recurrent states and window-sized ring caches are
+constant-size too.
 """
 from __future__ import annotations
 
@@ -41,13 +44,13 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         mod = rwkv6
     elif cfg.family == "hybrid":
         mod = griffin
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "vlm", "encoder"):
         mod = transformer
     else:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
                          "(the port serves the dense transformers olmo-1b, "
-                         "nemotron-4-15b and stablelm-12b, rwkv6-3b and "
-                         "recurrentgemma-9b)")
+                         "nemotron-4-15b and stablelm-12b, paligemma-3b, "
+                         "hubert-xlarge, rwkv6-3b and recurrentgemma-9b)")
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),

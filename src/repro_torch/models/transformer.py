@@ -1,7 +1,11 @@
-"""Dense decoder transformer: init, whole-prompt, chunked and suffix-only
-prefill, and the decode step on the contiguous cache or the paged pool.
+"""Decoder / encoder / VLM transformer: init, whole-prompt, chunked and
+suffix-only prefill, and the decode step on the contiguous cache or the
+paged pool.
 
-Port of the dense serving path of ``repro.models.transformer``. Params
+Port of the serving path of ``repro.models.transformer`` for the dense
+decoders, the VLM (paligemma-3b: a patch-embedding stub before the text,
+prefix-LM attention) and the encoder (hubert-xlarge: a frame-embedding
+stub, bidirectional attention). Params
 are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 (``embed``, ``blocks/wq``, ``blocks/ffn/w_up``, ``final_norm``, …); a
 Python loop over layers replaces ``lax.scan``. Attention runs the
@@ -47,10 +51,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.moe_experts or cfg.frontend != "none" or cfg.attn_window
-            or cfg.family != "dense"):
-        raise ValueError(f"{cfg.name}: the port serves full-attention dense "
-                         "token transformers only (other families come later)")
+    if (cfg.moe_experts or cfg.attn_window
+            or cfg.family not in ("dense", "vlm", "encoder")):
+        raise ValueError(f"{cfg.name}: the port's transformer serves full-attention "
+                         "dense, VLM and encoder models only (MoE and sliding "
+                         "windows come later)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -82,6 +87,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = cm.dense_init(gen, d, cfg.vocab, dt, dev)
+    if cfg.frontend == "patch_stub":
+        params["patch_proj"] = cm.dense_init(gen, cfg.frontend_dim, d, dt, dev)
+    elif cfg.frontend == "frame_stub":
+        params["frame_proj"] = cm.dense_init(gen, cfg.frontend_dim, d, dt, dev)
     return params
 
 
@@ -187,16 +196,44 @@ def compute_logits(params, cfg: ModelConfig, hidden):
     return cm.logits_head(hidden, params["head"], softcap=cfg.logits_softcap)
 
 
+def _embed_scale(cfg: ModelConfig) -> bool:
+    """Whether token embeddings are scaled by sqrt(d_model) at lookup (the
+    VLM's gemma backbone): one rule for every path, as in JAX, so prefill
+    and decode embed a token alike."""
+    return cfg.family == "vlm"
+
+
+def _frontend_rows(params, cfg: ModelConfig, batch, key: str, leaf: str):
+    """The stub frontend's embeddings: ``batch[key]`` (B, n, frontend_dim)
+    in the model dtype on the weights' device, through ``params[leaf]``."""
+    w = params[leaf]
+    rows = torch.as_tensor(batch[key]).to(device=w.device, dtype=_dtype(cfg))
+    return cm.linear(rows, w)
+
+
 def embed_inputs(params, cfg: ModelConfig, batch):
-    """Token inputs → (x (B, T, d), positions (B, T))."""
-    x = cm.embed_lookup(params["embed"], batch["tokens"])
+    """Model inputs → (x (B, T, d), positions (B, T)): token embeddings;
+    for ``patch_stub`` the projected ``batch["patches"]`` (B, P,
+    frontend_dim) before the scaled token embeddings; for ``frame_stub``
+    the projected ``batch["frames"]`` (B, T, frontend_dim). Positions run
+    over the whole sequence."""
+    scale = _embed_scale(cfg)
+    if cfg.frontend == "patch_stub":
+        pe = _frontend_rows(params, cfg, batch, "patches", "patch_proj")
+        te = cm.embed_lookup(params["embed"], batch["tokens"], scale=scale)
+        x = torch.cat([pe, te], dim=1)
+    elif cfg.frontend == "frame_stub":
+        x = _frontend_rows(params, cfg, batch, "frames", "frame_proj")
+    else:
+        x = cm.embed_lookup(params["embed"], batch["tokens"], scale=scale)
     B, T = x.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
     return x, positions
 
 
 def _mask_for(cfg: ModelConfig) -> cm.AttnMask:
-    return cm.AttnMask(causal=cfg.causal, window=cfg.attn_window)
+    return cm.AttnMask(causal=cfg.causal, window=cfg.attn_window,
+                       prefix_len=cfg.num_prefix_embeds if cfg.family == "vlm" else 0)
 
 
 def _scan_blocks(params, cfg: ModelConfig, x, positions, mask,
@@ -222,10 +259,13 @@ def forward_hidden(params, cfg: ModelConfig, batch):
 
 def prefill(params, cfg: ModelConfig, batch):
     """Whole-prompt forward; returns (DecodeCache on a contiguous KVCache,
-    last-token logits (B, 1, V)).
+    last-token logits (B, 1, V)). A VLM's batch carries ``patches`` beside
+    ``tokens``, an encoder's ``frames`` in their place (see
+    :func:`embed_inputs`).
 
     ``batch["lengths"]`` (B,) marks right-padded prompts: row b's real
-    tokens sit at positions 0..lengths[b]-1, trailing pad slots are
+    positions are 0..lengths[b]-1 of the whole sequence (a VLM's patches
+    count), trailing pad slots are
     excluded from the cache (slot_pos = -1) and from the logits, so a
     prompt bucketed up to any length prefills bit-identically to an
     exact-length prefill (causal attention never looks at trailing pads,
@@ -274,7 +314,7 @@ def _chunk_forward(params, cfg: ModelConfig, kv: PagedKVCache, tokens, start: in
     Lc = tokens.shape[1]
     dev = tokens.device
     positions = (start + torch.arange(Lc, dtype=torch.int32, device=dev))[None]
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = cm.embed_lookup(params["embed"], tokens, scale=_embed_scale(cfg))
     for i in range(cfg.num_layers):
         p = layer_params(params["blocks"], i)
         pk, pv, ks, vs = kv.layer(i)
@@ -423,7 +463,7 @@ def prefill_suffix(params, cfg: ModelConfig, batch):
         pv = dequantize_kv(pv, gather(batch["pool_v_scale"]))
     positions = (start + torch.arange(Ls, dtype=torch.int32, device=dev))[None].expand(B, Ls)
     mask = _mask_for(cfg)
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = cm.embed_lookup(params["embed"], tokens, scale=_embed_scale(cfg))
     ks, vs = [], []
     for i in range(L):
         p = layer_params(params["blocks"], i)
@@ -462,7 +502,7 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
     its own position cache.pos (continuous batching); the contiguous
     cache or the paged pool is written in place and every row's
     pos/length advances by one."""
-    x = cm.embed_lookup(params["embed"], tokens)
+    x = cm.embed_lookup(params["embed"], tokens, scale=_embed_scale(cfg))
     kv = cache.kv
     pos = cache.pos
     for i in range(cfg.num_layers):

@@ -106,15 +106,77 @@ def test_masked_out_query_outputs_zeros():
     assert np.all(np.isfinite(np_of(out)))
 
 
-@pytest.mark.parametrize("kw", [dict(kpos=torch.arange(8)), dict(softcap=30.0),
-                                dict(mask=cm.AttnMask(prefix_len=3))])
+@pytest.mark.parametrize("kw", [dict(kpos=torch.arange(8)), dict(softcap=30.0)])
 def test_unported_attention_options_raise(kw):
-    """Explicit key positions (prefix cache), prefix-LM masks and a logit
-    softcap are later slices' work: they raise on every device alike."""
+    """Explicit key positions (the port's prefix cache gathers exactly the
+    resident positions instead) and a logit softcap are not ported: they
+    raise on every device alike."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 16))
     mask = kw.pop("mask", cm.AttnMask())
     with pytest.raises(ValueError, match="not ported"):
         cm.chunked_attention(q, k, v, mask, **kw)
+
+
+# Prefix-LM (paligemma) and bidirectional (hubert) masks:
+# (B, T, S, NQ, NKV, H, causal, prefix_len, window, q_offset)
+MASK_CASES = [
+    (2, 37, 37, 4, 2, 16, True, 0, 0, 0),     # no prefix
+    (2, 37, 37, 4, 2, 16, True, 3, 0, 0),     # a short prefix
+    (2, 37, 37, 4, 1, 16, True, 8, 0, 0),     # the reduced VLM's 8 patches, MQA
+    (2, 37, 37, 4, 2, 16, True, 37, 0, 0),    # the prefix is the whole sequence
+    (1, 36, 36, 4, 2, 16, True, 37, 0, 0),    # one longer than the sequence
+    (1, 21, 37, 4, 2, 16, True, 8, 0, 16),    # a tail at q_offset 16, prefix before it
+    (1, 21, 37, 4, 2, 16, True, 30, 0, 16),   # the prefix reaches into the tail
+    (2, 40, 40, 4, 2, 16, True, 12, 8, 0),    # prefix-LM with a window
+    (1, 24, 40, 2, 1, 16, True, 20, 6, 16),   # window + q_offset, MQA
+    (2, 24, 24, 4, 4, 16, False, 0, 0, 0),    # bidirectional, MHA
+    (2, 24, 24, 4, 2, 16, False, 0, 0, 0),    # bidirectional, GQA
+    (1, 20, 36, 4, 2, 16, False, 0, 0, 16),   # bidirectional at q_offset 16
+]
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_masks_match_jax_chunked_attention(case):
+    """The plain version against JAX's ``chunked_attention`` (XLA code: its
+    Pallas kernel has no prefix-LM mask) on every mask the VLM and the
+    encoder build, float32 within 1e-5, and ``chunked_attention`` passes
+    ``prefix_len`` through."""
+    B, T, S, NQ, NKV, H, causal, P, window, off = case
+    q, k, v = _qkv(B, T, S, NQ, NKV, H)
+    want = np.asarray(jcm.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jcm.AttnMask(causal=causal, window=window, prefix_len=P), q_offset=off,
+        q_chunk=16, kv_chunk=16))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    got = cm.chunked_attention(qt, kt, vt, cm.AttnMask(causal=causal, window=window,
+                                                       prefix_len=P), q_offset=off)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    direct = ops.flash_attention(qt, kt, vt, causal=causal, window=window, q_offset=off,
+                                 prefix_len=P)
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("prefix_len", [0, 8, 40, 64])
+def test_prefix_lm_rows_do_not_depend_on_the_padded_length(prefix_len):
+    """Under prefix-LM a prompt cut to n >= prefix_len positions attends
+    bitwise as in its longer batch (no kept row sees a key past n), with
+    the cut in another padding tile than the whole (64 vs 128 keys)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 100, 100, 4, 1, 16))
+    full = ops.flash_attention(q, k, v, prefix_len=prefix_len)
+    for n in (40, 64, 65):
+        if n < prefix_len:
+            continue
+        cut = ops.flash_attention(q[:, :n], k[:, :n], v[:, :n], prefix_len=prefix_len)
+        assert torch.equal(full[:, :n], cut), n
+
+
+def test_bidirectional_rows_do_not_depend_on_the_query_count():
+    """Bidirectional rows see every key, so only the queries may be cut: a
+    row's result is bitwise the same among 1, 37, 64 or 100 queries."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 100, 100, 4, 4, 16))
+    full = ops.flash_attention(q, k, v, causal=False)
+    for n in (1, 37, 64, 65):
+        assert torch.equal(full[:, :n], ops.flash_attention(q[:, :n], k, v, causal=False)), n
 
 
 def test_non_cpu_tensors_never_fall_back():

@@ -3,11 +3,12 @@
 
   python3 chip_smoke.py
 
-1. Builds the nine CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together): the seven ports of the
    Pallas kernels, ``dense_matmul`` (the batch-invariant bf16 product,
-   with a float32 store for Griffin's gate projections) and ``rglru``
-   (Griffin's gates and recurrence in one pass).
+   with a float32 store for Griffin's gate projections), ``rglru``
+   (Griffin's gates and recurrence in one pass) and
+   ``flash_attention_bwd`` (flash attention's gradient, for training).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
@@ -214,9 +215,28 @@
    first position; reduced float32 card vs CPU within 1e-3 for both
    (``card_vs_cpu_frontends``).
 
+5. Trains (``train_phase``, after the frontend phase): the flash
+   backward's dQ/dK/dV against the plain version's autograd gradients on
+   the card for every mask and head dim (``BWD_CASES``; within 1e-4 of
+   max |g| in float32 and 2e-2 in bf16, zero on rows that see no key,
+   two calls bitwise), timed at olmo-1b's training shape beside SDPA's
+   backward; the autograd wrappers change no bit of olmo-1b's
+   ``forward_hidden`` (4 layers, full width) nor its launches; reduced
+   float32 olmo-1b trains 3 steps on the card as on the CPU, plain and
+   QAT (``TRAIN_TOL``); ``python -m repro_torch.launch.train --arch
+   olmo-1b --steps 20 --global-batch 8 --seq 512 --qat w4a8`` at full
+   width and depth (1.18 B parameters; finite losses and grad norms, the
+   last loss below the first; s/step, tokens/s and the peak memory
+   printed); a 4-layer full-width QAT run saves at steps 5 and 10 (about
+   4.5 GB each, in a temporary directory removed after), its restored
+   state bitwise the saved one, steps 10-14 after a restart bitwise the
+   uninterrupted run's; and ``serve --ckpt`` of that checkpoint prints
+   the restored step, its greedy tokens those of an in-process engine on
+   the restored params. No serve run launches the backward.
+
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
-(the seven ports of TPU kernels, then ``rglru`` and ``dense_matmul``,
-which replace XLA code, with a ``note`` saying so; each row's headline
+(the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``
+and ``dense_matmul``, which replace XLA code, with a ``note`` saying so; each row's headline
 times the entry the serve paths launch, so ``bitplane_matmul``'s is its
 dequant entry and the JAX-signature int32 entry is a sub-entry;
 paged_attention's entries time the paged, contiguous and ring entries)
@@ -246,7 +266,11 @@ reduced griffin card-vs-CPU check; ``python3 chip_smoke.py frontends``
 builds the kernels and runs the flash, head-dim, one-order and windowed
 checks, the frontend flash checks (printing their times), the norm-row
 check, the frontend phase and its card-vs-CPU check, and run (f) with
-solo ≡ mid-decode admission.
+solo ≡ mid-decode admission; ``python3 chip_smoke.py train`` builds the
+kernels and runs the flash, one-order and frontend flash checks, then
+the train phase (printing the backward's time beside its bound and SDPA's
+backward); ``python3 chip_smoke.py profile-train`` breaks olmo-1b's QAT
+training step down by part and by kernel group (see ``profile_train``).
 """
 from __future__ import annotations
 
@@ -285,10 +309,13 @@ REPLACES = {
     # No Pallas kernel: the JAX package leaves these to XLA.
     "dense_matmul": "src/repro/models/common.py:49",
     "rglru": "src/repro/models/griffin.py:126",
+    "flash_attention_bwd": "src/repro/models/common.py:151",
 }
 NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "rglru": "XLA _rglru_coeffs + associative_scan _rglru_scan (no Pallas "
-                       "kernel)"}
+                       "kernel)",
+              "flash_attention_bwd": "XLA autodiff of chunked_attention (no Pallas "
+                                     "kernel has a VJP)"}
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -299,6 +326,7 @@ SOURCES = {
     "wkv6": "src/repro_torch/kernels/csrc/wkv6.cu",
     "dense_matmul": "src/repro_torch/kernels/csrc/dense_matmul.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 SHARED_PREFIX = 200
 TIERS = "w8a8,w4a8,w2a8"
@@ -4658,6 +4686,515 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# -- training (slice 16): the flash backward, QAT fine-tuning of olmo-1b ------
+
+# check_flash_backward cases: (name, B, Tq, Tk, NQ, NKV, H, mask). Every
+# head dim of the forward, each mask, ragged lengths, a tail at q_offset
+# > 0, and rows that see no key (window past the last key).
+BWD_CASES = (
+    ("olmo causal G=1", 2, 64, 64, 16, 16, 128, dict(causal=True, window=0, q_offset=0)),
+    ("nemotron G=6", 1, 100, 100, 12, 2, 128, dict(causal=True, window=0, q_offset=0)),
+    ("paligemma prefix-LM 256 of 576, MQA 8/1", 1, 576, 576, 8, 1, 256,
+     dict(causal=True, window=0, q_offset=0, prefix_len=256)),
+    ("hubert bidirectional", 1, 500, 500, 16, 16, 80, dict(causal=False, window=0, q_offset=0)),
+    ("window 64, ragged T 300", 2, 300, 300, 4, 2, 64, dict(causal=True, window=64, q_offset=0)),
+    ("ragged T 37", 2, 37, 37, 4, 2, 16, dict(causal=True, window=0, q_offset=0)),
+    ("q_offset 16", 2, 33, 49, 8, 2, 160, dict(causal=True, window=0, q_offset=16)),
+    ("rows that see no key", 2, 40, 20, 4, 4, 192, dict(causal=True, window=8, q_offset=10)),
+)
+BWD_F32_TOL = 1e-4     # relative to max |g| of the plain version's gradient
+BWD_BF16_TOL = 2e-2
+# The training shape of the timed entry: olmo-1b at --global-batch 8 --seq 512.
+TRAIN_B, TRAIN_T = 8, 512
+
+
+def _bwd_close(torch, got, want, tol, what):
+    """(worst |err| over dQ, dK, dV relative to max |g| of the plain
+    version's gradient, worst |err|); raises if a gradient is not finite
+    or its relative error passes `tol`."""
+    torch.cuda.synchronize()
+    worst, worst_abs = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash backward {what}: {name} not finite")
+        scale = max(w.float().abs().max().item(), 1e-30)
+        abs_err = (g.float() - w.float()).abs().max().item()
+        err = abs_err / scale
+        if not err <= tol:
+            raise AssertionError(f"flash backward {what}: {name} max |err| {err:.3g} of "
+                                 f"max |g| beyond {tol}")
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+    return worst, worst_abs
+
+
+def check_flash_backward(torch, dev, timer):
+    """``flash_attention_bwd`` (dQ, dK, dV) against the plain version's
+    autograd gradients (``ref.flash_attention_bwd_ref``) on the card, each
+    case of BWD_CASES in float32 (within 1e-4 of max |g|) and bfloat16
+    (2e-2): sums in another order; in bf16 the plain version's softmax
+    never rounds P, and the kernel's D = rowsum(dO * O) reads O rounded to
+    bf16. Rows that see no key get zero gradients, never NaN. Two calls
+    give the same bits. Timed at olmo-1b's training shape (B 8, 16 heads
+    of 128, T 512, causal, bf16) beside the plain version and SDPA's
+    backward (the library's own forward once, then its backward timed);
+    there the last timed call is held to the plain version's gradients
+    within 2e-2 and a further call to its bits, as every case is."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = 0.0
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        tol = BWD_F32_TOL if dt == torch.float32 else BWD_BF16_TOL
+        for name, B, Tq, Tk, nq, nkv, H, kw in BWD_CASES:
+            q = torch.randn((B, Tq, nq, H), generator=gen, device=dev).to(dt)
+            k = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(dt)
+            v = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(dt)
+            do = torch.randn((B, Tq, nq, H), generator=gen, device=dev).to(dt)
+            out = flash_attention.launch(q, k, v, **kw)
+            got = flash_attention_bwd.launch(q, k, v, out, do, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+            err, abs_err = _bwd_close(torch, got, want, tol, f"{name} {dt}")
+            worst_abs = max(worst_abs, abs_err)
+            worst[dt] = max(worst[dt], err)
+            if name == "rows that see no key":
+                p = kw["q_offset"] + torch.arange(Tq, device=dev)
+                blind = p - kw["window"] + 1 > Tk - 1
+                if not (blind.any() and (got[0][:, blind] == 0).all()):
+                    raise AssertionError("flash backward: a row that sees no key got a "
+                                         "nonzero dQ")
+            again = flash_attention_bwd.launch(q, k, v, out, do, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash backward {name} {dt}: two calls differ")
+            cases += 1
+    log(f"flash_attention_bwd: {cases} cases ({', '.join(c[0] for c in BWD_CASES)}; "
+        f"float32 and bf16) within {BWD_F32_TOL} (f32, worst {worst[torch.float32]:.3g}) "
+        f"and {BWD_BF16_TOL} (bf16, worst {worst[torch.bfloat16]:.3g}) of max |g|; zero "
+        "gradients on rows that see no key; two calls bitwise equal")
+
+    B, T, nq, H = TRAIN_B, TRAIN_T, 16, 128
+    q, k, v, do = (torch.randn((B, T, nq, H), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, window=0, q_offset=0)
+    out = flash_attention.launch(q, k, v, **kw)
+    last = {}
+
+    def kernel():
+        last["got"] = flash_attention_bwd.launch(q, k, v, out, do, **kw)
+
+    def plain():
+        last["want"] = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
+
+    ms = timer(kernel)
+    plain_ms = timer(plain, iters=5)
+    # The timed shape is the one training runs: its last timed call held
+    # to the plain version's gradients, and a further call to its bits.
+    train_err, abs_err = _bwd_close(torch, last["got"], last["want"], BWD_BF16_TOL,
+                                    "training shape bf16")
+    worst_abs = max(worst_abs, abs_err)
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], train_err)
+    again = flash_attention_bwd.launch(q, k, v, out, do, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(last["got"], again)):
+        raise AssertionError("flash backward at the training shape: two calls differ")
+    log(f"flash_attention_bwd at the training shape (B {B}, {nq} heads of {H}, T {T}, "
+        f"causal, bf16): within {BWD_BF16_TOL} of max |g| (worst {train_err:.3g}); two "
+        "calls bitwise equal")
+    del last, again
+    F = torch.nn.functional
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dos = do.transpose(1, 2).contiguous()
+    lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True))
+    pairs = B * nq * (T * (T + 1) // 2)
+    nbytes = 8 * q.numel() * 2          # q, k, v, O, dO read; dQ, dK, dV written
+    b_ms, b_by = bound_ms(nbytes, 5 * 2 * pairs * H, BF16_FLOPS_PER_S)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "cases": cases, "max_abs_err": worst_abs,
+            "max_rel_err": {"float32": worst[torch.float32],
+                            "bfloat16": worst[torch.bfloat16]},
+            "train_shape_rel_err": train_err,
+            "shape": f"B*NQ={B * nq} T={T} H={H} bf16 causal (dQ, dK, dV)"}
+
+
+def check_grad_wrappers(torch, dev):
+    """The autograd wrappers change no bit: olmo-1b at DEPTH's 4 layers
+    (full width, bf16, seed 0) through ``forward_hidden`` on 2 x 256
+    tokens, once with the params requiring grad (the flash and
+    ``dense_matmul`` Functions, remat's checkpoints) and once under
+    no_grad (the kernels called directly, as serving calls them): the
+    hidden states bitwise equal, the forward launches equal, and no
+    backward launch without a backward. Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch import tree as tr
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, transformer
+
+    cfg = serve_config("olmo-1b")
+    params = build_model(cfg).init(seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 256)))
+    batch = {"tokens": toks.to(dev)}
+    counts = {}
+    hidden = {}
+    for mode in ("no_grad", "grad"):
+        ops.reset_launch_counts()
+        if mode == "grad":
+            live = tr.map_tree(lambda p: p.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                hidden[mode] = transformer.forward_hidden(live, cfg, batch).detach()
+        else:
+            with torch.no_grad():
+                hidden[mode] = transformer.forward_hidden(params, cfg, batch)
+        torch.cuda.synchronize()
+        counts[mode] = ops.launch_counts()
+    if not torch.equal(hidden["grad"], hidden["no_grad"]):
+        raise AssertionError("forward_hidden with params requiring grad differs from "
+                             "no_grad")
+    if counts["grad"] != counts["no_grad"] or counts["grad"]["flash_attention_bwd"]:
+        raise AssertionError(f"the wrappers changed the forward's launches: {counts}")
+    log(f"autograd wrappers: olmo-1b ({cfg.num_layers} layers) forward_hidden bitwise "
+        f"with and without grad; launches {counts['grad']['flash_attention']} flash, "
+        f"{counts['grad']['dense_matmul']} dense_matmul, 0 backward, both ways")
+    return counts["grad"]
+
+
+# check_dense_backward: olmo-1b's FFN products at the training shape
+# (8 x 512 tokens), each way. Tolerance relative to max |g| of the float64
+# reference: the gradients are bf16 products summed in float32 and
+# rounded once to bf16 (2^-9 of an element), cuBLAS's split-K may sum
+# partials in bf16.
+DENSE_BWD_KN = ((2048, 8192), (8192, 2048))
+DENSE_BWD_TOL = 2e-2
+
+
+def check_dense_backward(torch, dev):
+    """``ops.dense_matmul`` under autograd (``DenseMatmul``: the kernel
+    forward, ``torch.matmul`` gradients) at M = TRAIN_B x TRAIN_T tokens
+    and each (K, N) of DENSE_BWD_KN, bf16, with the bf16 store and the
+    float32 store (its float32 gradient branch): y, dX and dW within
+    DENSE_BWD_TOL of max |ref| of autograd through ``x.double() @
+    w.double()`` on the same x, w and incoming gradient; dX and dW in the
+    inputs' dtype; one kernel launch each. Returns the worst relative
+    error by store."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    M = TRAIN_B * TRAIN_T
+    worst = {}
+    for K, N in DENSE_BWD_KN:
+        xb = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        wb = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        g = torch.randn((M, N), generator=gen, device=dev)
+        xd, wd = (t.detach().double().requires_grad_(True) for t in (xb, wb))
+        yd = xd @ wd
+        want = (yd.detach(), *torch.autograd.grad(yd, (xd, wd), g.double()))
+        for store in (torch.bfloat16, torch.float32):
+            x, w = (t.detach().requires_grad_(True) for t in (xb, wb))
+            ops.reset_launch_counts()
+            y = ops.dense_matmul(x, w, out_dtype=store)
+            got = (y.detach(), *torch.autograd.grad(y, (x, w), g.to(store)))
+            n = ops.launch_counts()["dense_matmul"]
+            what = f"dense_matmul backward M={M} {K}->{N} store {store}"
+            # y is the Function's output reshaped: its grad_fn is a view of it.
+            fns = [y.grad_fn, *(f for f, _ in y.grad_fn.next_functions if f is not None)]
+            if n != 1 or not any("DenseMatmul" in type(f).__name__ for f in fns):
+                raise AssertionError(f"{what}: {n} launches, grad_fns {fns}")
+            if (y.dtype, got[1].dtype, got[2].dtype) != (store, x.dtype, w.dtype):
+                raise AssertionError(f"{what}: dtypes {y.dtype}, {got[1].dtype}, "
+                                     f"{got[2].dtype}")
+            for name, a, b in zip(("y", "dx", "dw"), got, want):
+                err = (a.double() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                if not err <= DENSE_BWD_TOL:
+                    raise AssertionError(f"{what}: {name} max |err| {err:.3g} of max |ref| "
+                                         f"beyond {DENSE_BWD_TOL}")
+                worst[str(store)] = max(worst.get(str(store), 0.0), err)
+    log(f"dense_matmul under autograd: y, dX, dW at M={M}, {DENSE_BWD_KN}, bf16 and "
+        f"float32 stores, within {DENSE_BWD_TOL} of max |ref| of float64 autograd "
+        f"(worst {worst})")
+    return worst
+
+
+def _train_cfg(arch, reduced=False, qat=None, **over):
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.core.precision import parse_quant_token
+
+    cfg = (get_reduced_config if reduced else get_config)(arch)
+    cfg = dataclasses.replace(cfg, **over)
+    return cfg.with_quant(parse_quant_token(qat)) if qat else cfg
+
+
+# card_vs_cpu_train tolerances (relative, per step; params absolute, over
+# leaves): plain float32 differs by summation order only. Under QAT an
+# activation a sum moves across a rounding boundary is one code apart
+# (PERF.md §6; JAX's own scanned and unscanned steps part so), and AdamW
+# moves each parameter by about lr (at most 1e-2 here) whatever its
+# gradient's size, so the QAT params are held by their mean |difference|,
+# a quarter of lr.
+TRAIN_TOL = {"plain": {"loss": 1e-5, "grad_norm": 1e-4, "params_max": 1e-3},
+             "w4a8": {"loss": 2e-3, "grad_norm": 5e-2, "params_mean": 2.5e-3}}
+
+
+def card_vs_cpu_train(torch):
+    """Reduced olmo-1b in float32, 3 steps of ``make_train_step`` (batch
+    4 x 64 from the data pipeline, lr 1e-2, warmup 2) on the card and on
+    the CPU from the same weights, plain and under ``--qat w4a8``: losses,
+    grad norms and params within TRAIN_TOL. Returns mode → errors."""
+    from repro_torch import tree as tr
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    out = {}
+    for mode, qat in (("plain", None), ("w4a8", "w4a8")):
+        cfg = _train_cfg("olmo-1b", reduced=True, qat=qat, dtype="float32")
+        model = build_model(cfg)
+        tc = TrainConfig(lr=1e-2, warmup_steps=2, total_steps=30)
+        data = DataIterator(cfg, global_batch=4, seq_len=64, seed=0, branch=4)
+        base = model.init(seed=0, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            # The optimizer updates in place: each device starts from a copy.
+            state = init_train_state(tr.map_tree(lambda t: t.to(dev, copy=True), base), tc)
+            step = make_train_step(model, tc)
+            mets = []
+            for i in range(3):
+                state, m = step(state, data.batch_at(i))
+                mets.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[dev] = (mets, [p.detach().cpu() for p in tr.leaves(state.params)])
+        tol = TRAIN_TOL[mode]
+        (mc, pc), (mg, pg) = runs["cpu"], runs["cuda"]
+        err = {"loss": max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(mc, mg)),
+               "grad_norm": max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(mc, mg)),
+               "params_max": max((a - b).abs().max().item() for a, b in zip(pc, pg)),
+               "params_mean": max((a - b).abs().mean().item() for a, b in zip(pc, pg))}
+        out[mode] = err
+        bad = [k for k, t in tol.items() if not err[k] <= t]
+        if bad:
+            raise AssertionError(f"reduced fp32 olmo-1b training ({mode}): card vs CPU "
+                                 f"{err} beyond {tol}")
+    log(f"reduced fp32 olmo-1b, 3 train steps: card vs CPU {out} (within {TRAIN_TOL})")
+    return out
+
+
+TRAIN_ARGV = ["--arch", "olmo-1b", "--steps", "20", "--global-batch", str(TRAIN_B),
+              "--seq", str(TRAIN_T), "--qat", "w4a8"]
+
+
+def train_full(torch, smi):
+    """``python -m repro_torch.launch.train`` with TRAIN_ARGV (olmo-1b at
+    full width and depth, 16 layers, 1.18 B parameters, bf16, QAT w4a8,
+    20 steps of 8 x 512 tokens), in-process: every logged loss and grad
+    norm finite, the last loss below the first. Prints s/step, tokens/s
+    and the peak device memory beside the card. Its launch counts are the
+    training path's (reset just before, read just after). Returns
+    (report, counts)."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.run(train.build_parser().parse_args(TRAIN_ARGV))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"olmo-1b training: a loss or grad norm is not finite: "
+                             f"{losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"olmo-1b training: the loss did not fall: {losses}")
+    missing = [k for k in ("flash_attention", "flash_attention_bwd", "dense_matmul")
+               if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"olmo-1b training launched no {missing}: {counts}")
+    steps = sorted(h["dt"] for h in hist[1:])
+    s_step = steps[len(steps) // 2]
+    rep = {"argv": TRAIN_ARGV, "losses": losses, "grad_norms": norms,
+           "s_per_step_median": s_step, "first_step_s": hist[0]["dt"],
+           "tokens_per_s": out["tokens_per_step"] / s_step, "peak_gb": out["peak_gb"],
+           "wall_s": wall, "nvidia_smi": smi}
+    log(f"olmo-1b QAT w4a8 training at full width and depth: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over 20 steps, {s_step:.4f} s/step (median of steps 1-19; "
+        f"step 0 {hist[0]['dt']:.2f} s), {rep['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['peak_gb']:.2f} GB, {wall:.1f} s in all [{smi}]")
+    return rep, counts
+
+
+def _leaves_equal(torch, a, b):
+    from repro_torch import tree as tr
+
+    pa, pb = tr.flatten_with_path(a), tr.flatten_with_path(b)
+    bad = [tr.path_str(p) for (p, x), (_, y) in zip(pa, pb)
+           if x.dtype != y.dtype or not torch.equal(x, y.to(x.device))]
+    same_paths = [tr.path_str(p) for p, _ in pa] == [tr.path_str(p) for p, _ in pb]
+    return same_paths, bad
+
+
+def check_resume(torch, dev, workdir):
+    """Checkpoint and resume at DEPTH's 4 layers of olmo-1b, full width,
+    QAT w4a8, batch 8 x 512 (about 4.5 GB a checkpoint): one run of 15
+    steps saves at steps 5 and 10 (async, keep 1, as ``run_training``
+    saves); the state restored right after the step-10 save is bitwise
+    the state saved, every leaf; then a restart (``run_training`` with the
+    manager: the template drawn on ``meta``, a fresh data iterator set
+    from the checkpoint) runs steps 10-14 and gives bitwise the
+    uninterrupted run's losses, grad norms and params. Leaves the step-10
+    checkpoint in `workdir` for ``serve --ckpt``. Returns (the report, the
+    params restored from step 10)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state, make_train_step, run_training
+
+    cfg = _train_cfg("olmo-1b", qat="w4a8", num_layers=DEPTH["olmo-1b"])
+    model = build_model(cfg)
+    tc = TrainConfig(lr=3e-3, warmup_steps=4, total_steps=15, log_every=1,
+                     checkpoint_every=5)
+
+    def data():
+        return DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=0, branch=8)
+
+    mgr = CheckpointManager(workdir, keep=1, async_save=True)
+    t0 = time.perf_counter()
+    it = data()
+    state = init_train_state(model.init(0, dev), tc)
+    step_fn = make_train_step(model, tc)
+    hist, t_restore, size = [], 0.0, 0
+    for i in range(tc.total_steps):
+        state, m = step_fn(state, next(it))
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+        if (i + 1) in (5, 10):
+            mgr.save(i + 1, state, it.get_state())
+        if i + 1 == 10:
+            mgr.wait()
+            t1 = time.perf_counter()
+            restored, data_state, step = mgr.restore(
+                lambda: init_train_state(model.init(0, "meta"), tc), device=dev)
+            t_restore = time.perf_counter() - t1
+            same_tree, bad = _leaves_equal(torch, state, restored)
+            if step != 10 or data_state["step"] != 10 or not same_tree or bad:
+                raise AssertionError(f"restore: step {step}, data {data_state}, tree "
+                                     f"equal {same_tree}, leaves differing {bad[:5]}")
+            params10 = restored.params
+            del restored
+            size = sum(f.stat().st_size for f in (mgr.dir / "10").iterdir())
+    t_train = time.perf_counter() - t0
+    # The restart: a new run from the step-10 checkpoint (no further saves).
+    tc_restart = dataclasses.replace(tc, checkpoint_every=100)
+    resumed, hist_b = run_training(model, tc_restart, data(), checkpoint_mgr=mgr, device=dev)
+    again = [(h["loss"], h["grad_norm"]) for h in hist_b]
+    same_tree, bad = _leaves_equal(torch, state, resumed)
+    if again != hist[10:] or not same_tree or bad:
+        raise AssertionError(f"resume: steps 10-14 uninterrupted {hist[10:]} vs restarted "
+                             f"{again}; params differing {bad[:5]}")
+    log(f"checkpoint / resume (olmo-1b, {cfg.num_layers} layers, QAT w4a8): restored "
+        f"state bitwise the saved one ({size / 1e9:.2f} GB on disk; 15 steps with 2 "
+        f"async saves and a restore {t_train:.1f} s, the restore {t_restore:.1f} s); "
+        f"steps 10-14 after a restart bitwise the uninterrupted run (losses "
+        f"{[round(h[0], 4) for h in hist[10:]]})")
+    del state, resumed
+    return {"losses": [h[0] for h in hist], "grad_norms": [h[1] for h in hist],
+            "ckpt_gb": size / 1e9, "train_s": t_train, "restore_s": t_restore}, params10
+
+
+def serve_ckpt(torch, dev, workdir, params10):
+    """The serve CLI on the checkpoint: ``serve --ckpt <workdir> --layers
+    4 --continuous --policy "w4a8;wo=w8a8"`` (4 requests of the stream,
+    8 new tokens) prints ``restored checkpoint step 10``; the params it
+    restores (read as ``serve.restore_params`` returns them, before the
+    engine packs them) are bitwise, leaf for leaf, the params
+    ``check_resume`` restored from that checkpoint and held bitwise to
+    the trained state; and its greedy tokens equal an in-process
+    engine's on those params (the same policy, pool and flags)."""
+    import io
+
+    from repro_torch.core.precision import parse_policy_spec
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    argv = ["--arch", "olmo-1b", "--layers", str(DEPTH["olmo-1b"]), "--continuous",
+            "--policy", POLICY, "--requests", "4", "--max-new", "8", "--ckpt", workdir]
+    args = serve.build_parser().parse_args(argv)
+    restore, loaded = serve.restore_params, {}
+
+    def held(cfg, ckpt, device):
+        params = restore(cfg, ckpt, device)
+        loaded["layers"] = cfg.num_layers
+        loaded["same_tree"], loaded["differing"] = _leaves_equal(torch, params10, params)
+        return params
+
+    buf = io.StringIO()
+    serve.restore_params = held
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, done, _ = serve.run(args)
+    finally:
+        serve.restore_params = restore
+    text = buf.getvalue()
+    if "restored checkpoint step 10" not in text:
+        raise AssertionError(f"serve --ckpt did not restore step 10:\n{text}")
+    if (loaded.get("layers") != DEPTH["olmo-1b"] or not loaded["same_tree"]
+            or loaded["differing"]):
+        raise AssertionError(f"serve --ckpt restored params that are not the checkpoint's: "
+                             f"{loaded}")
+    cfg = serve_config("olmo-1b")
+    engine = ServingEngine(cfg, params10, max_batch=args.max_batch,
+                           quant=parse_policy_spec(POLICY), bucket=32,
+                           block_size=args.block_size, prefill_budget=args.prefill_budget,
+                           device=dev)
+    mine = {r.rid: r.out_tokens for r in engine.generate(serve.synthetic_requests(cfg, args))}
+    cli = {r.rid: r.out_tokens for r in done}
+    if mine != cli:
+        raise AssertionError(f"serve --ckpt tokens {cli} differ from the in-process "
+                             f"engine's {mine}")
+    log(f"serve --ckpt: restored step 10, its {DEPTH['olmo-1b']} layers' params bitwise "
+        f"the checkpoint's, leaf for leaf; {len(cli)} requests' greedy tokens equal the "
+        f"in-process engine's on them ({POLICY})")
+    return {"tokens": cli}
+
+
+def train_phase(torch, dev, timer):
+    """The training gates: the flash backward (``check_flash_backward``),
+    the wrappers' bits (``check_grad_wrappers``), ``dense_matmul``'s
+    gradients (``check_dense_backward``), card vs CPU
+    (``card_vs_cpu_train``), olmo-1b at full width and depth
+    (``train_full``), checkpoint and resume (``check_resume``) and serve
+    --ckpt (``serve_ckpt``), the checkpoint in a temporary directory
+    removed after. Returns (report, flash backward row, launch counts of
+    the full-width training run)."""
+    import tempfile
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    bwd = check_flash_backward(torch, dev, timer)
+    log(f"  flash_attention_bwd: {bwd['shape']}: {bwd['ms']:.4g} ms (bound "
+        f"{bwd['bound_ms']:.3g} ms by {bwd['bound_by']}, plain {bwd['plain_ms']:.4g} ms, "
+        f"SDPA backward {bwd['library_ms']:.4g} ms) [{smi}]")
+    rep = {"wrappers": check_grad_wrappers(torch, dev),
+           "dense_backward": check_dense_backward(torch, dev),
+           "card_vs_cpu": card_vs_cpu_train(torch)}
+    t_checks = time.perf_counter() - t0
+    rep["full"], counts = train_full(torch, smi)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+        rep["resume"], params10 = check_resume(torch, dev, workdir)
+        rep["serve_ckpt"] = serve_ckpt(torch, dev, workdir, params10)
+        del params10
+    rep["seconds"] = {"checks": t_checks, "full": rep["full"]["wall_s"],
+                      "resume_and_serve": time.perf_counter() - t0}
+    log(f"train phase: kernel and card-vs-CPU checks {t_checks:.1f} s, full-width "
+        f"training {rep['full']['wall_s']:.1f} s, resume and serve --ckpt "
+        f"{rep['seconds']['resume_and_serve']:.1f} s")
+    return rep, bwd, counts
+
+
 def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6-static")):
     """`chip_smoke.py profile [run ...]`: one warm serve pass of the
     stream above under torch.profiler, for each named run of SERVE_RUNS
@@ -4698,6 +5235,90 @@ def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6
             log(f"  {r['device_ms']:9.1f} ms  {r['calls']:6d}  {r['name'][:90]}")
         del engine
     write_detail("profile.json", out)
+
+
+# profile_train's kernel groups: substrings of the kernel names.
+TRAIN_KERNEL_GROUPS = (
+    ("flash backward", ("lse_rows_kernel", "dkdv_kernel", "dq_kernel")),
+    ("flash forward", ("flash_mma_kernel", "flash_f32_kernel")),
+    ("dense_matmul", ("dense_kernel",)),
+    ("torch.matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
+)
+
+
+def profile_train(torch, dev):
+    """`chip_smoke.py profile-train`: olmo-1b's QAT training step at full
+    width and depth (TRAIN_ARGV's shape, seed 0), one warmup step, then
+    one step timed in parts on the host clock (the loss, its gradients,
+    clipping, AdamW, each synchronized) and two steps under
+    torch.profiler: device time by kernel group (TRAIN_KERNEL_GROUPS, the
+    rest being PyTorch's elementwise, reduction and copy kernels) and by
+    kernel, and the device-busy share. Writes train_profile.json under
+    $CHIP_SMOKE_OUT. Not part of the default run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tr
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import init_train_state, make_train_step
+
+    cfg = _train_cfg("olmo-1b", qat="w4a8")
+    model = build_model(cfg)
+    tc = TrainConfig(lr=3e-3, warmup_steps=4, total_steps=20)
+    data = DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=0, branch=8)
+    state = init_train_state(model.init(0, dev), tc)
+    step = make_train_step(model, tc)
+    state, _ = step(state, data.batch_at(0))
+    torch.cuda.synchronize()
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    live = tr.map_tree(lambda p: p.detach().requires_grad_(True), state.params)
+    loss, _ = timed("forward_ms", lambda: model.train_loss(live, data.batch_at(1)))
+    grads = timed("backward_ms", lambda: torch.autograd.grad(loss, tr.leaves(live)))
+    grads = tr.unflatten_like(state.params, list(grads))
+    clipped, _ = timed("clip_ms", lambda: adamw.clip_by_global_norm(grads, tc.grad_clip))
+    timed("adamw_ms", lambda: adamw.apply_updates(state.params, clipped, state.opt, tc))
+    del live, loss, grads, clipped
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in (2, 3):
+            state, _ = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    groups = {g: 0.0 for g, _ in TRAIN_KERNEL_GROUPS}
+    groups["other (elementwise, reductions, copies)"] = 0.0
+    for name, us, _ in rows:
+        g = next((g for g, keys in TRAIN_KERNEL_GROUPS
+                  if any(k in name.lower() for k in map(str.lower, keys))),
+                 "other (elementwise, reductions, copies)")
+        groups[g] += us / 2e3                     # ms a step
+    busy = sum(r[1] for r in rows) / 2e3
+    out = {"parts": parts, "wall_ms_per_step": wall * 500, "device_busy_ms_per_step": busy,
+           "busy_share": busy / (wall * 500), "groups_ms_per_step": groups,
+           "kernels": [{"name": k, "device_ms_per_step": us / 2e3, "calls": n}
+                       for k, us, n in rows[:30]], "nvidia_smi": nvidia_smi()}
+    log(f"olmo-1b QAT step in parts: {({k: round(v, 1) for k, v in parts.items()})}; "
+        f"profiled: {wall * 500:.1f} ms a step, device busy {busy:.1f} ms "
+        f"({out['busy_share']:.0%}) [{out['nvidia_smi']}]")
+    for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
+        log(f"  {ms:8.1f} ms  {g}")
+    for r in out["kernels"][:15]:
+        log(f"  {r['device_ms_per_step']:8.2f} ms {r['calls']:6d}  {r['name'][:90]}")
+    write_detail("train_profile.json", out)
+    return out
 
 
 # Library → the tensor-core instruction its SASS must hold.
@@ -4872,6 +5493,22 @@ def main() -> int:
             "flash": entries, "norm_rows": norm, "frontends": out, "launches": counts,
             "card_vs_cpu": errs, "nvidia_smi": nvidia_smi()})
         return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["profile-train"]:
+        build.build()
+        profile_train(torch, dev)
+        return 3                 # a partial run: no result line
+    if sys.argv[1:] == ["train"]:
+        build.build()
+        timer = Timer(torch, dev)
+        # The flash source now takes its rows' ranges from flash_rows.cuh.
+        check_flash(torch, dev, timer)
+        check_one_order(torch, dev)
+        check_frontend_flash(torch, dev, timer)
+        rep, bwd, counts = train_phase(torch, dev, timer)
+        write_detail("chip_smoke_train.json", {"train": rep, "flash_attention_bwd": bwd,
+                                               "launches": counts,
+                                               "nvidia_smi": nvidia_smi()})
+        return 3                 # a partial run: no result line
     if sys.argv[1:] == ["spec"]:
         build.build()
         timer = Timer(torch, dev)
@@ -4948,6 +5585,9 @@ def main() -> int:
     frontends_out, front_counts = serve_frontends(torch, dev)
     for k, n in front_counts.items():
         counts[k] = counts.get(k, 0) + n
+    train_rep, results["flash_attention_bwd"], train_counts = train_phase(torch, dev, timer)
+    for k, n in train_counts.items():
+        counts[k] = counts.get(k, 0) + n
     t0 = time.perf_counter()
     runs = {}
     for name in SERVE_RUNS:
@@ -4955,6 +5595,8 @@ def main() -> int:
         for k, n in runs[name][2].items():
             counts[k] = counts.get(k, 0) + n
     log(f"serve phase, runs {len(SERVE_RUNS)}: {time.perf_counter() - t0:.1f}s")
+    if counts["flash_attention_bwd"] != train_counts["flash_attention_bwd"]:
+        raise AssertionError("a serve run launched the flash backward")
     for k in results:
         results[k]["launches"] = counts[k]
     dense["launches"] = counts["dense_matmul"]
@@ -5016,7 +5658,7 @@ def main() -> int:
         "card_vs_cpu_rwkv6_max_err": err_rwkv, "griffin": griffin_out,
         "card_vs_cpu_griffin_max_err": err_griffin, "norm_rows": norm_rows,
         "frontends": frontends_out, "card_vs_cpu_frontends_max_err": err_front,
-        "nvidia_smi": smi})
+        "train": train_rep, "nvidia_smi": smi})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": r["launches"],

@@ -1,7 +1,9 @@
-"""`ModelConfig`: the single source of truth a model is built from.
+"""`ModelConfig`: the single source of truth a model is built from, and
+`TrainConfig`: the optimizer, schedule and loop settings of a run.
 
-A copy of ``repro.configs.base.ModelConfig`` (that module imports JAX
-through ``repro.core.quant``), with the same fields and defaults.
+Copies of ``repro.configs.base.ModelConfig`` and ``TrainConfig`` (that
+module imports JAX through ``repro.core.quant``), with the same fields
+and defaults.
 """
 from __future__ import annotations
 
@@ -74,3 +76,37 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.rnn_width == 0:
             object.__setattr__(self, "rnn_width", self.d_model)
+
+    def with_quant(self, quant: QuantConfig) -> "ModelConfig":
+        return dataclasses.replace(self, quant=quant)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head) of the
+        families the port trains: JAX's formula for a dense FFN under full
+        attention (its MoE, SSM and hybrid branches come with the slices
+        that train those families)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab, self.num_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        nq, nkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+        ffn = 3 * d * f if self.ffn in ("swiglu", "geglu") else 2 * d * f
+        return emb + L * (attn + ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    lr_min_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1        # gradient-accumulation splits
+    grad_compress_bits: int = 0  # 0 = off; 8 → int8 block-quantized gradients
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    log_every: int = 10

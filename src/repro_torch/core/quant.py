@@ -2,9 +2,9 @@
 
 Port of ``repro.core.quant``: the same configs and the same elementwise
 arithmetic in float32, so weight codes and scales are bitwise those of
-the JAX package (held by ``tests/test_torch_core.py``). Only the forward
-half of ``fake_quant`` is ported — serving needs no straight-through
-gradient.
+the JAX package (held by ``tests/test_torch_core.py``). ``fake_quant``
+carries JAX's straight-through gradient (its ``custom_vjp``) as a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -174,9 +174,33 @@ def quantize_tensor(x: torch.Tensor, bits: int, signed: bool = True,
     return quantize(x, scale, bits, signed), scale
 
 
+class _FakeQuant(torch.autograd.Function):
+    """JAX's ``_fake_quant_fwd`` / ``_fake_quant_bwd``: the forward saves
+    the clip mask ``|x| <= scale·qmax`` (in x's dtype), the backward is
+    ``g * mask``."""
+
+    @staticmethod
+    def forward(ctx, x, bits, signed, axis):
+        q, scale = quantize_tensor(x, bits, signed, axis=axis, optimal_clip=False)
+        thr = scale * qmax(bits, signed)
+        ctx.save_for_backward((x.abs() <= thr).to(x.dtype))
+        return dequantize(q, scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return g * mask, None, None, None
+
+
 def fake_quant(x: torch.Tensor, bits: int, signed: bool = True,
                axis: Optional[int] = None) -> torch.Tensor:
-    """Quantize-dequantize with absmax statistics (forward only)."""
+    """Quantize-dequantize with a straight-through estimator.
+
+    Forward: absmax symmetric quant-dequant (statistics computed on the
+    fly). Backward: identity inside the clip range, zero outside. Without
+    a gradient to carry, the forward runs alone."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FakeQuant.apply(x, bits, signed, axis)
     q, scale = quantize_tensor(x, bits, signed, axis=axis, optimal_clip=False)
     return dequantize(q, scale).to(x.dtype)
 

@@ -21,7 +21,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core import bitplane
-from repro_torch.core.quant import QuantConfig, quantize_tensor, quantize_weights_mixed
+from repro_torch.core.quant import (QuantConfig, fake_quant, quantize_tensor,
+                                    quantize_weights_mixed)
 
 
 @dataclasses.dataclass
@@ -117,11 +118,25 @@ def dequantize_weight(pw: PackedWeight, dtype=torch.float32) -> torch.Tensor:
 
 
 def qmatmul(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
-            cfg: Optional[QuantConfig] = None) -> torch.Tensor:
-    """x (..., K) times a (K, N) float weight or a PackedWeight."""
+            cfg: Optional[QuantConfig] = None, mode: str = "none") -> torch.Tensor:
+    """x (..., K) times a (K, N) float weight or a PackedWeight.
+
+    ``mode="fake"`` is quantization-aware training: x fake-quantized per
+    tensor at ``cfg.a_bits``, w per output channel (or per tensor) at
+    ``cfg.w_bits``, both with the straight-through gradient, then their
+    product through ``ops.dense_matmul`` (``xq @ wq`` in JAX)."""
     if isinstance(w, PackedWeight):
         return _serve_matmul(x, w, cfg)
-    return x @ w.to(x.dtype)
+    if mode == "none" or cfg is None:
+        return x @ w.to(x.dtype)
+    if mode == "fake":
+        from repro_torch.kernels import ops
+
+        xq = fake_quant(x, cfg.a_bits, cfg.act_signed)
+        wq = fake_quant(w, cfg.w_bits, True,
+                        axis=w.ndim - 1 if cfg.per_channel else None)
+        return ops.dense_matmul(xq, wq)
+    raise ValueError(f"unknown qmatmul mode {mode!r}")
 
 
 def _serve_matmul(x: torch.Tensor, pw: PackedWeight,

@@ -34,6 +34,7 @@
 #include <type_traits>
 
 #include "attend_tile.cuh"
+#include "flash_rows.cuh"
 
 namespace {
 
@@ -51,7 +52,8 @@ struct FlashSrc {
 
 // Query rows t0 + r (r < nrows) of (batch b, head h): key j is visible to
 // query position p = q_offset + t0 + r iff j < Tk, j <= max(p,
-// prefix_len - 1) (causal) and j > p - window (window > 0). A prefix row
+// prefix_len - 1) (causal) and j > p - window (window > 0), the range of
+// flash_rows.cuh, which the backward walks too. A prefix row
 // (p < prefix_len - 1) sees keys past its own position, up to the
 // prefix's last: in a block of rows that straddles the prefix, the tile
 // range reaches past the diagonal and each row masks its own keys.
@@ -59,10 +61,8 @@ struct FlashRows {
   long base;   // (b * Tq + t0) * NQ + h
   int nrows, NQ, H, qpos0, Tk, causal, window, prefix_len;
   __device__ bool exists(int r) const { return r < nrows; }
-  __device__ int lo(int r) const { return window ? max(0, qpos0 + r - window + 1) : 0; }
-  __device__ int hi(int r) const {
-    return causal ? min(max(qpos0 + r, prefix_len - 1), Tk - 1) : Tk - 1;
-  }
+  __device__ int lo(int r) const { return flash::row_lo(qpos0 + r, window); }
+  __device__ int hi(int r) const { return flash::row_hi(qpos0 + r, Tk, causal, prefix_len); }
   __device__ long q_off(int r) const { return (base + (long)r * NQ) * H; }
 };
 

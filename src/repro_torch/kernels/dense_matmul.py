@@ -142,3 +142,25 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, plan=None, backend=None,
     build.check(rc, entry)
     launches += 1
     return y
+
+
+class DenseMatmul(torch.autograd.Function):
+    """:func:`launch` with its gradient. The backward's products, dX = dY
+    W^T and dW = X^T dY, are plain large products that the JAX package
+    leaves to XLA: ``torch.matmul`` in x's dtype, or in float32 for the
+    float32 store (then cast to x's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, out_dtype, backend):
+        ctx.save_for_backward(x, w)
+        return launch(x, w, backend=backend, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if g.dtype == x.dtype:
+            dx, dw = g @ w.T, x.T @ g
+        else:
+            dx = (g @ w.to(g.dtype).T).to(x.dtype)
+            dw = (x.to(g.dtype).T @ g).to(w.dtype)
+        return dx, dw, None, None

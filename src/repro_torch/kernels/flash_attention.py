@@ -7,7 +7,8 @@ window masks and a query-position offset (``csrc/flash_attention.cu``).
 JAX computes the prefix-LM mask outside its Pallas kernel (XLA code in
 ``repro.models.common.chunked_attention``); the port runs every
 whole-prompt mask through this one kernel, so prefill and decode rows
-sum in one order.
+sum in one order. Under autograd :class:`FlashAttention` runs this
+kernel forward and the ``flash_attention_bwd`` kernel backward.
 """
 from __future__ import annotations
 
@@ -66,3 +67,26 @@ def launch(q, k, v, *, causal: bool, window: int, q_offset: int,
     build.check(rc, "flash_attention")
     launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`launch` with its gradient: the backward is the
+    ``flash_attention_bwd`` kernel over the saved q, k, v and output (the
+    log-sum-exp is recomputed there, so the forward runs unchanged)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, prefix_len):
+        out = launch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                     prefix_len=prefix_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset,
+                        prefix_len=prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import flash_attention_bwd
+
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd.launch(q, k, v, out, dout, **ctx.mask)
+        return dq, dk, dv, None, None, None, None

@@ -22,7 +22,8 @@ order. Two kernels have no Pallas counterpart: ``dense_matmul``, the
 batch-invariant bf16 product of rwkv6's, griffin's and unpacked models'
 dense layers on the card (with a float32 store for griffin's gate
 projections), and ``rglru``, griffin's gates and recurrence in one
-sequential pass.
+sequential pass. Training adds ``flash_attention_bwd``, the gradient of
+flash attention (JAX differentiates XLA code there).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 from repro_torch.kernels import bitplane_matmul as _bpm
 from repro_torch.kernels import dense_matmul as _dense
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import fused_matmul as _fused
 from repro_torch.kernels import pack_quant as _pq
 from repro_torch.kernels import paged_attention as _paged
@@ -52,6 +54,7 @@ _MODULES = {
     "wkv6": _wkv6,
     "dense_matmul": _dense,
     "rglru": _rglru,
+    "flash_attention_bwd": _flash_bwd,
 }
 
 
@@ -65,6 +68,13 @@ def reset_launch_counts() -> None:
         mod.launches = 0
     _paged.contig_launches = 0
     _paged.ring_launches = 0
+
+
+def _needs_grad(*ts) -> bool:
+    """Whether a kernel call must record its gradient: autograd is on and
+    an input requires one. Otherwise the kernel is called directly, as
+    serving calls it."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _backend(t: torch.Tensor, name: str, backend) -> KernelBackend:
@@ -205,10 +215,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding-window masks at query positions q_offset + i; keys past S
     never seen. Returns (B, T, NQ, H) in q's dtype; a query that sees no
     key gets zeros. K/V may be float32 under a bfloat16 q (an int8
-    cache's prefill reads dequantized K/V)."""
+    cache's prefill reads dequantized K/V). Under autograd (an input
+    requires grad) the card's gradient is the ``flash_attention_bwd``
+    kernel, which takes q, k, v of one dtype (ValueError otherwise); the
+    CPU's is autograd through the plain version."""
     if _backend(q, "flash_attention", backend).is_reference:
         return _ref.flash_attention_gqa_ref(q, k, v, causal, window, q_offset,
                                             prefix_len)
+    if _needs_grad(q, k, v):
+        _flash_bwd.check_inputs(q, k, v)
+        return _flash.FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                           int(q_offset), int(prefix_len))
     return _flash.launch(q, k, v, causal=causal, window=window,
                          q_offset=int(q_offset), prefix_len=int(prefix_len))
 
@@ -288,7 +305,9 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     w.astype(f32)`` (griffin's gate projections): the plain version
     computes exactly that; on the card a bfloat16 x launches the same
     kernel with its float32 sums stored unrounded (the products of bf16
-    operands are exact, only the order of the sums differs)."""
+    operands are exact, only the order of the sums differs). Under
+    autograd the kernel's gradient products run on ``torch.matmul``
+    (``dense_matmul.DenseMatmul``)."""
     be = _backend(x, "dense_matmul", backend)
     f32_out = out_dtype == torch.float32
     if out_dtype not in (None, x.dtype) and not f32_out:
@@ -300,8 +319,12 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     if x.dtype == torch.float32:
         return x @ w.to(torch.float32)
     lead = x.shape[:-1]
-    y = _dense.launch(x.reshape(-1, x.shape[-1]), w.to(x.dtype), backend=be,
-                      out_dtype=torch.float32 if f32_out else x.dtype)
+    x2, wx = x.reshape(-1, x.shape[-1]), w.to(x.dtype)
+    od = torch.float32 if f32_out else x.dtype
+    if _needs_grad(x2, wx):
+        y = _dense.DenseMatmul.apply(x2, wx, od, be)
+    else:
+        y = _dense.launch(x2, wx, backend=be, out_dtype=od)
     return y.reshape(*lead, w.shape[1])
 
 

@@ -133,6 +133,18 @@ def flash_attention_gqa_ref(q, k, v, causal: bool = True, window: int = 0,
     return out.reshape(B, NQ, T, H).transpose(1, 2).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, dout, causal: bool = True, window: int = 0,
+                            q_offset: int = 0, prefix_len: int = 0):
+    """(dq, dk, dv) of ``flash_attention_gqa_ref`` for the output gradient
+    `dout`, by autograd: the plain version of ``flash_attention_bwd``.
+    Each gradient has its input's dtype; a query that sees no key gets
+    zero gradients."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_gqa_ref(*leaves, causal, window, q_offset, prefix_len)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def fused_quantize_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor, *,
                               w_bits: int = 8, a_bits: int = 8,
                               act_signed: bool = True, w_plane_lo: int = 0,

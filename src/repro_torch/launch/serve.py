@@ -13,7 +13,7 @@ continuous scheduler.
       [--degrade] [--chaos-seed S] [--chaos-rate 0.05] \
       [--chaos-max-faults N] [--host-pool-bytes N] [--index FILE] \
       [--backend cuda|reference] [--plans FILE] [--reduced] [--layers N] \
-      [--device cpu]
+      [--ckpt DIR] [--device cpu]
 
 Port of ``repro.launch.serve`` for the flags above; it prints what the
 JAX serve CLI prints for them. It runs on CUDA unless ``--device cpu`` is
@@ -34,7 +34,10 @@ hybrid the same way (unquantized, static or --continuous with solo
 whole-prompt admission) on its recurrent states and window-sized ring KV
 caches; --kv-int8 leaves the rings in bf16, as the JAX package does.
 --layers N serves the config's first N layers (every width unchanged): a
-cut of depth for quick runs at full width.
+cut of depth for quick runs at full width. --ckpt DIR serves the newest
+checkpoint there (``launch.train --ckpt``, or the JAX trainer's: one
+format) instead of weights drawn from a seed; the flags that shape the
+model (--arch, --reduced, --layers) must match the trained ones.
 
 --backend selects the kernel registry's backend for the run: ``cuda``
 (the hand-written kernels, CUDA tensors only) or ``reference`` (the
@@ -237,6 +240,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plans", default=None,
                     help="block-plan cache JSON: loaded at startup if it "
                          "exists, saved back (with any new plans) on exit")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the newest checkpoint in this directory (a "
+                         "TrainState written by either package's trainer) "
+                         "instead of seeded weights")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -326,6 +333,23 @@ def run(args, make_requests: Optional[Callable[[object, object], List]] = None,
         return _serve(args, device, make_requests, params)
 
 
+def restore_params(cfg, ckpt: str, device):
+    """The params of the newest checkpoint in `ckpt`, restored as a
+    TrainState (default TrainConfig: no error-feedback leaves) onto
+    `device`; prints the step, as JAX's serve does."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state
+
+    model = build_model(cfg)
+    state, _, step = CheckpointManager(ckpt).restore(
+        lambda: init_train_state(model.init(seed=0, device="meta"), TrainConfig()),
+        device=device)
+    print(f"restored checkpoint step {step}")
+    return state.params
+
+
 def _serve(args, device, make_requests, params):
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_policy_spec, parse_quant_token
@@ -364,7 +388,9 @@ def _serve(args, device, make_requests, params):
     # --kv-int8 is accepted for every arch; a recurrent state ignores it,
     # and so does griffin's ring cache (kept in the model dtype, as in JAX).
     cfg = dataclasses.replace(cfg, kv_cache_quant=args.kv_int8)
-    if params is None:
+    if params is None and args.ckpt:
+        params = restore_params(cfg, args.ckpt, device)
+    elif params is None:
         params = build_model(cfg).init(seed=0, device=device)
         print("serving randomly initialized weights (no --ckpt)")
     chaos = None

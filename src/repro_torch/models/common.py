@@ -1,6 +1,6 @@
 """Shared model components: linear, norms (and the per-head qk-norm),
-rotary embeddings, whole-sequence and decode attention, FFN, embeddings
-and the logits head.
+rotary embeddings, whole-sequence and decode attention, FFN, embeddings,
+the logits head and the training loss (``cross_entropy``).
 
 Port of the parts of ``repro.models.common`` the dense serving path uses.
 Dtype rules follow the JAX code op by op (norms and softmax in float32,
@@ -28,6 +28,15 @@ from repro_torch.core.quantized_linear import PackedWeight, qmatmul
 DRAW_BYTES = 4 << 30
 
 
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded generator an init draws from on `device`. On the
+    ``meta`` device (a shape-and-dtype template, as a checkpoint restore
+    builds one) nothing is drawn, and a CPU generator stands in."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def normal_init(gen: torch.Generator, shape, std: float, dtype=torch.float32,
                 device=None) -> torch.Tensor:
     """N(0, std²) values of `shape` in `dtype`, drawn in float32."""
@@ -50,16 +59,21 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     return normal_init(gen, shape, (1.0 / d_in) ** 0.5, dtype, device)
 
 
-def linear(x: torch.Tensor, w, quant: Optional[QuantConfig] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, quant: Optional[QuantConfig] = None,
+           quant_mode: str = "none") -> torch.Tensor:
     """Every model matmul. PackedWeight leaves carry their own per-layer
     precision and always run the packed kernel path. A dense weight runs
     ``ops.dense_matmul``: on the card a bfloat16 row's bits then do not
     depend on how many rows share the product (a library product's
     split-K does), so static ≡ continuous and chunked ≡ whole-prompt hold
     for an unpacked model too; float32 goes to ``torch.matmul`` and the
-    CPU runs the plain ``x @ w``."""
+    CPU runs the plain ``x @ w``. With a ``quant`` config and
+    ``quant_mode="fake"`` (quantization-aware training) the product runs
+    on fake-quantized operands (``qmatmul(mode="fake")``)."""
     if isinstance(w, PackedWeight):
         return qmatmul(x, w, None)
+    if quant is not None and quant_mode != "none":
+        return qmatmul(x, w, quant, mode=quant_mode)
     from repro_torch.kernels import ops
 
     return ops.dense_matmul(x, w)
@@ -215,19 +229,30 @@ def ffn_init(gen, cfg, d: int, f: int, dtype=torch.float32, device=None,
             "w_down": dense_init(gen, f, d, dtype, device, layers)}
 
 
+def quant_mode(cfg):
+    """(QuantConfig, mode) of a model's block projections: fake
+    quantization (quantization-aware training) when the config carries a
+    QuantConfig, as in JAX; a packed leaf ignores both."""
+    return cfg.quant, ("fake" if cfg.quant else "none")
+
+
 def ffn_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    q, qm = quant_mode(cfg)
+
+    def lin(a, name):
+        return linear(a, params[name], q, qm)
+
     if cfg.ffn == "swiglu":
-        h = F.silu(linear(x, params["w_gate"])) * linear(x, params["w_up"])
+        h = F.silu(lin(x, "w_gate")) * lin(x, "w_up")
     elif cfg.ffn == "geglu":
-        h = (F.gelu(linear(x, params["w_gate"]), approximate="tanh")
-             * linear(x, params["w_up"]))
+        h = F.gelu(lin(x, "w_gate"), approximate="tanh") * lin(x, "w_up")
     elif cfg.ffn == "relu2":
-        h = torch.square(torch.relu(linear(x, params["w_up"])))
+        h = torch.square(torch.relu(lin(x, "w_up")))
     elif cfg.ffn == "gelu":
-        h = F.gelu(linear(x, params["w_up"]), approximate="tanh")
+        h = F.gelu(lin(x, "w_up"), approximate="tanh")
     else:
         raise ValueError(cfg.ffn)
-    return linear(h, params["w_down"])
+    return lin(h, "w_down")
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):
@@ -258,3 +283,15 @@ def logits_head(x: torch.Tensor, table_or_w: torch.Tensor, softcap: float = 0.0,
     if softcap:
         out = softcap * torch.tanh(out / softcap)
     return out
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-level cross-entropy with a z-loss; logits float32 (..., V),
+    labels (...) integer. Returns the per-token loss."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss

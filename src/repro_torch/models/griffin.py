@@ -102,8 +102,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     differ from JAX's PRNG (tests carry JAX weights across with
     ``repro_torch.convert``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = cm.generator(dev, seed)
     pattern = _pattern(cfg)
     n_groups, rem = divmod(cfg.num_layers, len(pattern))
     dt = _dtype(cfg)

@@ -4,10 +4,12 @@ Port of ``repro.models.model_zoo`` for the families ``dense`` (olmo-1b,
 nemotron-4-15b, stablelm-12b), ``vlm`` (paligemma-3b) and ``encoder``
 (hubert-xlarge), all three through ``models.transformer``, ``ssm``
 (rwkv6-3b) and ``hybrid`` (recurrentgemma-9b, Griffin): ``init(seed,
-device)``, ``prefill``, ``decode_step`` and ``init_cache``; for the
-transformer also ``init_paged_cache`` and, behind the same eligibility
-gate as JAX (full attention, no MoE, token inputs: no ``vlm`` or
-``encoder`` arch passes it), ``prefill_chunk``, ``prefill_suffix`` (the
+device)``, ``prefill``, ``decode_step`` and ``init_cache``, and
+``train_loss`` (the transformer families; rwkv6 and Griffin raise until
+their recurrences have backward kernels); for the transformer also
+``init_paged_cache`` and, behind the same eligibility gate as JAX (full
+attention, no MoE, token inputs: no ``vlm`` or ``encoder`` arch passes
+it), ``prefill_chunk``, ``prefill_suffix`` (the
 prefix cache's suffix-only prefill) and the speculative verify entries
 ``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6
 keeps a constant-size recurrent state and has neither, as in JAX; nor
@@ -39,6 +41,16 @@ def check_policy(cfg: ModelConfig, policy) -> None:
                          "rg_a_proj); no --policy/--quant")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse to train a family whose recurrence has no backward kernel
+    yet: rwkv6's ``wkv6`` and Griffin's ``rglru`` run forward only, and
+    autograd would stop at their outputs."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"{cfg.name}: training the {cfg.family} family is not ported yet "
+            "(ROADMAP Queue 1 item 2: backward kernels for wkv6 and rglru)")
+
+
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
     if cfg.family == "ssm":
         mod = rwkv6
@@ -51,9 +63,14 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
                          "(the port serves the dense transformers olmo-1b, "
                          "nemotron-4-15b and stablelm-12b, paligemma-3b, "
                          "hubert-xlarge, rwkv6-3b and recurrentgemma-9b)")
+    def train_loss(params, batch):
+        check_trainable(cfg)
+        return transformer.train_loss(params, cfg, batch)
+
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
+        train_loss=train_loss,
         prefill=lambda params, batch: mod.prefill(params, cfg, batch),
         decode_step=lambda params, cache, tokens:
             mod.decode_step(params, cfg, cache, tokens),

@@ -44,8 +44,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     differ from JAX's PRNG (tests carry JAX weights across with
     ``repro_torch.convert``)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = cm.generator(dev, seed)
     d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     H, K = _dims(cfg)
     R = cfg.rwkv_decay_lora

@@ -1,8 +1,8 @@
-"""Decoder / encoder / VLM transformer: init, whole-prompt, chunked and
-suffix-only prefill, and the decode step on the contiguous cache or the
-paged pool.
+"""Decoder / encoder / VLM transformer: init, the training loss,
+whole-prompt, chunked and suffix-only prefill, and the decode step on the
+contiguous cache or the paged pool.
 
-Port of the serving path of ``repro.models.transformer`` for the dense
+Port of ``repro.models.transformer`` for the dense
 decoders, the VLM (paligemma-3b: a patch-embedding stub before the text,
 prefix-LM attention) and the encoder (hubert-xlarge: a frame-embedding
 stub, bidirectional attention). Params
@@ -18,10 +18,18 @@ a contiguous one (the paged decode kernel over
 each row's own slots; the JAX package computes it outside any Pallas
 kernel, and ``common.decode_attention`` is its plain version). The four
 kernels share one tile routine, so every path sums in one order.
+
+Training (``train_loss``) runs ``forward_hidden`` under autograd: the
+flash kernel and ``dense_matmul`` carry their gradients
+(``ops.flash_attention``'s backward is the ``flash_attention_bwd``
+kernel), a QuantConfig on the config fake-quantizes every block
+projection with the straight-through gradient, and ``cfg.remat``
+checkpoints each block.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -65,8 +73,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     PRNG — tests carry JAX weights across with ``repro_torch.convert``."""
     _check_dense(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = cm.generator(dev, seed)
     d, hd, L, dt = cfg.d_model, cfg.head_dim, cfg.num_layers, _dtype(cfg)
     blocks = {
         "ln1": cm.norm_init(cfg.norm, d, dt, dev, L),
@@ -107,12 +114,32 @@ def layer_params(blocks: dict, i: int) -> dict:
     return out
 
 
+def unstack_layers(blocks: dict, n: int) -> list:
+    """The first `n` layers of the stacked block params as per-layer
+    dicts: each stacked leaf unbound once (views, no copy). Under autograd
+    each leaf's gradient is then one stack of its layers' gradients;
+    indexing layer by layer (``layer_params``) would allocate a
+    zero-filled gradient the size of the whole leaf for every layer."""
+    out = [{} for _ in range(n)]
+    for key, v in blocks.items():
+        if isinstance(v, dict):
+            per = unstack_layers(v, n)
+        elif isinstance(v, PackedWeight):
+            per = [v.layer(i) for i in range(n)]
+        else:
+            per = v.unbind(0)
+        for i in range(n):
+            out[i][key] = per[i]
+    return out
+
+
 def _attention_qkv(p, cfg: ModelConfig, x, positions):
+    q_cfg, qm = cm.quant_mode(cfg)
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = cm.linear(x, p["wq"]).reshape(B, T, cfg.n_heads, hd)
-    k = cm.linear(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
-    v = cm.linear(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    q = cm.linear(x, p["wq"], q_cfg, qm).reshape(B, T, cfg.n_heads, hd)
+    k = cm.linear(x, p["wk"], q_cfg, qm).reshape(B, T, cfg.n_kv_heads, hd)
+    v = cm.linear(x, p["wv"], q_cfg, qm).reshape(B, T, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = cm.rms_head_norm(q, p["q_norm"])
         k = cm.rms_head_norm(k, p["k_norm"])
@@ -124,7 +151,7 @@ def _attention_qkv(p, cfg: ModelConfig, x, positions):
 def _block_post_attn(p: dict, cfg: ModelConfig, x, attn):
     """Output projection + FFN residual, shared by prefill and decode."""
     attn = attn.reshape(*x.shape[:2], cfg.n_heads * cfg.head_dim)
-    x = x + cm.linear(attn, p["wo"])
+    x = x + cm.linear(attn, p["wo"], *cm.quant_mode(cfg))
     h2 = cm.apply_norm(x, p["ln2"], cfg.norm)
     return x + cm.ffn_apply(p["ffn"], h2, cfg)
 
@@ -239,11 +266,19 @@ def _mask_for(cfg: ModelConfig) -> cm.AttnMask:
 def _scan_blocks(params, cfg: ModelConfig, x, positions, mask,
                  collect_kv: bool, kv_quant_attn: bool = False):
     """Every layer's block_apply in order. Returns (x, (k_all, v_all))
-    with k/v stacked (L, B, T, NKV, H) when `collect_kv`, else (x, None)."""
+    with k/v stacked (L, B, T, NKV, H) when `collect_kv`, else (x, None).
+    Under autograd with ``cfg.remat`` each block is checkpointed (JAX's
+    ``jax.checkpoint`` of the scan body): its activations are recomputed
+    in the backward pass instead of kept."""
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, k, v = block_apply(layer_params(params["blocks"], i), cfg, x,
-                              positions, mask, kv_quant_attn)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in unstack_layers(params["blocks"], cfg.num_layers):
+        if remat:
+            x, k, v = torch.utils.checkpoint.checkpoint(
+                block_apply, p, cfg, x, positions, mask, kv_quant_attn,
+                use_reentrant=False)
+        else:
+            x, k, v = block_apply(p, cfg, x, positions, mask, kv_quant_attn)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -255,6 +290,32 @@ def forward_hidden(params, cfg: ModelConfig, batch):
     x, positions = embed_inputs(params, cfg, batch)
     x, _ = _scan_blocks(params, cfg, x, positions, _mask_for(cfg), False)
     return cm.apply_norm(x, params["final_norm"], cfg.norm)
+
+
+def _on_device(batch: dict, device) -> dict:
+    """A batch of numpy arrays (the data pipeline's) or tensors on
+    `device`."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy (with z-loss) of a training batch →
+    (loss, {"loss", "aux_loss"}), JAX's three branches: the encoder's
+    per-frame ``labels``; the VLM's text positions after the patches; the
+    decoder's next token. A dense model has no auxiliary loss (MoE's is
+    not ported), so the total is the loss."""
+    batch = _on_device(batch, params["embed"].device)
+    hidden = forward_hidden(params, cfg, batch)
+    logits = compute_logits(params, cfg, hidden)
+    if cfg.family == "encoder":
+        loss = cm.cross_entropy(logits, batch["labels"]).mean()
+    elif cfg.family == "vlm":
+        P = cfg.num_prefix_embeds
+        loss = cm.cross_entropy(logits[:, P:-1], batch["tokens"][:, 1:]).mean()
+    else:
+        loss = cm.cross_entropy(logits[:, :-1], batch["tokens"][:, 1:]).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch):

@@ -30,8 +30,9 @@
    (each tile plan) and on a ragged shape; ``dense_matmul`` within 2e-2 of
    ``x @ w`` and its rows bitwise the same at M in {1, 4, 17, 64, 65, 128,
    200, 640, 1280} (every tiling, split and unsplit K). The SASS of the
-   bf16 tensor-core kernels must hold HMMA, bitplane_matmul's and the
-   fused kernel's IMMA (``count_hmma``). The attention kernels
+   bf16 tensor-core kernels (the flash backward's too) must hold HMMA,
+   bitplane_matmul's and the fused kernel's IMMA, and the flash
+   backward's no atomic (``count_hmma``). The attention kernels
    share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
    chunked prefill, paged decode and contiguous decode must be bitwise
    whole-prompt flash attention on the same keys (``check_one_order``:
@@ -218,9 +219,12 @@
 5. Trains (``train_phase``, after the frontend phase): the flash
    backward's dQ/dK/dV against the plain version's autograd gradients on
    the card for every mask and head dim (``BWD_CASES``; within 1e-4 of
-   max |g| in float32 and 2e-2 in bf16, zero on rows that see no key,
-   two calls bitwise), timed at olmo-1b's training shape beside SDPA's
-   backward; the autograd wrappers change no bit of olmo-1b's
+   max |g| in float32, the scalar route, and 2e-2 in bf16, the
+   tensor-core route, whose tile edges two cases cross; zero on rows that
+   see no key, two calls bitwise), timed at olmo-1b's training shape
+   beside SDPA's backward (there also batch row 3 alone bitwise row 3 of
+   the batch of 8) and at paligemma's prefix-LM and hubert's
+   bidirectional shapes; the autograd wrappers change no bit of olmo-1b's
    ``forward_hidden`` (4 layers, full width) nor its launches; reduced
    float32 olmo-1b trains 3 steps on the card as on the CPU, plain and
    QAT (``TRAIN_TOL``); ``python -m repro_torch.launch.train --arch
@@ -4701,9 +4705,18 @@ BWD_CASES = (
     ("ragged T 37", 2, 37, 37, 4, 2, 16, dict(causal=True, window=0, q_offset=0)),
     ("q_offset 16", 2, 33, 49, 8, 2, 160, dict(causal=True, window=0, q_offset=16)),
     ("rows that see no key", 2, 40, 20, 4, 4, 192, dict(causal=True, window=8, q_offset=10)),
+    # The bf16 route's tile edges: Tk no multiple of its 64-key tile, G = 4,
+    # a window whose rows straddle tile edges; H 256 MQA over four key tiles.
+    ("G=4 window 100, ragged T 333", 2, 333, 333, 8, 2, 128,
+     dict(causal=True, window=100, q_offset=0)),
+    ("MQA 4/1 H 256 over four key tiles", 1, 250, 250, 4, 1, 256,
+     dict(causal=True, window=0, q_offset=0)),
 )
 BWD_F32_TOL = 1e-4     # relative to max |g| of the plain version's gradient
 BWD_BF16_TOL = 2e-2
+# The bf16 worst errors of the scalar first design (its last run on the H100), printed
+# beside this run's: over the cases, and at the training shape.
+BWD_BF16_WORST_BEFORE = (7.04e-3, 4.42e-3)
 # The training shape of the timed entry: olmo-1b at --global-batch 8 --seq 512.
 TRAIN_B, TRAIN_T = 8, 512
 
@@ -4730,28 +4743,36 @@ def _bwd_close(torch, got, want, tol, what):
 def check_flash_backward(torch, dev, timer):
     """``flash_attention_bwd`` (dQ, dK, dV) against the plain version's
     autograd gradients (``ref.flash_attention_bwd_ref``) on the card, each
-    case of BWD_CASES in float32 (within 1e-4 of max |g|) and bfloat16
-    (2e-2): sums in another order; in bf16 the plain version's softmax
-    never rounds P, and the kernel's D = rowsum(dO * O) reads O rounded to
-    bf16. Rows that see no key get zero gradients, never NaN. Two calls
-    give the same bits. Timed at olmo-1b's training shape (B 8, 16 heads
-    of 128, T 512, causal, bf16) beside the plain version and SDPA's
-    backward (the library's own forward once, then its backward timed);
-    there the last timed call is held to the plain version's gradients
-    within 2e-2 and a further call to its bits, as every case is."""
+    case of BWD_CASES in float32 (the scalar route, within 1e-4 of max
+    |g|) and bfloat16 (the tensor-core route, 2e-2): sums in another
+    order; in bf16 the plain version's softmax never rounds P, the kernel
+    rounds P and dS to bf16 as operands, and its D = rowsum(dO * O) reads
+    O rounded to bf16. Rows that see no key get zero gradients, never
+    NaN. Two calls give the same bits. Timed at olmo-1b's training shape
+    (B 8, 16 heads of 128, T 512, causal, bf16) beside the plain version
+    and SDPA's backward (the library's own forward once, then its
+    backward timed); there the last timed call is held to the plain
+    version's gradients within 2e-2 and a further call to its bits, as
+    every case is, and batch row 3 computed alone to the bits of row 3 in
+    the batch of 8 (the tile plan depends on H alone). Then timed at
+    paligemma's prefix-LM shape and hubert's bidirectional one (the
+    ``entries``, each held to its plain version within 2e-2)."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
 
     gen = torch.Generator(device=dev).manual_seed(41)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_abs = 0.0
     cases = 0
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
     for dt in (torch.float32, torch.bfloat16):
         tol = BWD_F32_TOL if dt == torch.float32 else BWD_BF16_TOL
         for name, B, Tq, Tk, nq, nkv, H, kw in BWD_CASES:
-            q = torch.randn((B, Tq, nq, H), generator=gen, device=dev).to(dt)
-            k = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(dt)
-            v = torch.randn((B, Tk, nkv, H), generator=gen, device=dev).to(dt)
-            do = torch.randn((B, Tq, nq, H), generator=gen, device=dev).to(dt)
+            q = rand(B, Tq, nq, H, dt=dt)
+            k, v = rand(B, Tk, nkv, H, dt=dt), rand(B, Tk, nkv, H, dt=dt)
+            do = rand(B, Tq, nq, H, dt=dt)
             out = flash_attention.launch(q, k, v, **kw)
             got = flash_attention_bwd.launch(q, k, v, out, do, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
@@ -4770,12 +4791,12 @@ def check_flash_backward(torch, dev, timer):
             cases += 1
     log(f"flash_attention_bwd: {cases} cases ({', '.join(c[0] for c in BWD_CASES)}; "
         f"float32 and bf16) within {BWD_F32_TOL} (f32, worst {worst[torch.float32]:.3g}) "
-        f"and {BWD_BF16_TOL} (bf16, worst {worst[torch.bfloat16]:.3g}) of max |g|; zero "
-        "gradients on rows that see no key; two calls bitwise equal")
+        f"and {BWD_BF16_TOL} (bf16, worst {worst[torch.bfloat16]:.3g}; the scalar first "
+        f"design's {BWD_BF16_WORST_BEFORE[0]:.3g}) of max |g|; zero gradients on rows that "
+        "see no key; two calls bitwise equal")
 
     B, T, nq, H = TRAIN_B, TRAIN_T, 16, 128
-    q, k, v, do = (torch.randn((B, T, nq, H), generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(4))
+    q, k, v, do = (rand(B, T, nq, H) for _ in range(4))
     kw = dict(causal=True, window=0, q_offset=0)
     out = flash_attention.launch(q, k, v, **kw)
     last = {}
@@ -4797,23 +4818,80 @@ def check_flash_backward(torch, dev, timer):
     again = flash_attention_bwd.launch(q, k, v, out, do, **kw)
     if not all(torch.equal(a, b) for a, b in zip(last["got"], again)):
         raise AssertionError("flash backward at the training shape: two calls differ")
+    solo = flash_attention_bwd.launch(*(t[3:4].contiguous() for t in (q, k, v, out, do)), **kw)
+    if not all(torch.equal(a, b[3:4]) for a, b in zip(solo, again)):
+        raise AssertionError("flash backward at the training shape: batch row 3 alone "
+                             "differs from row 3 in the batch of 8")
     log(f"flash_attention_bwd at the training shape (B {B}, {nq} heads of {H}, T {T}, "
-        f"causal, bf16): within {BWD_BF16_TOL} of max |g| (worst {train_err:.3g}); two "
-        "calls bitwise equal")
-    del last, again
+        f"causal, bf16): within {BWD_BF16_TOL} of max |g| (worst {train_err:.3g}; the "
+        f"scalar first design's {BWD_BF16_WORST_BEFORE[1]:.3g}); two calls bitwise equal; "
+        "batch row 3 alone bitwise row 3 of the batch")
+    del last, again, solo
     F = torch.nn.functional
     qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
     dos = do.transpose(1, 2).contiguous()
     lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True))
+    del qs, ks, vs, lib_out, dos
     pairs = B * nq * (T * (T + 1) // 2)
     nbytes = 8 * q.numel() * 2          # q, k, v, O, dO read; dQ, dK, dV written
     b_ms, b_by = bound_ms(nbytes, 5 * 2 * pairs * H, BF16_FLOPS_PER_S)
+    entries = {}
+    # The frontend families' shapes: paligemma's prefill (B·NQ 32, MQA,
+    # T 576, H 256, prefix-LM 256) and hubert's encoder (B·NQ 64, MHA,
+    # T 500, H 80, bidirectional). Bound: q, O, dO read and dQ written at
+    # q's size, k, v read and dK, dV written at k's, against five products
+    # over the pairs the mask leaves visible. SDPA's backward with K/V
+    # expanded to the query heads (the prefix-LM mask as a boolean mask).
+    for name, (B2, T2, nq2, nkv2, H2, kw2) in {
+            "prefix_lm": (4, 576, 8, 1, 256, dict(causal=True, window=0, q_offset=0,
+                                                  prefix_len=256)),
+            "bidirectional": (4, ENCODER_T, 16, 16, 80, dict(causal=False, window=0,
+                                                            q_offset=0))}.items():
+        q2, do2 = rand(B2, T2, nq2, H2), rand(B2, T2, nq2, H2)
+        k2, v2 = rand(B2, T2, nkv2, H2), rand(B2, T2, nkv2, H2)
+        out2 = flash_attention.launch(q2, k2, v2, **kw2)
+        last = {}
+
+        def kernel2():
+            last["got"] = flash_attention_bwd.launch(q2, k2, v2, out2, do2, **kw2)
+
+        def plain2():
+            last["want"] = ref.flash_attention_bwd_ref(q2, k2, v2, do2, **kw2)
+
+        e_ms = timer(kernel2)
+        e_plain = timer(plain2, iters=5)
+        e_err, e_abs = _bwd_close(torch, last["got"], last["want"], BWD_BF16_TOL,
+                                  f"{name} shape bf16")
+        i = torch.arange(T2, device=dev)
+        mask = ((i[None, :] <= i[:, None]) | (i[None, :] < kw2.get("prefix_len", 0))
+                if kw2["causal"] else torch.ones(T2, T2, dtype=torch.bool, device=dev))
+        qs = q2.transpose(1, 2).contiguous().requires_grad_(True)
+        ks, vs = (a.transpose(1, 2).expand(B2, nq2, T2, H2).contiguous().requires_grad_(True)
+                  for a in (k2, v2))
+        lib_out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask if kw2["causal"] else None)
+        dos = do2.transpose(1, 2).contiguous()
+        e_lib = timer(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos,
+                                                  retain_graph=True))
+        e_pairs = B2 * nq2 * int(mask.sum())
+        e_bms, e_bby = bound_ms(4 * q2.numel() * 2 + 4 * k2.numel() * 2,
+                                5 * 2 * e_pairs * H2, BF16_FLOPS_PER_S)
+        entries[name] = {"ms": e_ms, "plain_ms": e_plain, "library_ms": e_lib,
+                         "bound_ms": e_bms, "bound_by": e_bby, "max_abs_err": e_abs,
+                         "max_rel_err": e_err,
+                         "shape": f"B*NQ={B2 * nq2} NKV={nkv2} T={T2} H={H2} "
+                                  f"bf16 {name.replace('_', '-')}"}
+        worst_abs = max(worst_abs, e_abs)
+        del last, qs, ks, vs, lib_out, dos
+    plan = flash_attention_bwd.bf16_plans()[H]
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": b_by, "cases": cases, "max_abs_err": worst_abs,
             "max_rel_err": {"float32": worst[torch.float32],
                             "bfloat16": worst[torch.bfloat16]},
-            "train_shape_rel_err": train_err,
+            "max_rel_err_before": {"bfloat16_cases": BWD_BF16_WORST_BEFORE[0],
+                                   "bfloat16_train_shape": BWD_BF16_WORST_BEFORE[1]},
+            "train_shape_rel_err": train_err, "plan_h128": plan, "entries": entries,
             "shape": f"B*NQ={B * nq} T={T} H={H} bf16 causal (dQ, dK, dV)"}
 
 
@@ -5174,9 +5252,10 @@ def train_phase(torch, dev, timer):
     smi = nvidia_smi()
     t0 = time.perf_counter()
     bwd = check_flash_backward(torch, dev, timer)
-    log(f"  flash_attention_bwd: {bwd['shape']}: {bwd['ms']:.4g} ms (bound "
-        f"{bwd['bound_ms']:.3g} ms by {bwd['bound_by']}, plain {bwd['plain_ms']:.4g} ms, "
-        f"SDPA backward {bwd['library_ms']:.4g} ms) [{smi}]")
+    for e in (bwd, *bwd["entries"].values()):
+        log(f"  flash_attention_bwd: {e['shape']}: {e['ms']:.4g} ms (bound "
+            f"{e['bound_ms']:.3g} ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, "
+            f"SDPA backward {e['library_ms']:.4g} ms) [{smi}]")
     rep = {"wrappers": check_grad_wrappers(torch, dev),
            "dense_backward": check_dense_backward(torch, dev),
            "card_vs_cpu": card_vs_cpu_train(torch)}
@@ -5239,7 +5318,8 @@ def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6
 
 # profile_train's kernel groups: substrings of the kernel names.
 TRAIN_KERNEL_GROUPS = (
-    ("flash backward", ("lse_rows_kernel", "dkdv_kernel", "dq_kernel")),
+    ("flash backward", ("rows_bf16_kernel", "dkdv_bf16_kernel", "lse_rows_kernel",
+                        "dkdv_kernel", "dq_kernel")),
     ("flash forward", ("flash_mma_kernel", "flash_f32_kernel")),
     ("dense_matmul", ("dense_kernel",)),
     ("torch.matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -5324,14 +5404,19 @@ def profile_train(torch, dev):
 # Library → the tensor-core instruction its SASS must hold.
 TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
                        "paged_prefill": "HMMA", "dense_matmul": "HMMA",
-                       "bitplane_matmul": "IMMA", "fused_matmul": "IMMA"}
+                       "bitplane_matmul": "IMMA", "fused_matmul": "IMMA",
+                       "flash_attention_bwd": "HMMA"}
+# Libraries whose SASS must hold no atomic (ATOM, RED): their sums run in
+# an order fixed by the shapes.
+NO_ATOMICS = ("flash_attention_bwd",)
 
 
 def count_hmma(paths):
-    """The bf16 attention tile and dense_matmul run on the bf16 tensor
-    cores, bitplane_matmul and the fused matmul on the int8 ones: the SASS
-    of their libraries (``cuobjdump -sass``) must hold HMMA (IMMA)
-    instructions. Returns library → count."""
+    """The bf16 attention tile, the flash backward's bf16 route and
+    dense_matmul run on the bf16 tensor cores, bitplane_matmul and the
+    fused matmul on the int8 ones: the SASS of their libraries
+    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions, and the
+    flash backward's none that is atomic. Returns library → count."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -5342,7 +5427,13 @@ def count_hmma(paths):
         counts[name] = sum(op in line for line in sass.splitlines())
         if counts[name] == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
-    log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}")
+        if name in NO_ATOMICS:
+            atomics = [line.strip() for line in sass.splitlines()
+                       if re.search(r"\b(ATOMG?|ATOMS|RED)\b", line)]
+            if atomics:
+                raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
+    log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}; no atomics in "
+        f"{', '.join(NO_ATOMICS)}'s")
     return counts
 
 

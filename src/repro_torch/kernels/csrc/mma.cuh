@@ -1,5 +1,6 @@
 // PTX helpers of the tensor-core kernels (attend_tile.cuh, dense_matmul.cu,
-// bitplane_matmul.cu): cp.async 16-byte copies into shared memory,
+// bitplane_matmul.cu, flash_attention_bwd.cu): cp.async 16- and 4-byte
+// copies into shared memory,
 // ldmatrix, the m16n8k16 bf16 mma.sync with an fp32 accumulator and the
 // m16n8k32 int8 mma.sync with an int32 accumulator.
 #pragma once
@@ -17,6 +18,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4-byte async copy into shared memory, zero-filled when `valid` is false.
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }

@@ -6,15 +6,17 @@ Pallas kernels has a VJP. The port's whole-prompt attention is the flash
 kernel, so training needs its gradient as a kernel: dQ, dK and dV for q
 (B, Tq, NQ, H) and k/v (B, Tk, NKV, H) under every mask the forward takes
 (causal, bidirectional, prefix-LM, window, q_offset), float32 or
-bfloat16 (one dtype for all), float32 sums. The plain version is
-autograd through ``ref.flash_attention_gqa_ref`` (``ref.flash_attention_
-bwd_ref``). ``flash_attention.FlashAttention`` calls :func:`launch` from
-its backward.
+bfloat16 (one dtype for all), float32 sums: bf16 on the tensor cores,
+float32 on scalar kernels. The plain version is autograd through
+``ref.flash_attention_gqa_ref`` (``ref.flash_attention_bwd_ref``).
+``flash_attention.FlashAttention`` calls :func:`launch` from its
+backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -28,6 +30,30 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: ctypes signature of the C entry (checked against its source by the tests).
 ARGTYPES = [_P] * 10 + [_I] * 11 + [_F, _P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Columns of the bf16 route's tile plan (``BWD_BF16_PLANS`` in the source):
+#: keys a dK/dV block, query rows a dK/dV step, query rows a dQ block, keys
+#: a dQ step.
+PLAN_COLUMNS = ("kv_keys", "kv_rows", "q_rows", "q_keys")
+
+
+def bf16_plans() -> dict:
+    """The bf16 route's tile plan read from its source, head dim → the
+    PLAN_COLUMNS and each kernel's shared memory in bytes (the layouts of
+    ``RowsSmem`` and ``DkdvSmem``: rows of H + 8 bf16, P^T and dS^T rows of
+    kv_rows + 8, 2-stage rings, the dK/dV steps' lse and D in float32)."""
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    table = re.search(r"#define BWD_BF16_PLANS\(X\)((?:[^\n]*\\\n)*[^\n]*)", src).group(1)
+    plans = {}
+    for row in re.findall(r"X\(([^)]*)\)", table):
+        H, *cols = (int(c) for c in row.split(","))
+        p = dict(zip(PLAN_COLUMNS, cols))
+        ld = H + 8
+        p["rows_smem"] = 2 * (2 * p["q_rows"] * ld + 2 * 2 * p["q_keys"] * ld)
+        p["dkdv_smem"] = (2 * (2 * p["kv_keys"] * ld + 2 * 2 * p["kv_rows"] * ld
+                               + 2 * p["kv_keys"] * (p["kv_rows"] + 8))
+                          + 4 * 2 * 2 * p["kv_rows"])
+        plans[H] = p
+    return plans
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,6 +11,7 @@ against the kernel, as ``tests/test_kernels.py`` holds JAX's kernel
 against its reference, and 3e-5 against ``chunked_attention``, as that
 file holds the two JAX implementations against each other.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.models import common as jcm
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import common as cm
 from torch_parity import np_of
 
@@ -154,6 +155,39 @@ def test_masks_match_jax_chunked_attention(case):
     direct = ops.flash_attention(qt, kt, vt, causal=causal, window=window, q_offset=off,
                                  prefix_len=P)
     assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("case", MASK_CASES)
+def test_plain_flash_backward_matches_jax_vjp(case):
+    """The parity chain of training's attention gradient: the plain version
+    the card's ``flash_attention_bwd`` is held to
+    (``ref.flash_attention_bwd_ref``, autograd through the plain forward)
+    against ``jax.vjp`` of JAX's ``chunked_attention``, float32, dQ, dK and
+    dV each within 1e-5 of its max |g| (float32 sums in another order).
+    Every row of these cases sees a key: JAX masks with finfo.min, so a
+    row that sees none would average every key there, where the port
+    gives it zero gradients."""
+    B, T, S, NQ, NKV, H, causal, P, window, off = case
+    q, k, v = _qkv(B, T, S, NQ, NKV, H)
+    do = RNG.standard_normal((B, T, NQ, H)).astype(np.float32)
+    pos, key = off + np.arange(T)[:, None], np.arange(S)[None, :]
+    seen = (key > pos - window) if window else np.ones((T, S), bool)
+    if causal:
+        seen &= (key <= pos) | (key < P)
+    assert seen.any(axis=1).all()
+    mask = jcm.AttnMask(causal=causal, window=window, prefix_len=P)
+    _, vjp = jax.vjp(lambda a, b, c: jcm.chunked_attention(a, b, c, mask, q_offset=off,
+                                                           q_chunk=16, kv_chunk=16),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    got = ref.flash_attention_bwd_ref(*(torch.from_numpy(a) for a in (q, k, v, do)),
+                                      causal=causal, window=window, q_offset=off,
+                                      prefix_len=P)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("prefix_len", [0, 8, 40, 64])

@@ -477,6 +477,28 @@ def test_flash_backward_argtypes_match_the_source():
     assert "flash_attention_bwd" in ops.launch_counts()
 
 
+def test_flash_backward_bf16_plan_fits_and_is_keyed_by_head_dim():
+    """The bf16 route's tile plan, read from its source: one row for every
+    head dim the kernels take and no other key (never B, T, G or the mask,
+    so a head's gradients are the same bits alone or in a batch), whole
+    mma tiles, and each kernel's shared memory within the H100's 227 KB a
+    block. The launcher sizes both kernels from ``Plan<H>`` alone."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import HEAD_DIMS
+
+    plans = flash_attention_bwd.bf16_plans()
+    assert sorted(plans) == sorted(HEAD_DIMS)
+    for H, p in plans.items():
+        assert p["kv_keys"] % 16 == 0 and p["kv_rows"] % 32 == 0, H
+        assert p["q_rows"] % 16 == 0 and p["q_keys"] % 16 == 0, H
+        assert max(p["rows_smem"], p["dkdv_smem"]) <= 227 * 1024, (H, p)
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    launch = re.search(r"int launch_bf16\(.*?\n}\n", src, re.S).group(0)
+    assert "using P = Plan<H>;" in launch
+    assert re.findall(r"<<<dim3\([^,]*P::(?:QR|KVK)", launch) and "Plan<" not in launch.replace(
+        "Plan<H>", "")
+
+
 def test_flash_backward_refuses_mixed_dtypes():
     q = torch.zeros(1, 4, 2, 16, dtype=torch.bfloat16)
     k = torch.zeros(1, 4, 2, 16)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's matmul, row-quantizer and wkv6 kernels of two
-checkouts on one GPU, in turns.
+"""Time the port's matmul, row-quantizer, wkv6 and flash-backward kernels
+of two checkouts on one GPU, in turns.
 
   python3 tools/kernel_ab.py <other checkout> [<this checkout>]
 
 Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul``,
-``quantize_rows`` and ``wkv6`` from each checkout's
+``quantize_rows``, ``wkv6``, ``flash_attention`` and
+``flash_attention_bwd`` from each checkout's
 ``src/repro_torch/kernels/csrc`` and times them at the serving path's
 decode and prefill shapes (``wkv6``: a rwkv6-3b prefill of B = 4, T = 320
-and a decode step, T = 1 with the state carried; ``quantize_rows`` and
+and a decode step, T = 1 with the state carried; the flash backward, bf16
+dQ/dK/dV, at olmo-1b's training shape, paligemma's prefix-LM shape and
+hubert's bidirectional one; ``quantize_rows`` and
 the Table III leaf through ``ops``, so a checkout whose quantizer reads
 float32 only pays its cast of bfloat16 rows), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
@@ -43,6 +46,9 @@ SHAPES += [("quantize_rows", M, 2048, 0, dt) for M in (4, 1280) for dt in ("f32"
 # ops.mixed_group_matmul, bf16 rows: wq/wk/wv, w_gate/w_up, w_down.
 SHAPES += [("table3", M, K, N, 4) for M in (4, 1280)
            for K, N in ((2048, 2048), (2048, 8192), (8192, 2048))]
+# (flash_bwd, B, T, (NQ, NKV, H), prefix_len or -1 for bidirectional).
+SHAPES += [("flash_bwd", 8, 512, (16, 16, 128), 0), ("flash_bwd", 4, 576, (8, 1, 256), 256),
+           ("flash_bwd", 4, 500, (16, 16, 80), -1)]
 
 
 def worker(root: str) -> None:
@@ -52,8 +58,8 @@ def worker(root: str) -> None:
     from repro_torch.core.bitplane import pack_weights
     from repro_torch.core.quant import QuantConfig
     from repro_torch.core.quantized_linear import pack_weight
-    from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, fused_matmul, ops,
-                                     wkv6)
+    from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, flash_attention,
+                                     flash_attention_bwd, fused_matmul, ops, wkv6)
 
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
@@ -62,7 +68,8 @@ def worker(root: str) -> None:
 
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
-    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "quantize_rows", "wkv6"])
+    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "quantize_rows", "wkv6",
+                 "flash_attention", "flash_attention_bwd"])
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
     out = {}
@@ -77,6 +84,18 @@ def worker(root: str) -> None:
             s0 = torch.randn((B, H, Kh, Kh), generator=gen, device=dev) * 0.3
             fn = lambda: wkv6.launch(r, k, v, w, u, s0, chunk=64)  # noqa: E731
             out[f"wkv6 B={B} T={T} H={H} K=V={Kh}"] = timer(fn)
+            continue
+        if name == "flash_bwd":
+            B, T, (NQ, NKV, H), P = M, K, N, bits
+            q, do = (torch.randn((B, T, NQ, H), generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn((B, T, NKV, H), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            kw = dict(causal=P >= 0, window=0, q_offset=0, prefix_len=max(P, 0))
+            o = flash_attention.launch(q, k, v, **kw)
+            fn = lambda: flash_attention_bwd.launch(q, k, v, o, do, **kw)  # noqa: E731
+            mask = "bidirectional" if P < 0 else f"prefix-LM {P}" if P else "causal"
+            out[f"flash_attention_bwd B*NQ={B * NQ} NKV={NKV} T={T} H={H} {mask}"] = timer(fn)
             continue
         if name == "quantize_rows":
             dtype = torch.float32 if bits == "f32" else torch.bfloat16

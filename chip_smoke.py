@@ -49,8 +49,11 @@
    2304 within tolerance, its key tiles wholly outside every row's
    window never read (``check_windowed_flash``); the RG-LRU within 1e-4
    at T 320 and 2304, two calls with the carry bitwise one, the step
-   bitwise the call, a row alone bitwise its row in a batch
-   (``check_rglru``); ``dense_matmul``'s float32 store at 4096 -> 4096
+   bitwise the call, rows alone, in a pair and in a three bitwise their
+   rows in a batch of 4, so every tile plan is held, timed at B 4 / T 320,
+   B 2 / T 2304, B 1 / T 320 and the step beside a copy of the same bytes,
+   its launches split into prompts and steps (``check_rglru``);
+   ``dense_matmul``'s float32 store at 4096 -> 4096
    within 1e-4, its rows at M = 1-9 and 1280 bitwise their M = 4 rows
    (``check_dense_f32``); the norms' row mean bitwise across M = 1-9 at
    every width, hubert-xlarge's 1280 and rwkv6's 64-wide group-norm rows
@@ -441,8 +444,10 @@ ARCH_RUNS = {
 # JAX package serves griffin unquantized), on the stream's first 4
 # requests: windowed flash prefill, ring decode, the RG-LRU kernel and
 # every dense product on dense_matmul (the gate projections with its
-# float32 store). (t) is gated greedy ≡ (s).
-GRIFFIN_KERNELS = ("flash_attention", "ring_attention", "dense_matmul", "rglru")
+# float32 store). (t) is gated greedy ≡ (s). ``rglru_prefill`` and
+# ``rglru_step`` are the RG-LRU's prompt (T > 1) and step (T = 1) launches.
+GRIFFIN_KERNELS = ("flash_attention", "ring_attention", "dense_matmul", "rglru",
+                   "rglru_prefill", "rglru_step")
 GRIFFIN_RUNS = {
     "s-griffin-static": (["--arch", "recurrentgemma-9b", "--static", *ARCH_STREAM], None,
                          GRIFFIN_KERNELS),
@@ -3456,13 +3461,16 @@ def _mem_gb(torch):
 
 def launch_counts():
     """The kernels' launch counts since the last reset, with the
-    contiguous and ring entries' shares of paged_attention's count as
-    keys of their own."""
-    from repro_torch.kernels import ops, paged_attention
+    contiguous and ring entries' shares of paged_attention's count, and
+    rglru's prefill (T > 1) and step (T = 1) shares of its count, as keys
+    of their own."""
+    from repro_torch.kernels import ops, paged_attention, rglru
 
     counts = ops.launch_counts()
     counts["contig_attention"] = paged_attention.contig_launches
     counts["ring_attention"] = paged_attention.ring_launches
+    counts["rglru_step"] = rglru.step_launches
+    counts["rglru_prefill"] = counts["rglru"] - rglru.step_launches
     return counts
 
 
@@ -4004,8 +4012,15 @@ def check_rglru(torch, dev, timer):
     lengths: h and h at lengths - 1 within atol = rtol = 1e-4 (other
     transcendental roundings); a prompt run as two calls (T1 = 100, then
     the rest from the carry) bitwise one call; the step (T = 1 from h at t
-    - 1) bitwise the call's h at t; a row alone bitwise its row in the
-    batch. Times T = 320 and the T = 1 step."""
+    - 1) bitwise the call's h at t; rows alone, in a pair and in a
+    three (B = 1, 2, 3: between them and B = 4 every tile plan of
+    ``rglru.PLANS``) bitwise their rows of the B = 4 call, with zero and
+    carried h0, with and without lengths; a T = 1 call with lengths (the
+    step kernel) bitwise the step. Times B = 4, T = 320, B = 2, T = 2304
+    (the ring-wrap prompts), B = 1, T = 320 (a continuous run's solo
+    admission) and the T = 1 step, B = 4, each beside ``copy_ms``, one
+    device-to-device copy moving the same number of bytes under the same
+    timer."""
     from repro_torch.kernels import ref, rglru
 
     gen = torch.Generator(device=dev).manual_seed(27)
@@ -4019,12 +4034,15 @@ def check_rglru(torch, dev, timer):
         h0 = torch.randn((B, W), generator=gen, device=dev)
         return ga, gi, y, ab, ib, lam, h0
 
+    sms = rglru.sms(dev.index or 0)
+    plans = {rglru.plan(B, W, sms)}
     worst = 0.0
     for T in (320, 2304):
         a = inputs(T)
         lengths = torch.tensor([T, T - 7, 1, T // 2], dtype=torch.int32, device=dev)
+        held = {}      # h0 -> the B = 4 call with lengths, held to the plain version
         for h0 in (None, a[6]):
-            got = rglru.launch(*a[:6], h0, lengths)
+            got = held[h0 is not None] = rglru.launch(*a[:6], h0, lengths)
             want = ref.rglru_scan_ref(*a[:6], h0, lengths)
             torch.cuda.synchronize()
             what = f"rglru B={B} T={T} W={W} h0={h0 is not None}"
@@ -4034,31 +4052,68 @@ def check_rglru(torch, dev, timer):
         h1, last1 = rglru.launch(*(t[:, :100] for t in a[:3]), *a[3:6], a[6])
         h2, last2 = rglru.launch(*(t[:, 100:] for t in a[:3]), *a[3:6], last1)
         step, _ = rglru.launch(*(t[:, 150:151] for t in a[:3]), *a[3:6], h[:, 149])
-        solo, _ = rglru.launch(*(t[2:3] for t in a[:3]), *a[3:6], a[6][2:3])
+        step_len = rglru.launch(*(t[:, 150:151] for t in a[:3]), *a[3:6], h[:, 149],
+                                lengths)
         torch.cuda.synchronize()
+        if not (torch.equal(step_len[0], step) and torch.equal(step_len[1], step[:, 0])):
+            raise AssertionError(f"rglru T={T}: a T = 1 call with lengths is not the step")
         if not (torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(last2, last)):
             raise AssertionError(f"rglru T={T}: two calls with the carry are not one call")
         if not torch.equal(step[:, 0], h[:, 150]):
             raise AssertionError(f"rglru T={T}: the T = 1 step is not the call's h at t")
-        if not torch.equal(solo[0], h[2]):
-            raise AssertionError(f"rglru T={T}: a row alone is not its row in the batch")
+        # Rows alone (B = 1), in a pair (B = 2: the ring-wrap pair's batch)
+        # and in a three run other tile plans than B = 4: bitwise their rows
+        # of the B = 4 calls above.
+        for rows in (slice(2, 3), slice(0, 2), slice(1, 4)):
+            n = rows.stop - rows.start
+            plans.add(rglru.plan(n, W, sms))
+            sub = [t[rows] for t in a[:3]]
+            pairs = [(rglru.launch(*sub, *a[3:6], a[6][rows]), (h, last))]
+            for has_h0, whole in held.items():
+                pairs.append((rglru.launch(*sub, *a[3:6], a[6][rows] if has_h0 else None,
+                                           lengths[rows]), whole))
+            torch.cuda.synchronize()
+            for (h_part, last_part), (h_all, last_all) in pairs:
+                if not (torch.equal(h_part, h_all[rows]) and torch.equal(last_part,
+                                                                         last_all[rows])):
+                    raise AssertionError(
+                        f"rglru T={T}: rows {rows.start}-{rows.stop - 1} alone (plan "
+                        f"{rglru.plan(n, W, sms)}) are not their rows in the batch")
+    if plans != set(rglru.PLANS):
+        raise AssertionError(f"rglru: the gates ran plans {sorted(plans)}, not every plan "
+                             f"the kernel instantiates {sorted(rglru.PLANS)}")
     log(f"rglru: B={B} W={W} T in (320, 2304), zero and carried h0, ragged lengths, "
         f"within atol=rtol={F32_TOL} of the plain version (max |err| {worst:.3g}); split "
-        "= whole, step = T=1 call, row alone = row in batch: bitwise")
+        "= whole, step = T=1 call, rows alone, in a pair and in a three = their rows in "
+        f"the batch (plans {sorted(plans)}): bitwise")
 
-    def timed(T):
-        a = inputs(T)
+    def timed(T, rows):
+        a = [t[:rows] if t.dim() > 1 else t for t in inputs(T)]
         ms = timer(lambda: rglru.launch(*a))
         plain_ms = timer(lambda: ref.rglru_scan_ref(*a))
-        n = B * T * W
-        nbytes = 2 * n * 4 + n * 2 + n * 4 + 2 * B * W * 4 + 3 * W * 4
+        n = rows * T * W
+        # ga, gi, y and h0 read, h written (and h at T - 1 beside it for T > 1).
+        nbytes = 2 * n * 4 + n * 2 + n * 4 + rows * W * 4 * (2 if T > 1 else 1) + 3 * W * 4
+        # A yardstick of the bytes, not of the function: one device-to-device
+        # copy (cudaMemcpyAsync) that reads half of them and writes the other.
+        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = timer(lambda: dst.copy_(src))
         b_ms, b_by = bound_ms(nbytes, 18 * n, FP32_FLOPS_PER_S)
+        tile = "step kernel" if T == 1 else "tile {}, {} gate warps".format(
+            *rglru.plan(rows, W, sms))
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-                "bound_by": b_by,
-                "shape": f"B={B} T={T} W={W} f32 gates, bf16 y, carried h0"}
+                "bound_by": b_by, "copy_ms": copy_ms,
+                "shape": f"B={rows} T={T} W={W} f32 gates, bf16 y, carried h0, {tile}"}
 
-    entries = {"prefill": timed(320), "decode": timed(1)}
+    entries = {"prefill": timed(320, B), "prefill_t2304": timed(2304, 2),
+               "prefill_b1": timed(320, 1), "decode": timed(1, B)}
     return {**entries["prefill"], "max_abs_err": worst, "entries": entries}
+
+
+def copy_note(e):
+    """The printed form of an entry's bytes yardstick, where it has one."""
+    return f", copy of its bytes {e['copy_ms']:.4g} ms" if "copy_ms" in e else ""
 
 
 def check_dense_f32(torch, dev, timer):
@@ -5547,7 +5602,8 @@ def main() -> int:
                         *[(f"dense_matmul[{k}]", v)
                           for k, v in kern["dense_f32"]["entries"].items()]]:
             log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
-                f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {e['library_ms']})")
+                f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {e['library_ms']}"
+                f"{copy_note(e)})")
         log(f"griffin: build and kernel checks {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         out, counts = serve_griffin(torch, dev)
@@ -5658,7 +5714,8 @@ def main() -> int:
                                       for k, e in r.get("entries", {}).items()]:
             lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4g} ms"
             log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} "
-                f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib})")
+                f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib}"
+                f"{copy_note(e)})")
     log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
     if sys.argv[1:] == ["kernels"]:
         write_detail("chip_smoke.json", {"kernels": results, "dense_matmul": dense,
@@ -5691,6 +5748,9 @@ def main() -> int:
     for k in results:
         results[k]["launches"] = counts[k]
     dense["launches"] = counts["dense_matmul"]
+    # rglru: prompts (T > 1, the streaming kernel) and decode steps (T = 1).
+    results["rglru"]["entries"]["prefill"]["launches"] = counts["rglru_prefill"]
+    results["rglru"]["entries"]["decode"]["launches"] = counts["rglru_step"]
     # One TPU kernel, three entries: paged decode, contiguous decode over a
     # full cache and over a ring.
     entries = results["paged_attention"]["entries"]

@@ -12,31 +12,58 @@
 // it writes h at every t (float32) and h at each row's lengths - 1 (the
 // state a right-padded prompt carries out; T - 1 without lengths).
 //
-// Order: each (row, channel) folds t in increasing order (one lane of a
-// block's warp 0 per channel), every operation rounded on its own (no
-// contraction), so h_t depends only on
-// the row's own inputs up to t: a row's result is the same bits at every
-// padded length and batch size, a prompt run in two calls with the carry
-// is bitwise one call, and the decode step (T = 1 with the carried h) runs
-// this same code. JAX's associative scan rounds in another order; the port
-// holds the two within a tolerance.
+// Order: each (row, channel) folds t in increasing order (one lane per
+// channel), every operation rounded on its own (no contraction, no fast
+// math), so h_t depends only on the row's own inputs up to t: a row's
+// result is the same bits at every padded length, batch size and tiling,
+// a prompt run in two calls with the carry is bitwise one call, and the
+// decode step (T = 1 with the carried h) computes the same element. JAX's
+// associative scan rounds in another order; the port holds the two within
+// a tolerance.
 //
 // Bound on the H100: the bytes, each read and written once. At B = 4, T =
 // 320, W = 4096: ga and gi (float32) 42 MB, y (bf16) 10.5 MB, h (float32)
-// 21 MB, ~73 MB, 22 us at 3.35 TB/s; about 20 flops and 4
-// transcendentals an element are far below the compute rate. But a walk
-// of one thread per (row, channel) has only B W = 16 384 threads, 4 warps
-// an SM, too few to hide the latency of the gates' ~150 dependent
-// instructions a step. So a block owns (row, 32 channels) and walks T in
-// chunks of 64 positions: its 8 warps compute the chunk's (a, b) in
-// parallel into shared memory (the gates hold no recurrence), then warp 0
-// folds the chunk's 64 steps h = a h + b while the other warps compute the
-// next chunk into the second buffer. The arithmetic of every element and
-// the order of the fold are those of the one-thread walk.
+// 21 MB, ~73 MB, 22 us at 3.35 TB/s. The gates' IEEE exp, division and
+// square root cost ~80 instructions an element, about two thirds of that
+// time spread over every SM, so loads, gates and the fold must overlap.
+//
+// Prefill (T > 1): a block owns (one row, a tile of C channels) and streams
+// T in chunks of kTC positions through one ring of kStages shared-memory
+// stages, three mbarriers a stage and no block-wide barrier after the
+// start. The host's plan picks (C, M) of three so that the card is full:
+// (32, 16) at B = 1 (128 blocks, one an SM), (64, 16) at B = 2 (128
+// blocks), (64, 8) at B = 4 (256 blocks, two an SM). Warp roles, each on
+// its own barriers:
+//   - one lane of the load warp copies a chunk's ga, gi and y (y in its
+//     own type) into a free stage, one TMA tensor copy each, completing on
+//     the stage's `full` barrier;
+//   - M gate warps wait on `full`, read every input of their kPer
+//     elements first (so the elements' chains overlap), write a over ga
+//     and b over gi in place, fence those writes against the next tensor
+//     copy into the stage, and arrive on `ready`; each thread keeps one
+//     channel's -8 softplus(Lambda) and biases in registers;
+//   - C / 32 fold warps, one lane a channel, wait on `ready`, read kSub
+//     positions of (a, b) into registers ahead of the dependent chain, fold
+//     them, write h over a and arrive on `empty`;
+//   - the load lane waits on `empty`, copies that chunk's h out of the
+//     stage (one TMA tensor copy), and refills it.
+// So the loads of later chunks, the gates of the next and the fold of this
+// one run together. The tiling never changes an element's arithmetic or its
+// fold order. Timed against this layout and slower: a cp.async.bulk per row
+// and 16-byte cp.async by the load warp's lanes (both keep the load warp
+// issuing), a second ring for (a, b) (two more handoffs a chunk), h stored
+// by the fold warps (the stores stall their chain), and 8 gate warps for a
+// block alone on an SM (the gates' latency shows).
+//
+// Step (T = 1): its own kernel, one thread per (row, channel), no shared
+// memory and no barrier: every load first, then the arithmetic, then one
+// store of h (h at lengths - 1 is that same h).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -57,63 +84,320 @@ __device__ __forceinline__ float softplus(float x) {
   return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
 }
 
-constexpr int kCh = 32;       // channels a block: warp 0's lanes in the fold
-constexpr int kWarps = 8;     // warps computing a chunk's gates
-constexpr int kTC = 64;       // positions a chunk
+// One element's gates: a, and b = sqrt(1 - a^2) (i y).
+__device__ __forceinline__ float2 gates(float xa, float xi, float yv, float neg, float ab,
+                                        float ib) {
+  const float r = sigmoid(__fadd_rn(xa, ab));
+  const float i = sigmoid(__fadd_rn(xi, ib));
+  const float a = expf(__fmul_rn(neg, r));
+  return make_float2(a, __fmul_rn(sqrtf(fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f)),
+                                  __fmul_rn(i, yv)));
+}
 
-template <typename YT>
-__global__ void __launch_bounds__(kCh * kWarps)
-rglru_kernel(const float* __restrict__ ga, const float* __restrict__ gi,
-             const YT* __restrict__ y, const float* __restrict__ a_bias,
+// -- mbarriers and async copies ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// One arrival for the whole warp, after every lane's shared-memory accesses
+// before it.
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) bar_arrive(bar);
+}
+// Wait until the phase of parity `parity` has completed. A wait that
+// outlasts any run (2^30 polls, each suspending the thread for a while)
+// is a fault: trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+// Arrive, and expect `bytes` of tensor copies before the phase completes.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+// The box of `map` at (c, t, b) into shared memory (TMA), counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c, int t, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)), "l"(map), "r"(c), "r"(t),
+      "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+// Shared memory to the box of `map` at (c, t, b) (TMA; rows past the
+// tensor's end are dropped), then wait until the copy has read `src`.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c, int t,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+      ::"l"(map), "r"(c), "r"(t), "r"(b), "r"(smem_u32(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// -- prefill: the streaming kernel ---------------------------------------------------
+
+constexpr int kTC = 32;       // positions a chunk (a ring stage)
+constexpr int kSub = 16;      // positions the fold holds in registers at a time
+constexpr int kStages = 4;    // ring stages (more timed no faster, and cost
+                              // blocks an SM)
+
+// C channels a block, M gate warps.
+template <typename YT, int C, int M>
+struct Layout {
+  static constexpr int kFold = C / 32;                      // fold warps
+  static constexpr int kMath = M;                           // gate warps
+  static constexpr int kThreads = 32 * (kFold + 1 + kMath);
+  static constexpr int kTile = kTC * C;                     // elements a chunk
+  static constexpr int kStage = kTile * (8 + (int)sizeof(YT));   // bytes a stage
+  static constexpr int kPer = kTile / (kMath * 32);         // elements a gate thread
+  static constexpr int kBytes = kStages * (kStage + 3 * 8);  // the ring, 3 barriers a stage
+};
+
+template <typename YT, int C, int M>
+__global__ void __launch_bounds__(Layout<YT, C, M>::kThreads)
+rglru_kernel(const float* __restrict__ a_bias,
              const float* __restrict__ i_bias, const float* __restrict__ lam,
              const float* __restrict__ h0, const int* __restrict__ lengths,
-             float* __restrict__ h, float* __restrict__ h_last, int T, int W) {
-  __shared__ float a_s[2][kTC][kCh], b_s[2][kTC][kCh];
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int c = blockIdx.x * kCh + lane, b = blockIdx.y;
-  const bool ok = c < W;
-  const float neg = ok ? __fmul_rn(-kC, softplus(lam[c])) : 0.f;
-  const float ab = ok ? a_bias[c] : 0.f, ib = ok ? i_bias[c] : 0.f;
-  const int last = lengths ? max(lengths[b] - 1, 0) : T - 1;
-  const long row = (long)b * W + c, base = (long)b * T * W + c;
-  float hv = ok && h0 ? h0[row] : 0.f;
-  for (int t0 = 0, buf = 0; t0 < T; t0 += kTC, buf ^= 1) {
-    const int n = min(kTC, T - t0);
-    // The chunk's gates, 8 positions a warp: a and b = sqrt(1 - a^2) (i y).
-    for (int j = warp; j < n; j += kWarps) {
-      const long o = base + (long)(t0 + j) * W;
-      float a = 0.f, g = 0.f;
-      if (ok) {
-        const float r = sigmoid(__fadd_rn(ga[o], ab));
-        const float i = sigmoid(__fadd_rn(gi[o], ib));
-        a = expf(__fmul_rn(neg, r));
-        g = __fmul_rn(sqrtf(fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f)),
-                      __fmul_rn(i, load(y, o)));
-      }
-      a_s[buf][j][lane] = a;
-      b_s[buf][j][lane] = g;
+             float* __restrict__ h_last, const __grid_constant__ CUtensorMap ga_map,
+             const __grid_constant__ CUtensorMap gi_map,
+             const __grid_constant__ CUtensorMap y_map,
+             const __grid_constant__ CUtensorMap h_map, int T, int W) {
+  using L = Layout<YT, C, M>;
+  constexpr int kTile = L::kTile, kFold = L::kFold, kMath = L::kMath;
+  extern __shared__ __align__(128) unsigned char smem[];
+  // A stage holds a chunk's [ga | gi | y] rows. The gate warps overwrite ga
+  // with a and gi with b, the fold overwrites a with h, and the load lane
+  // copies h out before it refills the stage: one ring carries it all.
+  unsigned char* ring = smem;
+  uint64_t* full = (uint64_t*)(smem + kStages * L::kStage);    // loads landed
+  uint64_t* ready = full + kStages;                            // (a, b) written
+  uint64_t* empty = ready + kStages;                           // h written, a and b read
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = blockIdx.x * C, b = blockIdx.y;
+  const int cw = min(C, W - c0);               // the tile's channels, a multiple of 8
+  const int chunks = (T + kTC - 1) / kTC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&ready[s], kMath);
+      bar_init(&empty[s], kFold);
     }
-    __syncthreads();   // this chunk is staged; warp 0 is done with the other buffer
-    if (warp == 0 && ok) {
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        hv = __fadd_rn(__fmul_rn(a_s[buf][j][lane], hv), b_s[buf][j][lane]);
-        h[base + (long)(t0 + j) * W] = hv;
-        if (t0 + j == last) h_last[row] = hv;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kFold) {
+    // Loads and h stores, by one lane. Chunk k goes into stage k % kStages
+    // once chunk k - kStages is folded: first that chunk's h goes out of the
+    // stage (one tensor copy), then chunk k's ga, gi and y come in (one
+    // tensor copy each; rows past T and channels past W read as zeros),
+    // completing on the stage's full barrier.
+    if (lane == 0) {
+      for (int k = 0; k < chunks + kStages; ++k) {
+        const int s = k % kStages;
+        unsigned char* st = ring + s * L::kStage;
+        if (k >= kStages) {
+          bar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
+          tma_store(&h_map, st, c0, (k - kStages) * kTC, b);
+        }
+        if (k < chunks) {
+          bar_expect(&full[s], L::kStage);
+          tma_load(st, &ga_map, c0, k * kTC, b, &full[s]);
+          tma_load(st + kTile * 4, &gi_map, c0, k * kTC, b, &full[s]);
+          tma_load(st + kTile * 8, &y_map, c0, k * kTC, b, &full[s]);
+        }
       }
+    }
+  } else if (warp > kFold) {
+    // Gates: thread m on channel m % C, positions m / C + kRows i. Every
+    // input is read before any gate is computed, so the kPer elements'
+    // chains overlap.
+    constexpr int kRows = kMath * 32 / C;
+    const int m = threadIdx.x - 32 * (kFold + 1), ch = m % C, c = c0 + ch;
+    const bool ok = ch < cw;
+    const float neg = ok ? __fmul_rn(-kC, softplus(lam[c])) : 0.f;
+    const float ab = ok ? a_bias[c] : 0.f, ib = ok ? i_bias[c] : 0.f;
+    for (int k = 0; k < chunks; ++k) {
+      const int s = k % kStages;
+      float* st = (float*)(ring + s * L::kStage);
+      const YT* ys = (const YT*)(st + 2 * kTile);
+      float xa[L::kPer], xi[L::kPer], yv[L::kPer];
+      bar_wait(&full[s], (k / kStages) & 1);
+#pragma unroll
+      for (int i = 0; i < L::kPer; ++i) {
+        const int e = (m / C + i * kRows) * C + ch;
+        xa[i] = st[e];
+        xi[i] = st[kTile + e];
+        yv[i] = load(ys, e);
+      }
+#pragma unroll
+      for (int i = 0; i < L::kPer; ++i) {
+        const int e = (m / C + i * kRows) * C + ch;
+        const float2 g = gates(xa[i], xi[i], yv[i], neg, ab, ib);
+        st[e] = g.x;
+        st[kTile + e] = g.y;
+      }
+      // a and b, before the load lane's next tensor copy overwrites them.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warp_arrive(&ready[s]);
+    }
+  } else {
+    // Fold: lane per channel, h_t = a_t h_{t-1} + b_t in increasing t,
+    // kSub positions at a time from registers, h written over a. Past T
+    // (a last partial chunk) the rows were read as zeros and the tensor
+    // copy drops their h.
+    const int ch = warp * 32 + lane, c = c0 + ch;
+    const bool ok = ch < cw;
+    const int last = lengths ? max(lengths[b] - 1, 0) : T - 1;
+    float hv = ok && h0 ? h0[(long)b * W + c] : 0.f;
+    for (int k = 0; k < chunks; ++k) {
+      const int s = k % kStages, t0 = k * kTC, n = min(kTC, T - t0);
+      float* st = (float*)(ring + s * L::kStage);
+      bar_wait(&ready[s], (k / kStages) & 1);
+#pragma unroll
+      for (int j0 = 0; j0 < kTC; j0 += kSub) {
+        float av[kSub], bv[kSub];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          av[j] = st[(j0 + j) * C + ch];
+          bv[j] = st[kTile + (j0 + j) * C + ch];
+        }
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          hv = __fadd_rn(__fmul_rn(av[j], hv), bv[j]);
+          av[j] = hv;
+        }
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) st[(j0 + j) * C + ch] = av[j];
+      }
+      if (ok && last >= t0 && last < t0 + n) h_last[(long)b * W + c] = st[(last - t0) * C + ch];
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // h, for the store
+      warp_arrive(&empty[s]);
     }
   }
 }
 
+// cuTensorMapEncodeTiled of libcuda, fetched through the CUDA runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A (B, T, W) tensor of `es`-byte elements, boxes of C channels x kTC
+// positions of one row.
+bool tensor_map(CUtensorMap* map, const void* p, CUtensorMapDataType type, int es, int B, int T,
+                int W, int C) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * es, (cuuint64_t)T * W * es};
+  const cuuint32_t box[3] = {(cuuint32_t)C, (cuuint32_t)kTC, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(map, type, 3, const_cast<void*>(p), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename YT, int C, int M>
+cudaError_t launch_scan(const void* ga, const void* gi, const void* y, const void* a_bias,
+                        const void* i_bias, const void* lam, const void* h0,
+                        const void* lengths, void* h, void* h_last, int B, int T, int W,
+                        cudaStream_t st) {
+  using L = Layout<YT, C, M>;
+  const bool bf16 = sizeof(YT) == 2;
+  CUtensorMap ga_map, gi_map, y_map, h_map;
+  if (!tensor_map(&ga_map, ga, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C) ||
+      !tensor_map(&gi_map, gi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C) ||
+      !tensor_map(&y_map, y,
+                  bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  (int)sizeof(YT), B, T, W, C) ||
+      !tensor_map(&h_map, h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C))
+    return cudaErrorInvalidValue;
+  const int bytes = L::kBytes;
+  auto kern = rglru_kernel<YT, C, M>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();   // reported here; leave no error for the next launch
+      return e;
+    }
+  }
+  kern<<<dim3((W + C - 1) / C, B), L::kThreads, bytes, st>>>(
+      (const float*)a_bias, (const float*)i_bias, (const float*)lam, (const float*)h0,
+      (const int*)lengths, (float*)h_last, ga_map, gi_map, y_map, h_map, T, W);
+  return cudaGetLastError();
+}
+
 template <typename YT>
-int launch(const void* ga, const void* gi, const void* y, const void* a_bias,
-           const void* i_bias, const void* lam, const void* h0, const void* lengths,
-           void* h, void* h_last, int B, int T, int W, cudaStream_t st) {
-  rglru_kernel<YT><<<dim3((W + kCh - 1) / kCh, B), dim3(kCh, kWarps), 0, st>>>(
-      (const float*)ga, (const float*)gi, (const YT*)y, (const float*)a_bias,
-      (const float*)i_bias, (const float*)lam, (const float*)h0, (const int*)lengths,
-      (float*)h, (float*)h_last, T, W);
-  return (int)cudaGetLastError();
+cudaError_t dispatch_tile(int tile, int warps, const void* ga, const void* gi, const void* y,
+                          const void* a_bias, const void* i_bias, const void* lam,
+                          const void* h0, const void* lengths, void* h, void* h_last, int B,
+                          int T, int W, cudaStream_t st) {
+#define RGLRU_PLAN(C, M)                                                                  \
+  if (tile == C && warps == M)                                                           \
+    return launch_scan<YT, C, M>(ga, gi, y, a_bias, i_bias, lam, h0, lengths, h, h_last, \
+                                 B, T, W, st);
+  RGLRU_PLAN(32, 16)
+  RGLRU_PLAN(64, 8)
+  RGLRU_PLAN(64, 16)
+#undef RGLRU_PLAN
+  return cudaErrorInvalidValue;
+}
+
+// -- the decode step -----------------------------------------------------------------
+
+template <typename YT>
+__global__ void __launch_bounds__(128)
+rglru_step_kernel(const float* __restrict__ ga, const float* __restrict__ gi,
+                  const YT* __restrict__ y, const float* __restrict__ a_bias,
+                  const float* __restrict__ i_bias, const float* __restrict__ lam,
+                  const float* __restrict__ h0, float* __restrict__ h, int B, int W) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long)B * W) return;
+  const int c = (int)(i % W);
+  const float l = lam[c], ab = a_bias[c], ib = i_bias[c];
+  const float hp = h0 ? h0[i] : 0.f;
+  const float xa = ga[i], xi = gi[i], yv = load(y, i);
+  const float2 g = gates(xa, xi, yv, __fmul_rn(-kC, softplus(l)), ab, ib);
+  h[i] = __fadd_rn(__fmul_rn(g.x, hp), g.y);
 }
 
 }  // namespace
@@ -121,17 +405,43 @@ int launch(const void* ga, const void* gi, const void* y, const void* a_bias,
 // ga, gi (B, T, W) float32; y (B, T, W) float32 (y_dtype 0) or bfloat16
 // (1); a_bias, i_bias, lam (W,) float32; h0 (B, W) float32 or null (zero
 // state); lengths (B,) int32 or null (every row T long); h (B, T, W) and
-// h_last (B, W) float32 outputs; all contiguous. T >= 1. Returns the CUDA
-// error code of the launch.
+// h_last (B, W) float32 outputs; all contiguous, ga, gi, y and h 16-byte
+// aligned. T >= 1, W a multiple of 8; (tile, warps), the channels a block
+// and its gate warps, one of (32, 16), (64, 16), (64, 8) from the host's
+// plan. Returns the CUDA error code of the launch.
 extern "C" int rglru(const void* ga, const void* gi, const void* y, const void* a_bias,
                      const void* i_bias, const void* lam, const void* h0,
                      const void* lengths, void* h, void* h_last, int B, int T, int W,
-                     int y_dtype, void* stream) {
+                     int y_dtype, int tile, int warps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0 || W <= 0) return (int)cudaGetLastError();
-  if (T <= 0 || (y_dtype != 0 && y_dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (T <= 0 || W % 8 != 0 || (y_dtype != 0 && y_dtype != 1))
+    return (int)cudaErrorInvalidValue;
   if (y_dtype == 1)
-    return launch<__nv_bfloat16>(ga, gi, y, a_bias, i_bias, lam, h0, lengths, h, h_last, B,
-                                 T, W, st);
-  return launch<float>(ga, gi, y, a_bias, i_bias, lam, h0, lengths, h, h_last, B, T, W, st);
+    return (int)dispatch_tile<__nv_bfloat16>(tile, warps, ga, gi, y, a_bias, i_bias, lam, h0,
+                                             lengths, h, h_last, B, T, W, st);
+  return (int)dispatch_tile<float>(tile, warps, ga, gi, y, a_bias, i_bias, lam, h0, lengths, h,
+                                   h_last, B, T, W, st);
+}
+
+// The T = 1 step: ga, gi, y (B, W) as above; h0 (B, W) float32 or null; h
+// (B, W) float32 output (also h at lengths - 1). Returns the CUDA error
+// code of the launch.
+extern "C" int rglru_step(const void* ga, const void* gi, const void* y, const void* a_bias,
+                          const void* i_bias, const void* lam, const void* h0, void* h,
+                          int B, int W, int y_dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || W <= 0) return (int)cudaGetLastError();
+  if (y_dtype != 0 && y_dtype != 1) return (int)cudaErrorInvalidValue;
+  const long n = (long)B * W;
+  const dim3 grid((unsigned)((n + 127) / 128));
+  if (y_dtype == 1)
+    rglru_step_kernel<__nv_bfloat16><<<grid, 128, 0, st>>>(
+        (const float*)ga, (const float*)gi, (const __nv_bfloat16*)y, (const float*)a_bias,
+        (const float*)i_bias, (const float*)lam, (const float*)h0, (float*)h, B, W);
+  else
+    rglru_step_kernel<float><<<grid, 128, 0, st>>>(
+        (const float*)ga, (const float*)gi, (const float*)y, (const float*)a_bias,
+        (const float*)i_bias, (const float*)lam, (const float*)h0, (float*)h, B, W);
+  return (int)cudaGetLastError();
 }

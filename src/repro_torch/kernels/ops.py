@@ -68,6 +68,7 @@ def reset_launch_counts() -> None:
         mod.launches = 0
     _paged.contig_launches = 0
     _paged.ring_launches = 0
+    _rglru.step_launches = 0
 
 
 def _needs_grad(*ts) -> bool:
@@ -386,7 +387,7 @@ def rglru_scan(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None, *,
 def rglru_step(ga, gi, y, a_bias, i_bias, lam, h0, *, backend=None):
     """One token of the RG-LRU: ga, gi, y (B, W), h0 (B, W) → h (B, W)
     float32; :func:`rglru_scan` at T = 1 with the carried state (on the
-    card one launch of the same kernel)."""
+    card one launch of the step kernel, the same element's arithmetic)."""
     h, _ = rglru_scan(ga[:, None], gi[:, None], y[:, None], a_bias, i_bias, lam, h0,
                       backend=backend)
     return h[:, 0]

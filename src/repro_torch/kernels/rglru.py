@@ -2,10 +2,12 @@
 
 Replaces no Pallas kernel: the JAX package computes it with XLA
 (``repro/models/griffin.py::_rglru_coeffs`` and ``_rglru_scan``, an
-associative scan). One thread per (row, channel) walks the positions in
-order (``csrc/rglru.cu``), so a row's h never depends on its padded length
-or batch, two calls with the carry are bitwise one, and the decode step
-is this kernel at T = 1. The plain version is ``ref.rglru_scan_ref``.
+associative scan). Each (row, channel) folds the positions in order, one
+lane per channel (``csrc/rglru.cu``), so a row's h never depends on its
+padded length, batch or tiling, two calls with the carry are bitwise one,
+and the decode step computes the same element. A prompt (T > 1) streams
+through the ``rglru`` entry, tiled by :func:`plan`; the step (T = 1) has
+its own kernel, ``rglru_step``. The plain version is ``ref.rglru_scan_ref``.
 """
 from __future__ import annotations
 
@@ -16,28 +18,60 @@ import torch
 
 from repro_torch.kernels import build
 
-#: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
+#: Launches of the CUDA kernels since the last reset (see
+#: ops.launch_counts): ``launches`` counts both entries, ``step_launches``
+#: the T = 1 step's share.
 launches = 0
+step_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: ctypes signature of the C entry (checked against its source by the tests).
-ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
+#: ctypes signatures of the C entries (checked against their source by the tests).
+ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
+RGLRU_STEP_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: (channel tile, gate warps) pairs the prefill kernel instantiates.
+PLANS = ((32, 16), (64, 16), (64, 8))
+
+
+def plan(B: int, W: int, sms: int):
+    """(channel tile, gate warps) of the prefill kernel for B rows of W
+    channels on a card of ``sms`` streaming multiprocessors: 64-channel
+    tiles where their blocks fill at least 15/16 of the SMs, else 32
+    (B = 1 at W = 4096 on the H100's 132: 128 blocks); 8 gate warps where
+    two blocks share an SM (B = 4: 256 blocks), else 16. Only the tiling
+    and the warps depend on the plan, never an element's arithmetic or its
+    fold order."""
+    if W % 8:
+        raise ValueError(f"rglru: the prefill kernel's tensor copies need 16-byte rows, "
+                         f"so W must be a multiple of 8, got {W}")
+    blocks = B * -(-W // 64)
+    if blocks < sms * 15 // 16:
+        return 32, 16
+    return 64, 8 if blocks > sms else 16
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = build.load("rglru").rglru
-    fn.argtypes = ARGTYPES
-    fn.restype = _I
-    return fn
+def _lib():
+    lib = build.load("rglru")
+    lib.rglru.argtypes = ARGTYPES
+    lib.rglru_step.argtypes = RGLRU_STEP_ARGTYPES
+    lib.rglru.restype = lib.rglru_step.restype = _I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``, the plan's input."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None):
     """ga, gi (B, T, W) float32; y (B, T, W) float32 or bfloat16; a_bias,
     i_bias, lam (W,); h0 (B, W) or None; lengths (B,) or None → (h (B, T,
-    W) float32, h at each row's lengths - 1 (B, W) float32)."""
-    global launches
+    W) float32, h at each row's lengths - 1 (B, W) float32). At T = 1 the
+    step kernel runs and h at lengths - 1 is a view of h."""
+    global launches, step_launches
     B, T, W = ga.shape
     if gi.shape != ga.shape or y.shape != ga.shape or T < 1:
         raise ValueError(f"rglru: ga, gi and y must share one (B, T >= 1, W) shape, got "
@@ -54,16 +88,29 @@ def launch(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None):
     ga, gi, y = ga.contiguous(), gi.contiguous(), y.contiguous()
     a_bias, i_bias, lam = (t.to(torch.float32).contiguous() for t in (a_bias, i_bias, lam))
     h0 = None if h0 is None else h0.to(torch.float32).contiguous()
+    h = torch.empty((B, T, W), dtype=torch.float32, device=ga.device)
+    stream = torch.cuda.current_stream(ga.device).cuda_stream
+    h0_ptr = 0 if h0 is None else h0.data_ptr()
+    if T == 1:
+        rc = _lib().rglru_step(ga.data_ptr(), gi.data_ptr(), y.data_ptr(), a_bias.data_ptr(),
+                               i_bias.data_ptr(), lam.data_ptr(), h0_ptr, h.data_ptr(), B, W,
+                               _DTYPES[y.dtype], stream)
+        build.check(rc, "rglru_step")
+        launches += 1
+        step_launches += 1
+        return h, h[:, 0]
+    tile, warps = plan(B, W, sms(ga.device.index or 0))
+    if any(t.data_ptr() % 16 for t in (ga, gi, y)):
+        raise ValueError("rglru: the prefill kernel's tensor copies need ga, gi and y at "
+                         "16-byte aligned addresses")
     if lengths is not None:
         lengths = torch.as_tensor(lengths).to(device=ga.device,
                                               dtype=torch.int32).reshape(B).contiguous()
-    h = torch.empty((B, T, W), dtype=torch.float32, device=ga.device)
     h_last = torch.empty((B, W), dtype=torch.float32, device=ga.device)
-    rc = _fn()(ga.data_ptr(), gi.data_ptr(), y.data_ptr(), a_bias.data_ptr(),
-               i_bias.data_ptr(), lam.data_ptr(), 0 if h0 is None else h0.data_ptr(),
-               0 if lengths is None else lengths.data_ptr(), h.data_ptr(),
-               h_last.data_ptr(), B, T, W, _DTYPES[y.dtype],
-               torch.cuda.current_stream(ga.device).cuda_stream)
+    rc = _lib().rglru(ga.data_ptr(), gi.data_ptr(), y.data_ptr(), a_bias.data_ptr(),
+                      i_bias.data_ptr(), lam.data_ptr(), h0_ptr,
+                      0 if lengths is None else lengths.data_ptr(), h.data_ptr(),
+                      h_last.data_ptr(), B, T, W, _DTYPES[y.dtype], tile, warps, stream)
     build.check(rc, "rglru")
     launches += 1
     return h, h_last

@@ -440,6 +440,7 @@ def test_serve_cli_refuses_a_policy():
 
 @pytest.mark.parametrize("module,source,entry", [
     ("rglru", "rglru", "rglru"),
+    ("rglru", "rglru", "rglru_step"),
     ("paged_attention", "paged_attention", "ring_attention"),
     ("dense_matmul", "dense_matmul", "dense_matmul_f32"),
 ])
@@ -454,6 +455,59 @@ def test_new_ctypes_signatures_match_their_c_entries(module, source, entry):
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     assert getattr(mod, f"{entry.upper()}_ARGTYPES", mod.ARGTYPES) == want
     assert source in build.KERNELS
+
+
+H100_SMS = 132      # the plan's streaming multiprocessors in these tests
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 8, 64])
+@pytest.mark.parametrize("W", [8, 64, 72, 4096, 4104])
+@pytest.mark.parametrize("y_bytes", [2, 4])
+def test_rglru_plan_tiles_cover_w_in_16_byte_rows(B, W, y_bytes):
+    """The prefill kernel's plan: its blocks cover the W channels exactly
+    (the last tile ragged only by whole 16-byte rows), the tile is one the
+    kernel instantiates, split into whole fold warps and 16-byte rows of
+    ga, gi, y and h, and its gate warps cover a chunk's rows evenly."""
+    from repro_torch.kernels import rglru
+
+    tile, warps = rglru.plan(B, W, H100_SMS)
+    assert (tile, warps) in rglru.PLANS and tile % 32 == 0
+    blocks = -(-W // tile)
+    assert (blocks - 1) * tile < W <= blocks * tile
+    last = W - (blocks - 1) * tile
+    assert last % 8 == 0 and (last * y_bytes) % 16 == 0 and (last * 4) % 16 == 0
+    assert (tile * y_bytes) % 16 == 0 and (tile * 4) % 16 == 0
+    assert (32 * tile) % (32 * warps) == 0 and (32 * warps) % tile == 0
+
+
+def test_rglru_plan_fills_the_card_at_griffin_s_batches():
+    """recurrentgemma-9b (W = 4096): B = 1 (a continuous run's solo
+    admission) takes 32-channel tiles and 16 gate warps, 128 blocks of one
+    an SM; B = 2 (the ring-wrap pair) 64 and 16; B = 4 (a static batch) 64
+    and 8, 256 blocks two an SM; a W the tensor copies cannot take raises."""
+    from repro_torch.kernels import rglru
+
+    assert rglru.plan(1, 4096, H100_SMS) == (32, 16)
+    assert rglru.plan(2, 4096, H100_SMS) == (64, 16)
+    assert rglru.plan(4, 4096, H100_SMS) == (64, 8)
+    for B in (1, 2, 4):
+        assert B * 4096 // rglru.plan(B, 4096, H100_SMS)[0] >= 128
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rglru.plan(1, 4100, H100_SMS)
+
+
+def test_rglru_plans_are_the_kernel_s_instantiations_and_griffin_reaches_each():
+    """``rglru.PLANS`` lists exactly the (tile, gate warps) pairs that
+    ``csrc/rglru.cu`` instantiates, and griffin's batches of 1-4 rows at
+    W = 4096 reach every one of them on the H100, so no instantiation is
+    built that the card's gates never run."""
+    from repro_torch.kernels import rglru
+
+    src = (build.CSRC / "rglru.cu").read_text()
+    built = {(int(c), int(m)) for c, m in re.findall(r"^\s*RGLRU_PLAN\((\d+), (\d+)\)\s*$",
+                                                       src, re.M)}
+    assert built == set(rglru.PLANS) and len(rglru.PLANS) == len(built)
+    assert {rglru.plan(B, 4096, H100_SMS) for B in (1, 2, 3, 4)} == built
 
 
 def test_ring_splits_cover_any_window():

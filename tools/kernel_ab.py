@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the port's matmul, row-quantizer, wkv6 and flash-backward kernels
-of two checkouts on one GPU, in turns.
+"""Time the port's matmul, row-quantizer, wkv6, rglru and flash-backward
+kernels of two checkouts on one GPU, in turns.
 
   python3 tools/kernel_ab.py <other checkout> [<this checkout>]
 
 Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul``,
-``quantize_rows``, ``wkv6``, ``flash_attention`` and
+``quantize_rows``, ``wkv6``, ``rglru``, ``flash_attention`` and
 ``flash_attention_bwd`` from each checkout's
 ``src/repro_torch/kernels/csrc`` and times them at the serving path's
 decode and prefill shapes (``wkv6``: a rwkv6-3b prefill of B = 4, T = 320
-and a decode step, T = 1 with the state carried; the flash backward, bf16
+and a decode step, T = 1 with the state carried; ``rglru``: recurrentgemma-9b's
+W = 4096 at B = 4, T = 320, B = 2, T = 2304 (the ring-wrap prompts) and
+B = 1, T = 320 with a carried h0 and ragged lengths, and the step, B = 4
+through ``ops.rglru_step``, each with a sha256 of its h and h-at-lengths
+bytes, so that two checkouts show whether they compute the same bits; the flash backward, bf16
 dQ/dK/dV, at olmo-1b's training shape, paligemma's prefix-LM shape and
 hubert's bidirectional one; ``quantize_rows`` and
 the Table III leaf through ``ops``, so a checkout whose quantizer reads
 float32 only pays its cast of bfloat16 rows), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
-version's two runs shows beside the difference between versions). Each
+version's two runs shows beside the difference between versions; the
+digests of all four runs print after the times). Each
 process imports only its own checkout's ``repro_torch``; the timer is
 ``chip_smoke.Timer`` of this checkout for both (CUDA events, median of
 20, L2 flushed before each call). Inputs come from fixed seeds, the same
@@ -46,6 +51,8 @@ SHAPES += [("quantize_rows", M, 2048, 0, dt) for M in (4, 1280) for dt in ("f32"
 # ops.mixed_group_matmul, bf16 rows: wq/wk/wv, w_gate/w_up, w_down.
 SHAPES += [("table3", M, K, N, 4) for M in (4, 1280)
            for K, N in ((2048, 2048), (2048, 8192), (8192, 2048))]
+# (rglru, B, T, W, -): recurrentgemma-9b's RG-LRU; T = 1 is the step.
+SHAPES += [("rglru", B, T, 4096, 0) for B, T in ((4, 320), (2, 2304), (1, 320), (4, 1))]
 # (flash_bwd, B, T, (NQ, NKV, H), prefix_len or -1 for bidirectional).
 SHAPES += [("flash_bwd", 8, 512, (16, 16, 128), 0), ("flash_bwd", 4, 576, (8, 1, 256), 256),
            ("flash_bwd", 4, 500, (16, 16, 80), -1)]
@@ -53,13 +60,15 @@ SHAPES += [("flash_bwd", 8, 512, (16, 16, 128), 0), ("flash_bwd", 4, 576, (8, 1,
 
 def worker(root: str) -> None:
     sys.path.insert(0, os.path.join(root, "src"))
+    import hashlib
+
     import torch
 
     from repro_torch.core.bitplane import pack_weights
     from repro_torch.core.quant import QuantConfig
     from repro_torch.core.quantized_linear import pack_weight
     from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, flash_attention,
-                                     flash_attention_bwd, fused_matmul, ops, wkv6)
+                                     flash_attention_bwd, fused_matmul, ops, rglru, wkv6)
 
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
@@ -69,12 +78,34 @@ def worker(root: str) -> None:
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
     build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "quantize_rows", "wkv6",
-                 "flash_attention", "flash_attention_bwd"])
+                 "rglru", "flash_attention", "flash_attention_bwd"])
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
-    out = {}
+    out, sha = {}, {}
     for i, (name, M, K, N, bits) in enumerate(SHAPES):
         gen = torch.Generator(device=dev).manual_seed(i)
+        if name == "rglru":
+            B, T, W = M, K, N
+            ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
+            y = torch.randn((B, T, W), generator=gen, device=dev).to(torch.bfloat16)
+            ab, ib = (torch.randn(W, generator=gen, device=dev) * 0.5 for _ in range(2))
+            lam = torch.rand(W, generator=gen, device=dev) + 0.1
+            h0 = torch.randn((B, W), generator=gen, device=dev)
+            if T == 1:
+                key = f"rglru step B={B} W={W} (ops.rglru_step)"
+                fn = lambda: (ops.rglru_step(ga[:, 0], gi[:, 0], y[:, 0], ab,  # noqa: E731
+                                             ib, lam, h0),)
+            else:
+                key = f"rglru B={B} T={T} W={W} bf16 y"
+                lengths = torch.tensor([T, T - 7, 1, T // 2][:B], dtype=torch.int32,
+                                       device=dev)
+                fn = lambda: rglru.launch(ga, gi, y, ab, ib, lam, h0, lengths)  # noqa: E731
+            out[key] = timer(fn)
+            digest = hashlib.sha256()
+            for t in fn():
+                digest.update(t.contiguous().cpu().numpy().tobytes())
+            sha[key] = digest.hexdigest()
+            continue
         if name == "wkv6":
             B, T, H, Kh = M, K, N, bits
             r, k, v = ((torch.randn((B, T, H, Kh), generator=gen, device=dev) * 0.5)
@@ -131,7 +162,7 @@ def worker(root: str) -> None:
                     x, packed, w_bits=bits, a_bits=8, act_signed=True, w_plane_lo=0)
         dtype = "bf16" if name == "dense_matmul" else f"w{bits}"
         out[f"{name} M={M} {K}->{N} {dtype}"] = timer(fn)
-    print(json.dumps(out))
+    print(json.dumps({"ms": out, "sha256": sha}))
 
 
 def main() -> int:
@@ -155,20 +186,27 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"{'shape':42s} {'other ms (2 runs)':>22s} {'this ms (2 runs)':>22s}  this/other")
-    table = {}
-    for key in runs[0][1]:
-        o = [r[key] for lab, r in runs if lab == "other"]
-        t = [r[key] for lab, r in runs if lab == "this"]
+    table, digests = {}, {}
+    for key in runs[0][1]["ms"]:
+        o = [r["ms"][key] for lab, r in runs if lab == "other"]
+        t = [r["ms"][key] for lab, r in runs if lab == "this"]
         table[key] = {"other_ms": o, "this_ms": t}
         print(f"{key:42s} {o[0]:10.4f} {o[1]:10.4f}  {t[0]:10.4f} {t[1]:10.4f}  "
               f"{min(t) / min(o):9.3f}")
+    for key in runs[0][1]["sha256"]:
+        got = {lab: [r["sha256"][key] for lb, r in runs if lb == lab]
+               for lab in ("other", "this")}
+        digests[key] = got
+        same = len({d for ds in got.values() for d in ds}) == 1
+        print(f"{key}: sha256 other {got['other'][0][:16]} this {got['this'][0][:16]}: "
+              f"{'equal in all four runs' if same else 'DIFFER'}")
     print(smi)
     dest = os.environ.get("CHIP_SMOKE_OUT")
     if dest:
         os.makedirs(dest, exist_ok=True)
         with open(os.path.join(dest, "kernel_ab.json"), "w") as f:
-            json.dump({"other": other, "this": this, "nvidia_smi": smi, "ms": table}, f,
-                      indent=1)
+            json.dump({"other": other, "this": this, "nvidia_smi": smi, "ms": table,
+                       "sha256": digests}, f, indent=1)
     return 0
 
 

@@ -3,12 +3,13 @@
 
   python3 chip_smoke.py
 
-1. Builds the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the twelve CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together): the seven ports of the
    Pallas kernels, ``dense_matmul`` (the batch-invariant bf16 product,
    with a float32 store for Griffin's gate projections), ``rglru``
-   (Griffin's gates and recurrence in one pass) and
-   ``flash_attention_bwd`` (flash attention's gradient, for training).
+   (Griffin's gates and recurrence in one pass) and, for training,
+   ``flash_attention_bwd``, ``wkv6_bwd`` and ``rglru_bwd`` (the gradients
+   of flash attention and of the two recurrences).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
@@ -31,8 +32,8 @@
    ``x @ w`` and its rows bitwise the same at M in {1, 4, 17, 64, 65, 128,
    200, 640, 1280} (every tiling, split and unsplit K). The SASS of the
    bf16 tensor-core kernels (the flash backward's too) must hold HMMA,
-   bitplane_matmul's and the fused kernel's IMMA, and the flash
-   backward's no atomic (``count_hmma``). The attention kernels
+   bitplane_matmul's and the fused kernel's IMMA, and the three backward
+   kernels' no atomic (``count_hmma``). The attention kernels
    share one order (tiles of 32 keys, splits of 64, csrc/attend_tile.cuh):
    chunked prefill, paged decode and contiguous decode must be bitwise
    whole-prompt flash attention on the same keys (``check_one_order``:
@@ -227,14 +228,26 @@
    see no key, two calls bitwise), timed at olmo-1b's training shape
    beside SDPA's backward (there also batch row 3 alone bitwise row 3 of
    the batch of 8) and at paligemma's prefix-LM and hubert's
-   bidirectional shapes; the autograd wrappers change no bit of olmo-1b's
-   ``forward_hidden`` (4 layers, full width) nor its launches; reduced
-   float32 olmo-1b trains 3 steps on the card as on the CPU, plain and
-   QAT (``TRAIN_TOL``); ``python -m repro_torch.launch.train --arch
-   olmo-1b --steps 20 --global-batch 8 --seq 512 --qat w4a8`` at full
-   width and depth (1.18 B parameters; finite losses and grad norms, the
-   last loss below the first; s/step, tokens/s and the peak memory
-   printed); a 4-layer full-width QAT run saves at steps 5 and 10 (about
+   bidirectional shapes, and at Griffin's (MQA 16/1, H 256, window
+   2048, T 512); the recurrences' backward kernels against their plain
+   versions (``check_wkv6_backward``: rwkv6-3b's training shape B 8, T
+   512, H 40, K = V = 64, bf16, a T no multiple of the chunk, a carried
+   state with dstate_out, decays down to 1e-6, B 1; ``check_rglru_backward``:
+   Griffin's B 8, T 512, W 4096, bf16 y, zero and carried h0, Lambda near
+   the clamp; within ``WKV_BWD_TOL`` / ``RGLRU_BWD_TOL`` of max |g|, two
+   calls bitwise, row 0 alone bitwise its batch row, timed beside their
+   bounds and plain versions); the autograd wrappers change no bit of
+   olmo-1b's ``forward_hidden`` (4 layers, full width) nor its launches;
+   reduced float32 olmo-1b (plain and QAT), rwkv6-3b and recurrentgemma-9b
+   train 3 steps on the card as on the CPU (``TRAIN_TOL``); ``python -m
+   repro_torch.launch.train --arch olmo-1b --steps 20 --global-batch 8
+   --seq 512 --qat w4a8`` at full width and depth (1.18 B parameters),
+   ``--arch rwkv6-3b --steps 10 --lr 1e-3`` at full width and depth (2.86
+   B) and recurrentgemma-9b at full width cut to 8 layers, QAT w4a8, 10
+   steps through ``train/loop.py`` (3.68 B; finite losses and grad norms,
+   the last loss below the first, the backward kernels launched; s/step,
+   tokens/s and the peak memory printed); a 4-layer full-width QAT
+   olmo-1b run saves at steps 5 and 10 (about
    4.5 GB each, in a temporary directory removed after), its restored
    state bitwise the saved one, steps 10-14 after a restart bitwise the
    uninterrupted run's; and ``serve --ckpt`` of that checkpoint prints
@@ -242,8 +255,9 @@
    the restored params. No serve run launches the backward.
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
-(the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``
-and ``dense_matmul``, which replace XLA code, with a ``note`` saying so; each row's headline
+(the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``,
+``wkv6_bwd``, ``rglru_bwd`` and ``dense_matmul``, which replace XLA code,
+with a ``note`` saying so; each row's headline
 times the entry the serve paths launch, so ``bitplane_matmul``'s is its
 dequant entry and the JAX-signature int32 entry is a sub-entry;
 paged_attention's entries time the paged, contiguous and ring entries)
@@ -275,8 +289,8 @@ checks, the frontend flash checks (printing their times), the norm-row
 check, the frontend phase and its card-vs-CPU check, and run (f) with
 solo ≡ mid-decode admission; ``python3 chip_smoke.py train`` builds the
 kernels and runs the flash, one-order and frontend flash checks, then
-the train phase (printing the backward's time beside its bound and SDPA's
-backward); ``python3 chip_smoke.py profile-train`` breaks olmo-1b's QAT
+the train phase (printing the three backward kernels' times beside their
+bounds, SDPA's backward beside the flash one's); ``python3 chip_smoke.py profile-train`` breaks olmo-1b's QAT
 training step down by part and by kernel group (see ``profile_train``).
 """
 from __future__ import annotations
@@ -284,6 +298,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -317,12 +332,18 @@ REPLACES = {
     "dense_matmul": "src/repro/models/common.py:49",
     "rglru": "src/repro/models/griffin.py:126",
     "flash_attention_bwd": "src/repro/models/common.py:151",
+    "wkv6_bwd": "src/repro/models/rwkv6.py:40",
+    "rglru_bwd": "src/repro/models/griffin.py:126",
 }
 NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "rglru": "XLA _rglru_coeffs + associative_scan _rglru_scan (no Pallas "
                        "kernel)",
               "flash_attention_bwd": "XLA autodiff of chunked_attention (no Pallas "
-                                     "kernel has a VJP)"}
+                                     "kernel has a VJP)",
+              "wkv6_bwd": "XLA autodiff of the chunked jnp wkv6_chunked (the Pallas "
+                          "wkv6 kernel has no VJP)",
+              "rglru_bwd": "XLA autodiff of _rglru_coeffs + associative_scan (no "
+                           "Pallas kernel)"}
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -334,6 +355,8 @@ SOURCES = {
     "dense_matmul": "src/repro_torch/kernels/csrc/dense_matmul.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "wkv6_bwd": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+    "rglru_bwd": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
 }
 SHARED_PREFIX = 200
 TIERS = "w8a8,w4a8,w2a8"
@@ -4766,6 +4789,9 @@ BWD_CASES = (
      dict(causal=True, window=100, q_offset=0)),
     ("MQA 4/1 H 256 over four key tiles", 1, 250, 250, 4, 1, 256,
      dict(causal=True, window=0, q_offset=0)),
+    # Griffin's training shape: MQA 16/1, H 256, its 2048-key window.
+    ("griffin MQA 16/1 H 256 window 2048", 1, 512, 512, 16, 1, 256,
+     dict(causal=True, window=2048, q_offset=0)),
 )
 BWD_F32_TOL = 1e-4     # relative to max |g| of the plain version's gradient
 BWD_BF16_TOL = 2e-2
@@ -4897,12 +4923,16 @@ def check_flash_backward(torch, dev, timer):
     # T 500, H 80, bidirectional). Bound: q, O, dO read and dQ written at
     # q's size, k, v read and dK, dV written at k's, against five products
     # over the pairs the mask leaves visible. SDPA's backward with K/V
-    # expanded to the query heads (the prefix-LM mask as a boolean mask).
+    # expanded to the query heads (the prefix-LM and window masks as a
+    # boolean mask). Griffin's training shape: B 8, MQA 16/1, T 512, H 256.
     for name, (B2, T2, nq2, nkv2, H2, kw2) in {
             "prefix_lm": (4, 576, 8, 1, 256, dict(causal=True, window=0, q_offset=0,
                                                   prefix_len=256)),
             "bidirectional": (4, ENCODER_T, 16, 16, 80, dict(causal=False, window=0,
-                                                            q_offset=0))}.items():
+                                                            q_offset=0)),
+            # Griffin's training step: MQA 16/1, H 256, its 2048-key window.
+            "griffin_window": (TRAIN_B, TRAIN_T, 16, 1, 256, dict(causal=True, window=2048,
+                                                                  q_offset=0))}.items():
         q2, do2 = rand(B2, T2, nq2, H2), rand(B2, T2, nq2, H2)
         k2, v2 = rand(B2, T2, nkv2, H2), rand(B2, T2, nkv2, H2)
         out2 = flash_attention.launch(q2, k2, v2, **kw2)
@@ -4921,6 +4951,8 @@ def check_flash_backward(torch, dev, timer):
         i = torch.arange(T2, device=dev)
         mask = ((i[None, :] <= i[:, None]) | (i[None, :] < kw2.get("prefix_len", 0))
                 if kw2["causal"] else torch.ones(T2, T2, dtype=torch.bool, device=dev))
+        if kw2["window"]:
+            mask = mask & (i[None, :] > i[:, None] - kw2["window"])
         qs = q2.transpose(1, 2).contiguous().requires_grad_(True)
         ks, vs = (a.transpose(1, 2).expand(B2, nq2, T2, H2).contiguous().requires_grad_(True)
                   for a in (k2, v2))
@@ -5048,6 +5080,209 @@ def check_dense_backward(torch, dev):
     return worst
 
 
+# -- training (slice 19): the recurrences' backward kernels ------------------
+
+# check_wkv6_backward: tolerances relative to max |g| of the plain version's
+# gradient. dr, dk, dv are stored in r's dtype: bf16 rounds an element to
+# 2^-9 of itself (2e-3), float32 parts by summation order (1e-4). dw =
+# d(log w) / w: a rounding of d(log w) comes out multiplied by 1/w (1e6 at
+# w = 1e-6, where the plain versions in float32, JAX's too, part from
+# float64 by 0.03-0.1 of max |dw|), and the model multiplies dw by w again
+# (w = exp(-exp(x))), so dw is held as w dw = d(log w).
+WKV_BWD_TOL = {"bf16": 1e-2, "f32": 1e-4}
+# (name, B, T, H, K (= V), chunk, dtype, least decay, carried state and dstate).
+WKV_BWD_CASES = (
+    ("rwkv6-3b training shape", TRAIN_B, TRAIN_T, 40, 64, 64, "bf16", 1e-2, False),
+    ("T 300, no multiple of the chunk", 2, 300, 8, 64, 64, "bf16", 1e-2, False),
+    ("carried state and dstate_out", 2, 200, 8, 64, 64, "f32", 1e-2, True),
+    ("decays 1e-6 to 1", 2, 256, 8, 64, 64, "f32", 1e-6, True),
+    ("B 1", 1, TRAIN_T, 40, 64, 64, "bf16", 1e-2, False),
+)
+
+
+def _grad_errs(torch, names, got, want, what, tol_of):
+    """{name: max |err| / max |g|} of each gradient pair, raising where one
+    is not finite or passes its tolerance (tol_of(name))."""
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(names, got, want):
+        if g is None:
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {name} not finite")
+        errs[name] = ((g.float() - w.float()).abs().max()
+                      / w.float().abs().max().clamp_min(1e-30)).item()
+        if not errs[name] <= tol_of(name):
+            raise AssertionError(f"{what}: {name} max |err| {errs[name]:.3g} of max |g| "
+                                 f"beyond {tol_of(name)}")
+    return errs
+
+
+def check_wkv6_backward(torch, dev, timer):
+    """``wkv6_bwd`` against its plain version (``ref.wkv6_chunked_bwd_ref``
+    over the plain forward's chunk-start states) on the card, every case
+    of WKV_BWD_CASES (rwkv6-3b's training shape, B 8, T 512, H 40, K = V =
+    64, chunk 64, bf16 r/k/v; a T no multiple of the chunk; a carried
+    state with dstate_out; decays down to 1e-6; B 1): dr, dk, dv, d(log w)
+    = w dw, du and dstate_in within WKV_BWD_TOL of max |g|; a further call
+    bitwise; batch row 0 alone bitwise row 0 of the batch (every gradient
+    but du, which sums the rows). Timed at the training shape. Returns
+    the kernel-table row."""
+    from repro_torch.kernels import ref, wkv6
+
+    gen = torch.Generator(device=dev).manual_seed(47)
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+    worst, worst_abs, row = {}, 0.0, None
+    for name, B, T, H, K, C, dt, wlo, carried in WKV_BWD_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        r, k, v = (torch.randn((B, T, H, K), generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        w = torch.exp(torch.rand((B, T, H, K), generator=gen, device=dev) * math.log(wlo))
+        u = torch.randn((H, K), generator=gen, device=dev) * 0.5
+        s0 = (torch.randn((B, H, K, K), generator=gen, device=dev) if carried
+              else torch.zeros((B, H, K, K), device=dev))
+        do = torch.randn((B, T, H, K), generator=gen, device=dev)
+        ds = torch.randn((B, H, K, K), generator=gen, device=dev) if carried else None
+        _, _, st = wkv6.launch(r, k, v, w, u, s0, chunk=C, states=True)
+        _, _, pst = ref.wkv6_chunked_ref(r, k, v, w, u, s0, C, return_states=True)
+        last = {}
+
+        def kernel():
+            last["got"] = wkv6.launch_bwd(r, k, v, w, u, st, do, ds, chunk=C)
+
+        def plain():
+            last["want"] = ref.wkv6_chunked_bwd_ref(r, k, v, w, u, pst, do, ds, C)
+
+        kernel()
+        plain()
+        if name == "rwkv6-3b training shape":
+            ms, plain_ms = timer(kernel), timer(plain, iters=3, warmup=1)
+        got, want = list(last["got"]), list(last["want"])
+        got[3], want[3] = got[3] * w, want[3] * w
+        errs = _grad_errs(torch, names, got, want, f"wkv6_bwd {name}",
+                          lambda n: WKV_BWD_TOL[dt if n in ("dr", "dk", "dv") else "f32"])
+        for n, e in errs.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        worst_abs = max(worst_abs, *((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(got, want)))
+        again = wkv6.launch_bwd(r, k, v, w, u, st, do, ds, chunk=C)
+        if not all(torch.equal(a, b) for a, b in zip(last["got"], again)):
+            raise AssertionError(f"wkv6_bwd {name}: two calls differ")
+        if B > 1:
+            one = [t[:1].contiguous() for t in (r, k, v, w)]
+            solo = wkv6.launch_bwd(*one, u, st[:1].contiguous(), do[:1].contiguous(),
+                                   None if ds is None else ds[:1].contiguous(), chunk=C)
+            if not all(torch.equal(a, b[:1]) for i, (a, b) in enumerate(zip(solo, again))
+                       if i != 4):
+                raise AssertionError(f"wkv6_bwd {name}: row 0 alone differs from row 0 "
+                                     "of the batch")
+        del last, again
+    # Bound at the training shape: r, k, v read in bf16, w, dout and the
+    # chunk-start states in float32; dr, dk, dv written in bf16, dw and
+    # dstate_in in float32. Operations, float32 a chunk and head: the
+    # products A = dout v^T (C^2 V), dout S^T, v G^T, khat G, rhat^T dout
+    # (4 C K V), P^T dout (C^2 V / 2) and the gated sums dr, dk, P (3 C^2
+    # K / 2), two each, and one exp a gate in each of the two walks.
+    B, T, H, K, C = TRAIN_B, TRAIN_T, 40, 64, 64
+    nc = -(-T // C)
+    elems = B * T * H * K
+    nbytes = 3 * 2 * elems + 2 * 4 * elems + 4 * B * H * nc * K * K \
+        + 3 * 2 * elems + 4 * elems + 4 * B * H * K * K
+    per = 2 * (C * C * K + 4 * C * K * K + C * C * K // 2 + 3 * C * C * K // 2) + C * C * K
+    b_ms, b_by = bound_ms(nbytes, B * H * nc * per, FP32_FLOPS_PER_S)
+    log(f"wkv6_bwd: {len(WKV_BWD_CASES)} cases ({', '.join(c[0] for c in WKV_BWD_CASES)}) "
+        f"within {WKV_BWD_TOL} of max |g| (worst {worst}); two calls bitwise equal; row 0 "
+        "alone bitwise row 0 of the batch")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst_abs, "max_rel_err": worst,
+            "cases": len(WKV_BWD_CASES),
+            "shape": f"B={B} T={T} H=40 K=V=64 chunk 64, bf16 r/k/v (dr, dk, dv, dw, du, "
+                     "dstate)"}
+
+
+# check_rglru_backward: tolerances relative to max |g| of the plain version.
+# The kernel recomputes the forward's a bit for bit and rounds every
+# operation on its own, as the plain version's float32 ops do; the three
+# (W,) gradients sum over B T in another order.
+RGLRU_BWD_TOL = 1e-4
+# (name, B, T, W, carried h0, the range of Lambda).
+RGLRU_BWD_CASES = (
+    ("Griffin training shape, zero h0", TRAIN_B, TRAIN_T, 4096, False, (-3.0, 3.0)),
+    ("carried h0", TRAIN_B, TRAIN_T, 4096, True, (-3.0, 3.0)),
+    ("Lambda near the clamp (a -> 1)", 2, 300, 4096, True, (-30.0, -8.0)),
+)
+
+
+def check_rglru_backward(torch, dev, timer):
+    """``rglru_bwd`` against its plain version (``ref.rglru_scan_bwd_ref``
+    over the plain forward's h) on the card, every case of
+    RGLRU_BWD_CASES (Griffin's training shape, B 8, T 512, W 4096, bf16
+    y, with zero and with carried h0; Lambda from -30 to -8, where 1 - a²
+    reaches the 1e-12 clamp): dga, dgi, dy, the three (W,) gradients and
+    dh0 within RGLRU_BWD_TOL of max |g|; a further call bitwise; batch row
+    0 alone bitwise row 0 of the batch (every gradient but the (W,) sums).
+    Timed at the training shape with zero h0. Returns the kernel-table
+    row."""
+    from repro_torch.kernels import ref, rglru
+
+    gen = torch.Generator(device=dev).manual_seed(53)
+    names = ("dga", "dgi", "dy", "da_bias", "di_bias", "dlam", "dh0")
+    worst, worst_abs = {}, 0.0
+    for name, B, T, W, carried, (lo, hi) in RGLRU_BWD_CASES:
+        ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
+        y = torch.randn((B, T, W), generator=gen, device=dev).to(torch.bfloat16)
+        ab, ib = (torch.randn(W, generator=gen, device=dev) * 0.1 for _ in range(2))
+        lam = lo + (hi - lo) * torch.rand(W, generator=gen, device=dev)
+        h0 = torch.randn((B, W), generator=gen, device=dev) if carried else None
+        dh = torch.randn((B, T, W), generator=gen, device=dev)
+        h, _ = rglru.launch(ga, gi, y, ab, ib, lam, h0)
+        ph, _ = ref.rglru_scan_ref(ga, gi, y, ab, ib, lam, h0)
+        last = {}
+
+        def kernel():
+            last["got"] = rglru.launch_bwd(ga, gi, y, ab, ib, lam, h0, h, dh)
+
+        def plain():
+            last["want"] = ref.rglru_scan_bwd_ref(ga, gi, y, ab, ib, lam, h0, ph, dh)
+
+        kernel()
+        plain()
+        if name == RGLRU_BWD_CASES[0][0]:
+            ms, plain_ms = timer(kernel), timer(plain, iters=5)
+        errs = _grad_errs(torch, names, last["got"], last["want"], f"rglru_bwd {name}",
+                          lambda n: RGLRU_BWD_TOL)
+        for n, e in errs.items():
+            worst[n] = max(worst.get(n, 0.0), e)
+        worst_abs = max(worst_abs, *((a.float() - b.float()).abs().max().item()
+                                     for a, b in zip(last["got"], last["want"])
+                                     if a is not None))
+        again = rglru.launch_bwd(ga, gi, y, ab, ib, lam, h0, h, dh)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(last["got"], again)):
+            raise AssertionError(f"rglru_bwd {name}: two calls differ")
+        one = [t[:1].contiguous() for t in (ga, gi, y)]
+        solo = rglru.launch_bwd(*one, ab, ib, lam, None if h0 is None else h0[:1].contiguous(),
+                                h[:1].contiguous(), dh[:1].contiguous())
+        if not all(a is None or torch.equal(a, b[:1])
+                   for i, (a, b) in enumerate(zip(solo, again)) if i not in (3, 4, 5)):
+            raise AssertionError(f"rglru_bwd {name}: row 0 alone differs from row 0 of "
+                                 "the batch")
+        del last, again
+    B, T, W = TRAIN_B, TRAIN_T, 4096
+    n = B * T * W
+    # ga, gi, h, dh read in float32 and y in bf16; dga, dgi written in
+    # float32 and dy in bf16 (28 bytes an element); ~40 float32 operations
+    # an element.
+    b_ms, b_by = bound_ms(28 * n, 40 * n, FP32_FLOPS_PER_S)
+    log(f"rglru_bwd: {len(RGLRU_BWD_CASES)} cases ({', '.join(c[0] for c in RGLRU_BWD_CASES)}) "
+        f"within {RGLRU_BWD_TOL} of max |g| (worst {worst}); two calls bitwise equal; row 0 "
+        "alone bitwise row 0 of the batch")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": worst_abs, "max_rel_err": worst,
+            "cases": len(RGLRU_BWD_CASES),
+            "shape": f"B={B} T={T} W={W}, f32 gates, bf16 y, zero h0 (dga, dgi, dy, the "
+                     "(W,) gradients)"}
+
+
 def _train_cfg(arch, reduced=False, qat=None, **over):
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_quant_token
@@ -5063,16 +5298,30 @@ def _train_cfg(arch, reduced=False, qat=None, **over):
 # (PERF.md §6; JAX's own scanned and unscanned steps part so), and AdamW
 # moves each parameter by about lr (at most 1e-2 here) whatever its
 # gradient's size, so the QAT params are held by their mean |difference|,
-# a quarter of lr.
+# a quarter of lr. The recurrent families' gradients near zero by
+# cancellation (rwkv6's squared-ReLU channel mix) are normalized each by
+# its own size in AdamW's first step: on the CPU, against JAX, some
+# elements part by up to 5e-4 after it and the next grad norm by 4.4e-4
+# (tests/test_torch_train.py), and on the card an element whose gradient
+# changed sign took its step the other way (1.16e-2 apart, mean 1.1e-6,
+# on an H100 80GB HBM3 at 700 W). So their grad norm is held within 1e-3,
+# every param within 2 lr and the mean |difference| within 1e-5.
 TRAIN_TOL = {"plain": {"loss": 1e-5, "grad_norm": 1e-4, "params_max": 1e-3},
-             "w4a8": {"loss": 2e-3, "grad_norm": 5e-2, "params_mean": 2.5e-3}}
+             "w4a8": {"loss": 2e-3, "grad_norm": 5e-2, "params_mean": 2.5e-3},
+             "recurrent": {"loss": 1e-5, "grad_norm": 1e-3, "params_max": 2e-2,
+                           "params_mean": 1e-5}}
+# (arch, TRAIN_TOL key, --qat) of card_vs_cpu_train.
+TRAIN_PARITY = (("olmo-1b", "plain", None), ("olmo-1b", "w4a8", "w4a8"),
+                ("rwkv6-3b", "recurrent", None), (GRIFFIN, "recurrent", None))
 
 
 def card_vs_cpu_train(torch):
-    """Reduced olmo-1b in float32, 3 steps of ``make_train_step`` (batch
-    4 x 64 from the data pipeline, lr 1e-2, warmup 2) on the card and on
-    the CPU from the same weights, plain and under ``--qat w4a8``: losses,
-    grad norms and params within TRAIN_TOL. Returns mode → errors."""
+    """Reduced models in float32, 3 steps of ``make_train_step`` (batch 4
+    x 64 from the data pipeline, lr 1e-2, warmup 2) on the card and on the
+    CPU from the same weights: olmo-1b plain and under ``--qat w4a8``,
+    rwkv6-3b and recurrentgemma-9b plain (their recurrences' backward
+    kernels, Griffin's windowed flash backward); losses, grad norms and
+    params within TRAIN_TOL. Returns "arch mode" → errors."""
     from repro_torch import tree as tr
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataIterator
@@ -5080,8 +5329,8 @@ def card_vs_cpu_train(torch):
     from repro_torch.train.loop import init_train_state, make_train_step
 
     out = {}
-    for mode, qat in (("plain", None), ("w4a8", "w4a8")):
-        cfg = _train_cfg("olmo-1b", reduced=True, qat=qat, dtype="float32")
+    for arch, mode, qat in TRAIN_PARITY:
+        cfg = _train_cfg(arch, reduced=True, qat=qat, dtype="float32")
         model = build_model(cfg)
         tc = TrainConfig(lr=1e-2, warmup_steps=2, total_steps=30)
         data = DataIterator(cfg, global_batch=4, seq_len=64, seed=0, branch=4)
@@ -5098,65 +5347,122 @@ def card_vs_cpu_train(torch):
             runs[dev] = (mets, [p.detach().cpu() for p in tr.leaves(state.params)])
         tol = TRAIN_TOL[mode]
         (mc, pc), (mg, pg) = runs["cpu"], runs["cuda"]
+        per_leaf = [(a - b).abs().max().item() for a, b in zip(pc, pg)]
         err = {"loss": max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(mc, mg)),
                "grad_norm": max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(mc, mg)),
-               "params_max": max((a - b).abs().max().item() for a, b in zip(pc, pg)),
-               "params_mean": max((a - b).abs().mean().item() for a, b in zip(pc, pg))}
-        out[mode] = err
+               "params_max": max(per_leaf),
+               "params_mean": max((a - b).abs().mean().item() for a, b in zip(pc, pg)),
+               "params_max_leaf": tr.path_str(
+                   tr.flatten_with_path(base)[per_leaf.index(max(per_leaf))][0])}
+        out[f"{arch} {mode}"] = err
         bad = [k for k, t in tol.items() if not err[k] <= t]
         if bad:
-            raise AssertionError(f"reduced fp32 olmo-1b training ({mode}): card vs CPU "
+            raise AssertionError(f"reduced fp32 {arch} training ({mode}): card vs CPU "
                                  f"{err} beyond {tol}")
-    log(f"reduced fp32 olmo-1b, 3 train steps: card vs CPU {out} (within {TRAIN_TOL})")
+    log(f"reduced fp32 training, 3 steps each: card vs CPU {out} (within {TRAIN_TOL})")
     return out
 
 
 TRAIN_ARGV = ["--arch", "olmo-1b", "--steps", "20", "--global-batch", str(TRAIN_B),
               "--seq", str(TRAIN_T), "--qat", "w4a8"]
+# rwkv6-3b at full width and depth (32 layers, 2.86 B parameters), plain
+# bf16 as JAX trains it, through the CLI. The recurrent runs take lr 1e-3:
+# at the CLI's default 3e-3 rwkv6-3b's loss fell for the warmup's two
+# steps, then rose (11.60 -> 13.60 by step 6, 12.15 at step 9, on an H100
+# 80GB HBM3 at 700 W).
+TRAIN_LR_RECURRENT = 1e-3
+RWKV_TRAIN_ARGV = ["--arch", "rwkv6-3b", "--steps", "10", "--global-batch", str(TRAIN_B),
+                   "--seq", str(TRAIN_T), "--lr", str(TRAIN_LR_RECURRENT)]
+# recurrentgemma-9b at full width, QAT w4a8, cut to 8 layers: two (rglru,
+# rglru, attn) groups and the 2-layer rem (3.68 B parameters; 38 layers'
+# weights, grads and AdamW moments, about 115 GB, do not fit in 80).
+GRIFFIN_TRAIN_LAYERS, GRIFFIN_TRAIN_STEPS = 8, 10
 
 
-def train_full(torch, smi):
-    """``python -m repro_torch.launch.train`` with TRAIN_ARGV (olmo-1b at
-    full width and depth, 16 layers, 1.18 B parameters, bf16, QAT w4a8,
-    20 steps of 8 x 512 tokens), in-process: every logged loss and grad
-    norm finite, the last loss below the first. Prints s/step, tokens/s
-    and the peak device memory beside the card. Its launch counts are the
-    training path's (reset just before, read just after). Returns
-    (report, counts)."""
-    import math
-
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
-
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = train.run(train.build_parser().parse_args(TRAIN_ARGV))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    hist = out["history"]
+def _train_report(torch, name, hist, tokens_per_step, wall, smi, counts, need):
+    """Gate one full-width training run (every logged loss and grad norm
+    finite, the last loss below the first, each kernel of `need` launched)
+    and print s/step, tokens/s and the peak memory beside the card."""
     losses = [h["loss"] for h in hist]
     norms = [h["grad_norm"] for h in hist]
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"olmo-1b training: a loss or grad norm is not finite: "
+        raise AssertionError(f"{name} training: a loss or grad norm is not finite: "
                              f"{losses} {norms}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"olmo-1b training: the loss did not fall: {losses}")
-    missing = [k for k in ("flash_attention", "flash_attention_bwd", "dense_matmul")
-               if counts[k] <= 0]
+        raise AssertionError(f"{name} training: the loss did not fall: {losses}")
+    missing = [k for k in need if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"olmo-1b training launched no {missing}: {counts}")
+        raise AssertionError(f"{name} training launched no {missing}: {counts}")
     steps = sorted(h["dt"] for h in hist[1:])
     s_step = steps[len(steps) // 2]
-    rep = {"argv": TRAIN_ARGV, "losses": losses, "grad_norms": norms,
-           "s_per_step_median": s_step, "first_step_s": hist[0]["dt"],
-           "tokens_per_s": out["tokens_per_step"] / s_step, "peak_gb": out["peak_gb"],
-           "wall_s": wall, "nvidia_smi": smi}
-    log(f"olmo-1b QAT w4a8 training at full width and depth: loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f} over 20 steps, {s_step:.4f} s/step (median of steps 1-19; "
-        f"step 0 {hist[0]['dt']:.2f} s), {rep['tokens_per_s']:.0f} tokens/s, peak "
-        f"{out['peak_gb']:.2f} GB, {wall:.1f} s in all [{smi}]")
-    return rep, counts
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rep = {"losses": losses, "grad_norms": norms, "s_per_step_median": s_step,
+           "first_step_s": hist[0]["dt"], "tokens_per_s": tokens_per_step / s_step,
+           "peak_gb": peak, "wall_s": wall, "nvidia_smi": smi,
+           "launches": {k: counts[k] for k in need}}
+    log(f"{name} training at full width: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(hist)} steps, {s_step:.4f} s/step (median of steps 1-{len(hist) - 1}; step 0 "
+        f"{hist[0]['dt']:.2f} s), {rep['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB, "
+        f"{wall:.1f} s in all; launches {rep['launches']} [{smi}]")
+    return rep
+
+
+def train_full(torch, dev, smi):
+    """Three training runs at full width, each gated by ``_train_report``:
+    ``python -m repro_torch.launch.train`` with TRAIN_ARGV (olmo-1b at
+    full depth, 16 layers, 1.18 B parameters, bf16, QAT w4a8, 20 steps of
+    8 x 512 tokens) and with RWKV_TRAIN_ARGV (rwkv6-3b at full depth, 32
+    layers, 2.86 B, plain bf16, 10 steps of 8 x 512 at lr 1e-3: ``wkv6``
+    and ``wkv6_bwd`` launched), in-process; then recurrentgemma-9b at
+    GRIFFIN_TRAIN_LAYERS (``_train_cfg(GRIFFIN, qat="w4a8",
+    num_layers=8)``, 3.68 B, 10 steps of 8 x 512 through
+    ``train/loop.py``'s ``run_training``, the CLI's schedule at lr 1e-3:
+    ``rglru``, ``rglru_bwd``, ``flash_attention_bwd`` launched). The
+    launch counts are the training path's: reset just before each run,
+    read just after, summed. Returns (report, counts)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import run_training
+
+    rep, total = {}, {}
+
+    def counted(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        return out, wall, counts
+
+    for name, argv, need in (
+            ("olmo-1b", TRAIN_ARGV, ("flash_attention", "flash_attention_bwd", "dense_matmul")),
+            ("rwkv6-3b", RWKV_TRAIN_ARGV, ("wkv6", "wkv6_bwd", "dense_matmul"))):
+        out, wall, counts = counted(lambda: train.run(train.build_parser().parse_args(argv)))
+        rep[name] = _train_report(torch, name, out["history"], out["tokens_per_step"], wall,
+                                  smi, counts, need)
+        rep[name]["argv"] = argv
+        del out
+    cfg = _train_cfg(GRIFFIN, qat="w4a8", num_layers=GRIFFIN_TRAIN_LAYERS)
+    steps = GRIFFIN_TRAIN_STEPS
+    tc = TrainConfig(lr=TRAIN_LR_RECURRENT, warmup_steps=min(20, steps // 5),
+                     total_steps=steps, log_every=1, checkpoint_every=steps)
+    data = DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=tc.seed, branch=8)
+    (_, hist), wall, counts = counted(
+        lambda: run_training(build_model(cfg), tc, data, device=dev))
+    name = f"{GRIFFIN} ({cfg.num_layers} layers, QAT w4a8)"
+    rep[GRIFFIN] = _train_report(torch, name, hist, TRAIN_B * TRAIN_T, wall, smi, counts,
+                                 ("rglru", "rglru_bwd", "flash_attention",
+                                  "flash_attention_bwd", "dense_matmul"))
+    rep[GRIFFIN].update(layers=cfg.num_layers, parameters=cfg.param_count())
+    return rep, total
 
 
 def _leaves_equal(torch, a, b):
@@ -5294,14 +5600,16 @@ def serve_ckpt(torch, dev, workdir, params10):
 
 
 def train_phase(torch, dev, timer):
-    """The training gates: the flash backward (``check_flash_backward``),
-    the wrappers' bits (``check_grad_wrappers``), ``dense_matmul``'s
-    gradients (``check_dense_backward``), card vs CPU
-    (``card_vs_cpu_train``), olmo-1b at full width and depth
+    """The training gates: the backward kernels against their plain
+    versions (``check_flash_backward``, ``check_wkv6_backward``,
+    ``check_rglru_backward``), the wrappers' bits
+    (``check_grad_wrappers``), ``dense_matmul``'s gradients
+    (``check_dense_backward``), card vs CPU (``card_vs_cpu_train``),
+    olmo-1b, rwkv6-3b and recurrentgemma-9b at full width
     (``train_full``), checkpoint and resume (``check_resume``) and serve
     --ckpt (``serve_ckpt``), the checkpoint in a temporary directory
-    removed after. Returns (report, flash backward row, launch counts of
-    the full-width training run)."""
+    removed after. Returns (report, the three backward kernels' rows,
+    launch counts of the full-width training runs)."""
     import tempfile
 
     smi = nvidia_smi()
@@ -5311,22 +5619,29 @@ def train_phase(torch, dev, timer):
         log(f"  flash_attention_bwd: {e['shape']}: {e['ms']:.4g} ms (bound "
             f"{e['bound_ms']:.3g} ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, "
             f"SDPA backward {e['library_ms']:.4g} ms) [{smi}]")
+    rows = {"flash_attention_bwd": bwd, "wkv6_bwd": check_wkv6_backward(torch, dev, timer),
+            "rglru_bwd": check_rglru_backward(torch, dev, timer)}
+    for name in ("wkv6_bwd", "rglru_bwd"):
+        e = rows[name]
+        log(f"  {name}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
+            f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library none) [{smi}]")
     rep = {"wrappers": check_grad_wrappers(torch, dev),
            "dense_backward": check_dense_backward(torch, dev),
            "card_vs_cpu": card_vs_cpu_train(torch)}
     t_checks = time.perf_counter() - t0
-    rep["full"], counts = train_full(torch, smi)
+    rep["full"], counts = train_full(torch, dev, smi)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
         rep["resume"], params10 = check_resume(torch, dev, workdir)
         rep["serve_ckpt"] = serve_ckpt(torch, dev, workdir, params10)
         del params10
-    rep["seconds"] = {"checks": t_checks, "full": rep["full"]["wall_s"],
+    t_full = sum(r["wall_s"] for r in rep["full"].values())
+    rep["seconds"] = {"checks": t_checks, "full": t_full,
                       "resume_and_serve": time.perf_counter() - t0}
     log(f"train phase: kernel and card-vs-CPU checks {t_checks:.1f} s, full-width "
-        f"training {rep['full']['wall_s']:.1f} s, resume and serve --ckpt "
+        f"training {t_full:.1f} s, resume and serve --ckpt "
         f"{rep['seconds']['resume_and_serve']:.1f} s")
-    return rep, bwd, counts
+    return rep, rows, counts
 
 
 def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6-static")):
@@ -5463,30 +5778,34 @@ TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
                        "flash_attention_bwd": "HMMA"}
 # Libraries whose SASS must hold no atomic (ATOM, RED): their sums run in
 # an order fixed by the shapes.
-NO_ATOMICS = ("flash_attention_bwd",)
+NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd")
 
 
 def count_hmma(paths):
     """The bf16 attention tile, the flash backward's bf16 route and
     dense_matmul run on the bf16 tensor cores, bitplane_matmul and the
     fused matmul on the int8 ones: the SASS of their libraries
-    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions, and the
-    flash backward's none that is atomic. Returns library → count."""
+    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions; the
+    backward kernels' (flash, wkv6, RG-LRU) must hold none that is atomic.
+    Returns library → count."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+
+    def sass(name):
+        return subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
+                              text=True, check=True).stdout.splitlines()
+
     counts = {}
     for name, op in TENSOR_CORE_KERNELS.items():
-        sass = subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
-                              text=True, check=True).stdout
-        counts[name] = sum(op in line for line in sass.splitlines())
+        counts[name] = sum(op in line for line in sass(name))
         if counts[name] == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
-        if name in NO_ATOMICS:
-            atomics = [line.strip() for line in sass.splitlines()
-                       if re.search(r"\b(ATOMG?|ATOMS|RED)\b", line)]
-            if atomics:
-                raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
+    for name in NO_ATOMICS:
+        atomics = [line.strip() for line in sass(name)
+                   if re.search(r"\b(ATOMG?|ATOMS|RED)\b", line)]
+        if atomics:
+            raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
     log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}; no atomics in "
         f"{', '.join(NO_ATOMICS)}'s")
     return counts
@@ -5651,8 +5970,9 @@ def main() -> int:
         check_flash(torch, dev, timer)
         check_one_order(torch, dev)
         check_frontend_flash(torch, dev, timer)
-        rep, bwd, counts = train_phase(torch, dev, timer)
-        write_detail("chip_smoke_train.json", {"train": rep, "flash_attention_bwd": bwd,
+        count_hmma(build.build())
+        rep, rows, counts = train_phase(torch, dev, timer)
+        write_detail("chip_smoke_train.json", {"train": rep, "backward": rows,
                                                "launches": counts,
                                                "nvidia_smi": nvidia_smi()})
         return 3                 # a partial run: no result line
@@ -5733,7 +6053,8 @@ def main() -> int:
     frontends_out, front_counts = serve_frontends(torch, dev)
     for k, n in front_counts.items():
         counts[k] = counts.get(k, 0) + n
-    train_rep, results["flash_attention_bwd"], train_counts = train_phase(torch, dev, timer)
+    train_rep, train_rows, train_counts = train_phase(torch, dev, timer)
+    results.update(train_rows)
     for k, n in train_counts.items():
         counts[k] = counts.get(k, 0) + n
     t0 = time.perf_counter()
@@ -5743,8 +6064,8 @@ def main() -> int:
         for k, n in runs[name][2].items():
             counts[k] = counts.get(k, 0) + n
     log(f"serve phase, runs {len(SERVE_RUNS)}: {time.perf_counter() - t0:.1f}s")
-    if counts["flash_attention_bwd"] != train_counts["flash_attention_bwd"]:
-        raise AssertionError("a serve run launched the flash backward")
+    if any(counts[k] != train_counts[k] for k in train_rows):
+        raise AssertionError("a serve run launched a backward kernel")
     for k in results:
         results[k]["launches"] = counts[k]
     dense["launches"] = counts["dense_matmul"]

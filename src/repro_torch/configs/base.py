@@ -81,16 +81,34 @@ class ModelConfig:
         return dataclasses.replace(self, quant=quant)
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head) of the
-        families the port trains: JAX's formula for a dense FFN under full
-        attention (its MoE, SSM and hybrid branches come with the slices
-        that train those families)."""
+        """Analytic parameter count (embedding + blocks + head): JAX's
+        formula for the dense FFN under full attention, rwkv6 (``ssm``) and
+        the Griffin hybrid (MoE's branch is not ported: the port runs no
+        MoE model)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab, self.num_layers
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            # rwkv6: time-mix (r,k,v,g,o ≈ 5 d²) + decay lora + channel-mix
+            per = 5 * d * d + 2 * d * self.rwkv_decay_lora + 2 * d * f
+            return emb + L * per
         nq, nkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
         attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
         ffn = 3 * d * f if self.ffn in ("swiglu", "geglu") else 2 * d * f
+        if self.block_pattern:
+            # hybrid: recurrent blocks replace attention in 2/3 of layers
+            n_attn = sum(1 for b in self._expanded_pattern() if b == "attn")
+            n_rec = L - n_attn
+            rec = 2 * d * self.rnn_width + self.rnn_width * d + 3 * self.rnn_width
+            return emb + n_attn * (attn + ffn) + n_rec * (rec + ffn)
         return emb + L * (attn + ffn)
+
+    def _expanded_pattern(self) -> Tuple[str, ...]:
+        if not self.block_pattern:
+            return tuple("attn" for _ in range(self.num_layers))
+        out = []
+        while len(out) < self.num_layers:
+            out.extend(self.block_pattern)
+        return tuple(out[: self.num_layers])
 
 
 @dataclasses.dataclass(frozen=True)

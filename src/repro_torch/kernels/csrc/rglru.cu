@@ -65,34 +65,17 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "rglru_gates.cuh"
 
-constexpr float kC = 8.0f;       // the RG-LRU's c
+namespace {
 
 __device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
   return __bfloat162float(p[i]);
 }
 
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-x)));
-}
-
-// log(1 + e^x) as jax.nn.softplus computes it (logaddexp(x, 0)):
-// max(x, 0) + log1p(exp(-|x|)).
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
-}
-
-// One element's gates: a, and b = sqrt(1 - a^2) (i y).
-__device__ __forceinline__ float2 gates(float xa, float xi, float yv, float neg, float ab,
-                                        float ib) {
-  const float r = sigmoid(__fadd_rn(xa, ab));
-  const float i = sigmoid(__fadd_rn(xi, ib));
-  const float a = expf(__fmul_rn(neg, r));
-  return make_float2(a, __fmul_rn(sqrtf(fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f)),
-                                  __fmul_rn(i, yv)));
-}
+using rglru_gates::gates;
+using rglru_gates::neg_rate;
 
 // -- mbarriers and async copies ------------------------------------------------------
 
@@ -236,7 +219,7 @@ rglru_kernel(const float* __restrict__ a_bias,
     constexpr int kRows = kMath * 32 / C;
     const int m = threadIdx.x - 32 * (kFold + 1), ch = m % C, c = c0 + ch;
     const bool ok = ch < cw;
-    const float neg = ok ? __fmul_rn(-kC, softplus(lam[c])) : 0.f;
+    const float neg = ok ? neg_rate(lam[c]) : 0.f;
     const float ab = ok ? a_bias[c] : 0.f, ib = ok ? i_bias[c] : 0.f;
     for (int k = 0; k < chunks; ++k) {
       const int s = k % kStages;
@@ -396,7 +379,7 @@ rglru_step_kernel(const float* __restrict__ ga, const float* __restrict__ gi,
   const float l = lam[c], ab = a_bias[c], ib = i_bias[c];
   const float hp = h0 ? h0[i] : 0.f;
   const float xa = ga[i], xi = gi[i], yv = load(y, i);
-  const float2 g = gates(xa, xi, yv, __fmul_rn(-kC, softplus(l)), ab, ib);
+  const float2 g = gates(xa, xi, yv, neg_rate(l), ab, ib);
   h[i] = __fadd_rn(__fmul_rn(g.x, hp), g.y);
 }
 

@@ -22,8 +22,10 @@ order. Two kernels have no Pallas counterpart: ``dense_matmul``, the
 batch-invariant bf16 product of rwkv6's, griffin's and unpacked models'
 dense layers on the card (with a float32 store for griffin's gate
 projections), and ``rglru``, griffin's gates and recurrence in one
-sequential pass. Training adds ``flash_attention_bwd``, the gradient of
-flash attention (JAX differentiates XLA code there).
+sequential pass. Training adds the gradients JAX gets from XLA's
+autodiff: ``flash_attention_bwd`` (flash attention's), ``wkv6_bwd`` (the
+RWKV-6 recurrence's) and ``rglru_bwd`` (the RG-LRU's), each run by an
+autograd Function on the card when grad is on and an input requires it.
 """
 from __future__ import annotations
 
@@ -59,8 +61,12 @@ _MODULES = {
 
 
 def launch_counts() -> Dict[str, int]:
-    """CUDA launches per kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    """CUDA launches per kernel since the last :func:`reset_launch_counts`
+    (the two recurrences' backward entries under their own names)."""
+    counts = {name: mod.launches for name, mod in _MODULES.items()}
+    counts["wkv6_bwd"] = _wkv6.bwd_launches
+    counts["rglru_bwd"] = _rglru.bwd_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +75,8 @@ def reset_launch_counts() -> None:
     _paged.contig_launches = 0
     _paged.ring_launches = 0
     _rglru.step_launches = 0
+    _wkv6.bwd_launches = 0
+    _rglru.bwd_launches = 0
 
 
 def _needs_grad(*ts) -> bool:
@@ -336,9 +344,14 @@ def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64, backend=None):
     boundaries sit at absolute positions 0, chunk, 2·chunk, …, so a row's
     outputs and final state never depend on the length its batch was
     padded to (pad tokens: k = 0, w = 1). Returns (out (B, T, H, V)
-    float32, state (B, H, K, V) float32)."""
+    float32, state (B, H, K, V) float32). Under autograd (an input
+    requires grad) the card runs ``wkv6.WKV6``, whose backward is the
+    ``wkv6_bwd`` kernel; the CPU's gradient is autograd through the plain
+    version."""
     if _backend(r, "wkv6", backend).is_reference:
         return _ref.wkv6_chunked_ref(r, k, v, w, u, state, chunk)
+    if _needs_grad(r, k, v, w, u, state):
+        return _wkv6.WKV6.apply(r, k, v, w, u, state, int(chunk))
     return _wkv6.launch(r, k, v, w, u, state, chunk=chunk)
 
 
@@ -378,9 +391,19 @@ def rglru_scan(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None, *,
     (zero); lengths (B,) real tokens of right-padded rows or None. Returns
     (h (B, T, W), h at each row's lengths - 1 (B, W)), float32. The plain
     version is ``ref.rglru_scan_ref``; on the card the ``rglru`` kernel,
-    whose rows never depend on their padding or batch."""
+    whose rows never depend on their padding or batch. Under autograd (an
+    input requires grad) the card runs ``rglru.RGLRU``, whose backward is
+    the ``rglru_bwd`` kernel, and h at lengths - 1 is a slice of h, so its
+    gradient reaches h once; the CPU's gradient is autograd through the
+    plain version."""
     if _backend(ga, "rglru", backend).is_reference:
         return _ref.rglru_scan_ref(ga, gi, y, a_bias, i_bias, lam, h0, lengths)
+    if _needs_grad(ga, gi, y, a_bias, i_bias, lam, *([] if h0 is None else [h0])):
+        h = _rglru.RGLRU.apply(ga, gi, y, a_bias, i_bias, lam, h0)
+        if lengths is None:
+            return h, h[:, -1]
+        last = (torch.as_tensor(lengths).to(h.device).long() - 1).clamp(min=0)
+        return h, h[torch.arange(h.shape[0], device=h.device), last]
     return _rglru.launch(ga, gi, y, a_bias, i_bias, lam, h0, lengths)
 
 

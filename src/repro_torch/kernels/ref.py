@@ -5,7 +5,10 @@ Ported from ``repro.kernels.ref`` (``quantize_pack_ref``,
 ``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``,
 ``wkv6_ref``), ``repro.models.rwkv6`` (``wkv6_chunked``,
 ``wkv6_step``) and ``repro.models.griffin`` (``_rglru_coeffs`` with
-``_rglru_scan``, as ``rglru_scan_ref``).
+``_rglru_scan``, as ``rglru_scan_ref``); ``wkv6_chunked_bwd_ref`` and
+``rglru_scan_bwd_ref`` spell out the two backward kernels' algebra, which
+JAX leaves to XLA's autodiff (held against it in
+``tests/test_torch_train_recurrent.py``).
 They are the semantic specification: on the CPU the kernel entry points
 in :mod:`repro_torch.kernels.ops` run them, and on the card
 ``chip_smoke.py`` holds each CUDA kernel against them. Integer outputs
@@ -262,14 +265,16 @@ def wkv6_ref(r, k, v, w, u) -> torch.Tensor:
     return torch.stack(outs)
 
 
-def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int):
+def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int, return_states: bool = False):
     """The chunked algebra of ``repro.models.rwkv6.wkv6_chunked`` with the
     state carried in and out: r/k/w (B, T, H, K), v (B, T, H, V), u (H,
     K), state (B, H, K, V) → (out (B, T, H, V), state) float32. Unlike
     JAX the chunk length never shrinks to T: T is padded up to a multiple
     of `chunk` with k = v = 0 and w = 1, so chunk boundaries sit at
     absolute positions and a prompt's outputs and final state do not
-    depend on the length it was padded to."""
+    depend on the length it was padded to. With ``return_states`` also
+    the state entering each chunk, (B, H, ceil(T / chunk), K, V): what
+    the backward (:func:`wkv6_chunked_bwd_ref`) walks."""
     B, T, H, K = r.shape
     C = int(chunk)
     pad = -T % C
@@ -284,8 +289,9 @@ def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int):
     tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=dev), -1)
     tri = tri[None, :, :, None, None]                    # s < t
     eye = torch.eye(C, dtype=torch.float32, device=dev)[None, :, None, :]
-    outs = []
+    outs, starts = [], []
     for c0 in range(0, T + pad, C):
+        starts.append(S)
         rb, kb, vb, wb = (a[:, c0:c0 + C] for a in (r, k, v, w))
         lw = torch.log(torch.clamp(wb, min=1e-12))
         L = torch.cumsum(lw, dim=1)
@@ -302,7 +308,106 @@ def wkv6_chunked_ref(r, k, v, w, u, state, chunk: int):
         dk = kb * torch.exp(L_last - L)
         S = torch.exp(L_last[:, 0])[..., None] * S + torch.einsum(
             "bshk,bshv->bhkv", dk, vb)
+    if return_states:
+        return torch.cat(outs, dim=1)[:, :T], S, torch.stack(starts, dim=2)
     return torch.cat(outs, dim=1)[:, :T], S
+
+
+def _prefix(x: torch.Tensor) -> torch.Tensor:
+    """Sums of x along dim 1 before each index (0 at the first)."""
+    s = x.cumsum(1)
+    return torch.cat([torch.zeros_like(s[:, :1]), s[:, :-1]], dim=1)
+
+
+def _suffix(x: torch.Tensor, dim: int, inclusive: bool) -> torch.Tensor:
+    """Sums of x along `dim` from each index (inclusive) or after it to the end."""
+    s = x.flip(dim).cumsum(dim).flip(dim)
+    if inclusive:
+        return s
+    return torch.cat([s.narrow(dim, 1, x.shape[dim] - 1),
+                      torch.zeros_like(x.narrow(dim, 0, 1))], dim=dim)
+
+
+def wkv6_chunked_bwd_ref(r, k, v, w, u, states, dout, dstate, chunk: int):
+    """The plain version of the ``wkv6_bwd`` kernel: the gradients of
+    :func:`wkv6_chunked_ref` (out, state) for the output gradients dout
+    (B, T, H, V) and dstate (B, H, K, V) or None, spelled out in float32
+    as the kernel computes them (not autograd). The chunks are walked in
+    reverse from dstate over the saved chunk-start states ``states`` (B,
+    H, nc, K, V) and ``new_state`` (the state after the last chunk); per
+    chunk, with lw = log(max(w, 1e-12)), A[t, s] = dout_t · v_s and the
+    gate e^(Lsh_t - L_s) of s < t a sum of lw over s < j < t (never the
+    difference of two long prefixes, so every exponent is <= 0):
+
+        dr_t  = e^Lsh_t (S_c dout_t) + sum_s<t A[t,s] k_s gate + A[t,t] u k_t
+        dk_s  = sum_t>s A[t,s] r_t gate + e^(L_last - L_s) (G v_s)
+                + A[s,s] u r_s
+        dv_s  = sum_t>s P[t,s] dout_t + Pd_s dout_s + (k_s e^(L_last - L_s)) G
+        du   += sum_t A[t,t] r_t k_t
+        dS_c  = e^L_last G + sum_t (r_t e^Lsh_t) dout_t^T,  G = dS_c+1
+
+    and d(lw)_j = G . S_c+1 (rowwise) + dL_j + sum_t>j (dLsh_t + dL_t)
+    with dLsh = r (its two gated terms in dr) and dL = -k (its two in dk).
+    dw = d(lw) / w where w > 1e-12, else 0 (JAX clamps there); pads get
+    nothing. Returns (dr, dk, dv in r's dtype, dw (B, T, H, K), du (H,
+    K), dstate_in (B, H, K, V)), float32 otherwise."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    C = int(chunk)
+    pad = -T % C
+    f32 = torch.float32
+    rf, kf, vf, wf, do = (a.to(f32) for a in (r, k, v, w, dout))
+    if pad:
+        def zp(a, value=0.0):
+            return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad), value=value)
+        rf, kf, vf, do, wf = zp(rf), zp(kf), zp(vf), zp(do), zp(wf, 1.0)
+    uf = u.to(f32)
+    dev = rf.device
+    lw = torch.log(torch.clamp(wf, min=1e-12))
+    G = (torch.zeros((B, H, K, V), dtype=f32, device=dev) if dstate is None
+         else dstate.to(f32))
+    dr, dk, dlw = (torch.empty_like(rf) for _ in range(3))
+    dv = torch.empty_like(vf)
+    du = torch.zeros((H, K), dtype=f32, device=dev)
+    nc = (T + pad) // C
+    idx = torch.arange(C, device=dev)
+    before = idx[None, :] < idx[:, None]                  # [t, j]: j < t
+    strict = before[None, :, :, None, None]
+    for c in reversed(range(nc)):
+        sl = slice(c * C, (c + 1) * C)
+        rb, kb, vb, lb, db = rf[:, sl], kf[:, sl], vf[:, sl], lw[:, sl], do[:, sl]
+        S = states[:, :, c].to(f32)
+        # seg[t, s] = sum of lw over s < j < t, from j = t - 1 down.
+        run = _suffix(torch.where(strict, lb[:, None], torch.zeros((), device=dev)), 2, True)
+        Lsh = run[:, :, 0]
+        seg = torch.cat([run[:, :, 1:], torch.zeros_like(run[:, :, :1])], dim=2)
+        gate = torch.where(strict, torch.exp(seg), torch.zeros((), device=dev))
+        Lsuf = _suffix(lb, 1, False)                       # L_last - L_s
+        Llast = lb.cumsum(1)[:, -1]
+        A = torch.einsum("bthv,bshv->btsh", db, vb)
+        Ad = torch.diagonal(A, dim1=1, dim2=2).permute(0, 2, 1)[..., None]   # (B, C, H, 1)
+        dr_in = torch.einsum("btsh,bshk,btshk->bthk", A, kb, gate)
+        dk_in = torch.einsum("btsh,bthk,btshk->bshk", A, rb, gate)
+        P = torch.einsum("bthk,bshk,btshk->btsh", rb, kb, gate)
+        Pd = torch.einsum("bthk,hk,bthk->bth", rb, uf, kb)
+        dr1 = torch.exp(Lsh) * torch.einsum("bthv,bhkv->bthk", db, S)
+        khat = kb * torch.exp(Lsuf)
+        dks = torch.exp(Lsuf) * torch.einsum("bshv,bhkv->bshk", vb, G)
+        dr[:, sl] = dr1 + dr_in + Ad * uf * kb
+        dk[:, sl] = dk_in + dks + Ad * uf * rb
+        dv[:, sl] = (torch.einsum("btsh,bthv->bshv", P, db) + Pd[..., None] * db
+                     + torch.einsum("bshk,bhkv->bshv", khat, G))
+        du = du + torch.einsum("bthk->hk", Ad * rb * kb)
+        D = torch.exp(Llast)[..., None]                  # (B, H, K, 1)
+        kin = kb * dk_in
+        Y = rb * (dr1 + dr_in) - kin
+        dlw[:, sl] = ((G * D * S).sum(-1)[:, None] + _prefix(kb * dks)
+                      + _suffix(Y, 1, False) - kin)
+        G = D * G + torch.einsum(
+            "bthk,bthv->bhkv", rb * torch.exp(Lsh), db)
+    dw = torch.where(wf > 1e-12, dlw / wf, torch.zeros((), device=dev))
+    dr, dk, dv, dw = (a[:, :T] for a in (dr, dk, dv, dw))
+    return dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du, G
 
 
 def wkv6_step(r, k, v, w, u, state):
@@ -350,3 +455,47 @@ def rglru_scan_ref(ga, gi, y, a_bias, i_bias, lam, h0=None, lengths=None):
         return h, h[:, -1]
     idx = (torch.as_tensor(lengths, device=a.device).long() - 1).clamp(min=0)
     return h, h[torch.arange(B, device=a.device), idx]
+
+
+def rglru_scan_bwd_ref(ga, gi, y, a_bias, i_bias, lam, h0, h, dh):
+    """The plain version of the ``rglru_bwd`` kernel: the gradients of
+    :func:`rglru_scan_ref`'s h (B, T, W) for dh (B, T, W), spelled out in
+    float32 as the kernel computes them (not autograd). Each (row,
+    channel) folds t in reverse over the forward's saved h:
+
+        g_t = dh_t + a_t+1 g_t+1,  da_t = g_t h_t-1,  db_t = g_t
+
+    (h_-1 = h0, or zero), then back through :func:`rglru_coeffs_ref`: the
+    square root's gradient is 0 where 1 - a² <= 1e-12 (JAX's maximum);
+    softplus' is sigmoid(Lambda). Returns (dga, dgi float32 (B, T, W), dy
+    in y's dtype, d a_bias, d i_bias, d lam (W,), dh0 (B, W) or None)."""
+    f32 = torch.float32
+    gaf, gif, yf, dhf = (t.to(f32) for t in (ga, gi, y, dh))
+    lamf = lam.to(f32)
+    softplus = torch.clamp(lamf, min=0.0) + torch.log1p(torch.exp(-lamf.abs()))
+    neg = -RGLRU_C * softplus
+    r = torch.sigmoid(gaf + a_bias.to(f32))
+    i = torch.sigmoid(gif + i_bias.to(f32))
+    a = torch.exp(neg * r)
+    om = 1.0 - a * a
+    sq = torch.sqrt(torch.clamp(om, min=1e-12))
+    B, T, W = gaf.shape
+    hf = h.to(f32)
+    prev = torch.zeros((B, W), dtype=f32, device=gaf.device) if h0 is None else h0.to(f32)
+    hprev = torch.cat([prev[:, None], hf[:, :-1]], dim=1)
+    g = torch.zeros((B, W), dtype=f32, device=gaf.device)
+    db = torch.empty_like(gaf)
+    for t in reversed(range(T)):
+        g = dhf[:, t] + (a[:, t + 1] * g if t + 1 < T else 0.0)
+        db[:, t] = g
+    da = db * hprev
+    dsq = db * (i * yf)
+    diy = db * sq
+    dom = torch.where(om > 1e-12, dsq * 0.5 / sq, torch.zeros((), device=gaf.device))
+    dx = (da - 2.0 * a * dom) * a
+    dza = dx * neg * (r * (1.0 - r))
+    dzi = diy * yf * (i * (1.0 - i))
+    dlam = (dx * r).sum(dim=(0, 1)) * (-RGLRU_C) * torch.sigmoid(lamf)
+    dh0 = None if h0 is None else a[:, 0] * g
+    return (dza, dzi, (diy * i).to(y.dtype), dza.sum(dim=(0, 1)), dzi.sum(dim=(0, 1)),
+            dlam, dh0)

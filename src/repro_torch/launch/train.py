@@ -12,10 +12,11 @@ It runs on CUDA unless ``--device cpu`` is given. ``--qat wXaY`` trains
 with fake-quantized block projections (the straight-through gradient);
 ``--ckpt DIR`` saves every ``steps // 3`` steps (async, keep 2) and
 resumes from the newest checkpoint there; ``serve --ckpt DIR`` serves
-it. Weights come from a seed (``model.init(seed)``), not JAX's PRNG. The
-transformer families train (olmo-1b, nemotron-4-15b, stablelm-12b,
-paligemma-3b, hubert-xlarge); rwkv6-3b and recurrentgemma-9b wait for
-backward kernels of their recurrences. ``--fake-devices`` and
+it. Weights come from a seed (``model.init(seed)``), not JAX's PRNG. Every
+ported family trains: the transformers (olmo-1b, nemotron-4-15b,
+stablelm-12b, paligemma-3b, hubert-xlarge), rwkv6-3b (``--qat`` leaves it
+unquantized, as JAX's raw mixers do) and recurrentgemma-9b, the two
+recurrences on their backward kernels. ``--fake-devices`` and
 ``--mesh-shape`` (JAX's data/model mesh) exit: the port's multi-card
 tooling is ROADMAP Queue 1 item 4.
 """
@@ -57,7 +58,6 @@ def run(args) -> dict:
     from repro_torch.core.precision import parse_quant_token
     from repro_torch.data import DataIterator
     from repro_torch.models import build_model
-    from repro_torch.models.model_zoo import check_trainable
     from repro_torch.train.loop import run_training
 
     if args.fake_devices or args.mesh_shape:
@@ -67,10 +67,6 @@ def run(args) -> dict:
     cfg = (get_reduced_config if args.reduced else get_config)(args.arch)
     if args.qat and args.qat != "none":
         cfg = cfg.with_quant(parse_quant_token(args.qat))
-    try:                      # before any weight is drawn
-        check_trainable(cfg)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
     model = build_model(cfg)
     print(f"mesh: {{'data': 1, 'model': 1}}, "
           f"arch: {cfg.name} ({cfg.param_count()/1e6:.1f}M params)")

@@ -285,6 +285,16 @@ def logits_head(x: torch.Tensor, table_or_w: torch.Tensor, softcap: float = 0.0,
     return out
 
 
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor):
+    """Mean next-token cross-entropy (with z-loss) of (B, T, V) float32
+    logits over (B, T) tokens → (loss, {"loss", "aux_loss"}): the training
+    loss of the recurrent families (JAX's rwkv6 and griffin
+    ``train_loss``), which have no auxiliary loss."""
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:]).mean()
+    return loss, {"loss": loss, "aux_loss": torch.zeros((), dtype=torch.float32,
+                                                        device=loss.device)}
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
     """Token-level cross-entropy with a z-loss; logits float32 (..., V),

@@ -1,8 +1,8 @@
 """Griffin hybrid (recurrentgemma): RG-LRU recurrent blocks and local
 attention in a 2:1 pattern, GeGLU MLPs, MQA with RoPE.
 
-Port of ``repro.models.griffin`` for serving (``train_loss`` comes with
-training), function for function. Params keep the JAX tree: layers
+Port of ``repro.models.griffin`` (serving and ``train_loss``), function
+for function. Params keep the JAX tree: layers
 grouped by the block pattern and stacked over groups (``groups/l{i}_{kind}``,
 leading axis n_groups) plus a ``rem`` group of num_layers % 3 layers, so
 ``repro_torch.convert.params_from_numpy`` carries a JAX tree unchanged;
@@ -25,6 +25,14 @@ at decode, ``ops.decode_attention`` over a window-sized ring cache
 (position p in slot p % window). The JAX package serves griffin
 unquantized, and so does the port (``model_zoo.check_policy``); its ring
 stays in the model dtype whatever ``kv_cache_quant`` says, as in JAX.
+
+Training (``train_loss``) runs ``_forward`` under autograd: on the card
+the RG-LRU's gradient is the ``rglru_bwd`` kernel, local attention's the
+``flash_attention_bwd`` kernel, the dense products' ``torch.matmul``; a
+QuantConfig fake-quantizes ``rg_gate``, ``rg_in``, ``rg_out`` and the
+FFN (JAX's QAT; attention and the gate projections stay unquantized, as
+there), and ``cfg.remat`` checkpoints each (rglru, rglru, attn) group,
+as JAX's ``jax.checkpoint`` of its scan body (the ``rem`` layers are not).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -44,7 +53,7 @@ from repro_torch.models.kv_cache import (
     cache_write,
     ring_align,
 )
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import unstack_layers
 
 
 def _pattern(cfg: ModelConfig):
@@ -168,13 +177,16 @@ def rec_mix_apply(mix: dict, cfg: ModelConfig, x: torch.Tensor,
     an optional carried (h0 (B, W), conv_tail (B, cw-1, W)); lengths the
     real-token counts of right-padded rows: the state is taken at
     lengths - 1 and the conv tail from the cw - 1 inputs before lengths, so
-    bucketed prefill is exact. Returns (out, (h_last, conv_tail_new))."""
-    gate = F.gelu(cm.linear(x, mix["rg_gate"]), approximate="tanh")
-    a_in = cm.linear(x, mix["rg_in"])
+    bucketed prefill is exact. Under a QuantConfig (QAT) the three block
+    projections are fake-quantized, as JAX's are. Returns (out, (h_last,
+    conv_tail_new))."""
+    q, qm = cm.quant_mode(cfg)
+    gate = F.gelu(cm.linear(x, mix["rg_gate"], q, qm), approximate="tanh")
+    a_in = cm.linear(x, mix["rg_in"], q, qm)
     h0, conv_tail = rec if rec is not None else (None, None)
     y = _causal_conv(a_in, mix["conv_w"], conv_tail)
     h, h_last = _rglru_scan(mix, y, h0, lengths)
-    out = cm.linear(h.to(x.dtype) * gate, mix["rg_out"])
+    out = cm.linear(h.to(x.dtype) * gate, mix["rg_out"], q, qm)
     cw = mix["conv_w"].shape[0]
     B, T, W = a_in.shape
     # Conv tail: the cw - 1 inputs before position `length` (zero history
@@ -241,32 +253,70 @@ def layer_apply(lp: dict, kind: str, cfg: ModelConfig, x, positions, rec_state=N
     return x + cm.ffn_apply(lp["ffn"], h2, cfg), state
 
 
-def _layers(params, cfg: ModelConfig):
-    """(layer params, kind) in execution order: group by group, then rem."""
+def _groups(params, cfg: ModelConfig):
+    """The layers as (layer params, kind) lists in execution order, grouped
+    as JAX scans them: one list per group of the block pattern (each
+    stacked leaf unbound once), then the ``rem`` layers' list (empty when
+    num_layers is a multiple of the pattern)."""
     pattern = _pattern(cfg)
     n_groups = cfg.num_layers // len(pattern)
-    for g in range(n_groups):
-        for i, kind in enumerate(pattern):
-            yield layer_params(params["groups"][f"l{i}_{kind}"], g), kind
-    for name, lp in params.get("rem", {}).items():
-        yield lp, name.split("_", 1)[1]
+    per = [unstack_layers(params["groups"][f"l{i}_{kind}"], n_groups)
+           for i, kind in enumerate(pattern)]
+    groups = [[(per[i][g], kind) for i, kind in enumerate(pattern)] for g in range(n_groups)]
+    rem = [(lp, name.split("_", 1)[1]) for name, lp in params.get("rem", {}).items()]
+    return groups, rem
+
+
+def _layers(params, cfg: ModelConfig):
+    """(layer params, kind) in execution order: group by group, then rem."""
+    groups, rem = _groups(params, cfg)
+    for g in groups:
+        yield from g
+    yield from rem
+
+
+def _apply_layers(layers, cfg: ModelConfig, x, positions, lengths):
+    """``layer_apply`` over (layer params, kind) pairs in order → (x,
+    [(kind, state), ...])."""
+    states = []
+    for lp, kind in layers:
+        x, st = layer_apply(lp, kind, cfg, x, positions, lengths=lengths)
+        states.append((kind, st))
+    return x, states
 
 
 # -- model ---------------------------------------------------------------------
 
 
-def _forward(params, cfg: ModelConfig, tokens, lengths=None):
+def _forward(params, cfg: ModelConfig, tokens, lengths=None, remat: bool = False):
     """Whole-prompt forward → (hidden (B, T, d), recurrent states, attention
     states), each list in execution order (JAX's ``_pack_cache`` order:
-    [g0·l0, g0·l1, g1·l0, …, rem])."""
+    [g0·l0, g0·l1, g1·l0, …, rem]). With ``remat`` (training) each group
+    is checkpointed: its activations are recomputed in the backward pass
+    instead of kept."""
     B, T = tokens.shape
     x = cm.embed_lookup(params["embed"], tokens, scale=True)
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
+    groups, rem = _groups(params, cfg)
     rec, att = [], []
-    for lp, kind in _layers(params, cfg):
-        x, st = layer_apply(lp, kind, cfg, x, positions, lengths=lengths)
-        (rec if kind == "rglru" else att).append(st)
+    for layers in groups + [rem]:
+        args = (layers, cfg, x, positions, lengths)
+        if remat and layers is not rem:
+            x, states = torch.utils.checkpoint.checkpoint(_apply_layers, *args,
+                                                          use_reentrant=False)
+        else:
+            x, states = _apply_layers(*args)
+        for kind, st in states:
+            (rec if kind == "rglru" else att).append(st)
     return cm.apply_norm(x, params["final_norm"], cfg.norm), rec, att
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy (with z-loss) of a training batch →
+    (loss, {"loss", "aux_loss"}): JAX's ``train_loss``."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    hidden, _, _ = _forward(params, cfg, tokens, remat=cfg.remat and torch.is_grad_enabled())
+    return cm.next_token_loss(cm.logits_head(hidden, params["head"]), tokens)
 
 
 def _pack_cache(cfg: ModelConfig, rec, att, B: int, S: int, lengths=None) -> DecodeCache:

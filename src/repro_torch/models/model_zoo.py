@@ -41,16 +41,6 @@ def check_policy(cfg: ModelConfig, policy) -> None:
                          "rg_a_proj); no --policy/--quant")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse to train a family whose recurrence has no backward kernel
-    yet: rwkv6's ``wkv6`` and Griffin's ``rglru`` run forward only, and
-    autograd would stop at their outputs."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise ValueError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet "
-            "(ROADMAP Queue 1 item 2: backward kernels for wkv6 and rglru)")
-
-
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
     if cfg.family == "ssm":
         mod = rwkv6
@@ -63,14 +53,10 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
                          "(the port serves the dense transformers olmo-1b, "
                          "nemotron-4-15b and stablelm-12b, paligemma-3b, "
                          "hubert-xlarge, rwkv6-3b and recurrentgemma-9b)")
-    def train_loss(params, batch):
-        check_trainable(cfg)
-        return transformer.train_loss(params, cfg, batch)
-
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),
-        train_loss=train_loss,
+        train_loss=lambda params, batch: mod.train_loss(params, cfg, batch),
         prefill=lambda params, batch: mod.prefill(params, cfg, batch),
         decode_step=lambda params, cache, tokens:
             mod.decode_step(params, cfg, cache, tokens),

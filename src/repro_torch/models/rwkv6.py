@@ -1,7 +1,6 @@
 """RWKV-6 "Finch": attention-free mixer with data-dependent decay.
 
-Port of ``repro.models.rwkv6`` for serving (``train_loss`` comes with
-training): per-channel decay ``w_t = exp(-exp(base + tanh(x W_a) W_b))``
+Port of ``repro.models.rwkv6`` (serving and ``train_loss``): per-channel decay ``w_t = exp(-exp(base + tanh(x W_a) W_b))``
 from the input, current-token bonus ``u``, head-wise state ``S ∈
 R^{K×V}``, token shift on both mixers, squared-ReLU channel mix. Params
 are a nested dict of stacked ``(L, …)`` tensors with the JAX key names;
@@ -17,6 +16,13 @@ LM head) goes through ``ops.dense_matmul`` (:func:`_linear`): plain
 card a bf16 kernel whose rows do not depend on M, so a prompt's logits
 are the same bits in a static batch and alone. The JAX package serves
 rwkv6 unquantized, and so does the port (``model_zoo.check_policy``).
+
+Training (``train_loss``) runs ``_forward`` under autograd: on the card
+``ops.wkv6_chunked``'s gradient is the ``wkv6_bwd`` kernel and the dense
+products' run on ``torch.matmul``; ``cfg.remat`` checkpoints each layer
+(JAX's ``jax.checkpoint`` of the scan body). JAX's mixers are raw
+products with no fake-quant, so a QuantConfig (``--qat``) leaves rwkv6
+unquantized in both packages.
 """
 from __future__ import annotations
 
@@ -24,13 +30,14 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
 from repro_torch.models.kv_cache import DecodeCache, RwkvState
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import layer_params, unstack_layers
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int]:
@@ -195,28 +202,48 @@ def _zero_state(cfg: ModelConfig, batch: int, device) -> RwkvState:
         cm_shift=torch.zeros((L, batch, d), dtype=dt, device=device))
 
 
+def _block(bp: dict, cfg: ModelConfig, x, tm_tail, wkv0, cm_tail, lengths):
+    """One layer → (x, wkv state, time-mix tail, channel-mix tail)."""
+    h = cm.apply_norm(x, bp["ln1"], "layernorm")
+    out, tm2, wkv1 = time_mix(bp["tm"], cfg, h, tm_tail, wkv0, lengths=lengths)
+    x = x + out
+    h2 = cm.apply_norm(x, bp["ln2"], "layernorm")
+    out2, cm2 = channel_mix(bp["cmx"], h2, cm_tail, lengths=lengths)
+    return x + out2, wkv1, tm2, cm2
+
+
 def _forward(params, cfg: ModelConfig, tokens, state: Optional[RwkvState],
-             lengths=None):
-    """Full-sequence forward → (hidden (B, T, d), final RwkvState)."""
+             lengths=None, remat: bool = False):
+    """Full-sequence forward → (hidden (B, T, d), final RwkvState). With
+    ``remat`` (training) each layer is checkpointed: its activations are
+    recomputed in the backward pass instead of kept."""
     x = cm.embed_lookup(params["embed"], tokens)
     if state is None:
         state = _zero_state(cfg, x.shape[0], x.device)
     wkv, tms, cms = [], [], []
-    for i in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], i)
-        h = cm.apply_norm(x, bp["ln1"], "layernorm")
-        out, tm2, wkv1 = time_mix(bp["tm"], cfg, h, state.tm_shift[i], state.wkv[i],
-                                  lengths=lengths)
-        x = x + out
-        h2 = cm.apply_norm(x, bp["ln2"], "layernorm")
-        out2, cm2 = channel_mix(bp["cmx"], h2, state.cm_shift[i], lengths=lengths)
-        x = x + out2
+    for i, bp in enumerate(unstack_layers(params["blocks"], cfg.num_layers)):
+        args = (bp, cfg, x, state.tm_shift[i], state.wkv[i], state.cm_shift[i], lengths)
+        if remat:
+            x, wkv1, tm2, cm2 = torch.utils.checkpoint.checkpoint(_block, *args,
+                                                                  use_reentrant=False)
+        else:
+            x, wkv1, tm2, cm2 = _block(*args)
         wkv.append(wkv1)
         tms.append(tm2)
         cms.append(cm2)
     hidden = cm.apply_norm(x, params["final_norm"], "layernorm")
     return hidden, RwkvState(wkv=torch.stack(wkv), tm_shift=torch.stack(tms),
                              cm_shift=torch.stack(cms))
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """Mean next-token cross-entropy (with z-loss) of a training batch →
+    (loss, {"loss", "aux_loss"}): JAX's ``train_loss``, the logits through
+    the plain head product (``cm.logits_head``, as JAX leaves it to XLA)."""
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    hidden, _ = _forward(params, cfg, tokens, None,
+                         remat=cfg.remat and torch.is_grad_enabled())
+    return cm.next_token_loss(cm.logits_head(hidden, params["head"]), tokens)
 
 
 def prefill(params, cfg: ModelConfig, batch):

@@ -4,7 +4,7 @@ saves, keep-K, uncommitted steps ignored, shape checks, async saves),
 JAX's leaf paths and order, and checkpoints crossing both ways bitwise —
 a TrainState written by either package (bf16 params, float32 moments,
 the int32 step, error-feedback leaves) restores in the other with every
-leaf's bits and dtype."""
+leaf's bits and dtype, for olmo-1b, rwkv6-3b and recurrentgemma-9b."""
 import json
 
 import jax
@@ -151,28 +151,30 @@ def test_files_and_paths_are_jax_s(tmp_path):
             == (tmp_path / "t" / "3" / "data_state.json").read_text())
 
 
-@pytest.fixture(scope="module")
-def olmo_states():
-    """A reduced olmo-1b TrainState (bf16 params, two AdamW steps' moments)
-    in each package from the same numbers."""
-    jcfg = jax_reduced("olmo-1b")
-    params = jax_build(jcfg).init(jax.random.PRNGKey(0))
+@pytest.fixture(scope="module", params=["olmo-1b", "rwkv6-3b", "recurrentgemma-9b"])
+def olmo_states(request):
+    """A reduced TrainState (bf16 params, two AdamW steps' moments) of each
+    family in each package from the same numbers: olmo-1b, rwkv6-3b (its
+    float32 decay_base and u beside bf16 leaves) and recurrentgemma-9b
+    (Griffin's group-stacked tree, its rem layers and float32 gates)."""
+    arch = request.param
+    params = jax_build(jax_reduced(arch)).init(jax.random.PRNGKey(0))
     jstate = jax_init_state(params, JaxTrainConfig(grad_compress_bits=8))
     noisy = jax.tree_util.tree_map(
         lambda l: jnp.asarray(RNG.standard_normal(l.shape).astype(np.float32)).astype(l.dtype)
         if l.ndim else l + 2, jstate)
-    return noisy, TrainConfig(grad_compress_bits=8)
+    return arch, noisy, TrainConfig(grad_compress_bits=8)
 
 
-def _torch_template(tc):
-    return init_train_state(build_model(get_reduced_config("olmo-1b")).init(0, "meta"), tc)
+def _torch_template(arch, tc):
+    return init_train_state(build_model(get_reduced_config(arch)).init(0, "meta"), tc)
 
 
 def test_jax_checkpoint_restores_bitwise_in_the_port(tmp_path, olmo_states):
-    jstate, tc = olmo_states
+    arch, jstate, tc = olmo_states
     JaxManager(tmp_path).save(4, jstate, {"step": 4, "seed": 0, "host_id": 0})
     state, data_state, step = CheckpointManager(tmp_path).restore(
-        lambda: _torch_template(tc), device="cpu")
+        lambda: _torch_template(arch, tc), device="cpu")
     assert step == 4 and data_state == {"step": 4, "seed": 0, "host_id": 0}
     assert isinstance(state, TrainState)
     jl = jax.tree_util.tree_flatten_with_path(jstate)[0]
@@ -181,17 +183,18 @@ def test_jax_checkpoint_restores_bitwise_in_the_port(tmp_path, olmo_states):
     for (jp, a), (tp, b) in zip(jl, tl):
         assert str(a.dtype) == str(b.dtype).replace("torch.", ""), tr.path_str(tp)
         assert np.array_equal(np.asarray(a, np.float32), _as_np(b).astype(np.float32))
-    assert state.params["blocks"]["wq"].dtype == torch.bfloat16
+    dtypes = {p.dtype for p in tr.leaves(state.params)}
+    assert torch.bfloat16 in dtypes and (arch == "olmo-1b") == (torch.float32 not in dtypes)
     assert state.opt.step.dtype == torch.int32 and int(state.opt.step) == 2
 
 
 def test_port_checkpoint_restores_bitwise_in_jax(tmp_path, olmo_states):
-    jstate, tc = olmo_states
+    arch, jstate, tc = olmo_states
     JaxManager(tmp_path / "j").save(4, jstate)
     state, _, _ = CheckpointManager(tmp_path / "j").restore(
-        lambda: _torch_template(tc), device="cpu")
+        lambda: _torch_template(arch, tc), device="cpu")
     CheckpointManager(tmp_path / "t").save(9, state, {"step": 9, "seed": 0, "host_id": 0})
-    jcfg = jax_reduced("olmo-1b")
+    jcfg = jax_reduced(arch)
     back, data_state, step = JaxManager(tmp_path / "t").restore(
         lambda: jax_init_state(jax_build(jcfg).init(jax.random.PRNGKey(1)),
                                JaxTrainConfig(grad_compress_bits=8)))

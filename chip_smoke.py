@@ -236,10 +236,16 @@
    Griffin's B 8, T 512, W 4096, bf16 y, zero and carried h0, Lambda near
    the clamp; within ``WKV_BWD_TOL`` / ``RGLRU_BWD_TOL`` of max |g|, two
    calls bitwise, row 0 alone bitwise its batch row, timed beside their
-   bounds and plain versions); the autograd wrappers change no bit of
+   bounds and plain versions, ``wkv6_bwd`` also launch by launch under
+   torch.profiler and ``rglru_bwd`` beside a copy of its bytes, every
+   ``rglru.BWD_PLANS`` tiling run); the autograd wrappers change no bit of
    olmo-1b's ``forward_hidden`` (4 layers, full width) nor its launches;
    reduced float32 olmo-1b (plain and QAT), rwkv6-3b and recurrentgemma-9b
-   train 3 steps on the card as on the CPU (``TRAIN_TOL``); ``python -m
+   train 3 steps on the card as on the CPU (``TRAIN_TOL``; in the
+   recurrent rows every param element apart by more than 1e-3 is named,
+   its first-step gradient held within ``NEAR_ZERO_ULPS`` of zero on both
+   devices and its first nonzero gradient of opposite signs on the two);
+   ``python -m
    repro_torch.launch.train --arch olmo-1b --steps 20 --global-batch 8
    --seq 512 --qat w4a8`` at full width and depth (1.18 B parameters),
    ``--arch rwkv6-3b --steps 10 --lr 1e-3`` at full width and depth (2.86
@@ -250,9 +256,12 @@
    olmo-1b run saves at steps 5 and 10 (about
    4.5 GB each, in a temporary directory removed after), its restored
    state bitwise the saved one, steps 10-14 after a restart bitwise the
-   uninterrupted run's; and ``serve --ckpt`` of that checkpoint prints
+   uninterrupted run's; ``serve --ckpt`` of that checkpoint prints
    the restored step, its greedy tokens those of an in-process engine on
-   the restored params. No serve run launches the backward.
+   the restored params; rwkv6-3b at full width, 2 layers, and the
+   reduced recurrentgemma-9b restart bitwise the same way through
+   ``wkv6_bwd`` and ``rglru_bwd`` (``check_restart_recurrent``). No serve
+   run launches the backward.
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``,
@@ -290,8 +299,12 @@ check, the frontend phase and its card-vs-CPU check, and run (f) with
 solo ≡ mid-decode admission; ``python3 chip_smoke.py train`` builds the
 kernels and runs the flash, one-order and frontend flash checks, then
 the train phase (printing the three backward kernels' times beside their
-bounds, SDPA's backward beside the flash one's); ``python3 chip_smoke.py profile-train`` breaks olmo-1b's QAT
-training step down by part and by kernel group (see ``profile_train``).
+bounds, SDPA's backward beside the flash one's); ``python3 chip_smoke.py
+bwd`` builds the recurrences' kernels and runs their backward checks and
+``check_rglru``; ``python3 chip_smoke.py profile-train [arch ...]``
+breaks a training step of olmo-1b (the default), rwkv6-3b or
+recurrentgemma-9b down by part and by kernel group (see
+``profile_train``).
 """
 from __future__ import annotations
 
@@ -534,6 +547,39 @@ class Timer:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+
+
+def device_ms_by_group(torch, fn, groups, iters: int = 10):
+    """Device time of each group of kernels (group -> substrings of the
+    kernel names) a call of `fn` launches, in ms a call: `fn` run `iters`
+    times under torch.profiler after a warmup, L2 not flushed between the
+    calls. Raises if a group recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {g: 0.0 for g in groups}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for g, keys in groups.items():
+            if any(k in e.key for k in keys):
+                out[g] += e.self_device_time_total / 1e3 / iters
+                break
+    missing = [g for g, ms in out.items() if ms <= 0]
+    if missing:
+        raise AssertionError(f"no device time recorded for {missing}")
+    return out
+
+
+# wkv6_bwd's four launches, by kernel name.
+WKV_BWD_LAUNCHES = {"state": ("wkv6_bwd_state_kernel",), "pass": ("wkv6_bwd_pass_kernel",),
+                    "chunk": ("wkv6_bwd_chunk_kernel",), "du": ("wkv6_bwd_du_kernel",)}
 
 # -- kernels against their plain versions ------------------------------------
 
@@ -4117,11 +4163,7 @@ def check_rglru(torch, dev, timer):
         n = rows * T * W
         # ga, gi, y and h0 read, h written (and h at T - 1 beside it for T > 1).
         nbytes = 2 * n * 4 + n * 2 + n * 4 + rows * W * 4 * (2 if T > 1 else 1) + 3 * W * 4
-        # A yardstick of the bytes, not of the function: one device-to-device
-        # copy (cudaMemcpyAsync) that reads half of them and writes the other.
-        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
-        dst = torch.empty_like(src)
-        copy_ms = timer(lambda: dst.copy_(src))
+        copy_ms = copy_time(torch, dev, timer, nbytes)
         b_ms, b_by = bound_ms(nbytes, 18 * n, FP32_FLOPS_PER_S)
         tile = "step kernel" if T == 1 else "tile {}, {} gate warps".format(
             *rglru.plan(rows, W, sms))
@@ -4132,6 +4174,15 @@ def check_rglru(torch, dev, timer):
     entries = {"prefill": timed(320, B), "prefill_t2304": timed(2304, 2),
                "prefill_b1": timed(320, 1), "decode": timed(1, B)}
     return {**entries["prefill"], "max_abs_err": worst, "entries": entries}
+
+
+def copy_time(torch, dev, timer, nbytes):
+    """A yardstick of `nbytes` moved, not of a function: the time of one
+    device-to-device copy (cudaMemcpyAsync) that reads half of them and
+    writes the other half, under `timer`."""
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return timer(lambda: dst.copy_(src))
 
 
 def copy_note(e):
@@ -5157,6 +5208,7 @@ def check_wkv6_backward(torch, dev, timer):
         plain()
         if name == "rwkv6-3b training shape":
             ms, plain_ms = timer(kernel), timer(plain, iters=3, warmup=1)
+            launches_ms = device_ms_by_group(torch, kernel, WKV_BWD_LAUNCHES)
         got, want = list(last["got"]), list(last["want"])
         got[3], want[3] = got[3] * w, want[3] * w
         errs = _grad_errs(torch, names, got, want, f"wkv6_bwd {name}",
@@ -5192,10 +5244,11 @@ def check_wkv6_backward(torch, dev, timer):
     b_ms, b_by = bound_ms(nbytes, B * H * nc * per, FP32_FLOPS_PER_S)
     log(f"wkv6_bwd: {len(WKV_BWD_CASES)} cases ({', '.join(c[0] for c in WKV_BWD_CASES)}) "
         f"within {WKV_BWD_TOL} of max |g| (worst {worst}); two calls bitwise equal; row 0 "
-        "alone bitwise row 0 of the batch")
+        "alone bitwise row 0 of the batch; at the training shape, device ms a launch "
+        f"(torch.profiler): {launches_ms}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": worst_abs, "max_rel_err": worst,
-            "cases": len(WKV_BWD_CASES),
+            "cases": len(WKV_BWD_CASES), "launches_ms": launches_ms,
             "shape": f"B={B} T={T} H=40 K=V=64 chunk 64, bf16 r/k/v (dr, dk, dv, dw, du, "
                      "dstate)"}
 
@@ -5220,15 +5273,19 @@ def check_rglru_backward(torch, dev, timer):
     y, with zero and with carried h0; Lambda from -30 to -8, where 1 - a²
     reaches the 1e-12 clamp): dga, dgi, dy, the three (W,) gradients and
     dh0 within RGLRU_BWD_TOL of max |g|; a further call bitwise; batch row
-    0 alone bitwise row 0 of the batch (every gradient but the (W,) sums).
-    Timed at the training shape with zero h0. Returns the kernel-table
-    row."""
+    0 alone bitwise row 0 of the batch (every gradient but the (W,) sums);
+    between them the cases run every tile plan of ``rglru.BWD_PLANS``.
+    Timed at the training shape with zero h0, beside ``copy_ms``, one
+    device-to-device copy moving its bytes under the same timer. Returns
+    the kernel-table row."""
     from repro_torch.kernels import ref, rglru
 
     gen = torch.Generator(device=dev).manual_seed(53)
     names = ("dga", "dgi", "dy", "da_bias", "di_bias", "dlam", "dh0")
-    worst, worst_abs = {}, 0.0
+    worst, worst_abs, plans = {}, 0.0, set()
+    sms = rglru.sms(dev.index or 0)
     for name, B, T, W, carried, (lo, hi) in RGLRU_BWD_CASES:
+        plans.update({rglru.plan_bwd(B, W, sms), rglru.plan_bwd(1, W, sms)})
         ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
         y = torch.randn((B, T, W), generator=gen, device=dev).to(torch.bfloat16)
         ab, ib = (torch.randn(W, generator=gen, device=dev) * 0.1 for _ in range(2))
@@ -5267,18 +5324,23 @@ def check_rglru_backward(torch, dev, timer):
             raise AssertionError(f"rglru_bwd {name}: row 0 alone differs from row 0 of "
                                  "the batch")
         del last, again
+    if plans != set(rglru.BWD_PLANS):
+        raise AssertionError(f"rglru_bwd: the cases ran plans {sorted(plans)}, not every "
+                             f"plan the kernel instantiates {sorted(rglru.BWD_PLANS)}")
     B, T, W = TRAIN_B, TRAIN_T, 4096
     n = B * T * W
     # ga, gi, h, dh read in float32 and y in bf16; dga, dgi written in
     # float32 and dy in bf16 (28 bytes an element); ~40 float32 operations
     # an element.
     b_ms, b_by = bound_ms(28 * n, 40 * n, FP32_FLOPS_PER_S)
+    copy_ms = copy_time(torch, dev, timer, 28 * n)
     log(f"rglru_bwd: {len(RGLRU_BWD_CASES)} cases ({', '.join(c[0] for c in RGLRU_BWD_CASES)}) "
         f"within {RGLRU_BWD_TOL} of max |g| (worst {worst}); two calls bitwise equal; row 0 "
         "alone bitwise row 0 of the batch")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": worst_abs, "max_rel_err": worst,
-            "cases": len(RGLRU_BWD_CASES),
+            "cases": len(RGLRU_BWD_CASES), "copy_ms": copy_ms,
+            "plans": sorted(plans),
             "shape": f"B={B} T={T} W={W}, f32 gates, bf16 y, zero h0 (dga, dgi, dy, the "
                      "(W,) gradients)"}
 
@@ -5313,6 +5375,60 @@ TRAIN_TOL = {"plain": {"loss": 1e-5, "grad_norm": 1e-4, "params_max": 1e-3},
 # (arch, TRAIN_TOL key, --qat) of card_vs_cpu_train.
 TRAIN_PARITY = (("olmo-1b", "plain", None), ("olmo-1b", "w4a8", "w4a8"),
                 ("rwkv6-3b", "recurrent", None), (GRIFFIN, "recurrent", None))
+# The recurrent rows' watch: a param element that parts by more than the
+# plain row's params_max is named. Its first step's gradient must lie
+# within NEAR_ZERO_ULPS ulps of zero on both devices (ulps of the largest
+# |gradient| of its leaf on that device), and at the first step where its
+# gradient is not zero on either device the two signs must differ: AdamW's
+# first update of an element (m and v still zero) is a whole step whatever
+# the gradient's size, so opposite signs part it by about twice the lr.
+NEAR_ZERO_ULPS = 8
+
+
+def _ulp(x: float) -> float:
+    """The spacing of float32 numbers at |x| (x normal)."""
+    return math.ldexp(1.0, math.frexp(abs(x))[1] - 24)
+
+
+def _step_grads(torch, model, params, batch):
+    """The loss's gradient at `params` for `batch` (a training step's),
+    one CPU tensor a leaf."""
+    from repro_torch import tree as tr
+
+    flat = tr.leaves(params)
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_(True) for p in flat]
+        loss, _ = model.train_loss(tr.unflatten_like(params, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return [torch.zeros(p.shape) if g is None else g.detach().float().cpu()
+            for p, g in zip(flat, grads)]
+
+
+def _named_elements(torch, base, pc, pg, gc, gg, limit):
+    """Every element of the params `pc` (CPU) and `pg` (card) apart by
+    more than `limit`, with its gradient at each step on each device
+    (`gc`, `gg`: a list of leaves a step) in ulps of its leaf's largest,
+    and whether the two gradients' signs differ there. Returns (the list,
+    the largest difference over the other elements)."""
+    from repro_torch import tree as tr
+
+    paths = [tr.path_str(p) for p, _ in tr.flatten_with_path(base)]
+    named, rest = [], 0.0
+    for li, (path, a, b) in enumerate(zip(paths, pc, pg)):
+        diff = (a.float() - b.float()).abs()
+        over = diff > limit
+        rest = max(rest, diff[~over].max().item() if (~over).any() else 0.0)
+        for idx in over.nonzero().tolist():
+            i, steps = tuple(idx), []
+            for ga, gb in zip(gc, gg):
+                x, y = ga[li][i].item(), gb[li][i].item()
+                steps.append({"grad_cpu": x, "grad_card": y,
+                              "ulps_cpu": abs(x) / _ulp(ga[li].abs().max().item() or 1.0),
+                              "ulps_card": abs(y) / _ulp(gb[li].abs().max().item() or 1.0),
+                              "signs_differ": (x > 0) - (x < 0) != (y > 0) - (y < 0)})
+            named.append({"leaf": path, "index": list(i), "diff": diff[i].item(),
+                          "steps": steps})
+    return named, rest
 
 
 def card_vs_cpu_train(torch):
@@ -5321,7 +5437,11 @@ def card_vs_cpu_train(torch):
     CPU from the same weights: olmo-1b plain and under ``--qat w4a8``,
     rwkv6-3b and recurrentgemma-9b plain (their recurrences' backward
     kernels, Griffin's windowed flash backward); losses, grad norms and
-    params within TRAIN_TOL. Returns "arch mode" → errors."""
+    params within TRAIN_TOL. The recurrent rows also name every param
+    element apart by more than the plain row's params_max (1e-3): each
+    one's first-step gradient within NEAR_ZERO_ULPS of zero on both
+    devices, and its first nonzero gradient of opposite signs on the two;
+    every other element within 1e-3. Returns "arch mode" → errors."""
     from repro_torch import tree as tr
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataIterator
@@ -5335,13 +5455,15 @@ def card_vs_cpu_train(torch):
         tc = TrainConfig(lr=1e-2, warmup_steps=2, total_steps=30)
         data = DataIterator(cfg, global_batch=4, seq_len=64, seed=0, branch=4)
         base = model.init(seed=0, device="cpu")
-        runs = {}
+        runs, grads = {}, {}
         for dev in ("cpu", "cuda"):
             # The optimizer updates in place: each device starts from a copy.
             state = init_train_state(tr.map_tree(lambda t: t.to(dev, copy=True), base), tc)
             step = make_train_step(model, tc)
-            mets = []
+            mets, grads[dev] = [], []
             for i in range(3):
+                if mode == "recurrent":
+                    grads[dev].append(_step_grads(torch, model, state.params, data.batch_at(i)))
                 state, m = step(state, data.batch_at(i))
                 mets.append((float(m["loss"]), float(m["grad_norm"])))
             runs[dev] = (mets, [p.detach().cpu() for p in tr.leaves(state.params)])
@@ -5359,6 +5481,24 @@ def card_vs_cpu_train(torch):
         if bad:
             raise AssertionError(f"reduced fp32 {arch} training ({mode}): card vs CPU "
                                  f"{err} beyond {tol}")
+        if mode == "recurrent":
+            limit = TRAIN_TOL["plain"]["params_max"]
+            named, rest = _named_elements(torch, base, pc, pg, grads["cpu"], grads["cuda"],
+                                          limit)
+            err.update(named=named, params_max_other=rest)
+            def explained(e):
+                first = e["steps"][0]
+                moved = [st for st in e["steps"] if st["grad_cpu"] or st["grad_card"]]
+                return (max(first["ulps_cpu"], first["ulps_card"]) <= NEAR_ZERO_ULPS
+                        and bool(moved) and moved[0]["signs_differ"])
+
+            loud = [e for e in named if not explained(e)]
+            if loud or not rest <= limit:
+                raise AssertionError(
+                    f"reduced fp32 {arch} training: params apart by more than {limit} whose "
+                    f"first-step gradient is not within {NEAR_ZERO_ULPS} ulps of zero on both "
+                    f"devices, or whose first nonzero gradient has one sign on both: "
+                    f"{loud[:3]}; the other elements' largest difference {rest:.3g}")
     log(f"reduced fp32 training, 3 steps each: card vs CPU {out} (within {TRAIN_TOL})")
     return out
 
@@ -5543,6 +5683,86 @@ def check_resume(torch, dev, workdir):
             "ckpt_gb": size / 1e9, "train_s": t_train, "restore_s": t_restore}, params10
 
 
+# The recurrent restarts: (arch, layers at full width or None for the
+# reduced config, --qat), RESTART_STEPS steps of TRAIN_B x TRAIN_T tokens,
+# a save after RESTART_SAVE. Griffin's runs reduced: at full width its
+# untied 256 000-wide embedding and head with their AdamW moments make a
+# 31 GB checkpoint even at 2 layers, whose save and restore took 101-157 s
+# on an H100 host (the script's total 931 s of its 1200).
+RESTART_RUNS = (("rwkv6-3b", 2, None), (GRIFFIN, None, "w4a8"))
+RESTART_STEPS, RESTART_SAVE = 4, 2
+
+
+def check_restart_recurrent(torch, dev, workdir):
+    """A bitwise restart of each family of RESTART_RUNS, as
+    ``check_resume``'s: rwkv6-3b (plain bf16) at full width cut to 2
+    layers, recurrentgemma-9b (QAT w4a8) reduced, each step through
+    ``wkv6_bwd`` or ``rglru_bwd``. One run of RESTART_STEPS steps
+    saves after step RESTART_SAVE (async, keep 1); a restart
+    (``run_training`` with the manager) runs the steps after it and gives
+    bitwise the uninterrupted run's losses, grad norms and params. Returns
+    arch → report."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import init_train_state, make_train_step, run_training
+
+    out = {}
+    for arch, layers, qat in RESTART_RUNS:
+        t0 = time.perf_counter()
+        over = {} if layers is None else {"num_layers": layers}
+        cfg = _train_cfg(arch, reduced=layers is None, qat=qat, **over)
+        model = build_model(cfg)
+        tc = TrainConfig(lr=TRAIN_LR_RECURRENT, warmup_steps=1, total_steps=RESTART_STEPS,
+                         log_every=1, checkpoint_every=RESTART_SAVE)
+
+        def data():
+            return DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=0, branch=8)
+
+        where = os.path.join(workdir, arch)
+        mgr = CheckpointManager(where, keep=1, async_save=True)
+        ops.reset_launch_counts()
+        it, hist = data(), []
+        state = init_train_state(model.init(0, dev), tc)
+        step_fn = make_train_step(model, tc)
+        for i in range(RESTART_STEPS):
+            state, m = step_fn(state, next(it))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            if i + 1 == RESTART_SAVE:
+                mgr.save(i + 1, state, it.get_state())
+        mgr.wait()
+        size = sum(f.stat().st_size for f in (mgr.dir / str(RESTART_SAVE)).iterdir())
+        resumed, hist_b = run_training(model, dataclasses.replace(tc, checkpoint_every=100),
+                                       data(), checkpoint_mgr=mgr, device=dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        again = [(h["loss"], h["grad_norm"]) for h in hist_b]
+        same_tree, bad = _leaves_equal(torch, state, resumed)
+        kernel = "wkv6_bwd" if arch == "rwkv6-3b" else "rglru_bwd"
+        if again != hist[RESTART_SAVE:] or not same_tree or bad or counts[kernel] <= 0:
+            raise AssertionError(f"{arch} restart: steps {RESTART_SAVE}-{RESTART_STEPS - 1} "
+                                 f"uninterrupted {hist[RESTART_SAVE:]} vs restarted {again}; "
+                                 f"params differing {bad[:5]}; {kernel} launches "
+                                 f"{counts[kernel]}")
+        out[arch] = {"layers": cfg.num_layers, "reduced": layers is None, "qat": qat,
+                     "losses": [h[0] for h in hist],
+                     "grad_norms": [h[1] for h in hist], "ckpt_gb": size / 1e9,
+                     "launches": {kernel: counts[kernel]},
+                     "seconds": time.perf_counter() - t0}
+        log(f"restart ({cfg.name}, {cfg.num_layers} layers{', QAT ' + qat if qat else ''}): steps "
+            f"{RESTART_SAVE}-{RESTART_STEPS - 1} after a restart bitwise the uninterrupted "
+            f"run (losses {[round(h[0], 4) for h in hist]}, {size / 1e9:.3g} GB on disk, "
+            f"{counts[kernel]} {kernel} launches, {out[arch]['seconds']:.1f} s)")
+        del state, resumed
+        shutil.rmtree(where, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def serve_ckpt(torch, dev, workdir, params10):
     """The serve CLI on the checkpoint: ``serve --ckpt <workdir> --layers
     4 --continuous --policy "w4a8;wo=w8a8"`` (4 requests of the stream,
@@ -5599,6 +5819,18 @@ def serve_ckpt(torch, dev, workdir, params10):
     return {"tokens": cli}
 
 
+def log_bwd_rows(rows, smi):
+    """Print the recurrences' backward rows: time, bound, plain version,
+    wkv6_bwd's launches and rglru_bwd's copy yardstick."""
+    for name in ("wkv6_bwd", "rglru_bwd"):
+        e = rows[name]
+        parts = e.get("launches_ms")
+        log(f"  {name}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
+            f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library none{copy_note(e)}"
+            + (f"; by launch {', '.join(f'{k} {v:.4g}' for k, v in parts.items())} ms"
+               if parts else "") + f") [{smi}]")
+
+
 def train_phase(torch, dev, timer):
     """The training gates: the backward kernels against their plain
     versions (``check_flash_backward``, ``check_wkv6_backward``,
@@ -5607,9 +5839,10 @@ def train_phase(torch, dev, timer):
     (``check_dense_backward``), card vs CPU (``card_vs_cpu_train``),
     olmo-1b, rwkv6-3b and recurrentgemma-9b at full width
     (``train_full``), checkpoint and resume (``check_resume``) and serve
-    --ckpt (``serve_ckpt``), the checkpoint in a temporary directory
-    removed after. Returns (report, the three backward kernels' rows,
-    launch counts of the full-width training runs)."""
+    --ckpt (``serve_ckpt``), the recurrent families' restarts
+    (``check_restart_recurrent``), each checkpoint in a temporary
+    directory removed after. Returns (report, the three backward kernels'
+    rows, launch counts of the full-width training runs)."""
     import tempfile
 
     smi = nvidia_smi()
@@ -5621,10 +5854,7 @@ def train_phase(torch, dev, timer):
             f"SDPA backward {e['library_ms']:.4g} ms) [{smi}]")
     rows = {"flash_attention_bwd": bwd, "wkv6_bwd": check_wkv6_backward(torch, dev, timer),
             "rglru_bwd": check_rglru_backward(torch, dev, timer)}
-    for name in ("wkv6_bwd", "rglru_bwd"):
-        e = rows[name]
-        log(f"  {name}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
-            f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library none) [{smi}]")
+    log_bwd_rows(rows, smi)
     rep = {"wrappers": check_grad_wrappers(torch, dev),
            "dense_backward": check_dense_backward(torch, dev),
            "card_vs_cpu": card_vs_cpu_train(torch)}
@@ -5635,12 +5865,15 @@ def train_phase(torch, dev, timer):
         rep["resume"], params10 = check_resume(torch, dev, workdir)
         rep["serve_ckpt"] = serve_ckpt(torch, dev, workdir, params10)
         del params10
+    t_resume = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
+        rep["restart_recurrent"] = check_restart_recurrent(torch, dev, workdir)
     t_full = sum(r["wall_s"] for r in rep["full"].values())
-    rep["seconds"] = {"checks": t_checks, "full": t_full,
-                      "resume_and_serve": time.perf_counter() - t0}
+    rep["seconds"] = {"checks": t_checks, "full": t_full, "resume_and_serve": t_resume,
+                      "restart_recurrent": time.perf_counter() - t0 - t_resume}
     log(f"train phase: kernel and card-vs-CPU checks {t_checks:.1f} s, full-width "
-        f"training {t_full:.1f} s, resume and serve --ckpt "
-        f"{rep['seconds']['resume_and_serve']:.1f} s")
+        f"training {t_full:.1f} s, resume and serve --ckpt {t_resume:.1f} s, the "
+        f"recurrent restarts {rep['seconds']['restart_recurrent']:.1f} s")
     return rep, rows, counts
 
 
@@ -5686,8 +5919,13 @@ def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6
     write_detail("profile.json", out)
 
 
-# profile_train's kernel groups: substrings of the kernel names.
+# profile_train's kernel groups: substrings of the kernel names (the first
+# group that matches takes a kernel).
 TRAIN_KERNEL_GROUPS = (
+    ("wkv6_bwd", ("wkv6_bwd_",)),
+    ("wkv6", ("wkv6_",)),
+    ("rglru_bwd", ("rglru_bwd_",)),
+    ("rglru", ("rglru_kernel", "rglru_step_kernel")),
     ("flash backward", ("rows_bf16_kernel", "dkdv_bf16_kernel", "lse_rows_kernel",
                         "dkdv_kernel", "dq_kernel")),
     ("flash forward", ("flash_mma_kernel", "flash_f32_kernel")),
@@ -5696,15 +5934,27 @@ TRAIN_KERNEL_GROUPS = (
 )
 
 
-def profile_train(torch, dev):
-    """`chip_smoke.py profile-train`: olmo-1b's QAT training step at full
-    width and depth (TRAIN_ARGV's shape, seed 0), one warmup step, then
-    one step timed in parts on the host clock (the loss, its gradients,
-    clipping, AdamW, each synchronized) and two steps under
-    torch.profiler: device time by kernel group (TRAIN_KERNEL_GROUPS, the
-    rest being PyTorch's elementwise, reduction and copy kernels) and by
-    kernel, and the device-busy share. Writes train_profile.json under
-    $CHIP_SMOKE_OUT. Not part of the default run."""
+# profile-train's runs: arch → (config, lr, warmup): the three full-width
+# training runs of train_full (Griffin at GRIFFIN_TRAIN_LAYERS).
+PROFILE_TRAIN = {
+    "olmo-1b": (lambda: _train_cfg("olmo-1b", qat="w4a8"), 3e-3, 4),
+    "rwkv6-3b": (lambda: _train_cfg("rwkv6-3b"), TRAIN_LR_RECURRENT, 2),
+    GRIFFIN: (lambda: _train_cfg(GRIFFIN, qat="w4a8", num_layers=GRIFFIN_TRAIN_LAYERS),
+              TRAIN_LR_RECURRENT, 2),
+}
+
+
+def profile_train(torch, dev, arch="olmo-1b"):
+    """`chip_smoke.py profile-train [arch ...]`: a training step of each
+    named arch of PROFILE_TRAIN (by default olmo-1b's QAT step at full
+    width and depth; rwkv6-3b at its 32 layers, recurrentgemma-9b at
+    GRIFFIN_TRAIN_LAYERS) on TRAIN_ARGV's 8 x 512 tokens, seed 0: one
+    warmup step, then one step timed in parts on the host clock (the
+    loss, its gradients, clipping, AdamW, each synchronized) and two steps
+    under torch.profiler: device time a step by kernel group
+    (TRAIN_KERNEL_GROUPS, the rest being PyTorch's elementwise, reduction
+    and copy kernels) and by kernel, and the device-busy share. Returns
+    the report. Not part of the default run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5715,9 +5965,10 @@ def profile_train(torch, dev):
     from repro_torch.optim import adamw
     from repro_torch.train.loop import init_train_state, make_train_step
 
-    cfg = _train_cfg("olmo-1b", qat="w4a8")
+    make_cfg, lr, warmup = PROFILE_TRAIN[arch]
+    cfg = make_cfg()
     model = build_model(cfg)
-    tc = TrainConfig(lr=3e-3, warmup_steps=4, total_steps=20)
+    tc = TrainConfig(lr=lr, warmup_steps=warmup, total_steps=20)
     data = DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=0, branch=8)
     state = init_train_state(model.init(0, dev), tc)
     step = make_train_step(model, tc)
@@ -5756,18 +6007,20 @@ def profile_train(torch, dev):
                  "other (elementwise, reductions, copies)")
         groups[g] += us / 2e3                     # ms a step
     busy = sum(r[1] for r in rows) / 2e3
-    out = {"parts": parts, "wall_ms_per_step": wall * 500, "device_busy_ms_per_step": busy,
-           "busy_share": busy / (wall * 500), "groups_ms_per_step": groups,
+    out = {"layers": cfg.num_layers, "parts": parts, "wall_ms_per_step": wall * 500,
+           "device_busy_ms_per_step": busy, "busy_share": busy / (wall * 500),
+           "groups_ms_per_step": groups,
            "kernels": [{"name": k, "device_ms_per_step": us / 2e3, "calls": n}
                        for k, us, n in rows[:30]], "nvidia_smi": nvidia_smi()}
-    log(f"olmo-1b QAT step in parts: {({k: round(v, 1) for k, v in parts.items()})}; "
-        f"profiled: {wall * 500:.1f} ms a step, device busy {busy:.1f} ms "
-        f"({out['busy_share']:.0%}) [{out['nvidia_smi']}]")
+    log(f"{arch} ({cfg.num_layers} layers) training step in parts: "
+        f"{({k: round(v, 1) for k, v in parts.items()})}; profiled: {wall * 500:.1f} ms a "
+        f"step, device busy {busy:.1f} ms ({out['busy_share']:.0%}) [{out['nvidia_smi']}]")
     for g, ms in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"  {ms:8.1f} ms  {g}")
     for r in out["kernels"][:15]:
         log(f"  {r['device_ms_per_step']:8.2f} ms {r['calls']:6d}  {r['name'][:90]}")
-    write_detail("train_profile.json", out)
+    del state
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5781,6 +6034,24 @@ TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
 NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd")
 
 
+def _sass(paths, name):
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
+                          text=True, check=True).stdout.splitlines()
+
+
+def no_atomics(paths, names):
+    """Raise if the SASS of a library in `names` holds an atomic (ATOM,
+    RED): its sums run in an order fixed by the shapes."""
+    for name in names:
+        atomics = [line.strip() for line in _sass(paths, name)
+                   if re.search(r"\b(ATOMG?|ATOMS|RED)\b", line)]
+        if atomics:
+            raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
+
+
 def count_hmma(paths):
     """The bf16 attention tile, the flash backward's bf16 route and
     dense_matmul run on the bf16 tensor cores, bitplane_matmul and the
@@ -5788,24 +6059,12 @@ def count_hmma(paths):
     (``cuobjdump -sass``) must hold HMMA (IMMA) instructions; the
     backward kernels' (flash, wkv6, RG-LRU) must hold none that is atomic.
     Returns library → count."""
-    from repro_torch.kernels import build
-
-    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-
-    def sass(name):
-        return subprocess.run([tool, "-sass", str(paths[name])], capture_output=True,
-                              text=True, check=True).stdout.splitlines()
-
     counts = {}
     for name, op in TENSOR_CORE_KERNELS.items():
-        counts[name] = sum(op in line for line in sass(name))
+        counts[name] = sum(op in line for line in _sass(paths, name))
         if counts[name] == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
-    for name in NO_ATOMICS:
-        atomics = [line.strip() for line in sass(name)
-                   if re.search(r"\b(ATOMG?|ATOMS|RED)\b", line)]
-        if atomics:
-            raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
+    no_atomics(paths, NO_ATOMICS)
     log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}; no atomics in "
         f"{', '.join(NO_ATOMICS)}'s")
     return counts
@@ -5959,9 +6218,29 @@ def main() -> int:
             "flash": entries, "norm_rows": norm, "frontends": out, "launches": counts,
             "card_vs_cpu": errs, "nvidia_smi": nvidia_smi()})
         return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["profile-train"]:
+    if sys.argv[1:] == ["bwd"]:
+        paths = build.build(["wkv6", "wkv6_bwd", "rglru", "rglru_bwd"])
+        for name in ("wkv6_bwd", "rglru_bwd", "rglru"):
+            for line in build.build_logs.get(name, "").splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+        no_atomics(paths, ("wkv6_bwd", "rglru_bwd"))
+        timer, smi = Timer(torch, dev), nvidia_smi()
+        rows = {"wkv6_bwd": check_wkv6_backward(torch, dev, timer),
+                "rglru_bwd": check_rglru_backward(torch, dev, timer),
+                "rglru": check_rglru(torch, dev, timer)}
+        log_bwd_rows(rows, smi)
+        write_detail("chip_smoke_bwd.json", {"backward": rows, "nvidia_smi": smi})
+        return 3                 # a partial run: no result line
+    if sys.argv[1:2] == ["profile-train"]:
+        archs = sys.argv[2:] or ["olmo-1b"]
+        unknown = [a for a in archs if a not in PROFILE_TRAIN]
+        if unknown:
+            print(f"profile-train: unknown {unknown}; one of {sorted(PROFILE_TRAIN)}",
+                  file=sys.stderr)
+            return 2
         build.build()
-        profile_train(torch, dev)
+        write_detail("train_profile.json", {a: profile_train(torch, dev, a) for a in archs})
         return 3                 # a partial run: no result line
     if sys.argv[1:] == ["train"]:
         build.build()

@@ -59,13 +59,12 @@
 // memory and no barrier: every load first, then the arithmetic, then one
 // store of h (h at lengths - 1 is that same h).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include "rglru_gates.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -76,65 +75,8 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
 
 using rglru_gates::gates;
 using rglru_gates::neg_rate;
-
-// -- mbarriers and async copies ------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// One arrival for the whole warp, after every lane's shared-memory accesses
-// before it.
-__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) bar_arrive(bar);
-}
-// Wait until the phase of parity `parity` has completed. A wait that
-// outlasts any run (2^30 polls, each suspending the thread for a while)
-// is a fault: trap, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-// Arrive, and expect `bytes` of tensor copies before the phase completes.
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-// The box of `map` at (c, t, b) into shared memory (TMA), counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c, int t, int b,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)), "l"(map), "r"(c), "r"(t),
-      "r"(b), "r"(smem_u32(bar))
-      : "memory");
-}
-// Shared memory to the box of `map` at (c, t, b) (TMA; rows past the
-// tensor's end are dropped), then wait until the copy has read `src`.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c, int t,
-                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
-      ::"l"(map), "r"(c), "r"(t), "r"(b), "r"(smem_u32(src))
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
+using tma::bar_wait;
+using tma::warp_arrive;
 
 // -- prefill: the streaming kernel ---------------------------------------------------
 
@@ -182,11 +124,11 @@ rglru_kernel(const float* __restrict__ a_bias,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      bar_init(&full[s], 1);
-      bar_init(&ready[s], kMath);
-      bar_init(&empty[s], kFold);
+      tma::bar_init(&full[s], 1);
+      tma::bar_init(&ready[s], kMath);
+      tma::bar_init(&empty[s], kFold);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma::fence_init();
   }
   __syncthreads();
 
@@ -202,13 +144,14 @@ rglru_kernel(const float* __restrict__ a_bias,
         unsigned char* st = ring + s * L::kStage;
         if (k >= kStages) {
           bar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
-          tma_store(&h_map, st, c0, (k - kStages) * kTC, b);
+          tma::store(&h_map, st, c0, (k - kStages) * kTC, b);
+          tma::store_wait_read();
         }
         if (k < chunks) {
-          bar_expect(&full[s], L::kStage);
-          tma_load(st, &ga_map, c0, k * kTC, b, &full[s]);
-          tma_load(st + kTile * 4, &gi_map, c0, k * kTC, b, &full[s]);
-          tma_load(st + kTile * 8, &y_map, c0, k * kTC, b, &full[s]);
+          tma::bar_expect(&full[s], L::kStage);
+          tma::load(st, &ga_map, c0, k * kTC, b, &full[s]);
+          tma::load(st + kTile * 4, &gi_map, c0, k * kTC, b, &full[s]);
+          tma::load(st + kTile * 8, &y_map, c0, k * kTC, b, &full[s]);
         }
       }
     }
@@ -242,7 +185,7 @@ rglru_kernel(const float* __restrict__ a_bias,
         st[kTile + e] = g.y;
       }
       // a and b, before the load lane's next tensor copy overwrites them.
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      tma::fence_async();
       warp_arrive(&ready[s]);
     }
   } else {
@@ -275,47 +218,10 @@ rglru_kernel(const float* __restrict__ a_bias,
         for (int j = 0; j < kSub; ++j) st[(j0 + j) * C + ch] = av[j];
       }
       if (ok && last >= t0 && last < t0 + n) h_last[(long)b * W + c] = st[(last - t0) * C + ch];
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // h, for the store
+      tma::fence_async();   // h, for the store
       warp_arrive(&empty[s]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled of libcuda, fetched through the CUDA runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A (B, T, W) tensor of `es`-byte elements, boxes of C channels x kTC
-// positions of one row.
-bool tensor_map(CUtensorMap* map, const void* p, CUtensorMapDataType type, int es, int B, int T,
-                int W, int C) {
-  const EncodeTiled enc = encoder();
-  if (!enc) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * es, (cuuint64_t)T * W * es};
-  const cuuint32_t box[3] = {(cuuint32_t)C, (cuuint32_t)kTC, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return enc(map, type, 3, const_cast<void*>(p), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename YT, int C, int M>
@@ -326,12 +232,12 @@ cudaError_t launch_scan(const void* ga, const void* gi, const void* y, const voi
   using L = Layout<YT, C, M>;
   const bool bf16 = sizeof(YT) == 2;
   CUtensorMap ga_map, gi_map, y_map, h_map;
-  if (!tensor_map(&ga_map, ga, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C) ||
-      !tensor_map(&gi_map, gi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C) ||
-      !tensor_map(&y_map, y,
+  if (!tma::tensor_map(&ga_map, ga, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C, kTC) ||
+      !tma::tensor_map(&gi_map, gi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C, kTC) ||
+      !tma::tensor_map(&y_map, y,
                   bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                  (int)sizeof(YT), B, T, W, C) ||
-      !tensor_map(&h_map, h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C))
+                  (int)sizeof(YT), B, T, W, C, kTC) ||
+      !tma::tensor_map(&h_map, h, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, T, W, C, kTC))
     return cudaErrorInvalidValue;
   const int bytes = L::kBytes;
   auto kern = rglru_kernel<YT, C, M>;

@@ -22,14 +22,23 @@ __device__ __forceinline__ float softplus(float x) {
 // -c softplus(Lambda): a = exp(neg r).
 __device__ __forceinline__ float neg_rate(float lam) { return __fmul_rn(-kC, softplus(lam)); }
 
+// One element's rates: r = sigmoid(ga + b_r), i = sigmoid(gi + b_i) and
+// a = exp(neg r), as (r, i, a).
+__device__ __forceinline__ float3 rates(float xa, float xi, float neg, float ab, float ib) {
+  const float r = sigmoid(__fadd_rn(xa, ab));
+  const float i = sigmoid(__fadd_rn(xi, ib));
+  return make_float3(r, i, expf(__fmul_rn(neg, r)));
+}
+
+// 1 - a^2, and sqrt(max(1 - a^2, 1e-12)).
+__device__ __forceinline__ float one_minus_sq(float a) { return __fsub_rn(1.f, __fmul_rn(a, a)); }
+__device__ __forceinline__ float root(float om) { return sqrtf(fmaxf(om, 1e-12f)); }
+
 // One element's gates: a, and b = sqrt(max(1 - a^2, 1e-12)) (i y).
 __device__ __forceinline__ float2 gates(float xa, float xi, float yv, float neg, float ab,
                                         float ib) {
-  const float r = sigmoid(__fadd_rn(xa, ab));
-  const float i = sigmoid(__fadd_rn(xi, ib));
-  const float a = expf(__fmul_rn(neg, r));
-  return make_float2(a, __fmul_rn(sqrtf(fmaxf(__fsub_rn(1.f, __fmul_rn(a, a)), 1e-12f)),
-                                  __fmul_rn(i, yv)));
+  const float3 g = rates(xa, xi, neg, ab, ib);
+  return make_float2(g.z, __fmul_rn(root(one_minus_sq(g.z)), __fmul_rn(g.y, yv)));
 }
 
 }  // namespace rglru_gates

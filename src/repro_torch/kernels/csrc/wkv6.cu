@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "wkv6_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -71,34 +73,7 @@ constexpr int kSeg = kMaxDim / kSub;  // sub-chunks of a chunk
 constexpr int kStr = kMaxDim + 4;     // row stride (floats) of a staged tile
 constexpr int kTile = kMaxDim * kStr; // floats of a staged tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-// e^min(x, 0): every exponent is <= 0 up to rounding. __expf (ex2.approx
-// of x log2 e): its relative error is ~2^-22 plus |x| 2^-24, and below
-// e^-10 a term is too small to reach the 1e-4 tolerance.
-__device__ __forceinline__ float e0(float x) { return __expf(fminf(x, 0.f)); }
-
-struct Dims {
-  int B, Tn, H, K, V, C, nc;
-};
-
-__device__ __forceinline__ long tok(const Dims& d, int b, int t, int h) {
-  return ((long)b * d.Tn + t) * d.H + h;
-}
-
-// Four consecutive elements from device memory as float32 (16-byte /
-// 8-byte aligned: K and V are multiples of 4).
-__device__ __forceinline__ void ld4(const float* p, float* e) {
-  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-  e[0] = q.x; e[1] = q.y; e[2] = q.z; e[3] = q.w;
-}
-__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* e) {
-  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-  e[0] = __uint_as_float(q.x << 16);
-  e[1] = __uint_as_float(q.x & 0xffff0000u);
-  e[2] = __uint_as_float(q.y << 16);
-  e[3] = __uint_as_float(q.y & 0xffff0000u);
-}
+using namespace wkv6_common;
 
 // Rows [0, C4) of chunk c: r (if R), k, v and lw; rows past T are pad
 // tokens (zeros, lw = 0). A thread issues all its loads (4 elements
@@ -119,11 +94,11 @@ __device__ void stage(const T* __restrict__ r, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) rv[it][e] = kv[it][e] = vv[it][e] = 0.f, wv[it][e] = 1.f;
     if (i < C4 * nk4 && t < n) {
       const long off = tok(d, b, c0 + t, h) * d.K + kk;
-      if (R) ld4(r + off, rv[it]);
-      ld4(k + off, kv[it]);
-      ld4(w + off, wv[it]);
+      if (R) ldg4(r + off, rv[it]);
+      ldg4(k + off, kv[it]);
+      ldg4(w + off, wv[it]);
     }
-    if (i < C4 * nv4 && tv < n) ld4(v + tok(d, b, c0 + tv, h) * d.V + v0, vv[it]);
+    if (i < C4 * nv4 && tv < n) ldg4(v + tok(d, b, c0 + tv, h) * d.V + v0, vv[it]);
   }
 #pragma unroll
   for (int it = 0; it < kIt; ++it) {

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import aligned16
 
 #: Launches of the CUDA kernels since the last reset (see
 #: ops.launch_counts): ``launches`` counts both entries, ``step_launches``
@@ -34,7 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signatures of the C entries (checked against their source by the tests).
 ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
 RGLRU_STEP_ARGTYPES = [_P] * 8 + [_I] * 3 + [_P]
-RGLRU_BWD_ARGTYPES = [_P] * 17 + [_I] * 4 + [_P]
+RGLRU_BWD_ARGTYPES = [_P] * 17 + [_I] * 6 + [_P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: (channel tile, gate warps) pairs the prefill kernel instantiates.
@@ -56,6 +57,28 @@ def plan(B: int, W: int, sms: int):
     if blocks < sms * 15 // 16:
         return 32, 16
     return 64, 8 if blocks > sms else 16
+
+
+#: (channel tile, gate warps) pairs the backward kernel instantiates (as
+#: many output warps as gate warps).
+BWD_PLANS = ((32, 8), (64, 4), (64, 8))
+
+
+def plan_bwd(B: int, W: int, sms: int):
+    """(channel tile, gate warps) of the backward kernel for B rows of W
+    channels on ``sms`` streaming multiprocessors: 64-channel tiles where
+    their blocks fill at least 15/16 of the SMs, else 32 (B = 1 at W =
+    4096 on the H100's 132: 128 blocks); 4 gate and 4 output warps where
+    two blocks share an SM (B = 8: 512 blocks), else 8 each. Only the
+    tiling and the warps depend on the plan, never an element's arithmetic
+    or the order of a sum."""
+    if W % 8:
+        raise ValueError(f"rglru_bwd: the kernel's tensor copies need 16-byte rows, so W "
+                         f"must be a multiple of 8, got {W}")
+    blocks = B * -(-W // 64)
+    if blocks < sms * 15 // 16:
+        return 32, 8
+    return 64, 4 if blocks > sms else 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,9 +171,10 @@ def launch_bwd(ga, gi, y, a_bias, i_bias, lam, h0, h, dh):
     if h.shape != ga.shape or dh.shape != ga.shape or not (h.is_cuda and dh.is_cuda):
         raise ValueError(f"rglru_bwd: h and dh must be CUDA ({B}, {T}, {W}), got "
                          f"{tuple(h.shape)}, {tuple(dh.shape)}")
-    ga, gi, y = ga.contiguous(), gi.contiguous(), y.contiguous()
-    a_bias, i_bias, lam, h, dh = (t.to(torch.float32).contiguous()
-                                  for t in (a_bias, i_bias, lam, h, dh))
+    tile, warps = plan_bwd(B, W, sms(ga.device.index or 0))
+    ga, gi, y = (aligned16(t) for t in (ga, gi, y))
+    h, dh = (aligned16(t.to(torch.float32)) for t in (h, dh))
+    a_bias, i_bias, lam = (t.to(torch.float32).contiguous() for t in (a_bias, i_bias, lam))
     h0 = None if h0 is None else h0.to(torch.float32).contiguous()
     dga, dgi, dy = torch.empty_like(ga), torch.empty_like(gi), torch.empty_like(y)
     dab, dib, dlam = (torch.empty((W,), dtype=torch.float32, device=ga.device)
@@ -162,7 +186,8 @@ def launch_bwd(ga, gi, y, a_bias, i_bias, lam, h0, h, dh):
                    h.data_ptr(), dh.data_ptr(), dga.data_ptr(), dgi.data_ptr(), dy.data_ptr(),
                    dab.data_ptr(), dib.data_ptr(), dlam.data_ptr(),
                    0 if dh0 is None else dh0.data_ptr(), scratch.data_ptr(), B, T, W,
-                   _DTYPES[y.dtype], torch.cuda.current_stream(ga.device).cuda_stream)
+                   _DTYPES[y.dtype], tile, warps,
+                   torch.cuda.current_stream(ga.device).cuda_stream)
     build.check(rc, "rglru_bwd")
     bwd_launches += 1
     return dga, dgi, dy, dab, dib, dlam, dh0

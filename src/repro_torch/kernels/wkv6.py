@@ -24,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import aligned16
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts):
 #: ``launches`` the forward's kernels, ``bwd_launches`` the backward entry's
@@ -37,11 +38,6 @@ ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
 BWD_ARGTYPES = [_P] * 15 + [_I] * 7 + [_P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DIM = 64
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,7 +90,7 @@ def launch(r, k, v, w, u, state, *, chunk: int, states: bool = False):
     B, T, H, K = r.shape
     V = v.shape[-1]
     # The kernel loads 4 elements at once: rows start 16-byte aligned.
-    r, k, v, w = (_aligned(t) for t in (r, k, v, w.to(torch.float32)))
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w.to(torch.float32)))
     u, state = (t.to(torch.float32).contiguous() for t in (u, state))
     out = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
     new = torch.empty_like(state)
@@ -136,9 +132,11 @@ def launch_bwd(r, k, v, w, u, states, dout, dstate=None, *, chunk: int):
     extra = (dout,) + (() if dstate is None else (dstate,))
     if not all(t.is_cuda and t.device == r.device for t in extra):
         raise ValueError("wkv6_bwd kernel needs CUDA tensors on one device")
-    r, k, v = (t.contiguous() for t in (r, k, v))
-    w, u, states, dout = (t.to(torch.float32).contiguous() for t in (w, u, states, dout))
-    dstate = None if dstate is None else dstate.to(torch.float32).contiguous()
+    # The kernel loads 4 elements at once: rows start 8- or 16-byte aligned.
+    r, k, v = (aligned16(t) for t in (r, k, v))
+    w, u = (t.to(torch.float32).contiguous() for t in (w, u))
+    states, dout = (aligned16(t.to(torch.float32)) for t in (states, dout))
+    dstate = None if dstate is None else aligned16(dstate.to(torch.float32))
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw = torch.empty_like(w)
     du = torch.empty((H, K), dtype=torch.float32, device=r.device)

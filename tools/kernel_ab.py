@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's matmul, row-quantizer, wkv6, rglru and flash-backward
+"""Time the port's matmul, row-quantizer, wkv6, rglru and backward
 kernels of two checkouts on one GPU, in turns.
 
-  python3 tools/kernel_ab.py <other checkout> [<this checkout>]
+  python3 tools/kernel_ab.py <other checkout> [<this checkout>] [--only name,...]
 
 Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul``,
 ``quantize_rows``, ``wkv6``, ``rglru``, ``flash_attention`` and
@@ -15,7 +15,12 @@ B = 1, T = 320 with a carried h0 and ragged lengths, and the step, B = 4
 through ``ops.rglru_step``, each with a sha256 of its h and h-at-lengths
 bytes, so that two checkouts show whether they compute the same bits; the flash backward, bf16
 dQ/dK/dV, at olmo-1b's training shape, paligemma's prefix-LM shape and
-hubert's bidirectional one; ``quantize_rows`` and
+hubert's bidirectional one; ``wkv6_bwd`` at rwkv6-3b's training shape
+(B 8, T 512, H 40, K = V = 64, bf16) and at B 1, each also launch by
+launch under torch.profiler; ``rglru_bwd`` at Griffin's training shape
+(B 8, T 512, W 4096, bf16 y) with zero and with carried h0 and at B 1,
+each beside a device-to-device copy of its bytes; the ``wkv6`` and the
+two backward kernels' rows with a sha256 of every output; ``quantize_rows`` and
 the Table III leaf through ``ops``, so a checkout whose quantizer reads
 float32 only pays its cast of bfloat16 rows), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
@@ -25,7 +30,9 @@ process imports only its own checkout's ``repro_torch``; the timer is
 ``chip_smoke.Timer`` of this checkout for both (CUDA events, median of
 20, L2 flushed before each call). Inputs come from fixed seeds, the same
 in every process. Prints one line per shape and writes the numbers to
-``$CHIP_SMOKE_OUT/kernel_ab.json`` when that is set. Needs a CUDA GPU.
+``$CHIP_SMOKE_OUT/kernel_ab.json`` when that is set. ``--only`` keeps the
+named rows of SHAPES (e.g. ``wkv6_bwd,rglru_bwd``) and builds only their
+kernels. Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -56,12 +63,35 @@ SHAPES += [("rglru", B, T, 4096, 0) for B, T in ((4, 320), (2, 2304), (1, 320), 
 # (flash_bwd, B, T, (NQ, NKV, H), prefix_len or -1 for bidirectional).
 SHAPES += [("flash_bwd", 8, 512, (16, 16, 128), 0), ("flash_bwd", 4, 576, (8, 1, 256), 256),
            ("flash_bwd", 4, 500, (16, 16, 80), -1)]
+# (wkv6_bwd, B, T, H, K): rwkv6-3b's training shape (chunk 64) and one row.
+SHAPES += [("wkv6_bwd", B, 512, 40, 64) for B in (8, 1)]
+# (rglru_bwd, B, T, W, carried h0): Griffin's training shape with zero and
+# with carried h0, and one row.
+SHAPES += [("rglru_bwd", 8, 512, 4096, False), ("rglru_bwd", 8, 512, 4096, True),
+           ("rglru_bwd", 1, 512, 4096, False)]
+# The kernels each SHAPES entry builds (--only takes the entries' names).
+BUILDS = {"bitplane_matmul": ("bitplane_matmul",), "fused_matmul": ("fused_matmul",),
+          "dense_matmul": ("dense_matmul",), "wkv6": ("wkv6",),
+          "quantize_rows": ("quantize_rows",),
+          "table3": ("quantize_rows", "bitplane_matmul", "fused_matmul"),
+          "rglru": ("rglru",), "flash_bwd": ("flash_attention", "flash_attention_bwd"),
+          "wkv6_bwd": ("wkv6", "wkv6_bwd"), "rglru_bwd": ("rglru", "rglru_bwd")}
 
 
-def worker(root: str) -> None:
-    sys.path.insert(0, os.path.join(root, "src"))
+def _digest(tensors):
     import hashlib
 
+    import torch
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def worker(root: str, only) -> None:
+    sys.path.insert(0, os.path.join(root, "src"))
     import torch
 
     from repro_torch.core.bitplane import pack_weights
@@ -73,17 +103,49 @@ def worker(root: str) -> None:
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
     sys.path.insert(1, HERE)
-    from chip_smoke import Timer
+    from chip_smoke import WKV_BWD_LAUNCHES, Timer, copy_time, device_ms_by_group
 
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
-    build.build(["bitplane_matmul", "dense_matmul", "fused_matmul", "quantize_rows", "wkv6",
-                 "rglru", "flash_attention", "flash_attention_bwd"])
+    shapes = [(i, s) for i, s in enumerate(SHAPES) if only is None or s[0] in only]
+    build.build(sorted({k for _, s in shapes for k in BUILDS[s[0]]}))
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
     out, sha = {}, {}
-    for i, (name, M, K, N, bits) in enumerate(SHAPES):
+    for i, (name, M, K, N, bits) in shapes:
         gen = torch.Generator(device=dev).manual_seed(i)
+        if name == "wkv6_bwd":
+            B, T, H, Kh = M, K, N, bits
+            r, k, v = (torch.randn((B, T, H, Kh), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            w = torch.exp(torch.rand((B, T, H, Kh), generator=gen, device=dev) * -4.6)
+            u = torch.randn((H, Kh), generator=gen, device=dev) * 0.5
+            s0 = torch.zeros((B, H, Kh, Kh), device=dev)
+            do = torch.randn((B, T, H, Kh), generator=gen, device=dev)
+            _, _, st = wkv6.launch(r, k, v, w, u, s0, chunk=64, states=True)
+            fn = lambda: wkv6.launch_bwd(r, k, v, w, u, st, do, chunk=64)  # noqa: E731
+            key = f"wkv6_bwd B={B} T={T} H={H} K=V={Kh} bf16"
+            out[key] = timer(fn)
+            for part, ms in device_ms_by_group(torch, fn, WKV_BWD_LAUNCHES).items():
+                out[f"{key} [{part}, profiler]"] = ms
+            sha[key] = _digest(fn())
+            continue
+        if name == "rglru_bwd":
+            B, T, W, carried = M, K, N, bits
+            ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
+            y = torch.randn((B, T, W), generator=gen, device=dev).to(torch.bfloat16)
+            ab, ib = (torch.randn(W, generator=gen, device=dev) * 0.1 for _ in range(2))
+            lam = torch.rand(W, generator=gen, device=dev) * 6 - 3
+            h0 = torch.randn((B, W), generator=gen, device=dev) if carried else None
+            dh = torch.randn((B, T, W), generator=gen, device=dev)
+            h, _ = rglru.launch(ga, gi, y, ab, ib, lam, h0)
+            fn = lambda: rglru.launch_bwd(ga, gi, y, ab, ib, lam, h0, h, dh)  # noqa: E731
+            key = f"rglru_bwd B={B} T={T} W={W} h0={'carried' if carried else 'zero'}"
+            out[key] = timer(fn)
+            sha[key] = _digest(fn())
+            # Its bytes' yardstick: 28 bytes an element, read and written.
+            out[f"copy of {key}'s bytes"] = copy_time(torch, dev, timer, 28 * B * T * W)
+            continue
         if name == "rglru":
             B, T, W = M, K, N
             ga, gi = (torch.randn((B, T, W), generator=gen, device=dev) for _ in range(2))
@@ -101,10 +163,7 @@ def worker(root: str) -> None:
                                        device=dev)
                 fn = lambda: rglru.launch(ga, gi, y, ab, ib, lam, h0, lengths)  # noqa: E731
             out[key] = timer(fn)
-            digest = hashlib.sha256()
-            for t in fn():
-                digest.update(t.contiguous().cpu().numpy().tobytes())
-            sha[key] = digest.hexdigest()
+            sha[key] = _digest(fn())
             continue
         if name == "wkv6":
             B, T, H, Kh = M, K, N, bits
@@ -114,7 +173,9 @@ def worker(root: str) -> None:
             u = torch.randn((H, Kh), generator=gen, device=dev) * 0.5
             s0 = torch.randn((B, H, Kh, Kh), generator=gen, device=dev) * 0.3
             fn = lambda: wkv6.launch(r, k, v, w, u, s0, chunk=64)  # noqa: E731
-            out[f"wkv6 B={B} T={T} H={H} K=V={Kh}"] = timer(fn)
+            key = f"wkv6 B={B} T={T} H={H} K=V={Kh}"
+            out[key] = timer(fn)
+            sha[key] = _digest(fn())
             continue
         if name == "flash_bwd":
             B, T, (NQ, NKV, H), P = M, K, N, bits
@@ -166,17 +227,28 @@ def worker(root: str) -> None:
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2])
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        at = args.index("--only")
+        only = args[at + 1].split(",")
+        del args[at:at + 2]
+        unknown = [n for n in only if n not in BUILDS]
+        if unknown:
+            print(f"--only: unknown {unknown}; one of {sorted(BUILDS)}", file=sys.stderr)
+            return 2
+    if args[:1] == ["--worker"]:
+        worker(args[1], only)
         return 0
-    if not sys.argv[1:]:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    other = os.path.abspath(sys.argv[1])
-    this = os.path.abspath(sys.argv[2]) if sys.argv[2:] else HERE
+    other = os.path.abspath(args[0])
+    this = os.path.abspath(args[1]) if args[1:] else HERE
     runs = []
     for label, root in (("other", other), ("this", this), ("this", this), ("other", other)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root]
+                             + (["--only", ",".join(only)] if only else []),
                              capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)

@@ -3,10 +3,12 @@
 
   python3 chip_smoke.py
 
-1. Builds the twelve CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the thirteen CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together): the seven ports of the
    Pallas kernels, ``dense_matmul`` (the batch-invariant bf16 product,
-   with a float32 store for Griffin's gate projections), ``rglru``
+   with a float32 store for Griffin's gate projections), ``expert_matmul``
+   (the MoE layers' grouped expert product on ``dense_matmul``'s block
+   routine), ``rglru``
    (Griffin's gates and recurrence in one pass) and, for training,
    ``flash_attention_bwd``, ``wkv6_bwd`` and ``rglru_bwd`` (the gradients
    of flash attention and of the two recurrences).
@@ -63,7 +65,20 @@
    prefix-LM at MQA 8/1, H 256 (P = 8 and 256, with and without a window,
    q_offset 0 and 16) and bidirectional (causal = 0) at MHA 16/16, H 80,
    in bf16 and float32, its rows bitwise independent of padding and of
-   the 64-row block they share.
+   the 64-row block they share. At the MoE family's shapes
+   (``moe_kernel_checks``): ``expert_matmul`` (EXPERT_CASES: mixtral's
+   decode, 8 experts at 6144 -> 16384 and 16384 -> 6144, its static
+   prefill at capacity 400 at both widths (the wide tiles with one K
+   slice and with two), llama4's decode, 4 rows in 4 of 128 experts
+   at 5120 -> 8192) within 2e-2 of its plain version, every kept row
+   bitwise ``dense_matmul`` of that row alone, rows past an expert's
+   count zero with NaN in their buffer rows, timed beside its bound, the
+   plain version, ``torch.bmm`` over the whole buffer and the call with
+   every expert full; the ring entry at mixtral's decode (B 4, window
+   4096, NQ 48 / NKV 8, H 128) in bf16 and int8 and windowed flash over a
+   4200-token prompt within 2e-2, timed; the fused kernel and the Table
+   III leaf at nemotron-4-340b's FFN widths (K up to 73 728) bitwise
+   their plain versions, the fused kernel timed at its w_up decode.
 3. Times each kernel, its plain version and one PyTorch library call on
    the same inputs where one computes the same function, at the
    decode and the prefill shape of the matmuls (CUDA events,
@@ -219,8 +234,31 @@
    hidden states bitwise, logits within 1e-2, the last frame moves the
    first position; reduced float32 card vs CPU within 1e-3 for both
    (``card_vs_cpu_frontends``).
+   The MoE family and nemotron-4-340b at full width (``serve_moe_archs``,
+   after (o)-(r); DEPTH's 4, 1 and 2 layers; on the stream's first 4
+   requests; raw bf16 weights drawn once an arch, packed under each
+   run's policy, the experts and router left unpacked as in JAX): (u)
+   mixtral static, Table III, the bf16 ring; (v) mixtral continuous on
+   the int8 ring, "w4a8;wo=w8a8"; (w) llama4 static and (x) llama4
+   continuous on the paged pool with solo admission, "w4a8;wo=w8a8"; (y)
+   nemotron-4-340b chunked on the bf16 pool and (z) static, Table III.
+   Gated: each run's kernels launched (``expert_matmul`` in every MoE
+   run), the untied heads' rows at M = 1-9 bitwise M = 4, (u)'s and (w)'s
+   static first-token logits bitwise when prefilled twice, mixtral's ring
+   wrap (a 4200-token prompt then 4 decode steps at capacity factor 16 vs
+   prefill over the same tokens: on the bf16 ring logits and ring
+   bitwise; on the int8 ring slot positions, layer 0 and every slot no
+   decode step wrote bitwise, logits within 0.25; a planted write one
+   slot on fails that ring gate), a full-width bf16 MoE layer of mixtral
+   and of llama4 through ``moe_apply`` on the kernel within 2e-2 of the
+   same call on the plain version (``moe_layer_vs_plain``),
+   (z) ≡ (y) greedy and chunked ≡ whole-prompt first-token logits
+   bitwise; reduced float32 mixtral and llama4 ``moe_apply`` (keep mask
+   bitwise, out within 1e-4) and logits (1e-3) card vs CPU
+   (``card_vs_cpu_moe``).
 
-5. Trains (``train_phase``, after the frontend phase): the flash
+5. Trains (``check_backward_kernels`` and ``train_phase``, after the
+   frontend phase): the flash
    backward's dQ/dK/dV against the plain version's autograd gradients on
    the card for every mask and head dim (``BWD_CASES``; within 1e-4 of
    max |g| in float32, the scalar route, and 2e-2 in bf16, the
@@ -265,7 +303,8 @@
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``,
-``wkv6_bwd``, ``rglru_bwd`` and ``dense_matmul``, which replace XLA code,
+``wkv6_bwd``, ``rglru_bwd``, ``expert_matmul`` and ``dense_matmul``,
+which replace XLA code,
 with a ``note`` saying so; each row's headline
 times the entry the serve paths launch, so ``bitplane_matmul``'s is its
 dequant entry and the JAX-signature int32 entry is a sub-entry;
@@ -273,35 +312,18 @@ paged_attention's entries time the paged, contiguous and ring entries)
 as another, then the card's name and power limit, then ``{"ok": true, "device": {...}}`` as the last line. Any
 failed check raises, so the exit code is non-zero and no result prints.
 With ``CHIP_SMOKE_OUT=<dir>`` set, the detailed numbers are also
-written to ``<dir>/chip_smoke.json``. Partial runs, which print no
-result line and exit 3: ``python3 chip_smoke.py kernels`` stops after
-the kernel phase; ``python3 chip_smoke.py profile [run ...]`` profiles
-one serve pass per run (see ``profile_serve``); ``python3 chip_smoke.py
-paths`` measures how far the prefill paths' logits part (see
-``paths_diagnostic``); ``python3 chip_smoke.py spec`` runs the fused,
-``bitplane_matmul`` and paged-prefill checks, runs (k) and (l) and the
-speculation gates; ``python3 chip_smoke.py tiers`` builds the kernels and
-runs (m) and (n) with the tier gates and the lifecycle check;
-``python3 chip_smoke.py preempt`` builds the kernels and runs
-chunked-int8, (c), (j) and (k) with the preemption and chaos gates;
-``python3 chip_smoke.py host`` builds the kernels and runs (i), (j),
-chunked-int8 and (c) with the host-tier gates; ``python3 chip_smoke.py
-archs`` builds the kernels and runs the new-width, head-dim and
-one-order checks, runs (o)-(r) with their gates, chunked-int8 and the
-registry phase, and the reduced nemotron / stablelm card-vs-CPU checks;
-``python3 chip_smoke.py griffin`` builds the kernels and runs the
-paged-decode, one-order and ``dense_matmul`` checks, the griffin kernel
-checks (printing their times), runs (s) and (t) with their gates and the
-reduced griffin card-vs-CPU check; ``python3 chip_smoke.py frontends``
-builds the kernels and runs the flash, head-dim, one-order and windowed
-checks, the frontend flash checks (printing their times), the norm-row
-check, the frontend phase and its card-vs-CPU check, and run (f) with
-solo ≡ mid-decode admission; ``python3 chip_smoke.py train`` builds the
-kernels and runs the flash, one-order and frontend flash checks, then
-the train phase (printing the three backward kernels' times beside their
-bounds, SDPA's backward beside the flash one's); ``python3 chip_smoke.py
-bwd`` builds the recurrences' kernels and runs their backward checks and
-``check_rglru``; ``python3 chip_smoke.py profile-train [arch ...]``
+written to ``<dir>/chip_smoke.json``. The whole run walks one ordered
+table of phases, PHASES. A partial run, ``python3 chip_smoke.py <mode>``,
+walks the subset MODES names for it, prints no result line, writes its
+report to ``<dir>/chip_smoke_<mode>.json`` and exits 3: ``kernels`` (the
+build and every kernel check), ``moe``, ``archs``, ``griffin``,
+``frontends`` (a slice's kernel checks, serve runs and card-vs-CPU
+checks), ``train``, ``bwd`` (the backward kernels, and for ``train``
+the training phase), ``spec``, ``tiers``, ``preempt`` and ``host`` (the
+serve runs their comparisons need, and those). Three diagnostics exit 3
+too: ``profile [run ...]`` profiles one serve pass per run (see
+``profile_serve``), ``paths`` measures how far the prefill paths'
+logits part (see ``paths_diagnostic``) and ``profile-train [arch ...]``
 breaks a training step of olmo-1b (the default), rwkv6-3b or
 recurrentgemma-9b down by part and by kernel group (see
 ``profile_train``).
@@ -347,6 +369,7 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/models/common.py:151",
     "wkv6_bwd": "src/repro/models/rwkv6.py:40",
     "rglru_bwd": "src/repro/models/griffin.py:126",
+    "expert_matmul": "src/repro/models/moe.py:41",
 }
 NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "rglru": "XLA _rglru_coeffs + associative_scan _rglru_scan (no Pallas "
@@ -356,7 +379,9 @@ NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "wkv6_bwd": "XLA autodiff of the chunked jnp wkv6_chunked (the Pallas "
                           "wkv6 kernel has no VJP)",
               "rglru_bwd": "XLA autodiff of _rglru_coeffs + associative_scan (no "
-                           "Pallas kernel)"}
+                           "Pallas kernel)",
+              "expert_matmul": "XLA einsum('ecd,edf->ecf') in _expert_ffn (no Pallas "
+                               "kernel)"}
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -370,6 +395,7 @@ SOURCES = {
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "wkv6_bwd": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
     "rglru_bwd": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+    "expert_matmul": "src/repro_torch/kernels/csrc/expert_matmul.cu",
 }
 SHARED_PREFIX = 200
 TIERS = "w8a8,w4a8,w2a8"
@@ -490,12 +516,17 @@ GRIFFIN_RUNS = {
     "t-griffin-continuous": (["--arch", "recurrentgemma-9b", "--continuous", *ARCH_STREAM],
                              None, GRIFFIN_KERNELS),
 }
-RUNS = {**SERVE_RUNS, **ARCH_RUNS, **GRIFFIN_RUNS}
-# The depth at which the earlier paths are served (``serve --layers``;
-# every width, head and vocab entry kept). Served at full depth, the
-# whole script took 912.7 s of its 1200 s limit on the H100, so only
-# recurrentgemma-9b, the newest path, keeps all its layers (38).
-DEPTH = {"olmo-1b": 4, "rwkv6-3b": 8, "nemotron-4-15b": 8, "stablelm-12b": 8}
+# The depth at which the paths are served (``serve --layers``; every
+# width, head and vocab entry kept). Served at full depth, the whole
+# script took 912.7 s of its 1200 s limit on the H100, so only
+# recurrentgemma-9b keeps all its layers (38). The MoE family and
+# nemotron-4-340b need more than one card at full depth: mixtral-8x22b
+# serves 4 of 56 layers (20.8 GB of bf16 weights), llama4-maverick 1 of 48
+# (36.5 GB: 128 experts of 3 x 5120 x 8192 a layer, 2 layers would hold
+# 68.8 GB before any activation), nemotron-4-340b 2 of 96 (32.6 GB drawn,
+# its untied embedding and head 18.9 GB of them).
+DEPTH = {"olmo-1b": 4, "rwkv6-3b": 8, "nemotron-4-15b": 8, "stablelm-12b": 8,
+         "mixtral-8x22b": 4, "llama4-maverick-400b-a17b": 1, "nemotron-4-340b": 2}
 
 
 def serve_config(arch):
@@ -580,6 +611,35 @@ def device_ms_by_group(torch, fn, groups, iters: int = 10):
 # wkv6_bwd's four launches, by kernel name.
 WKV_BWD_LAUNCHES = {"state": ("wkv6_bwd_state_kernel",), "pass": ("wkv6_bwd_pass_kernel",),
                     "chunk": ("wkv6_bwd_chunk_kernel",), "du": ("wkv6_bwd_du_kernel",)}
+
+
+def wkv6_bwd_launch_bounds(B, T, H, K, C):
+    """The least time of each of wkv6_bwd's four launches on the H100 (ms,
+    and what bounds it), from the bytes it must move and the float32
+    operations it must do, K = V, bf16 r/k/v: the state kernel reads r,
+    w and dout and writes W_c and D_c (W_c = sum_t (r_t e^Lsh_t)
+    dout_t^T: 2 C K V a chunk); the pass reads W_c, D_c and dstate_out and
+    writes G_c+1 over W_c and dstate_in (G = D_c G + W_c: 2 K V a chunk);
+    the chunk kernel reads r, k, v, w, dout, S_c and G_c+1 and writes dr,
+    dk, dv, dw and a du partial (the bound's other products, the gated
+    sums and one exp a gate); du sums the partials over rows and chunks."""
+    nc = -(-T // C)
+    elems, states = B * T * H * K, B * H * nc * K * K
+    per = 2 * (C * C * K + 4 * C * K * K + C * C * K // 2 + 3 * C * C * K // 2) + C * C * K
+    state_ops = 2 * C * K * K
+    parts = {
+        "state": (2 * elems + 4 * elems * 2 + 4 * states + 4 * B * H * nc * K,
+                  B * H * nc * state_ops),
+        "pass": (2 * 4 * states + 4 * B * H * nc * K + 2 * 4 * B * H * K * K,
+                 B * H * nc * 2 * K * K),
+        "chunk": (3 * 2 * elems + 2 * 4 * elems + 2 * 4 * states + 3 * 2 * elems
+                  + 4 * elems + 4 * B * H * nc * K, B * H * nc * (per - state_ops)),
+        "du": (4 * B * H * nc * K + 4 * H * K, B * H * nc * K)}
+    out = {}
+    for name, (nbytes, ops) in parts.items():
+        ms, by = bound_ms(nbytes, ops, FP32_FLOPS_PER_S)
+        out[name] = {"bound_ms": ms, "bound_by": by}
+    return out
 
 # -- kernels against their plain versions ------------------------------------
 
@@ -1439,7 +1499,8 @@ def check_flash(torch, dev, timer):
 # check_head_dims cases: (head dim, KV heads, query heads per KV head): 80
 # and 256 under GQA, stablelm-12b's 160 (8 KV heads, G = 4) and
 # nemotron-4-15b's G = 6 (8 KV heads, 48 query heads of 128).
-HEAD_DIM_CASES = ((80, 4, 4), (256, 2, 8), (160, 8, 4), (128, 8, 6))
+HEAD_DIM_CASES = ((80, 4, 4), (256, 2, 8), (160, 8, 4), (128, 8, 6), (128, 8, 5),
+                  (192, 8, 12))
 
 
 def check_head_dims(torch, dev):
@@ -1741,17 +1802,18 @@ NEW_KN = (("nemotron w_up", 6144, 24576), ("nemotron w_down", 24576, 6144),
 NEW_M = (4, 32)    # a decode step of 4 slots, a 32-token prefill chunk
 
 
-def check_new_widths(torch, dev, timer):
-    """The matmul kernels at the widths of NEW_KN, bitwise against their
+def check_new_widths(torch, dev, timer, kn=NEW_KN):
+    """The matmul kernels at the widths of `kn` (NEW_KN; nemotron-4-340b's
+    NEMOTRON_340B_KN, K up to 73 728), bitwise against their
     plain versions at M in NEW_M: ``quantize_rows`` (a6 and a8 codes of
     float32 and bfloat16 rows); the fused kernel under w4a8 on bf16 rows
     (the serving path's), in both forms ((acc, scales) and the
     dequantized bf16 product); the Table III leaf at w4a6r25 (one
     ``quantize_rows``, two ``bitplane_matmul`` dequant launches) against
     its plain version and the fused two-group route. Times the fused
-    kernel's dequant form at nemotron-4-15b's decode shape (w_up, M = 4,
-    w4a8, bf16 rows -> bf16 y) beside its bound and ``torch.matmul`` on
-    bf16 weights: returned as one timed entry."""
+    kernel's dequant form at the first leaf's decode shape (nemotron's
+    w_up, M = 4, w4a8, bf16 rows -> bf16 y) beside its bound and
+    ``torch.matmul`` on bf16 weights: returned as one timed entry."""
     from repro_torch.core.bitplane import pack_weights, unpack_weights
     from repro_torch.core.quant import QuantConfig
     from repro_torch.core.quantized_linear import pack_weight
@@ -1761,7 +1823,7 @@ def check_new_widths(torch, dev, timer):
     t3 = QuantConfig(w_bits=4, a_bits=6, mixed_ratio_8b=0.25)
     kw = dict(w_bits=4, a_bits=8, act_signed=True, w_plane_lo=0)
     cases = {"quantize_rows": 0, "fused": 0, "table3": 0}
-    for what, K, N in NEW_KN:
+    for what, K, N in kn:
         packed = pack_weights(torch.randint(-8, 8, (K, N), generator=gen, device=dev,
                                             dtype=torch.int32), 4, axis=0)
         scale = torch.rand((1, N), generator=gen, device=dev) * 0.01
@@ -1802,12 +1864,12 @@ def check_new_widths(torch, dev, timer):
                                      "fused two-group route")
             cases["table3"] += 1
         del packed, pw, p8, pl, wl
-    log(f"new widths {[w for w, _, _ in NEW_KN]} at M in {NEW_M}: quantize_rows "
+    log(f"new widths {[w for w, _, _ in kn]} at M in {NEW_M}: quantize_rows "
         f"{cases['quantize_rows']}, fused w4a8 {cases['fused']} (both forms) and Table III "
         f"leaf {cases['table3']} cases bitwise equal to their plain versions (and the leaf "
         "to the fused two-group route)")
 
-    _, K, N = NEW_KN[0]
+    leaf, K, N = kn[0]
     codes = torch.randint(-8, 8, (K, N), generator=gen, device=dev, dtype=torch.int32)
     packed = pack_weights(codes, 4, axis=0)
     w_bf16 = (codes.float() * 0.01).to(torch.bfloat16)
@@ -1823,7 +1885,7 @@ def check_new_widths(torch, dev, timer):
              "library_ms": timer(lambda: torch.matmul(xb, w_bf16)),
              "library": "torch.matmul, bf16 W", "bound_ms": b_ms, "bound_by": b_by,
              "plan": fused_matmul.plan(M, K, N)._asdict(),
-             "shape": f"nemotron-4-15b w_up M={M} {K}->{N} w4a8 bf16 rows -> bf16 y"}
+             "shape": f"{leaf} M={M} {K}->{N} w4a8 bf16 rows -> bf16 y"}
     return {"cases": cases, "entry": entry}
 
 # -- the serving path ---------------------------------------------------------
@@ -3543,14 +3605,12 @@ def launch_counts():
     return counts
 
 
-def _draw_and_pack(torch, dev, cfg, policy, rep, smi, head_check=None):
-    """Draw `cfg`'s raw bf16 weights (seed 0) on the card, run
-    `head_check` on them, pack them under `policy` and drop them; the
-    times and peaks go into `rep`. Returns the packed tree."""
+def _draw(torch, dev, cfg, rep, head_check=None):
+    """Draw `cfg`'s raw bf16 weights (seed 0) on the card and run
+    `head_check` on them; the time, peak and parameter count go into
+    `rep`. Returns the raw tree."""
     import gc
 
-    from repro_torch.core.precision import parse_policy_spec
-    from repro_torch.core.quantized_linear import quantize_params_for_serving
     from repro_torch.models import build_model
 
     gc.collect()
@@ -3563,14 +3623,35 @@ def _draw_and_pack(torch, dev, cfg, policy, rep, smi, head_check=None):
     rep["parameters"] = _numel(raw)
     if head_check:
         head_check(raw)
+    return raw
+
+
+def _pack(torch, raw, policy, rep):
+    """`raw` packed under `policy` (the leaves it does not pack are
+    `raw`'s own tensors); the time and peak go into `rep`."""
+    from repro_torch.core.precision import parse_policy_spec
+    from repro_torch.core.quantized_linear import quantize_params_for_serving
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     packed = quantize_params_for_serving(raw, parse_policy_spec(policy), min_size=1024)
+    torch.cuda.synchronize()
+    rep["pack_s"], rep["pack_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
+    return packed
+
+
+def _draw_and_pack(torch, dev, cfg, policy, rep, smi, head_check=None):
+    """Draw `cfg`'s raw bf16 weights (seed 0) on the card, run
+    `head_check` on them, pack them under `policy` and drop them; the
+    times and peaks go into `rep`. Returns the packed tree."""
+    import gc
+
+    raw = _draw(torch, dev, cfg, rep, head_check)
+    packed = _pack(torch, raw, policy, rep)
     del raw
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    rep["pack_s"], rep["pack_peak_gb"] = time.perf_counter() - t0, _mem_gb(torch)
     rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
     log(f"{cfg.name}: {rep['parameters']} parameters, init {rep['init_s']:.2f}s (peak "
         f"{rep['init_peak_gb']:.2f} GB), packed under {policy} in {rep['pack_s']:.2f}s "
@@ -3703,6 +3784,581 @@ def serve_new_archs(torch, dev):
     if bad:
         raise AssertionError(f"new archs: {bad}")
     return out, counts
+
+
+# -- the MoE family and nemotron-4-340b: their kernels, runs (u)-(z) ---------
+
+MIXTRAL, LLAMA4, NEMOTRON_340B = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
+                                  "nemotron-4-340b")
+# (name, experts, rows, top-k, K, N): the MoE layers' expert products. A
+# decode step of 4 slots routes 4 rows (mixtral top-2: 8 assignments over
+# its 8 experts, at most 4 an expert; llama4 top-1: 4 of its 128 experts);
+# a static prefill of 4 x 320 tokens gives mixtral's 8 experts 2 560
+# assignments for a capacity of 400 rows each (the first expert takes 500
+# of them here, so its last 100 drop). The four cover the kernel's four
+# variants: 64-row strips (cap <= 64) and 128 x 128 wide tiles, each with
+# one K slice (S = 1: the gates) and with S > 1 (the downs; llama4's gate).
+EXPERT_CASES = (("mixtral_decode_gate", 8, 4, 2, 6144, 16384),
+                ("mixtral_decode_down", 8, 4, 2, 16384, 6144),
+                ("mixtral_prefill_gate", 8, 1280, 2, 6144, 16384),
+                ("mixtral_prefill_down", 8, 1280, 2, 16384, 6144),
+                ("llama4_decode_gate", 128, 4, 1, 5120, 8192))
+
+
+def _expert_counts(torch, gen, E, rows, k, skew):
+    """Assignments an expert of `rows` tokens routed top-`k` to distinct
+    experts (top-1 decode rows to distinct experts too); with `skew`, the
+    first 500 tokens' first choice is expert 0."""
+    if k == 1 and rows <= E:
+        picks = torch.randperm(E, generator=gen)[:rows, None]
+    else:
+        picks = torch.stack([torch.randperm(E, generator=gen)[:k] for _ in range(rows)])
+    if skew:
+        picks[:500, 0] = 0
+        picks[:500, 1:] = torch.where(picks[:500, 1:] == 0, 1, picks[:500, 1:])
+    return torch.bincount(picks.reshape(-1), minlength=E).to(torch.int32)
+
+
+def check_expert_matmul(torch, dev, timer):
+    """The grouped expert kernel at the shapes of EXPERT_CASES: within
+    atol = rtol = 2e-2 of its plain version ``ref.expert_matmul_ref``; every
+    kept row (r < min(count, cap)) bitwise ``dense_matmul`` of that row
+    alone against its expert (decode: every row; prefill: each expert's
+    kept rows in one product and its first and last row alone), with NaN
+    in every buffer row past the count; those rows' outputs exactly zero.
+    Times each case (CUDA events, L2 flushed) beside its bound (the
+    touched experts' weights, the kept rows and the whole output, or the
+    kept rows' operations), its plain version, ``torch.bmm`` over the
+    whole buffer (the library call) and the kernel with every expert full
+    (``all_full_ms``: what skipping saves). Returns the llama4 decode case
+    with every case under ``entries``."""
+    from repro_torch.kernels import dense_matmul, expert_matmul, ref
+    from repro_torch.models.moe import capacity
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    cpu_gen = torch.Generator().manual_seed(32)
+    entries, worst, bitwise_rows = {}, 0.0, 0
+    for name, E, rows, k, K, N in EXPERT_CASES:
+        cap = capacity(rows, k, E, 1.25)
+        counts = _expert_counts(torch, cpu_gen, E, rows, k, skew=rows > 64).to(dev)
+        kept = counts.clamp(max=cap)
+        w = torch.randn((E, K, N), generator=gen, device=dev,
+                        dtype=torch.bfloat16) * K ** -0.5
+        xe = torch.randn((E, cap, K), generator=gen, device=dev, dtype=torch.bfloat16)
+        live = torch.arange(cap, device=dev)[None, :] < kept[:, None]
+        xe = torch.where(live[..., None], xe, torch.tensor(float("nan"), dtype=xe.dtype,
+                                                           device=dev))
+        got = expert_matmul.launch(xe, w, counts)
+        want = ref.expert_matmul_ref(xe, w, counts)
+        torch.cuda.synchronize()
+        what = f"expert_matmul {name} E={E} cap={cap} {K}->{N}"
+        worst = max(worst, _close(torch, got, want, what))
+        if (got[~live] != 0).any():
+            raise AssertionError(f"{what}: rows past the count are not zero")
+        for e, c in enumerate(kept.tolist()):
+            if not c:
+                continue
+            block = dense_matmul.launch(xe[e, :c], w[e])
+            alone = range(c) if c <= 8 else (0, c - 1)
+            rows_alone = [dense_matmul.launch(xe[e, r:r + 1], w[e]) for r in alone]
+            torch.cuda.synchronize()
+            if not torch.equal(got[e, :c], block) or not all(
+                    torch.equal(got[e, r:r + 1], y) for r, y in zip(alone, rows_alone)):
+                raise AssertionError(f"{what}: expert {e}'s kept rows are not bitwise "
+                                     "dense_matmul's")
+            bitwise_rows += c
+        full = torch.full_like(counts, cap)
+        n_kept, touched = int(kept.sum()), int((kept > 0).sum())
+        b_ms, b_by = bound_ms(2 * (n_kept * K + touched * K * N + E * cap * N),
+                              2 * n_kept * K * N, BF16_FLOPS_PER_S)
+        entries[name] = {
+            "ms": timer(lambda: expert_matmul.launch(xe, w, counts)),
+            "all_full_ms": timer(lambda: expert_matmul.launch(xe, w, full)),
+            "plain_ms": timer(lambda: ref.expert_matmul_ref(xe, w, counts)),
+            "library_ms": timer(lambda: torch.bmm(xe, w)), "library": "torch.bmm, whole buffer",
+            "bound_ms": b_ms, "bound_by": b_by, "touched_experts": touched,
+            "kept_rows": n_kept, "plan": list(expert_matmul.launch_plan(cap, K, N)),
+            "shape": f"E={E} cap={cap} kept rows {n_kept} in {touched} experts {K}->{N} bf16"}
+        del w, xe, got, want
+    log(f"expert_matmul: {len(EXPERT_CASES)} cases within atol=rtol={ATOL} of the plain "
+        f"version (max |err| {worst:.3g}); {bitwise_rows} kept rows bitwise dense_matmul's, "
+        "rows past the count zero with NaN in their buffer rows")
+    head = entries["llama4_decode_gate"]
+    return {**head, "max_abs_err": worst, "entries": entries}
+
+
+# Mixtral's ring decode rows (window 4096): wrapped once mid-window, just
+# full, partial, wrapped twice; timed with every row seeing 4096 keys.
+MIXTRAL_RING_Q_POS = (4299, 4095, 1000, 8300)
+MIXTRAL_RING_TIMED = (4299, 4600, 6000, 8300)
+
+
+def check_mixtral_attention(torch, dev, timer):
+    """mixtral-8x22b's attention shapes (NQ 48 / NKV 8, H 128, window
+    4096): the ring decode entry at B = 4 over rings built by
+    ``ring_align`` (q_pos MIXTRAL_RING_Q_POS), bf16 and int8 (codes and
+    scales from ``quantize_kv``: the int8 ring no earlier path ran),
+    within atol = rtol = 2e-2 of ``common.decode_attention``, each timed
+    with every row seeing 4096 keys beside its plain version and SDPA
+    (K/V dequantized and expanded to 48 heads, the window as a mask); the
+    windowed flash kernel over the ring-wrap prompt (B = 1, T = 4200, past
+    the window) within 2e-2 of ``ref.flash_attention_gqa_ref``, timed, and
+    timed at the static prefill (B = 4, T = 320). Returns the timed
+    entries."""
+    from repro_torch.kernels import flash_attention, paged_attention, ref
+    from repro_torch.models.common import decode_attention as plain
+    from repro_torch.models.kv_cache import dequantize_kv, quantize_kv, ring_align
+
+    gen = torch.Generator(device=dev).manual_seed(33)
+    B, nq, nkv, H, w = 4, 48, 8, 128, 4096
+    F = torch.nn.functional
+    out, worst = {}, 0.0
+    T = max(MIXTRAL_RING_TIMED) + 1
+    k, v = (torch.randn((1, T, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    q = torch.randn((B, 1, nq, H), generator=gen, device=dev).to(torch.bfloat16)
+
+    def ring(qpos):
+        pos = torch.tensor(qpos, dtype=torch.int32, device=dev)
+        kr, vr, sp = ring_align(k.expand(B, *k.shape[1:])[None],
+                                v.expand(B, *v.shape[1:])[None], pos + 1, w)
+        return pos, kr[0].contiguous(), vr[0].contiguous(), sp[0].contiguous()
+
+    for kind in ("bf16", "int8"):
+        for qpos in (MIXTRAL_RING_Q_POS, MIXTRAL_RING_TIMED):   # the last one is timed
+            pos, kr, vr, sp = ring(qpos)
+            scales = {}
+            if kind == "int8":
+                (kr, ks), (vr, vs) = quantize_kv(kr), quantize_kv(vr)
+                scales = dict(k_scale=ks, v_scale=vs)
+            got = paged_attention.launch_contig(q, kr, vr, sp, pos, window=w, **scales)
+            want = plain(q, kr, vr, sp, pos, window=w, **scales)
+            torch.cuda.synchronize()
+            worst = max(worst, _close(torch, got, want, f"mixtral ring decode {kind} "
+                                                        f"q_pos {qpos}"))
+        kd, vd = ((dequantize_kv(kr, scales["k_scale"]), dequantize_kv(vr, scales["v_scale"]))
+                  if scales else (kr, vr))
+        mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - w))[:, None, None, :]
+        ks_, vs_ = (a.to(torch.bfloat16).transpose(1, 2).repeat_interleave(nq // nkv, dim=1)
+                    .contiguous() for a in (kd, vd))
+        keys = int(mask.sum())
+        per_key = nkv * H * (1 if scales else 2) * 2 + (nkv * 4 * 2 if scales else 0)
+        nbytes = 2 * q.numel() * 2 + keys * per_key + B * w * 4 + B * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * nq * H * keys, BF16_FLOPS_PER_S)
+        out[f"ring_mixtral_{kind}"] = {
+            "ms": timer(lambda: paged_attention.launch_contig(q, kr, vr, sp, pos, window=w,
+                                                              **scales)),
+            "plain_ms": timer(lambda: plain(q, kr, vr, sp, pos, window=w, **scales)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), ks_, vs_, attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": worst,
+            "shape": f"B={B} ring={w} window={w} keys/row=4096 NQ={nq} NKV={nkv} H={H} "
+                     f"{kind}"}
+    log(f"mixtral ring decode (B={B}, window {w}, NQ {nq} / NKV {nkv}, H {H}) bf16 and int8 "
+        f"within atol=rtol={ATOL} of the plain version (max |err| {worst:.3g})")
+    for name, Bf, Tf in (("windowed_mixtral_wrap", 1, 4200), ("mixtral_static_prefill", 4, 320)):
+        qf = torch.randn((Bf, Tf, nq, H), generator=gen, device=dev).to(torch.bfloat16)
+        kf, vf = (torch.randn((Bf, Tf, nkv, H), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = dict(causal=True, window=w, q_offset=0)
+        got = flash_attention.launch(qf, kf, vf, **kw)
+        want = ref.flash_attention_gqa_ref(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        err = _close(torch, got, want, f"mixtral windowed flash B={Bf} T={Tf}")
+        del want
+        i = torch.arange(Tf, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+        ks_, vs_ = (a.transpose(1, 2).repeat_interleave(nq // nkv, dim=1).contiguous()
+                    for a in (kf, vf))
+        pairs = int(mask.sum())
+        b_ms, b_by = bound_ms(2 * qf.numel() * 2 + 2 * kf.numel() * 2,
+                              4 * Bf * nq * H * pairs, BF16_FLOPS_PER_S)
+        out[name] = {
+            "ms": timer(lambda: flash_attention.launch(qf, kf, vf, **kw)),
+            "plain_ms": timer(lambda: ref.flash_attention_gqa_ref(qf, kf, vf, **kw), iters=5),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                qf.transpose(1, 2), ks_, vs_, attn_mask=mask)),
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "shape": f"B*NQ={Bf * nq} NKV={nkv} T={Tf} H={H} bf16 causal window {w}"}
+    log(f"mixtral windowed flash at T 4200 (B 1) and 320 (B 4) within atol=rtol={ATOL} "
+        f"(max |err| {max(out['windowed_mixtral_wrap']['max_abs_err'], out['mixtral_static_prefill']['max_abs_err']):.3g})")
+    return out
+
+
+# (name, K, N): nemotron-4-340b's FFN, K up to 73 728 (127 x 127 x 73 728
+# ~ 1.19e9 in an int32 accumulator, 55 % of its range).
+NEMOTRON_340B_KN = (("nemotron-340b w_up", 18432, 73728),
+                    ("nemotron-340b w_down", 73728, 18432))
+
+
+# Runs (u)-(z): mixtral-8x22b, llama4-maverick-400b-a17b and nemotron-4-340b
+# at full width, cut to DEPTH's layers, on the stream's first 4 requests.
+# Every expert product on expert_matmul; mixtral's window on the ring
+# entry (bf16 and int8) and windowed flash; llama4 on the contiguous cache
+# (static) and the paged pool with solo admission; nemotron-4-340b as
+# (o)/(p) at K up to 73 728, head dim 192, GQA 12.
+MOE_RUNS = {
+    "u-mixtral-static": (["--arch", MIXTRAL, "--static", *ARCH_STREAM], MIXED_POLICY,
+                         ("flash_attention", "ring_attention", "quantize_rows",
+                          "bitplane_matmul", "fused_quantize_matmul", "expert_matmul")),
+    "v-mixtral-int8": (["--arch", MIXTRAL, "--continuous", "--kv-int8", *ARCH_STREAM],
+                       POLICY, ("flash_attention", "ring_attention", "fused_quantize_matmul",
+                                "expert_matmul")),
+    "w-llama4-static": (["--arch", LLAMA4, "--static", *ARCH_STREAM], POLICY,
+                        ("flash_attention", "contig_attention", "fused_quantize_matmul",
+                         "expert_matmul")),
+    "x-llama4-paged": (["--arch", LLAMA4, "--continuous", *ARCH_STREAM], POLICY,
+                       ("flash_attention", "paged_attention", "fused_quantize_matmul",
+                        "expert_matmul")),
+    "y-nemotron340b-chunked": (["--arch", NEMOTRON_340B, "--continuous", *ARCH_STREAM],
+                               MIXED_POLICY, ARCH_RUNS["o-nemotron-chunked"][2]),
+    "z-nemotron340b-static": (["--arch", NEMOTRON_340B, "--static", *ARCH_STREAM],
+                              MIXED_POLICY, ARCH_RUNS["p-nemotron-static"][2]),
+}
+RUNS = {**SERVE_RUNS, **ARCH_RUNS, **GRIFFIN_RUNS, **MOE_RUNS}
+MOE_PLAN = ((MIXTRAL, ("u-mixtral-static", "v-mixtral-int8")),
+            (LLAMA4, ("w-llama4-static", "x-llama4-paged")),
+            (NEMOTRON_340B, ("y-nemotron340b-chunked", "z-nemotron340b-static")))
+WRAP_T = 4200          # past mixtral's 4096-token window
+WRAP_STEPS = 4
+# Decode vs prefill logits (float32 from bf16 hidden rows, |logit| up to
+# ~16). The bf16 ring runs one order with the flash prefill: its logits
+# and its whole ring are gated bitwise. On the int8 ring the decode kernel
+# applies the per-key scale to the scores and the per-value scale to the
+# probabilities, where the prefill's flash reads the dequantized K/V (the
+# JAX package's two paths, the same split): 0.072-0.125 apart in the
+# logits on the H100, a sanity bound only. What holds the int8 ring is its
+# state (``ring_state_diff``): slot positions at every layer, layer 0
+# whole (codes and scales) and every slot no decode step wrote at every
+# layer bitwise prefill's ring over the same tokens.
+WRAP_TOL = {"bf16": 0.0, "int8": 0.25}
+
+
+def ring_state_diff(torch, got, want, written):
+    """The parts of ring cache `got` (a KVCache after decode steps that
+    wrote absolute positions `written`) not bitwise `want` (prefill's ring
+    over the same tokens): slot_pos at every layer; each of k, v (and
+    k_scale, v_scale on an int8 ring) at layer 0 and at every slot no
+    decode step wrote. Returns (those parts' names, the largest |got -
+    want| of k and v in the decode-written slots past layer 0: codes on an
+    int8 ring)."""
+    W = got.slot_pos.shape[-1]
+    dec = torch.zeros(W, dtype=torch.bool, device=got.k.device)
+    dec[[p % W for p in written]] = True
+    bad = [] if torch.equal(got.slot_pos, want.slot_pos) else ["slot_pos"]
+    gap = 0.0
+    for name in ("k", "v", "k_scale", "v_scale") if got.quantized else ("k", "v"):
+        a, b = getattr(got, name), getattr(want, name)          # (L, B, W, NKV, .)
+        if not torch.equal(a[0], b[0]):
+            bad.append(f"{name} layer 0")
+        if not torch.equal(a[1:, :, ~dec], b[1:, :, ~dec]):
+            bad.append(f"{name} unwritten slots")
+        if name in ("k", "v"):
+            gap = max(gap, (a[1:, :, dec].float() - b[1:, :, dec].float()).abs().max().item())
+    return bad, gap
+
+
+def _one_slot_on(torch, kv, pos):
+    """A copy of ring cache `kv` whose write of position `pos` also landed
+    one slot on (every layer): the planted fault ``ring_state_diff`` must
+    see."""
+    W = kv.slot_pos.shape[-1]
+    s, t = pos % W, (pos + 1) % W
+    moved = {}
+    for name in ("k", "v", "slot_pos", "k_scale", "v_scale"):
+        a = getattr(kv, name)
+        if a is not None:
+            a = a.clone()
+            a[:, :, t] = a[:, :, s]
+            moved[name] = a
+    return dataclasses.replace(kv, **moved)
+
+
+def mixtral_ring_wrap(torch, params, quant):
+    """A WRAP_T-token prompt on (u)'s weights at capacity factor 16 (no
+    token drops, so a token's MoE output does not depend on its batch),
+    then WRAP_STEPS decode steps on the ring (bf16, or int8 with `quant`):
+    each step's logits against the last-position logits of ``prefill``
+    over the same WRAP_T + 1 + i tokens, and its ring against that
+    prefill's ring (``ring_state_diff``). A planted control, the last
+    write moved one slot on (``_one_slot_on``), must fail the ring gate.
+    Returns {"logits": max |err| by step, "ring_parts": the parts that
+    differ by step, "written_gap": the largest decode-written gap past
+    layer 0 by step, "control_parts": what the control's gate saw}."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(serve_config(MIXTRAL), moe_capacity_factor=16.0,
+                              kv_cache_quant=quant)
+    model = build_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(32).integers(
+        0, cfg.vocab, WRAP_T + WRAP_STEPS)).cuda()[None]
+    cache, _ = model.prefill(params, {"tokens": toks[:, :WRAP_T]})
+    out = {"logits": [], "ring_parts": [], "written_gap": []}
+    for i in range(WRAP_STEPS):
+        cache, lg = model.decode_step(params, cache, toks[:, WRAP_T + i:WRAP_T + i + 1])
+        ref, want = model.prefill(params, {"tokens": toks[:, :WRAP_T + i + 1]})
+        written = range(WRAP_T, WRAP_T + i + 1)
+        parts, gap = ring_state_diff(torch, cache.kv, ref.kv, written)
+        out["logits"].append((lg - want).abs().max().item())
+        out["ring_parts"].append(parts)
+        out["written_gap"].append(gap)
+    out["control_parts"], _ = ring_state_diff(
+        torch, _one_slot_on(torch, cache.kv, written[-1]), ref.kv, written)
+    torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+    """``module.<name>`` replaced by `fn` inside the block; yields the
+    original."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield old
+    finally:
+        setattr(module, name, old)
+
+
+MOE_LAYER_SHAPES = ((4, 320), (4, 1))   # the static prefill, a decode step
+
+
+def moe_layer_vs_plain(torch, params, cfg):
+    """Layer 0's MoE of a full-width bf16 tree through ``moe.moe_apply``
+    on the card (routing, buffer, every expert product on the
+    ``expert_matmul`` kernel, activation, combine) against the same call
+    with ``ops.expert_matmul`` swapped for its plain version
+    (``ref.expert_matmul_ref``), at MOE_LAYER_SHAPES with unit-scale bf16
+    tokens: out within atol = rtol = 2e-2, the aux loss and the keep mask
+    bitwise, the kernel launched once a product in the first call and
+    never in the second. Returns the max |err| by shape."""
+    from repro_torch.kernels import expert_matmul, ops, ref
+    from repro_torch.models import moe
+
+    moe_p = params["blocks"]["moe"]
+    layer = {k: v[0] if isinstance(v, torch.Tensor) else {n: t[0] for n, t in v.items()}
+             for k, v in moe_p.items()}
+    products = len(layer[moe.expert_group(cfg)])
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    errs = {}
+    for B, T in MOE_LAYER_SHAPES:
+        x = torch.randn((B, T, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        keep = moe.route(x.reshape(B * T, -1), layer["router"], cfg).keep
+        n0 = expert_matmul.launches
+        got, aux = moe.moe_apply(layer, x, cfg)
+        n1 = expert_matmul.launches
+        with _swapped(ops, "expert_matmul",
+                      lambda xe, w, counts, backend=None: ref.expert_matmul_ref(xe, w, counts)):
+            want, aux_plain = moe.moe_apply(layer, x, cfg)
+            keep_plain = moe.route(x.reshape(B * T, -1), layer["router"], cfg).keep
+        torch.cuda.synchronize()
+        what = f"{cfg.name} moe_apply B={B} T={T}"
+        errs[f"B={B} T={T}"] = _close(torch, got, want, what)
+        if not (torch.equal(aux, aux_plain) and torch.equal(keep, keep_plain)):
+            raise AssertionError(f"{what}: aux loss or keep mask differ from the plain call")
+        if (n1 - n0, expert_matmul.launches - n1) != (products, 0):
+            raise AssertionError(f"{what}: kernel launches {n1 - n0} (want {products}), "
+                                 f"then {expert_matmul.launches - n1} in the plain call")
+    return errs
+
+
+def _static_logits_repeat(torch, eng, prompts):
+    """The first-token logits of the stream's static batch of 4 prefilled
+    twice: bitwise equal? Also how far each row's solo logits lie (MoE
+    routing is capacity-bounded over the batch: printed, not gated)."""
+    solo, a = batch_and_solo_logits(torch, eng, prompts)
+    _, b = batch_and_solo_logits(torch, eng, prompts)
+    return torch.equal(a, b), (a - solo).abs().max().item()
+
+
+def serve_moe_archs(torch, dev):
+    """Runs (u)-(z) of MOE_RUNS and their gates, one arch at a time: the
+    raw bf16 weights (seed 0) are drawn, the untied head's rows gated at M
+    = 1-9 (``head_rows``), the tree packed under each run's policy (the
+    expert leaves and the router stay bf16 / float32 and are shared by
+    the packed trees) and the raw tree dropped; both runs serve; every
+    tensor and engine is dropped before the next arch.
+
+    Gated (besides ``serve_run``'s checks): (u) and (w), static, give the
+    same first-token logits bitwise when their batch is prefilled twice
+    (their repeated pass already gives the same greedy tokens); their
+    bf16 MoE layer on the kernel within 2e-2 of the plain version
+    (``moe_layer_vs_plain``); mixtral's ring wrap (``mixtral_ring_wrap``):
+    logits within WRAP_TOL, the ring bitwise where ``ring_state_diff``
+    says, and its planted control caught, on the bf16 and the int8 ring;
+    (z) static emits (y) chunked's greedy tokens, and chunked
+    and whole-prompt first-token logits are bitwise equal. Prints the
+    parameter count, init and pack seconds, peak and resident GB, each
+    run's time, peak and launches, and the phase's seconds. Returns
+    (report, launch counts summed over the six runs)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    out, counts, bad = {}, {}, []
+    smi = nvidia_smi()
+    for arch, names in MOE_PLAN:
+        rep = out[arch] = {}
+
+        def untied_head(raw):
+            parted = rep["head_parted"] = head_rows(torch, raw["head"])
+            log(f"{arch}: untied head {tuple(raw['head'].shape)} rows at M in {HEAD_M} not "
+                f"bitwise M = 4: torch.matmul {parted['torch.matmul'] or 'none'} (gated), "
+                f"dense_matmul {parted['dense_matmul'] or 'none'}")
+            if parted["torch.matmul"]:
+                bad.append(f"{arch}: head rows part across M {parted['torch.matmul']}")
+
+        raw = _draw(torch, dev, serve_config(arch), rep, untied_head)
+        trees, rep["pack"] = {}, {}
+        for name in names:
+            policy = MOE_RUNS[name][1]
+            if policy not in trees:
+                trees[policy] = _pack(torch, raw, policy, rep["pack"].setdefault(policy, {}))
+        del raw
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rep["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        log(f"{arch}: {rep['parameters']} parameters, init {rep['init_s']:.2f}s (peak "
+            f"{rep['init_peak_gb']:.2f} GB), packed under "
+            + ", ".join(f"{p} in {r['pack_s']:.2f}s (peak {r['pack_peak_gb']:.2f} GB)"
+                        for p, r in rep["pack"].items())
+            + f", {rep['resident_gb']:.2f} GB resident [{smi}]")
+        runs = {}
+        for name in names:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[name] = serve_run(torch, trees[MOE_RUNS[name][1]], name)
+            run_s, peak = time.perf_counter() - t0, _mem_gb(torch)
+            rep[name] = {**runs[name][1], "run_seconds": run_s, "peak_gb": peak}
+            for k, n in runs[name][2].items():
+                counts[k] = counts.get(k, 0) + n
+            log(f"  [{name}] {run_s:.1f}s, peak memory {peak:.2f} GB "
+                "(torch.cuda.max_memory_allocated)")
+        reqs = mixed_requests(get_config(arch), serve.build_parser().parse_args(
+            serve_argv(names[0])))
+        prompts = [r.prompt for r in reqs]
+        t0 = time.perf_counter()
+        if arch in (MIXTRAL, LLAMA4):
+            static = names[0]
+            same, solo_gap = _static_logits_repeat(torch, runs[static][0], prompts)
+            rep.update(static_logits_repeat_bitwise=same, batch_vs_solo_logits=solo_gap)
+            log(f"{arch}: ({static[0]}) static batch's first-token logits prefilled twice "
+                f"bitwise equal: {same} (gated); batch vs solo max |err| {solo_gap:.3g} "
+                "(capacity-bounded routing: not gated)")
+            if not same:
+                bad.append(f"{arch}: static first-token logits differ between two prefills")
+        if arch in (MIXTRAL, LLAMA4):
+            layer_err = rep["moe_layer_vs_plain"] = moe_layer_vs_plain(
+                torch, trees[MOE_RUNS[names[0]][1]], serve_config(arch))
+            log(f"{arch}: full-width bf16 MoE layer through moe_apply, kernel vs plain "
+                f"version, max |err| {layer_err} (gated at atol=rtol={ATOL}; aux and keep "
+                "mask bitwise)")
+        if arch == MIXTRAL:
+            wrap = {kind: mixtral_ring_wrap(torch, trees[MIXED_POLICY], kind == "int8")
+                    for kind in ("bf16", "int8")}
+            rep["ring_wrap"] = wrap
+            for kind, w in wrap.items():
+                log(f"{arch}: {kind} ring wrap, a {WRAP_T}-token prompt then {WRAP_STEPS} "
+                    f"decode steps at capacity factor 16 vs prefill over the same tokens: "
+                    f"logits max |err| by step {w['logits']} (gated at {WRAP_TOL[kind]}); "
+                    f"ring parts not bitwise by step {w['ring_parts']} (gated empty); "
+                    f"decode-written slots past layer 0 max |diff| by step "
+                    f"{w['written_gap']} (gated at 0 on bf16); planted one-slot-on write: "
+                    f"{w['control_parts']} (gated non-empty)")
+                if (any(e > WRAP_TOL[kind] for e in w["logits"]) or any(w["ring_parts"])
+                        or (kind == "bf16" and any(w["written_gap"]))
+                        or not w["control_parts"]):
+                    bad.append(f"{arch}: {kind} ring wrap {w}")
+        if arch == NEMOTRON_340B:
+            greedy = [r.rid for r in reqs if r.temperature == 0]
+            share = _greedy_share(runs["z-nemotron340b-static"][3],
+                                  runs["y-nemotron340b-chunked"][3], greedy)
+            eng = runs["y-nemotron340b-chunked"][0]
+            solo, chunk, _ = first_token_logits(torch, eng.model, eng.params, prompts)
+            err_chunk = (chunk - solo).abs().max().item()
+            rep.update(static_vs_continuous=share, logits_err_chunked_vs_whole=err_chunk)
+            log(f"{arch}: greedy (z) static vs (y) chunked {share} (gated at all); "
+                f"first-token logits chunked vs whole-prompt max |err| {err_chunk:.3g} "
+                "(gated at 0)")
+            if share != f"{len(greedy)}/{len(greedy)}" or err_chunk != 0.0:
+                bad.append(f"{arch}: (z) vs (y) {share}, chunked vs whole {err_chunk}")
+        rep["gates_s"] = time.perf_counter() - t0
+        del runs, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"MoE phase (runs (u)-(z) and their gates): {out['phase_s']:.1f}s [{smi}]")
+    if bad:
+        raise AssertionError(f"MoE archs: {bad}")
+    return out, counts
+
+
+def card_vs_cpu_moe(torch):
+    """The reduced float32 mixtral-8x22b and llama4-maverick on the card
+    vs on the CPU, from the same weights (the port's init, seed 0, moved
+    to the card): ``moe_apply`` over 64 tokens at capacity factors 1.25
+    and 1.0 (llama4 drops there): out within 1e-4 and the keep mask
+    bitwise; a whole-prompt prefill of two right-padded prompts (40 and 23
+    tokens, past mixtral's 16-token window) and four decode steps: logits
+    within 1e-3 (float32 sums in other orders). Returns the max |err| of
+    each."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import build_model, moe
+
+    errs = {}
+    for arch in (MIXTRAL, LLAMA4):
+        cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu")
+        layer = {k: v[0] if isinstance(v, torch.Tensor) else {n: t[0] for n, t in v.items()}
+                 for k, v in params["blocks"]["moe"].items()}
+        x = torch.randn((1, 64, cfg.d_model), generator=torch.Generator().manual_seed(3))
+        moe_err = 0.0
+        for factor in (1.25, 1.0):
+            c = dataclasses.replace(cfg, moe_capacity_factor=factor)
+            res = {}
+            for dev in ("cpu", "cuda"):
+                lp, xd = _to(layer, dev), x.to(dev)
+                o, _ = moe.moe_apply(lp, xd, c)
+                keep = moe.route(xd[0], lp["router"], c).keep
+                res[dev] = (o.cpu(), keep.cpu())
+            if not torch.equal(res["cpu"][1], res["cuda"][1]):
+                raise AssertionError(f"{arch} moe_apply factor {factor}: keep masks differ "
+                                     "between the card and the CPU")
+            moe_err = max(moe_err, (res["cpu"][0] - res["cuda"][0]).abs().max().item())
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            toks = (torch.arange(2 * 40, device=dev).reshape(2, 40) * 11) % cfg.vocab
+            cache, lg = model.prefill(p, {"tokens": toks, "lengths": torch.tensor([40, 23])})
+            lgs = [lg]
+            for t in range(4):
+                cache, lg = model.decode_step(p, cache, torch.tensor([[3 + t], [5 + t]],
+                                                                     device=dev))
+                lgs.append(lg)
+            out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+        err = (out["cpu"] - out["cuda"]).abs().max().item()
+        if not (moe_err <= 1e-4 and err <= 1e-3):
+            raise AssertionError(f"reduced fp32 {arch}: card vs CPU moe_apply {moe_err}, "
+                                 f"logits {err}")
+        errs[arch] = {"moe_apply": moe_err, "logits": err}
+    return errs
+
+
+def moe_kernel_checks(torch, dev, timer):
+    """The slice's kernel checks: ``expert_matmul``, mixtral's attention
+    shapes, and the fused kernel and Table III leaf at nemotron-4-340b's
+    FFN widths (``check_new_widths`` over NEMOTRON_340B_KN, timed at w_up,
+    M = 4). Returns {"expert_matmul": row, "attention": entries,
+    "fused_340b": check_new_widths' report}."""
+    return {"expert_matmul": check_expert_matmul(torch, dev, timer),
+            "attention": check_mixtral_attention(torch, dev, timer),
+            "fused_340b": check_new_widths(torch, dev, timer, NEMOTRON_340B_KN)}
 
 
 def check_registry(torch, dev, params, ref_tokens):
@@ -3846,14 +4502,86 @@ def check_registry(torch, dev, params, ref_tokens):
             "backend_reference_refused": refused}
 
 
+@contextlib.contextmanager
+def table3_codes(torch, replay=None):
+    """Within the block each Table III leaf (``ops.mixed_group_matmul``)
+    records, in call order, its rows x and the activation codes and scales
+    they quantize to on their device (yields that list). With `replay`
+    (such a list, from the card), a CPU run's leaves take the recorded
+    codes and scales in order in place of their own; the block's end
+    checks that every one was taken."""
+    from repro_torch.kernels import ops
+
+    rec = []
+    if replay is None:
+        mixed, quant = ops.mixed_group_matmul, ops.quantize_rows
+
+        def leaf(x, *args, a_bits=8, **kw):
+            xq, xs = quant(x, bits=a_bits, signed=True)
+            rec.append((x.float().cpu(), xq.cpu(), xs.cpu(), a_bits))
+            return mixed(x, *args, a_bits=a_bits, **kw)
+
+        with _swapped(ops, "mixed_group_matmul", leaf):
+            yield rec
+        return
+    taken = iter(replay)
+
+    def recorded(x, *, bits=8, signed=True, backend=None):
+        _, xq, xs, _ = next(taken)
+        if xq.shape != x.shape:
+            raise AssertionError(f"replay: a leaf of {tuple(x.shape)} takes codes of "
+                                 f"{tuple(xq.shape)}")
+        return xq, xs
+
+    with _swapped(ops, "quantize_rows", recorded):
+        yield rec
+    if next(taken, None) is not None:
+        raise AssertionError("replay: the CPU run took fewer leaves than the card's")
+
+
+def first_flip(torch, cpu, card):
+    """Where two runs' Table III leaf records (``table3_codes``) first
+    part: None when every code agrees, else that leaf call's index, the
+    codes apart there and their largest gap, whether the card's codes
+    there are bitwise the plain quantizer's on the card's own rows, the
+    largest gap between the devices' x / scale over the leaf (in codes)
+    and the flipped codes' largest distance from a half code on the CPU.
+    Raises if the two runs made different calls."""
+    from repro_torch.kernels import ref
+
+    if [c[1].shape for c in cpu] != [c[1].shape for c in card]:
+        raise AssertionError("Table III leaves: the CPU and the card made different calls")
+    for i, ((x, q, s, bits), (x2, q2, s2, _)) in enumerate(zip(cpu, card)):
+        apart = q != q2
+        if not apart.any():
+            continue
+        t, t2 = (a * torch.where(b > 0, 1.0 / b, torch.zeros_like(b)) for a, b in ((x, s),
+                                                                                (x2, s2)))
+        ta = t[apart].abs()
+        return {"leaf_call": i, "codes_apart": int(apart.sum()),
+                "max_gap": (q.int() - q2.int())[apart].abs().max().item(),
+                "card_codes_plain": torch.equal(ref.quantize_rows_ref(x2, bits)[0], q2),
+                "leaf_gap": (t - t2).abs().max().item(),
+                "max_from_half": (ta - ta.floor() - 0.5).abs().max().item()}
+    return None
+
+
 def card_vs_cpu(torch, arch="olmo-1b"):
-    """Reduced `arch` (olmo-1b, nemotron-4-15b, stablelm-12b) in float32
-    under both serve policies: one prefill
+    """Reduced `arch` (olmo-1b, nemotron-4-15b, stablelm-12b,
+    nemotron-4-340b) in float32 under both serve policies: one prefill
     chunk and two paged decode steps, and a whole-prompt prefill of two
     right-padded prompts and two contiguous decode steps, on the card
-    (kernels) vs on the CPU (plain versions): logits within 1e-2 (a
-    product within an ULP of a rounding boundary may quantize an
-    activation one code apart on the two devices)."""
+    (kernels) vs on the CPU (plain versions): logits within 1e-2. A
+    float32 sum in another order may put an activation of a Table III leaf
+    on the other side of a rounding boundary, one code apart, and the flip
+    cascades through later layers (reduced nemotron-4-340b's a6 leaves,
+    rows up to |x| 21: 0.078 in the logits). Past 1e-2 the pair passes
+    only if that is all it is: every leaf's codes equal before the first
+    that parts (``first_flip``); there the card's codes bitwise the plain
+    quantizer's on the card's rows and every code apart by one; and the
+    CPU run replaying the card's codes and scales
+    (``table3_codes``) within 1e-2 of the card. Returns the worst direct
+    max |err| and, for each pair that flipped, its report."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.precision import parse_policy_spec
     from repro_torch.core.quantized_linear import quantize_params_for_serving
@@ -3861,42 +4589,58 @@ def card_vs_cpu(torch, arch="olmo-1b"):
 
     cfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
     model = build_model(cfg)
-    worst = 0.0
+
+    def logits(p, dev):
+        cache = model.init_paged_cache(2, 9, 4, 4, device=dev)
+        cache.kv.block_table.copy_(torch.tensor([[1, 2, 3, 4], [5, 6, -1, -1]]))
+        toks = torch.arange(10, device=dev)[None] * 7 % cfg.vocab
+        cache, lg0 = model.prefill_chunk(p, cache, {
+            "tokens": toks, "lengths": [10], "start": 0, "slot": 0,
+            "blocks": torch.tensor([1, 2, 3])})
+        cache.pos[1] = 0
+        lgs = [lg0]
+        cur = torch.tensor([[3], [5]], device=dev)
+        for _ in range(2):
+            cache, lg = model.decode_step(p, cache, cur)
+            lgs.append(lg[:1])
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+        toks = (torch.arange(2 * 24, device=dev).reshape(2, 24) * 11) % cfg.vocab
+        cache, lg = model.prefill(p, {"tokens": toks, "lengths": torch.tensor([24, 13])})
+        lgs.append(lg)
+        cur = lg[:, -1].argmax(-1, keepdim=True)
+        for _ in range(2):
+            cache, lg = model.decode_step(p, cache, cur)
+            lgs.append(lg)
+            cur = lg[:, -1].argmax(-1, keepdim=True)
+        return torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+
+    worst, flips = 0.0, {}
     for policy in (POLICY, MIXED_POLICY):
         params = quantize_params_for_serving(model.init(seed=0, device="cpu"),
                                              parse_policy_spec(policy), min_size=1024)
-        out = {}
+        out, codes = {}, {}
         for dev in ("cpu", "cuda"):
-            p = _to(params, dev)
-            cache = model.init_paged_cache(2, 9, 4, 4, device=dev)
-            cache.kv.block_table.copy_(torch.tensor([[1, 2, 3, 4], [5, 6, -1, -1]]))
-            toks = torch.arange(10, device=dev)[None] * 7 % cfg.vocab
-            cache, lg0 = model.prefill_chunk(p, cache, {
-                "tokens": toks, "lengths": [10], "start": 0, "slot": 0,
-                "blocks": torch.tensor([1, 2, 3])})
-            cache.pos[1] = 0
-            lgs = [lg0]
-            cur = torch.tensor([[3], [5]], device=dev)
-            for _ in range(2):
-                cache, lg = model.decode_step(p, cache, cur)
-                lgs.append(lg[:1])
-                cur = lg[:, -1].argmax(-1, keepdim=True)
-            toks = (torch.arange(2 * 24, device=dev).reshape(2, 24) * 11) % cfg.vocab
-            cache, lg = model.prefill(p, {"tokens": toks,
-                                          "lengths": torch.tensor([24, 13])})
-            lgs.append(lg)
-            cur = lg[:, -1].argmax(-1, keepdim=True)
-            for _ in range(2):
-                cache, lg = model.decode_step(p, cache, cur)
-                lgs.append(lg)
-                cur = lg[:, -1].argmax(-1, keepdim=True)
-            out[dev] = torch.cat([lg.reshape(1, -1) for lg in lgs], dim=1).cpu()
+            with table3_codes(torch) as codes[dev]:
+                out[dev] = logits(_to(params, dev), dev)
         err = (out["cpu"] - out["cuda"]).abs().max().item()
-        if not err <= 1e-2:
-            raise AssertionError(f"reduced fp32 {arch} ({policy}): card vs CPU "
-                                 f"logits differ by {err}")
         worst = max(worst, err)
-    return worst
+        if err <= 1e-2:
+            continue
+        flip = first_flip(torch, codes["cpu"], codes["cuda"])
+        with table3_codes(torch, replay=codes["cuda"]):
+            replayed = logits(params, "cpu")
+        rep = flips[policy] = {
+            "logits_err": err, "replayed_err": (replayed - out["cuda"]).abs().max().item(),
+            "first_flip": flip}
+        log(f"reduced fp32 {arch} ({policy}): card vs CPU logits {err:.3g} past 1e-2; "
+            f"the first Table III leaf whose codes part: {flip} (gated: the card's codes "
+            "the plain quantizer's, one apart); the CPU on the card's codes and scales "
+            f"{rep['replayed_err']:.3g} from the card (gated at 1e-2)")
+        if (flip is None or not flip["card_codes_plain"] or flip["max_gap"] > 1
+                or not rep["replayed_err"] <= 1e-2):
+            raise AssertionError(f"reduced fp32 {arch} ({policy}): card vs CPU logits "
+                                 f"differ by {err}, not explained by code flips: {rep}")
+    return worst, flips
 
 
 def card_vs_cpu_rwkv6(torch):
@@ -5242,13 +5986,15 @@ def check_wkv6_backward(torch, dev, timer):
         + 3 * 2 * elems + 4 * elems + 4 * B * H * K * K
     per = 2 * (C * C * K + 4 * C * K * K + C * C * K // 2 + 3 * C * C * K // 2) + C * C * K
     b_ms, b_by = bound_ms(nbytes, B * H * nc * per, FP32_FLOPS_PER_S)
+    launch_bounds = wkv6_bwd_launch_bounds(B, T, H, K, C)
     log(f"wkv6_bwd: {len(WKV_BWD_CASES)} cases ({', '.join(c[0] for c in WKV_BWD_CASES)}) "
         f"within {WKV_BWD_TOL} of max |g| (worst {worst}); two calls bitwise equal; row 0 "
         "alone bitwise row 0 of the batch; at the training shape, device ms a launch "
-        f"(torch.profiler): {launches_ms}")
+        f"(torch.profiler): {launches_ms}, each launch's bound: {launch_bounds}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": worst_abs, "max_rel_err": worst,
             "cases": len(WKV_BWD_CASES), "launches_ms": launches_ms,
+            "launch_bounds": launch_bounds,
             "shape": f"B={B} T={T} H=40 K=V=64 chunk 64, bf16 r/k/v (dr, dk, dv, dw, du, "
                      "dstate)"}
 
@@ -5831,22 +6577,12 @@ def log_bwd_rows(rows, smi):
                if parts else "") + f") [{smi}]")
 
 
-def train_phase(torch, dev, timer):
-    """The training gates: the backward kernels against their plain
-    versions (``check_flash_backward``, ``check_wkv6_backward``,
-    ``check_rglru_backward``), the wrappers' bits
-    (``check_grad_wrappers``), ``dense_matmul``'s gradients
-    (``check_dense_backward``), card vs CPU (``card_vs_cpu_train``),
-    olmo-1b, rwkv6-3b and recurrentgemma-9b at full width
-    (``train_full``), checkpoint and resume (``check_resume``) and serve
-    --ckpt (``serve_ckpt``), the recurrent families' restarts
-    (``check_restart_recurrent``), each checkpoint in a temporary
-    directory removed after. Returns (report, the three backward kernels'
-    rows, launch counts of the full-width training runs)."""
-    import tempfile
-
+def check_backward_kernels(torch, dev, timer):
+    """The backward kernels against their plain versions
+    (``check_flash_backward``, ``check_wkv6_backward``,
+    ``check_rglru_backward``), each timed and printed. Returns their
+    rows."""
     smi = nvidia_smi()
-    t0 = time.perf_counter()
     bwd = check_flash_backward(torch, dev, timer)
     for e in (bwd, *bwd["entries"].values()):
         log(f"  flash_attention_bwd: {e['shape']}: {e['ms']:.4g} ms (bound "
@@ -5855,6 +6591,23 @@ def train_phase(torch, dev, timer):
     rows = {"flash_attention_bwd": bwd, "wkv6_bwd": check_wkv6_backward(torch, dev, timer),
             "rglru_bwd": check_rglru_backward(torch, dev, timer)}
     log_bwd_rows(rows, smi)
+    return rows
+
+
+def train_phase(torch, dev):
+    """The training gates past the backward kernels: the wrappers' bits
+    (``check_grad_wrappers``), ``dense_matmul``'s gradients
+    (``check_dense_backward``), card vs CPU (``card_vs_cpu_train``),
+    olmo-1b, rwkv6-3b and recurrentgemma-9b at full width
+    (``train_full``), checkpoint and resume (``check_resume``) and serve
+    --ckpt (``serve_ckpt``), the recurrent families' restarts
+    (``check_restart_recurrent``), each checkpoint in a temporary
+    directory removed after. Returns (report, launch counts of the
+    full-width training runs)."""
+    import tempfile
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
     rep = {"wrappers": check_grad_wrappers(torch, dev),
            "dense_backward": check_dense_backward(torch, dev),
            "card_vs_cpu": card_vs_cpu_train(torch)}
@@ -5871,10 +6624,10 @@ def train_phase(torch, dev, timer):
     t_full = sum(r["wall_s"] for r in rep["full"].values())
     rep["seconds"] = {"checks": t_checks, "full": t_full, "resume_and_serve": t_resume,
                       "restart_recurrent": time.perf_counter() - t0 - t_resume}
-    log(f"train phase: kernel and card-vs-CPU checks {t_checks:.1f} s, full-width "
+    log(f"train phase: card-vs-CPU and gradient checks {t_checks:.1f} s, full-width "
         f"training {t_full:.1f} s, resume and serve --ckpt {t_resume:.1f} s, the "
         f"recurrent restarts {rep['seconds']['restart_recurrent']:.1f} s")
-    return rep, rows, counts
+    return rep, counts
 
 
 def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6-static")):
@@ -6079,275 +6832,237 @@ def write_detail(name: str, data) -> None:
             json.dump(data, f, indent=1, default=str)
 
 
-def main() -> int:
-    import torch
+# -- the run: one ordered table of phases --------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU only",
-              file=sys.stderr)
-        return 1
-    from repro_torch.kernels import build, ops
-    from repro_torch.models import build_model
+class Run:
+    """What the phases of one run share: the kernel rows of the last line
+    (``results``, ``dense``), the serve runs by name (``runs``) and their
+    launches summed (``counts``), the report of the detail JSON
+    (``detail``) and the weights drawn for the serve runs."""
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions in full
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    params = {}
+    def __init__(self, torch, dev):
+        self.torch, self.dev = torch, dev
+        self.timer = Timer(torch, dev)
+        self.results, self.dense, self.counts, self.train_counts = {}, None, {}, {}
+        self.runs, self.detail, self.params = {}, {}, {}
+        self.t_start = time.perf_counter()
 
-    def params_of(name):
+    @property
+    def kit(self):
+        """(torch, dev, timer), the kernel checks' first arguments."""
+        return self.torch, self.dev, self.timer
+
+    def params_of(self, name):
+        """The seed-0 weights of serve run `name`'s arch, drawn once."""
         from repro_torch.launch import serve
+        from repro_torch.models import build_model
 
         arch = serve.build_parser().parse_args(serve_argv(name)).arch
-        if arch not in params:
-            params[arch] = build_model(serve_config(arch)).init(seed=0, device=dev)
-        return params[arch]
+        if arch not in self.params:
+            self.params[arch] = build_model(serve_config(arch)).init(seed=0, device=self.dev)
+        return self.params[arch]
 
-    if sys.argv[1:] == ["paths"]:
-        paths_diagnostic(torch)
-        return 3                 # a partial run: no result line
-    if sys.argv[1:2] == ["profile"]:
-        profile_serve(torch, params_of, *([sys.argv[2:]] if sys.argv[2:] else []))
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["tiers"]:
-        from repro_torch.core.precision import parse_policy_spec
-        from repro_torch.serving import ServingEngine
+    def add(self, counts):
+        """A serve phase's launch counts, added to ``counts``."""
+        for k, n in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + n
+        return counts
 
-        build.build()
-        runs = {name: serve_run(torch, params_of(name), name) for name in TIER_RUNS}
-        tier_cmp = compare_tiers(torch, runs)
-        raw = params_of("chunked-int8")
-        cfg8 = dataclasses.replace(serve_config("olmo-1b"), kv_cache_quant=True)
-        engine8 = ServingEngine(cfg8, raw, max_batch=4, quant=parse_policy_spec(POLICY),
-                                bucket=32, block_size=16, prefill_budget=32, device=dev)
-        write_detail("chip_smoke_tiers.json", {
-            "tiers": tier_cmp, "lifecycle": check_lifecycle(torch, engine8, raw),
-            "serve": {name: run[1] for name, run in runs.items()}})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["preempt"]:
-        build.build()
-        runs = {name: serve_run(torch, params_of(name), name) for name in PREEMPT_RUNS}
-        write_detail("chip_smoke_preempt.json", {
-            "preemption": check_preemption(torch, runs),
-            "chaos": check_chaos(torch, runs, params_of("k-spec-int8")),
-            "serve": {name: run[1] for name, run in runs.items()}})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["host"]:
-        build.build()
-        runs = {name: serve_run(torch, params_of(name), name) for name in HOST_REF_RUNS}
-        write_detail("chip_smoke_host.json", {
-            "host_tier": check_host_tier(torch, runs, params_of("j-prefix-solo-int8")),
-            "serve": {name: run[1] for name, run in runs.items()}})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["archs"]:
-        build.build()
-        timer = Timer(torch, dev)
-        t0 = time.perf_counter()
-        new_w = check_new_widths(torch, dev, timer)
-        check_head_dims(torch, dev)
-        check_one_order(torch, dev)
-        log(f"archs: kernel checks {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        arch_out, _ = serve_new_archs(torch, dev)
-        log(f"archs: runs (o)-(r) and their gates {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        ref = serve_run(torch, params_of("chunked-int8"), "chunked-int8")
-        reg_out = check_registry(torch, dev, params_of("chunked-int8"), ref[3])
-        log(f"archs: registry phase (with chunked-int8) {time.perf_counter() - t0:.1f}s")
-        errs = {a: card_vs_cpu(torch, a) for a in ("nemotron-4-15b", "stablelm-12b")}
-        log(f"reduced fp32 card vs CPU logits max |err|: {errs}")
-        write_detail("chip_smoke_archs.json", {
-            "new_widths": new_w, "new_archs": arch_out, "registry": reg_out,
-            "card_vs_cpu": errs})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["griffin"]:
-        t0 = time.perf_counter()
-        build.build()
-        timer = Timer(torch, dev)
-        # The attention and dense sources this slice changed keep their gates.
-        check_paged_attention(torch, dev, timer)
-        check_one_order(torch, dev)
-        check_dense_matmul(torch, dev, timer)
-        kern = {"norm_rows": check_norm_rows(torch, dev),
-                "ring": check_ring_decode(torch, dev, timer),
-                "flash_windowed": check_windowed_flash(torch, dev, timer),
-                "rglru": check_rglru(torch, dev, timer),
-                "dense_f32": check_dense_f32(torch, dev, timer)}
-        for line in build.build_logs.get("rglru", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas rglru: {line.strip()}")
-        for what, e in [("ring", kern["ring"]), ("flash_windowed", kern["flash_windowed"]),
-                        *[(f"rglru[{k}]", v) for k, v in kern["rglru"]["entries"].items()],
-                        *[(f"dense_matmul[{k}]", v)
-                          for k, v in kern["dense_f32"]["entries"].items()]]:
-            log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} ms by "
-                f"{e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {e['library_ms']}"
-                f"{copy_note(e)})")
-        log(f"griffin: build and kernel checks {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        out, counts = serve_griffin(torch, dev)
-        err = card_vs_cpu_griffin(torch)
-        log(f"griffin: runs (s), (t) and their gates {time.perf_counter() - t0:.1f}s; "
-            f"launches {counts}; reduced fp32 card vs CPU logits max |err| {err:.3g}")
-        write_detail("chip_smoke_griffin.json", {"kernels": kern, "serve": out,
-                                                 "card_vs_cpu": err})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["frontends"]:
-        t0 = time.perf_counter()
-        build.build()
-        timer = Timer(torch, dev)
-        # The flash source this slice changed keeps its earlier gates.
-        check_flash(torch, dev, timer)
-        check_head_dims(torch, dev)
-        check_one_order(torch, dev)
-        check_windowed_flash(torch, dev, timer)
-        entries, _, _ = check_frontend_flash(torch, dev, timer)
-        for what, e in entries.items():
-            log(f"  flash_attention[{what}]: {e['shape']}: {e['ms']:.4g} ms (bound "
-                f"{e['bound_ms']:.3g} ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, "
-                f"library {e['library_ms']:.4g} ms)")
-        norm = check_norm_rows(torch, dev)
-        log(f"frontends: build and kernel checks {time.perf_counter() - t0:.1f}s")
-        out, counts = serve_frontends(torch, dev)
-        errs = card_vs_cpu_frontends(torch)
-        log(f"reduced fp32 card vs CPU logits max |err|: {errs}")
-        run_f = serve_run(torch, params_of("f-rwkv6-continuous"), "f-rwkv6-continuous")
-        toks = solo_vs_mid_decode(run_f[0])
-        log(f"solo == mid-decode admission [f-rwkv6-continuous]: {len(toks)} greedy "
-            "tokens identical")
-        write_detail("chip_smoke_frontends.json", {
-            "flash": entries, "norm_rows": norm, "frontends": out, "launches": counts,
-            "card_vs_cpu": errs, "nvidia_smi": nvidia_smi()})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["bwd"]:
-        paths = build.build(["wkv6", "wkv6_bwd", "rglru", "rglru_bwd"])
-        for name in ("wkv6_bwd", "rglru_bwd", "rglru"):
-            for line in build.build_logs.get(name, "").splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log(f"  ptxas {name}: {line.strip()}")
-        no_atomics(paths, ("wkv6_bwd", "rglru_bwd"))
-        timer, smi = Timer(torch, dev), nvidia_smi()
-        rows = {"wkv6_bwd": check_wkv6_backward(torch, dev, timer),
-                "rglru_bwd": check_rglru_backward(torch, dev, timer),
-                "rglru": check_rglru(torch, dev, timer)}
-        log_bwd_rows(rows, smi)
-        write_detail("chip_smoke_bwd.json", {"backward": rows, "nvidia_smi": smi})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:2] == ["profile-train"]:
-        archs = sys.argv[2:] or ["olmo-1b"]
-        unknown = [a for a in archs if a not in PROFILE_TRAIN]
-        if unknown:
-            print(f"profile-train: unknown {unknown}; one of {sorted(PROFILE_TRAIN)}",
-                  file=sys.stderr)
-            return 2
-        build.build()
-        write_detail("train_profile.json", {a: profile_train(torch, dev, a) for a in archs})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["train"]:
-        build.build()
-        timer = Timer(torch, dev)
-        # The flash source now takes its rows' ranges from flash_rows.cuh.
-        check_flash(torch, dev, timer)
-        check_one_order(torch, dev)
-        check_frontend_flash(torch, dev, timer)
-        count_hmma(build.build())
-        rep, rows, counts = train_phase(torch, dev, timer)
-        write_detail("chip_smoke_train.json", {"train": rep, "backward": rows,
-                                               "launches": counts,
-                                               "nvidia_smi": nvidia_smi()})
-        return 3                 # a partial run: no result line
-    if sys.argv[1:] == ["spec"]:
-        build.build()
-        timer = Timer(torch, dev)
-        check_fused(torch, dev, timer)
-        check_bitplane(torch, dev, timer)
-        check_paged_prefill(torch, dev, timer)
-        runs = {name: serve_run(torch, params_of(name), name) for name in SPEC_RUNS}
-        write_detail("chip_smoke_spec.json", compare_speculation(torch, runs))
-        return 3                 # a partial run: no result line
-    t_start = t0 = time.perf_counter()
+    def serve(self, *names):
+        """``serve_run`` of each of `names` not served yet in this run, its
+        launches counted. Returns ``runs``."""
+        for name in names:
+            if name not in self.runs:
+                self.runs[name] = serve_run(self.torch, self.params_of(name), name)
+                self.add(self.runs[name][2])
+        return self.runs
+
+    def entry(self, kernel, name, e, fold=False):
+        """`e` as entry `name` of `kernel`'s row (a holder row where the
+        kernel's own check does not run in this mode); with `fold`, its
+        error taken into the row's."""
+        row = self.results.setdefault(kernel, {"max_abs_err": 0.0})
+        row.setdefault("entries", {})[name] = e
+        if fold:
+            row["max_abs_err"] = max(row["max_abs_err"], e["max_abs_err"])
+
+
+def phase_build(r):
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
     paths = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f}s "
         f"(nvcc {build.build_seconds:.1f}s, parallel), libraries: "
         + ", ".join(str(p) for p in paths.values()))
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (name.endswith("_bwd")
+                                                          and "smem" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+    r.detail["hmma_in_sass"] = count_hmma(paths)
+    one = r.torch.zeros(1, device=r.dev)
+    r.detail["timer_floor_ms"] = r.timer(lambda: one.zero_())
+    log(f"timer floor (one launch that fills one float): {r.detail['timer_floor_ms']:.5f} ms")
 
-    hmma = count_hmma(paths)
-    timer = Timer(torch, dev)
-    one = torch.zeros(1, device=dev)
-    timer_floor = timer(lambda: one.zero_())
-    log(f"timer floor (one launch that fills one float): {timer_floor:.5f} ms")
-    results = {
-        "fused_quantize_matmul": check_fused(torch, dev, timer),
-        "paged_attention": check_paged_attention(torch, dev, timer),
-        "paged_prefill": check_paged_prefill(torch, dev, timer),
-        "quantize_rows": check_quantize_rows(torch, dev, timer),
-        "bitplane_matmul": check_bitplane(torch, dev, timer),
-        "flash_attention": check_flash(torch, dev, timer),
-        "wkv6": check_wkv6(torch, dev, timer),
-        "rglru": check_rglru(torch, dev, timer),
-    }
-    results["paged_attention"]["entries"]["ring"] = check_ring_decode(torch, dev, timer)
-    front_flash, front_err, front_cases = check_frontend_flash(torch, dev, timer)
-    results["flash_attention"]["entries"] = {
-        "windowed_prefill": check_windowed_flash(torch, dev, timer), **front_flash}
-    results["flash_attention"]["max_abs_err"] = max(results["flash_attention"]["max_abs_err"],
-                                                    front_err)
-    results["flash_attention"]["cases"] += front_cases
-    mixed = check_mixed_group(torch, dev, timer)
-    results["bitplane_matmul"]["entries"].update(mixed.pop("entries"))
-    table3_launches = check_table3_launches(torch, dev)
-    dense = check_dense_matmul(torch, dev, timer)
-    dense_f32 = check_dense_f32(torch, dev, timer)
-    norm_rows = check_norm_rows(torch, dev)
-    dense["entries"].update(dense_f32["entries"])
-    dense["max_abs_err"] = max(dense["max_abs_err"], dense_f32["max_abs_err"])
-    head_dim_err = check_head_dims(torch, dev)
-    check_one_order(torch, dev)
-    new_w = check_new_widths(torch, dev, timer)
-    results["fused_quantize_matmul"]["entries"]["decode_nemotron_w_up"] = new_w["entry"]
-    for name, r in [*results.items(), ("dense_matmul", dense)]:
-        for what, e in [(name, r)] + [(f"{name}[{k}]", e)
-                                      for k, e in r.get("entries", {}).items()]:
+
+def phase_frontend_flash(r):
+    entries, err, cases = check_frontend_flash(*r.kit)
+    for name, e in entries.items():
+        r.entry("flash_attention", name, e)
+    row = r.results["flash_attention"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["cases"] = row.get("cases", 0) + cases
+
+
+def phase_mixed_group(r):
+    mixed = check_mixed_group(*r.kit)
+    for name, e in mixed["entries"].items():
+        r.entry("bitplane_matmul", name, e)
+    r.detail["mixed_group_cases"] = mixed["cases"]
+
+
+def phase_dense(r):
+    """dense_matmul in bf16 and its float32 entry: the row beside the
+    kernels of the last line."""
+    r.dense = check_dense_matmul(*r.kit)
+    f32 = check_dense_f32(*r.kit)
+    r.dense["entries"].update(f32["entries"])
+    r.dense["max_abs_err"] = max(r.dense["max_abs_err"], f32["max_abs_err"])
+
+
+def phase_new_widths(r):
+    new_w = check_new_widths(*r.kit)
+    r.entry("fused_quantize_matmul", "decode_nemotron_w_up", new_w["entry"])
+    r.detail["new_widths"] = new_w["cases"]
+
+
+def phase_moe_kernels(r):
+    kern = moe_kernel_checks(*r.kit)
+    r.results["expert_matmul"] = kern["expert_matmul"]
+    r.entry("fused_quantize_matmul", "decode_nemotron340b_w_up", kern["fused_340b"]["entry"])
+    for what, e in kern["attention"].items():
+        r.entry("paged_attention" if what.startswith("ring") else "flash_attention", what, e,
+                fold=True)
+
+
+def phase_log_rows(r):
+    """Every kernel row and entry of this run: time, bound, plain version,
+    library call."""
+    rows = [*r.results.items()] + ([("dense_matmul", r.dense)] if r.dense else [])
+    for name, row in rows:
+        for what, e in [(name, row)] + [(f"{name}[{k}]", e)
+                                        for k, e in row.get("entries", {}).items()]:
+            if "ms" not in e:
+                continue
             lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4g} ms"
             log(f"  {what}: {e['shape']}: {e['ms']:.4g} ms (bound {e['bound_ms']:.3g} "
                 f"ms by {e['bound_by']}, plain {e['plain_ms']:.4g} ms, library {lib}"
-                f"{copy_note(e)})")
-    log(f"kernel phase: {time.perf_counter() - t_start:.1f}s")
-    if sys.argv[1:] == ["kernels"]:
-        write_detail("chip_smoke.json", {"kernels": results, "dense_matmul": dense,
-                                         "timer_floor_ms": timer_floor})
-        return 3                 # a partial run: no result line
+                + (f", all experts full {e['all_full_ms']:.4g} ms" if "all_full_ms" in e
+                   else "") + f"{copy_note(e)})")
+    log(f"kernel phase: {time.perf_counter() - r.t_start:.1f}s")
 
+
+def phase_new_archs(r):
     t0 = time.perf_counter()
-    arch_out, counts = serve_new_archs(torch, dev)
+    r.detail["new_archs"], counts = serve_new_archs(r.torch, r.dev)
+    r.add(counts)
     log(f"runs (o)-(r) and their gates: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_moe_archs(r):
+    r.detail["moe_archs"], counts = serve_moe_archs(r.torch, r.dev)
+    r.add(counts)
+
+
+def phase_griffin(r):
     t0 = time.perf_counter()
-    griffin_out, griffin_counts = serve_griffin(torch, dev)
-    for k, n in griffin_counts.items():
-        counts[k] = counts.get(k, 0) + n
+    r.detail["griffin"], counts = serve_griffin(r.torch, r.dev)
+    r.add(counts)
     log(f"runs (s), (t) and their gates: {time.perf_counter() - t0:.1f}s")
-    frontends_out, front_counts = serve_frontends(torch, dev)
-    for k, n in front_counts.items():
-        counts[k] = counts.get(k, 0) + n
-    train_rep, train_rows, train_counts = train_phase(torch, dev, timer)
-    results.update(train_rows)
-    for k, n in train_counts.items():
-        counts[k] = counts.get(k, 0) + n
+
+
+def phase_frontends(r):
+    r.detail["frontends"], counts = serve_frontends(r.torch, r.dev)
+    r.add(counts)
+
+
+def phase_train(r):
+    r.detail["train"], r.train_counts = train_phase(r.torch, r.dev)
+    r.add(r.train_counts)
+
+
+def phase_serve_runs(r):
     t0 = time.perf_counter()
-    runs = {}
-    for name in SERVE_RUNS:
-        runs[name] = serve_run(torch, params_of(name), name)
-        for k, n in runs[name][2].items():
-            counts[k] = counts.get(k, 0) + n
+    r.serve(*SERVE_RUNS)
     log(f"serve phase, runs {len(SERVE_RUNS)}: {time.perf_counter() - t0:.1f}s")
-    if any(counts[k] != train_counts[k] for k in train_rows):
+
+
+SOLO_VS_MID = ("chunked-bf16", "chunked-int8", "f-rwkv6-continuous")
+
+
+def phase_solo_vs_mid(r):
+    for name in SOLO_VS_MID:
+        toks = solo_vs_mid_decode(r.serve(name)[name][0])
+        log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens identical")
+
+
+def phase_lifecycle(r):
+    r.detail["lifecycle"] = check_lifecycle(r.torch, r.serve("chunked-int8")["chunked-int8"][0],
+                                            r.params_of("chunked-int8"))
+
+
+def phase_registry(r):
+    t0 = time.perf_counter()
+    r.detail["registry"] = check_registry(r.torch, r.dev, r.params_of("chunked-int8"),
+                                          r.serve("chunked-int8")["chunked-int8"][3])
+    log(f"registry phase: {time.perf_counter() - t0:.1f}s")
+
+
+def phase_card_vs_cpu(r):
+    err, _ = card_vs_cpu(r.torch)
+    r.detail["card_vs_cpu_max_err"] = err
+    log(f"reduced fp32 olmo-1b: card vs CPU logits max |err| {err:.3g}")
+
+
+def phase_card_vs_cpu_archs(r):
+    errs = r.detail["card_vs_cpu_archs_max_err"] = {
+        a: card_vs_cpu(r.torch, a) for a in ("nemotron-4-15b", "stablelm-12b", NEMOTRON_340B)}
+    log(f"reduced fp32 nemotron-4-15b / stablelm-12b / {NEMOTRON_340B}: card vs CPU logits "
+        f"max |err| (and Table III code flips) {errs}")
+
+
+def phase_card_vs_cpu_moe(r):
+    errs = r.detail["card_vs_cpu_moe_max_err"] = card_vs_cpu_moe(r.torch)
+    log(f"reduced fp32 {MIXTRAL} / {LLAMA4}: card vs CPU moe_apply and logits max |err| "
+        f"{errs}")
+
+
+def phase_card_vs_cpu_rwkv6(r):
+    err = r.detail["card_vs_cpu_rwkv6_max_err"] = card_vs_cpu_rwkv6(r.torch)
+    log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err:.3g}")
+
+
+def phase_card_vs_cpu_griffin(r):
+    err = r.detail["card_vs_cpu_griffin_max_err"] = card_vs_cpu_griffin(r.torch)
+    log(f"reduced fp32 {GRIFFIN}: card vs CPU logits max |err| {err:.3g}")
+
+
+def phase_card_vs_cpu_frontends(r):
+    errs = r.detail["card_vs_cpu_frontends_max_err"] = card_vs_cpu_frontends(r.torch)
+    log(f"reduced fp32 {VLM} / {ENCODER}: card vs CPU logits max |err| {errs}")
+
+
+def phase_launches(r):
+    """Each kernel row's launches from the serve runs (every kernel's row
+    must be there: the whole run only)."""
+    counts, results = r.counts, r.results
+    if any(counts[k] != r.train_counts[k]
+           for k in ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd")):
         raise AssertionError("a serve run launched a backward kernel")
     for k in results:
         results[k]["launches"] = counts[k]
-    dense["launches"] = counts["dense_matmul"]
+    r.dense["launches"] = counts["dense_matmul"]
     # rglru: prompts (T > 1, the streaming kernel) and decode steps (T = 1).
     results["rglru"]["entries"]["prefill"]["launches"] = counts["rglru_prefill"]
     results["rglru"]["entries"]["decode"]["launches"] = counts["rglru_step"]
@@ -6358,74 +7073,194 @@ def main() -> int:
     entries["ring"]["launches"] = counts["ring_attention"]
     entries["paged"]["launches"] = (counts["paged_attention"] - counts["contig_attention"]
                                     - counts["ring_attention"])
-    for name in ("chunked-bf16", "chunked-int8", "f-rwkv6-continuous"):
-        toks = solo_vs_mid_decode(runs[name][0])
-        log(f"solo == mid-decode admission [{name}]: {len(toks)} greedy tokens "
-            "identical")
-    prefix_cmp = compare_prefix(torch, runs)
-    spec_cmp = compare_speculation(torch, runs)
-    tier_cmp = compare_tiers(torch, runs)
-    life_cmp = check_lifecycle(torch, runs["chunked-int8"][0], params_of("chunked-int8"))
-    preempt_cmp = check_preemption(torch, runs)
-    chaos_cmp = check_chaos(torch, runs, params_of("k-spec-int8"))
-    host_cmp = check_host_tier(torch, runs, params_of("j-prefix-solo-int8"))
     # The verify row's launches: paged_prefill's counter read inside the
     # speculating runs' verify calls (compare_speculation and compare_tiers
     # gate it at one a layer a row).
-    entries = results["paged_prefill"]["entries"]
-    entries["verify"]["launches"] = sum(run[1]["verify"]["launches"] for run in runs.values()) \
-        + arch_out["stablelm-12b"]["r-stablelm-spec-int8"]["verify"]["launches"]
-    paths_cmp = compare_paths(torch, runs["c-solo-paged"][0], runs)
-    rwkv_cmp = compare_rwkv6(torch, runs)
-    unpacked_cmp = compare_unpacked(torch, runs)
-    log(f"serve phase: {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    registry_out = check_registry(torch, dev, params_of("chunked-int8"),
-                                  runs["chunked-int8"][3])
-    log(f"registry phase: {time.perf_counter() - t0:.1f}s")
-    err = card_vs_cpu(torch)
-    log(f"reduced fp32 olmo-1b: card vs CPU logits max |err| {err:.3g}")
-    err_archs = {a: card_vs_cpu(torch, a) for a in ("nemotron-4-15b", "stablelm-12b")}
-    log(f"reduced fp32 nemotron-4-15b / stablelm-12b: card vs CPU logits max |err| "
-        f"{err_archs}")
-    err_rwkv = card_vs_cpu_rwkv6(torch)
-    log(f"reduced fp32 rwkv6-3b: card vs CPU logits max |err| {err_rwkv:.3g}")
-    err_griffin = card_vs_cpu_griffin(torch)
-    log(f"reduced fp32 {GRIFFIN}: card vs CPU logits max |err| {err_griffin:.3g}")
-    err_front = card_vs_cpu_frontends(torch)
-    log(f"reduced fp32 {VLM} / {ENCODER}: card vs CPU logits max |err| {err_front}")
+    results["paged_prefill"]["entries"]["verify"]["launches"] = \
+        sum(run[1]["verify"]["launches"] for run in r.runs.values()) \
+        + r.detail["new_archs"]["stablelm-12b"]["r-stablelm-spec-int8"]["verify"]["launches"]
+
+
+def _detail(key, check, runs=()):
+    """A phase storing ``check(r)`` under `key` of the detail, the serve
+    runs `runs` served first."""
+    def phase(r):
+        r.serve(*runs)
+        r.detail[key] = check(r)
+    return phase
+
+
+def _row(kernel, check):
+    """A phase storing `check`'s row as `kernel`'s."""
+    def phase(r):
+        r.results[kernel] = check(*r.kit)
+    return phase
+
+
+# The phases of the whole run, in order. A mode of MODES runs the ones it
+# names, in this order. Kernel checks first, then the serve, training and
+# comparison phases; "launches" needs every kernel row and serve run, so
+# only the whole run has it.
+PHASES = (
+    ("build", phase_build),
+    ("fused", _row("fused_quantize_matmul", check_fused)),
+    ("paged_attention", _row("paged_attention", check_paged_attention)),
+    ("paged_prefill", _row("paged_prefill", check_paged_prefill)),
+    ("quantize_rows", _row("quantize_rows", check_quantize_rows)),
+    ("bitplane", _row("bitplane_matmul", check_bitplane)),
+    ("flash", _row("flash_attention", check_flash)),
+    ("wkv6", _row("wkv6", check_wkv6)),
+    ("rglru", _row("rglru", check_rglru)),
+    ("ring", lambda r: r.entry("paged_attention", "ring", check_ring_decode(*r.kit))),
+    ("frontend_flash", phase_frontend_flash),
+    ("windowed_flash", lambda r: r.entry("flash_attention", "windowed_prefill",
+                                         check_windowed_flash(*r.kit))),
+    ("mixed_group", phase_mixed_group),
+    ("table3_launches", lambda r: r.detail.update(
+        table3_launches=check_table3_launches(r.torch, r.dev))),
+    ("dense", phase_dense),
+    ("norm_rows", lambda r: r.detail.update(norm_rows=check_norm_rows(r.torch, r.dev))),
+    ("head_dims", lambda r: r.detail.update(
+        head_dims_max_err=check_head_dims(r.torch, r.dev))),
+    ("one_order", lambda r: check_one_order(r.torch, r.dev)),
+    ("new_widths", phase_new_widths),
+    ("moe_kernels", phase_moe_kernels),
+    ("log_rows", phase_log_rows),
+    ("new_archs", phase_new_archs),
+    ("moe_archs", phase_moe_archs),
+    ("griffin", phase_griffin),
+    ("frontends", phase_frontends),
+    ("backward", lambda r: r.results.update(check_backward_kernels(*r.kit))),
+    ("train", phase_train),
+    ("serve_runs", phase_serve_runs),
+    ("solo_vs_mid", phase_solo_vs_mid),
+    ("prefix", _detail("prefix_cache", lambda r: compare_prefix(r.torch, r.runs),
+                       SERVE_RUNS)),
+    ("speculation", _detail("speculation", lambda r: compare_speculation(r.torch, r.runs),
+                            SPEC_RUNS)),
+    ("tiers", _detail("tiers", lambda r: compare_tiers(r.torch, r.runs), TIER_RUNS)),
+    ("lifecycle", phase_lifecycle),
+    ("preemption", _detail("preemption", lambda r: check_preemption(r.torch, r.runs),
+                           PREEMPT_RUNS)),
+    ("chaos", _detail("chaos", lambda r: check_chaos(r.torch, r.runs,
+                                                     r.params_of("k-spec-int8")),
+                      PREEMPT_RUNS)),
+    ("host_tier", _detail("host_tier", lambda r: check_host_tier(
+        r.torch, r.runs, r.params_of("j-prefix-solo-int8")), HOST_REF_RUNS)),
+    ("paths", _detail("paths", lambda r: compare_paths(r.torch, r.runs["c-solo-paged"][0],
+                                                       r.runs), SERVE_RUNS)),
+    ("rwkv6", _detail("rwkv6", lambda r: compare_rwkv6(r.torch, r.runs), SERVE_RUNS)),
+    ("olmo_unpacked", _detail("olmo_unpacked", lambda r: compare_unpacked(r.torch, r.runs),
+                              SERVE_RUNS)),
+    ("registry", phase_registry),
+    ("card_vs_cpu", phase_card_vs_cpu),
+    ("card_vs_cpu_archs", phase_card_vs_cpu_archs),
+    ("card_vs_cpu_moe", phase_card_vs_cpu_moe),
+    ("card_vs_cpu_rwkv6", phase_card_vs_cpu_rwkv6),
+    ("card_vs_cpu_griffin", phase_card_vs_cpu_griffin),
+    ("card_vs_cpu_frontends", phase_card_vs_cpu_frontends),
+    ("launches", phase_launches),
+)
+# The partial runs (``chip_smoke.py <mode>``, exit 3, no result line): each
+# a subset of PHASES, its report in chip_smoke_<mode>.json.
+MODES = {
+    "kernels": ("build", "fused", "paged_attention", "paged_prefill", "quantize_rows",
+                "bitplane", "flash", "wkv6", "rglru", "ring", "frontend_flash",
+                "windowed_flash", "mixed_group", "table3_launches", "dense", "norm_rows",
+                "head_dims", "one_order", "new_widths", "moe_kernels", "log_rows"),
+    "moe": ("build", "dense", "head_dims", "moe_kernels", "log_rows", "moe_archs",
+            "card_vs_cpu_archs", "card_vs_cpu_moe"),
+    "archs": ("build", "head_dims", "one_order", "new_widths", "log_rows", "new_archs",
+              "registry", "card_vs_cpu_archs"),
+    "griffin": ("build", "paged_attention", "rglru", "ring", "windowed_flash", "dense",
+                "norm_rows", "one_order", "log_rows", "griffin", "card_vs_cpu_griffin"),
+    "frontends": ("build", "flash", "frontend_flash", "windowed_flash", "norm_rows",
+                  "head_dims", "one_order", "log_rows", "frontends", "solo_vs_mid",
+                  "card_vs_cpu_frontends"),
+    "train": ("build", "flash", "frontend_flash", "one_order", "log_rows", "backward",
+              "train"),
+    "bwd": ("build", "rglru", "log_rows", "backward"),
+    "spec": ("build", "fused", "paged_prefill", "bitplane", "log_rows", "speculation"),
+    "tiers": ("build", "tiers", "lifecycle"),
+    "preempt": ("build", "preemption", "chaos"),
+    "host": ("build", "host_tier"),
+}
+assert all(set(m) <= dict(PHASES).keys() for m in MODES.values())
+
+
+def last_line_kernels(r):
+    """The ``kernels`` line: every kernel's row with the contract's keys."""
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": row["launches"],
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": row["library_ms"],
+         **({"note": NOT_PALLAS[name]} if name in NOT_PALLAS else {}),
+         **({"entries": row["entries"]} if "entries" in row else {})}
+        for name, row in [*r.results.items(), ("dense_matmul", r.dense)]]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 plain versions in full
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    mode, rest = (sys.argv[1], sys.argv[2:]) if sys.argv[1:] else (None, [])
+    # Diagnostics, not gates: they print and exit 3 (no result line).
+    if mode == "paths":
+        paths_diagnostic(torch)
+        return 3
+    if mode == "profile":
+        r = Run(torch, dev)
+        profile_serve(torch, r.params_of, *([rest] if rest else []))
+        return 3
+    if mode == "profile-train":
+        archs = rest or ["olmo-1b"]
+        unknown = [a for a in archs if a not in PROFILE_TRAIN]
+        if unknown:
+            print(f"profile-train: unknown {unknown}; one of {sorted(PROFILE_TRAIN)}",
+                  file=sys.stderr)
+            return 2
+        from repro_torch.kernels import build
+
+        build.build()
+        write_detail("train_profile.json", {a: profile_train(torch, dev, a) for a in archs})
+        return 3
+    if mode is not None and (mode not in MODES or rest):
+        print(f"chip_smoke: unknown mode {sys.argv[1:]}; one of {sorted(MODES)}, "
+              "paths, profile [run ...], profile-train [arch ...]", file=sys.stderr)
+        return 2
+    r = Run(torch, dev)
+    names = MODES[mode] if mode else dict(PHASES)
+    for name, phase in PHASES:
+        if name in names:
+            phase(r)
+    if mode:
+        write_detail(f"chip_smoke_{mode}.json", {
+            "kernels": r.results, "dense_matmul": r.dense, "launches": r.counts,
+            "serve": {name: run[1] for name, run in r.runs.items()}, **r.detail,
+            "nvidia_smi": nvidia_smi()})
+        log(f"{mode}: {time.perf_counter() - r.t_start:.1f}s")
+        return 3                 # a partial run: no result line
     smi = nvidia_smi()
     write_detail("chip_smoke.json", {
-        "kernels": results, "dense_matmul": dense, "head_dims_max_err": head_dim_err,
-        "hmma_in_sass": hmma, "timer_floor_ms": timer_floor,
-        "mixed_group_cases": mixed["cases"], "table3_launches": table3_launches,
-        "serve": {name: run[1] for name, run in runs.items()},
-        "paths": paths_cmp, "rwkv6": rwkv_cmp, "olmo_unpacked": unpacked_cmp,
-        "prefix_cache": prefix_cmp, "speculation": spec_cmp, "tiers": tier_cmp,
-        "lifecycle": life_cmp, "preemption": preempt_cmp, "chaos": chaos_cmp,
-        "host_tier": host_cmp, "new_widths": new_w["cases"], "new_archs": arch_out,
-        "registry": registry_out, "card_vs_cpu_archs_max_err": err_archs,
-        "card_vs_cpu_max_err": err,
-        "card_vs_cpu_rwkv6_max_err": err_rwkv, "griffin": griffin_out,
-        "card_vs_cpu_griffin_max_err": err_griffin, "norm_rows": norm_rows,
-        "frontends": frontends_out, "card_vs_cpu_frontends_max_err": err_front,
-        "train": train_rep, "nvidia_smi": smi})
-    line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": r["launches"],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"],
-         **({"note": NOT_PALLAS[name]} if name in NOT_PALLAS else {}),
-         **({"entries": r["entries"]} if "entries" in r else {})}
-        for name, r in [*results.items(), ("dense_matmul", dense)]]}
-    log(f"total: {time.perf_counter() - t_start:.1f}s")
+        "kernels": r.results, "dense_matmul": r.dense,
+        "serve": {name: run[1] for name, run in r.runs.items()}, **r.detail,
+        "nvidia_smi": smi})
+    dense = r.dense
+    log(f"total: {time.perf_counter() - r.t_start:.1f}s")
     log(json.dumps({"dense_matmul": {
         "route": "cuda", "source": "src/repro_torch/kernels/csrc/dense_matmul.cu",
         "replaces": None, **{k: dense[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "entries")}}}))
-    log(json.dumps(line))
+    log(json.dumps(last_line_kernels(r)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,5 @@
-"""Architecture config registry: ``--arch <id>`` resolution.
-
-Only the architectures the port serves are registered; the others stay
-in ``repro.configs`` until their model families are ported.
-"""
+"""Architecture config registry: ``--arch <id>`` resolution, the JAX
+package's ten assigned architectures."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +15,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "paligemma-3b": "paligemma_3b",
     "hubert-xlarge": "hubert_xlarge",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -82,9 +82,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head): JAX's
-        formula for the dense FFN under full attention, rwkv6 (``ssm``) and
-        the Griffin hybrid (MoE's branch is not ported: the port runs no
-        MoE model)."""
+        formula, the MoE branch included (E experts' FFNs and the (d, E)
+        router a layer)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab, self.num_layers
         emb = v * d * (1 if self.tie_embeddings else 2)
         if self.family == "ssm":
@@ -94,6 +93,8 @@ class ModelConfig:
         nq, nkv, hd = self.n_heads, self.n_kv_heads, self.head_dim
         attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
         ffn = 3 * d * f if self.ffn in ("swiglu", "geglu") else 2 * d * f
+        if self.moe_experts:
+            ffn = self.moe_experts * ffn + d * self.moe_experts
         if self.block_pattern:
             # hybrid: recurrent blocks replace attention in 2/3 of layers
             n_attn = sum(1 for b in self._expanded_pattern() if b == "attn")
@@ -101,6 +102,15 @@ class ModelConfig:
             rec = 2 * d * self.rnn_width + self.rnn_width * d + 3 * self.rnn_width
             return emb + n_attn * (attn + ffn) + n_rec * (rec + ffn)
         return emb + L * (attn + ffn)
+
+    def active_param_count(self) -> int:
+        """MoE: the parameters a token touches (its top-k experts); the
+        whole count for every other family."""
+        if not self.moe_experts:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        per_expert = (3 if self.ffn in ("swiglu", "geglu") else 2) * d * f
+        return self.param_count() - L * (self.moe_experts - self.moe_top_k) * per_expert
 
     def _expanded_pattern(self) -> Tuple[str, ...]:
         if not self.block_pattern:

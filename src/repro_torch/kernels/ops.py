@@ -21,8 +21,10 @@ kernels share one tile routine, so every attention path sums in one
 order. Two kernels have no Pallas counterpart: ``dense_matmul``, the
 batch-invariant bf16 product of rwkv6's, griffin's and unpacked models'
 dense layers on the card (with a float32 store for griffin's gate
-projections), and ``rglru``, griffin's gates and recurrence in one
-sequential pass. Training adds the gradients JAX gets from XLA's
+projections), ``rglru``, griffin's gates and recurrence in one
+sequential pass, and ``expert_matmul``, the MoE layers' grouped expert
+product (``dense_matmul``'s rows, one product an expert, reading only
+the experts with rows). Training adds the gradients JAX gets from XLA's
 autodiff: ``flash_attention_bwd`` (flash attention's), ``wkv6_bwd`` (the
 RWKV-6 recurrence's) and ``rglru_bwd`` (the RG-LRU's), each run by an
 autograd Function on the card when grad is on and an input requires it.
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.kernels import bitplane_matmul as _bpm
 from repro_torch.kernels import dense_matmul as _dense
+from repro_torch.kernels import expert_matmul as _expert
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import fused_matmul as _fused
@@ -57,6 +60,7 @@ _MODULES = {
     "dense_matmul": _dense,
     "rglru": _rglru,
     "flash_attention_bwd": _flash_bwd,
+    "expert_matmul": _expert,
 }
 
 
@@ -335,6 +339,23 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     else:
         y = _dense.launch(x2, wx, backend=be, out_dtype=od)
     return y.reshape(*lead, w.shape[1])
+
+
+def expert_matmul(xe: torch.Tensor, w: torch.Tensor, counts: torch.Tensor, *,
+                  backend=None) -> torch.Tensor:
+    """The MoE capacity buffer's product: xe (E, cap, K) × w (E, K, N) →
+    (E, cap, N) in xe's dtype, each expert's rows at or past ``counts``
+    (E,) zero. The plain version is ``ref.expert_matmul_ref`` (JAX's
+    ``einsum("ecd,edf->ecf")``, rows past the count zeroed). On the card
+    a bfloat16 xe launches the grouped kernel: each kept row bitwise
+    ``dense_matmul`` of the row alone against its expert, the counts read
+    on the device, and an expert without rows reads no weight. A float32
+    xe goes to ``torch.einsum`` in full float32, a dtype route, as
+    :func:`dense_matmul`'s."""
+    be = _backend(xe, "expert_matmul", backend)
+    if be.is_reference or xe.dtype == torch.float32:
+        return _ref.expert_matmul_ref(xe, w, counts)
+    return _expert.launch(xe, w.to(xe.dtype), counts)
 
 
 def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64, backend=None):

@@ -4,7 +4,8 @@ Ported from ``repro.kernels.ref`` (``quantize_pack_ref``,
 ``bitplane_matmul_ref``, ``mixed_group_matmul_ref``,
 ``paged_attention_ref``, ``paged_prefill_ref``, ``flash_attention_ref``,
 ``wkv6_ref``), ``repro.models.rwkv6`` (``wkv6_chunked``,
-``wkv6_step``) and ``repro.models.griffin`` (``_rglru_coeffs`` with
+``wkv6_step``), ``repro.models.moe`` (``_expert_ffn``'s product, as
+``expert_matmul_ref``) and ``repro.models.griffin`` (``_rglru_coeffs`` with
 ``_rglru_scan``, as ``rglru_scan_ref``); ``wkv6_chunked_bwd_ref`` and
 ``rglru_scan_bwd_ref`` spell out the two backward kernels' algebra, which
 JAX leaves to XLA's autodiff (held against it in
@@ -86,6 +87,16 @@ def mixed_group_matmul_ref(x, w8_codes, wl_codes, scale8, scalel, a_bits: int):
 def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in x's dtype: the plain version of ``dense_matmul``."""
     return x @ w.to(x.dtype)
+
+
+def expert_matmul_ref(xe: torch.Tensor, w: torch.Tensor, counts) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf")`` in xe's dtype (JAX's ``_expert_ffn``
+    product) with each expert's rows at or past its count set to zero:
+    the plain version of ``expert_matmul``."""
+    y = torch.einsum("ecd,edf->ecf", xe, w.to(xe.dtype))
+    rows = torch.arange(xe.shape[1], device=xe.device)
+    live = rows[None, :] < torch.as_tensor(counts, device=xe.device).reshape(-1, 1)
+    return torch.where(live[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,

@@ -21,8 +21,9 @@ given, serving with the hand-written kernels on the card and their plain
 PyTorch versions on the CPU. --quant applies one uniform QuantConfig;
 --policy is a per-layer PrecisionPolicy spec matched against parameter
 paths (a wXaYrZZ token packs Table III mixed-group layers).
-``--arch`` is olmo-1b, nemotron-4-15b, stablelm-12b (qk-norm), rwkv6-3b
-or recurrentgemma-9b. paligemma-3b and hubert-xlarge exit before any
+``--arch`` is olmo-1b, nemotron-4-15b, nemotron-4-340b, stablelm-12b
+(qk-norm), mixtral-8x22b, llama4-maverick-400b-a17b, rwkv6-3b or
+recurrentgemma-9b. paligemma-3b and hubert-xlarge exit before any
 weights are drawn: an encoder has no decode step (the JAX package's
 words), and the serving stack passes no patch embeddings to the VLM
 (JAX's serve fails there with a KeyError); both run through the model
@@ -33,8 +34,16 @@ whole-prompt admission. ``--arch recurrentgemma-9b`` serves the Griffin
 hybrid the same way (unquantized, static or --continuous with solo
 whole-prompt admission) on its recurrent states and window-sized ring KV
 caches; --kv-int8 leaves the rings in bf16, as the JAX package does.
---layers N serves the config's first N layers (every width unchanged): a
-cut of depth for quick runs at full width. --ckpt DIR serves the newest
+The MoE archs (mixtral-8x22b, top-2 of 8 experts under a 4096-token
+sliding window; llama4-maverick-400b-a17b, top-1 of 128) route each
+token through capacity-bounded expert buffers, so a row's output depends
+on its batch: they serve static, or --continuous with solo whole-prompt
+admission (no chunked prefill, prefix cache or --speculate, as in JAX),
+mixtral on its window-sized ring (bf16, or int8 under --kv-int8) and
+llama4 on the paged pool. --layers N serves the config's first N layers
+(every width unchanged): a cut of depth for quick runs at full width,
+and what fits one card for the largest archs (mixtral-8x22b at 4 of 56
+layers, llama4-maverick at 1 of 48, nemotron-4-340b at 2 of 96). --ckpt DIR serves the newest
 checkpoint there (``launch.train --ckpt``, or the JAX trainer's: one
 format) instead of weights drawn from a seed; the flags that shape the
 model (--arch, --reduced, --layers) must match the trained ones.
@@ -135,7 +144,8 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="olmo-1b, nemotron-4-15b, stablelm-12b, rwkv6-3b or "
+                    help="olmo-1b, nemotron-4-15b, nemotron-4-340b, stablelm-12b, "
+                         "mixtral-8x22b, llama4-maverick-400b-a17b, rwkv6-3b or "
                          "recurrentgemma-9b (paligemma-3b and hubert-xlarge "
                          "are refused: the model API serves them)")
     ap.add_argument("--reduced", action="store_true")

@@ -25,6 +25,7 @@ from repro_torch.core.quantized_linear import PackedWeight, qmatmul
 # slices along its first dim (other values, the same law), each cast as
 # it is drawn, so a full-width init (one (32, 6144, 24576) leaf is 19.3
 # GB in float32) never holds more float32 than this beside its weights.
+# A first dim of 1 (a stack of one layer) is drawn as the leaf below it.
 DRAW_BYTES = 4 << 30
 
 
@@ -45,6 +46,9 @@ def normal_init(gen: torch.Generator, shape, std: float, dtype=torch.float32,
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
         return w.mul_(std).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=device)
+    if shape[0] == 1:           # one slice is the whole leaf: draw its rows
+        out[0] = normal_init(gen, shape[1:], std, dtype, device)
+        return out
     rows = max(1, DRAW_BYTES // (4 * (numel // shape[0])))
     for i in range(0, shape[0], rows):
         out[i:i + rows] = normal_init(gen, (min(rows, shape[0] - i), *shape[1:]), std,
@@ -242,17 +246,27 @@ def ffn_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     def lin(a, name):
         return linear(a, params[name], q, qm)
 
-    if cfg.ffn == "swiglu":
-        h = F.silu(lin(x, "w_gate")) * lin(x, "w_up")
-    elif cfg.ffn == "geglu":
-        h = F.gelu(lin(x, "w_gate"), approximate="tanh") * lin(x, "w_up")
+    if cfg.ffn in ("swiglu", "geglu"):
+        h = glu(cfg.ffn, lin(x, "w_gate"), lin(x, "w_up"))
     elif cfg.ffn == "relu2":
-        h = torch.square(torch.relu(lin(x, "w_up")))
+        h = relu2(lin(x, "w_up"))
     elif cfg.ffn == "gelu":
         h = F.gelu(lin(x, "w_up"), approximate="tanh")
     else:
         raise ValueError(cfg.ffn)
     return lin(h, "w_down")
+
+
+def glu(kind: str, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """A gated FFN's hidden rows: silu(gate) * up (swiglu) or tanh-gelu
+    (gate) * up (geglu), as JAX's dense and expert FFNs compute them."""
+    act = F.silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
+    return act * up
+
+
+def relu2(up: torch.Tensor) -> torch.Tensor:
+    """The squared-ReLU FFN's hidden rows."""
+    return torch.square(torch.relu(up))
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device=None):

@@ -1,17 +1,22 @@
 """build_model(cfg) — the model surface the serving stack drives.
 
-Port of ``repro.models.model_zoo`` for the families ``dense`` (olmo-1b,
-nemotron-4-15b, stablelm-12b), ``vlm`` (paligemma-3b) and ``encoder``
-(hubert-xlarge), all three through ``models.transformer``, ``ssm``
+Port of ``repro.models.model_zoo`` for every family of the JAX package:
+``dense`` (olmo-1b, nemotron-4-15b, nemotron-4-340b, stablelm-12b),
+``moe`` (mixtral-8x22b, llama4-maverick-400b-a17b), ``vlm``
+(paligemma-3b) and ``encoder`` (hubert-xlarge), all four through
+``models.transformer``, ``ssm``
 (rwkv6-3b) and ``hybrid`` (recurrentgemma-9b, Griffin): ``init(seed,
 device)``, ``prefill``, ``decode_step`` and ``init_cache``, and
-``train_loss`` (the transformer families; rwkv6 and Griffin raise until
-their recurrences have backward kernels); for the transformer also
+``train_loss`` (every family but ``moe``, whose aux loss and expert
+gradient are not ported); for the transformer also
 ``init_paged_cache`` and, behind the same eligibility gate as JAX (full
 attention, no MoE, token inputs: no ``vlm`` or ``encoder`` arch passes
 it), ``prefill_chunk``, ``prefill_suffix`` (the
 prefix cache's suffix-only prefill) and the speculative verify entries
-``prefill_chunk_logits`` and ``prefill_chunk_logits_multi``. RWKV-6
+``prefill_chunk_logits`` and ``prefill_chunk_logits_multi`` (an MoE
+arch's capacity-bounded routing is not reproducible per row, and
+mixtral's window keeps a ring, so neither gets them: they serve static
+or with solo whole-prompt admission). RWKV-6
 keeps a constant-size recurrent state and has neither, as in JAX; nor
 has Griffin, whose recurrent states and window-sized ring caches are
 constant-size too.
@@ -46,13 +51,11 @@ def build_model(cfg: ModelConfig) -> SimpleNamespace:
         mod = rwkv6
     elif cfg.family == "hybrid":
         mod = griffin
-    elif cfg.family in ("dense", "vlm", "encoder"):
+    elif cfg.family in ("dense", "moe", "vlm", "encoder"):
         mod = transformer
     else:
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                         "(the port serves the dense transformers olmo-1b, "
-                         "nemotron-4-15b and stablelm-12b, paligemma-3b, "
-                         "hubert-xlarge, rwkv6-3b and recurrentgemma-9b)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (the port runs "
+                         "dense, moe, vlm, encoder, ssm and hybrid)")
     ns = SimpleNamespace(
         cfg=cfg,
         init=lambda seed=0, device=None: mod.init_params(cfg, seed, device),

@@ -3,9 +3,12 @@ whole-prompt, chunked and suffix-only prefill, and the decode step on the
 contiguous cache or the paged pool.
 
 Port of ``repro.models.transformer`` for the dense
-decoders, the VLM (paligemma-3b: a patch-embedding stub before the text,
-prefix-LM attention) and the encoder (hubert-xlarge: a frame-embedding
-stub, bidirectional attention). Params
+decoders, the MoE decoders (mixtral-8x22b, llama4-maverick: the FFN is
+``models.moe``'s capacity-bounded expert layer; mixtral's sliding window
+keeps a window-sized ring cache), the VLM (paligemma-3b: a
+patch-embedding stub before the text, prefix-LM attention) and the
+encoder (hubert-xlarge: a frame-embedding stub, bidirectional
+attention). Params
 are a nested dict of stacked ``(L, …)`` tensors with the JAX key names
 (``embed``, ``blocks/wq``, ``blocks/ffn/w_up``, ``final_norm``, …); a
 Python loop over layers replaces ``lax.scan``. Attention runs the
@@ -15,16 +18,20 @@ hit (``prefill_suffix``), ``paged_prefill`` for every chunk of a prompt
 and every speculative verify window (``prefill_chunk_logits[_multi]``),
 ``paged_attention`` for a paged decode step and ``decode_attention`` for
 a contiguous one (the paged decode kernel over
-each row's own slots; the JAX package computes it outside any Pallas
-kernel, and ``common.decode_attention`` is its plain version). The four
-kernels share one tile routine, so every path sums in one order.
+each row's own slots, or its ring entry under a window; the JAX package
+computes it outside any Pallas kernel, and ``common.decode_attention`` is
+its plain version). The four kernels share one tile routine, so every
+path sums in one order. A windowed model's whole-prompt prefill packs
+its K/V into a ring of ``attn_window`` slots (``kv_cache.ring_align``);
+it has no paged pool, as in JAX.
 
 Training (``train_loss``) runs ``forward_hidden`` under autograd: the
 flash kernel and ``dense_matmul`` carry their gradients
 (``ops.flash_attention``'s backward is the ``flash_attention_bwd``
 kernel), a QuantConfig on the config fake-quantizes every block
 projection with the straight-through gradient, and ``cfg.remat``
-checkpoints each block.
+checkpoints each block. MoE training (the aux loss, the expert product's
+gradient) is not ported: ``train_loss`` refuses an MoE config.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantized_linear import PackedWeight
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
+from repro_torch.models import moe
 from repro_torch.models.kv_cache import (
     DecodeCache,
     KVCache,
@@ -45,6 +53,7 @@ from repro_torch.models.kv_cache import (
     full_slot_pos,
     paged_cache_write,
     quantize_kv,
+    ring_align,
     row_write,
     write_slot,
 )
@@ -58,12 +67,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.moe_experts or cfg.attn_window
-            or cfg.family not in ("dense", "vlm", "encoder")):
-        raise ValueError(f"{cfg.name}: the port's transformer serves full-attention "
-                         "dense, VLM and encoder models only (MoE and sliding "
-                         "windows come later)")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "encoder"):
+        raise ValueError(f"{cfg.name}: the transformer serves the dense, MoE, VLM and "
+                         f"encoder families, not {cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -71,7 +78,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     unless named): the JAX tree's layout and scales (N(0, 1/d_in)
     projections, N(0, 0.02²) embedding); the numbers differ from JAX's
     PRNG — tests carry JAX weights across with ``repro_torch.convert``."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     gen = cm.generator(dev, seed)
     d, hd, L, dt = cfg.d_model, cfg.head_dim, cfg.num_layers, _dtype(cfg)
@@ -82,8 +89,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         "wk": cm.dense_init(gen, d, cfg.n_kv_heads * hd, dt, dev, L),
         "wv": cm.dense_init(gen, d, cfg.n_kv_heads * hd, dt, dev, L),
         "wo": cm.dense_init(gen, cfg.n_heads * hd, d, dt, dev, L),
-        "ffn": cm.ffn_init(gen, cfg, d, cfg.d_ff, dt, dev, L),
     }
+    if cfg.moe_experts:
+        blocks["moe"] = moe.init_moe(gen, cfg, dt, dev, L)
+    else:
+        blocks["ffn"] = cm.ffn_init(gen, cfg, d, cfg.d_ff, dt, dev, L)
     if cfg.qk_norm:
         blocks["q_norm"] = torch.zeros((L, hd), dtype=dt, device=dev)
         blocks["k_norm"] = torch.zeros((L, hd), dtype=dt, device=dev)
@@ -149,10 +159,14 @@ def _attention_qkv(p, cfg: ModelConfig, x, positions):
 
 
 def _block_post_attn(p: dict, cfg: ModelConfig, x, attn):
-    """Output projection + FFN residual, shared by prefill and decode."""
+    """Output projection + FFN (or MoE) residual, shared by prefill and
+    decode. The MoE layer's aux loss is discarded, as JAX's serving
+    paths discard it."""
     attn = attn.reshape(*x.shape[:2], cfg.n_heads * cfg.head_dim)
     x = x + cm.linear(attn, p["wo"], *cm.quant_mode(cfg))
     h2 = cm.apply_norm(x, p["ln2"], cfg.norm)
+    if cfg.moe_experts:
+        return x + moe.moe_apply(p["moe"], h2, cfg)[0]
     return x + cm.ffn_apply(p["ffn"], h2, cfg)
 
 
@@ -302,8 +316,12 @@ def train_loss(params, cfg: ModelConfig, batch):
     """Mean next-token cross-entropy (with z-loss) of a training batch →
     (loss, {"loss", "aux_loss"}), JAX's three branches: the encoder's
     per-frame ``labels``; the VLM's text positions after the patches; the
-    decoder's next token. A dense model has no auxiliary loss (MoE's is
-    not ported), so the total is the loss."""
+    decoder's next token. A dense model has no auxiliary loss, so the
+    total is the loss; an MoE config raises (its aux loss and the expert
+    product's gradient are not ported)."""
+    if cfg.moe_experts:
+        raise ValueError(f"{cfg.name}: MoE training is not ported (the router's aux "
+                         "loss and expert_matmul's gradient come later); serve it")
     batch = _on_device(batch, params["embed"].device)
     hidden = forward_hidden(params, cfg, batch)
     logits = compute_logits(params, cfg, hidden)
@@ -331,8 +349,12 @@ def prefill(params, cfg: ModelConfig, batch):
     prompt bucketed up to any length prefills bit-identically to an
     exact-length prefill (causal attention never looks at trailing pads,
     and neither the attention kernel nor the packed matmul lets a row
-    depend on the padded length). The cache carries DECODE_HEADROOM
-    empty slots for the tokens decoded next."""
+    depend on the padded length; an MoE layer's routing is
+    capacity-bounded over every row of the batch, pads included, as in
+    JAX, so there the padded length is part of the function). The cache
+    carries DECODE_HEADROOM empty slots for the tokens decoded next; a
+    windowed model's is a ring of ``attn_window`` slots holding each
+    row's last positions (``ring_align``)."""
     x, positions = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     dev = x.device
@@ -341,16 +363,17 @@ def prefill(params, cfg: ModelConfig, batch):
         lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
     x, (k_all, v_all) = _scan_blocks(params, cfg, x, positions, _mask_for(cfg),
                                      True, kv_quant_attn=cfg.kv_cache_quant)
-    if cfg.attn_window:
-        raise ValueError("ring-buffer (windowed) caches are not ported yet")
-    zk = torch.zeros((*k_all.shape[:2], DECODE_HEADROOM, *k_all.shape[3:]),
-                     dtype=k_all.dtype, device=dev)
-    k_all = torch.cat([k_all, zk], dim=2)
-    v_all = torch.cat([v_all, zk], dim=2)
     length = (torch.full((B,), S, dtype=torch.int32, device=dev)
               if lengths is None else lengths)
-    slot_pos = full_slot_pos(cfg.num_layers, B, S + DECODE_HEADROOM, length,
-                             device=dev)
+    if cfg.attn_window:
+        k_all, v_all, slot_pos = ring_align(k_all, v_all, lengths, cfg.attn_window)
+    else:
+        zk = torch.zeros((*k_all.shape[:2], DECODE_HEADROOM, *k_all.shape[3:]),
+                         dtype=k_all.dtype, device=dev)
+        k_all = torch.cat([k_all, zk], dim=2)
+        v_all = torch.cat([v_all, zk], dim=2)
+        slot_pos = full_slot_pos(cfg.num_layers, B, S + DECODE_HEADROOM, length,
+                                 device=dev)
     if cfg.kv_cache_quant:
         k_all, k_scale = quantize_kv(k_all)
         v_all, v_scale = quantize_kv(v_all)
@@ -358,7 +381,7 @@ def prefill(params, cfg: ModelConfig, batch):
         k_all, v_all = k_all.to(_dtype(cfg)), v_all.to(_dtype(cfg))
         k_scale = v_scale = None
     kvc = KVCache(k=k_all, v=v_all, slot_pos=slot_pos, length=length.clone(),
-                  k_scale=k_scale, v_scale=v_scale)
+                  k_scale=k_scale, v_scale=v_scale, window=cfg.attn_window)
     hidden = cm.apply_norm(cm.last_token_slice(x, lengths),
                            params["final_norm"], cfg.norm)
     logits = compute_logits(params, cfg, hidden)
@@ -584,8 +607,9 @@ def decode_step(params, cfg: ModelConfig, cache: DecodeCache,
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device=None) -> DecodeCache:
     """Empty contiguous cache on `device` (CUDA unless named) for decoding
-    after `seq_len` tokens of context (+ DECODE_HEADROOM slots); an int8
-    cache with scale planes when cfg.kv_cache_quant."""
+    after `seq_len` tokens of context (+ DECODE_HEADROOM slots), a ring of
+    ``attn_window`` slots under a window; an int8 cache with scale planes
+    when cfg.kv_cache_quant."""
     device = resolve_device(device)
     kvc = KVCache.init(cfg.num_layers, batch, seq_len + DECODE_HEADROOM,
                        cfg.n_kv_heads, cfg.head_dim, window=cfg.attn_window,

@@ -106,7 +106,7 @@ def test_every_op_takes_backend():
               if inspect.isfunction(f) and f.__module__ == ops.__name__
               and not name.startswith("_") and name not in ("launch_counts",
                                                               "reset_launch_counts")]
-    assert len(public) == 16       # rglru_scan and rglru_step included
+    assert len(public) == 17       # rglru_scan, rglru_step and expert_matmul included
     for f in public:
         p = inspect.signature(f).parameters.get("backend")
         assert p is not None and p.default is None, f.__name__

@@ -66,15 +66,20 @@
    q_offset 0 and 16) and bidirectional (causal = 0) at MHA 16/16, H 80,
    in bf16 and float32, its rows bitwise independent of padding and of
    the 64-row block they share. At the MoE family's shapes
-   (``moe_kernel_checks``): ``expert_matmul`` (EXPERT_CASES: mixtral's
-   decode, 8 experts at 6144 -> 16384 and 16384 -> 6144, its static
-   prefill at capacity 400 at both widths (the wide tiles with one K
-   slice and with two), llama4's decode, 4 rows in 4 of 128 experts
-   at 5120 -> 8192) within 2e-2 of its plain version, every kept row
-   bitwise ``dense_matmul`` of that row alone, rows past an expert's
-   count zero with NaN in their buffer rows, timed beside its bound, the
-   plain version, ``torch.bmm`` over the whole buffer and the call with
-   every expert full; the ring entry at mixtral's decode (B 4, window
+   (``check_expert_matmul``, ``moe_kernel_checks``): ``expert_matmul``
+   (EXPERT_CASES: mixtral's decode, 8 experts at 6144 -> 16384 and
+   16384 -> 6144, its static prefill at capacity 400 at both widths (two
+   consumer warpgroups with one K slice and with two), llama4's decode,
+   4 rows in 4 of 128 experts at 5120 -> 8192, and its prefill, 1 280
+   rows over all 128 at capacity 16) within 2e-2 of its plain version,
+   every kept row bitwise ``dense_matmul`` of that row alone, sampled
+   rows alone at capacity 8 (and 16) bitwise their rows in the full
+   buffer, every count 0 all zeros, rows
+   past an expert's count zero with NaN in their buffer rows, timed
+   beside its bound, the plain version, ``torch.bmm`` over the whole
+   buffer and the call with every expert full; its SASS holds HGMMA and
+   UTMALDG, no HMMA and no atomic, and its ptxas log no note that
+   serializes wgmma (C7517, C7518); the ring entry at mixtral's decode (B 4, window
    4096, NQ 48 / NKV 8, H 128) in bf16 and int8 and windowed flash over a
    4200-token prompt within 2e-2, timed; the fused kernel and the Table
    III leaf at nemotron-4-340b's FFN widths (K up to 73 728) bitwise
@@ -3795,14 +3800,16 @@ MIXTRAL, LLAMA4, NEMOTRON_340B = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
 # its 8 experts, at most 4 an expert; llama4 top-1: 4 of its 128 experts);
 # a static prefill of 4 x 320 tokens gives mixtral's 8 experts 2 560
 # assignments for a capacity of 400 rows each (the first expert takes 500
-# of them here, so its last 100 drop). The four cover the kernel's four
-# variants: 64-row strips (cap <= 64) and 128 x 128 wide tiles, each with
-# one K slice (S = 1: the gates) and with S > 1 (the downs; llama4's gate).
+# of them here, so its last 100 drop), and llama4's 128 experts 1 280 for
+# a capacity of 16. They cover the kernel's plans: one consumer warpgroup
+# (cap <= 64) and two, each with one K slice (S = 1: mixtral's gate) and
+# with S > 1 (the downs; llama4's gate).
 EXPERT_CASES = (("mixtral_decode_gate", 8, 4, 2, 6144, 16384),
                 ("mixtral_decode_down", 8, 4, 2, 16384, 6144),
                 ("mixtral_prefill_gate", 8, 1280, 2, 6144, 16384),
                 ("mixtral_prefill_down", 8, 1280, 2, 16384, 6144),
-                ("llama4_decode_gate", 128, 4, 1, 5120, 8192))
+                ("llama4_decode_gate", 128, 4, 1, 5120, 8192),
+                ("llama4_prefill_gate", 128, 1280, 1, 5120, 8192))
 
 
 def _expert_counts(torch, gen, E, rows, k, skew):
@@ -3819,25 +3826,74 @@ def _expert_counts(torch, gen, E, rows, k, skew):
     return torch.bincount(picks.reshape(-1), minlength=E).to(torch.int32)
 
 
+def _bf16_ulps(torch, a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (their bit patterns as ordered integers)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _sampled_rows(kept, bm):
+    """Per expert, the first, a middle and the last kept row of each of
+    its live bm-row tiles."""
+    out = []
+    for c in kept:
+        rows = set()
+        for r0 in range(0, c, bm):
+            r1 = min(r0 + bm, c) - 1
+            rows.update((r0, (r0 + r1) // 2, r1))
+        out.append(sorted(rows))
+    return out
+
+
+def _alone(torch, expert_matmul, xe, w, picks, cap):
+    """Each picked row (expert e: rows picks[e]) recomputed alone in a
+    buffer of capacity `cap`: one launch a round, each expert's round-j row
+    at slot 0 with count 1, NaN in every other slot. Returns {(e, r): row}."""
+    E, _, K = xe.shape
+    out = {}
+    for j in range(max(len(p) for p in picks)):
+        buf = torch.full((E, cap, K), float("nan"), dtype=xe.dtype, device=xe.device)
+        counts = torch.zeros(E, dtype=torch.int32)
+        for e, p in enumerate(picks):
+            if j < len(p):
+                buf[e, 0] = xe[e, p[j]]
+                counts[e] = 1
+        y = expert_matmul.launch(buf, w, counts.to(xe.device))
+        for e, p in enumerate(picks):
+            if j < len(p):
+                out[(e, p[j])] = y[e, 0]
+    return out
+
+
 def check_expert_matmul(torch, dev, timer):
     """The grouped expert kernel at the shapes of EXPERT_CASES: within
-    atol = rtol = 2e-2 of its plain version ``ref.expert_matmul_ref``; every
-    kept row (r < min(count, cap)) bitwise ``dense_matmul`` of that row
-    alone against its expert (decode: every row; prefill: each expert's
-    kept rows in one product and its first and last row alone), with NaN
-    in every buffer row past the count; those rows' outputs exactly zero.
-    Times each case (CUDA events, L2 flushed) beside its bound (the
-    touched experts' weights, the kept rows and the whole output, or the
-    kept rows' operations), its plain version, ``torch.bmm`` over the
-    whole buffer (the library call) and the kernel with every expert full
-    (``all_full_ms``: what skipping saves). Returns the llama4 decode case
+    atol = rtol = 2e-2 of its plain version ``ref.expert_matmul_ref``, with
+    NaN in every buffer row past the count and those rows' outputs
+    exactly zero; every count 0 gives all zeros. One bit pattern at every
+    capacity: the first, a middle and the last kept row of every live
+    tile, each recomputed alone at cap 8 (and llama4's prefill rows at
+    cap 16 too), bitwise the row in its full buffer. Every kept row
+    bitwise ``dense_matmul`` of the expert's kept rows and of the row
+    alone (decode: every row; prefill: each expert's first and last):
+    ``wgmma``'s k16 step rounds as ``mma.sync``'s (``dense_bits`` counts
+    the elements compared, those that differ and the largest gap in
+    ulps, for the record). Times each case (CUDA events, L2
+    flushed) beside its bound (the touched experts' weights, the kept
+    rows and the whole output, or the kept rows' operations), its plain
+    version, ``torch.bmm`` over the whole buffer (the library call) and
+    the kernel with every expert full (``all_full_ms``: what skipping
+    saves); each entry holds ``schedule()``. Returns the llama4 decode case
     with every case under ``entries``."""
     from repro_torch.kernels import dense_matmul, expert_matmul, ref
     from repro_torch.models.moe import capacity
 
     gen = torch.Generator(device=dev).manual_seed(32)
     cpu_gen = torch.Generator().manual_seed(32)
-    entries, worst, bitwise_rows = {}, 0.0, 0
+    entries, worst, cross_rows = {}, 0.0, 0
+    dense_total = {"elements": 0, "differ": 0, "max_ulps": 0}
     for name, E, rows, k, K, N in EXPERT_CASES:
         cap = capacity(rows, k, E, 1.25)
         counts = _expert_counts(torch, cpu_gen, E, rows, k, skew=rows > 64).to(dev)
@@ -3855,22 +3911,44 @@ def check_expert_matmul(torch, dev, timer):
         worst = max(worst, _close(torch, got, want, what))
         if (got[~live] != 0).any():
             raise AssertionError(f"{what}: rows past the count are not zero")
-        for e, c in enumerate(kept.tolist()):
+        kept_l = kept.tolist()
+        # Against dense_matmul: the expert's kept rows in one product, and
+        # each row alone (decode), or its first and last row alone.
+        differ, ulps, n_el = 0, 0, 0
+        for e, c in enumerate(kept_l):
             if not c:
                 continue
-            block = dense_matmul.launch(xe[e, :c], w[e])
             alone = range(c) if c <= 8 else (0, c - 1)
-            rows_alone = [dense_matmul.launch(xe[e, r:r + 1], w[e]) for r in alone]
-            torch.cuda.synchronize()
-            if not torch.equal(got[e, :c], block) or not all(
-                    torch.equal(got[e, r:r + 1], y) for r, y in zip(alone, rows_alone)):
-                raise AssertionError(f"{what}: expert {e}'s kept rows are not bitwise "
-                                     "dense_matmul's")
-            bitwise_rows += c
+            outs = [(got[e, :c], dense_matmul.launch(xe[e, :c], w[e]))]
+            outs += [(got[e, r:r + 1], dense_matmul.launch(xe[e, r:r + 1], w[e]))
+                     for r in alone]
+            for g, d in outs:
+                gap = _bf16_ulps(torch, g, d)
+                differ += int((gap > 0).sum())
+                ulps = max(ulps, int(gap.max()))
+                n_el += g.numel()
+        if differ:
+            raise AssertionError(f"{what}: {differ} kept-row elements are not bitwise "
+                                 f"dense_matmul's (up to {ulps} ulps)")
+        for key, v in (("elements", n_el), ("differ", differ)):
+            dense_total[key] += v
+        dense_total["max_ulps"] = max(dense_total["max_ulps"], ulps)
+        # One bit pattern at every capacity: sampled rows alone at cap 8
+        # (and 16).
+        bm = expert_matmul.launch_plan(cap, K, N)[2]
+        picks = _sampled_rows(kept_l, bm)
+        caps = (8, 16) if cap == 16 else (8,) if cap > 8 else ()
+        for small in caps:
+            for (e, r), row in _alone(torch, expert_matmul, xe, w, picks, small).items():
+                if not torch.equal(row, got[e, r]):
+                    raise AssertionError(f"{what}: expert {e}'s row {r} alone at cap "
+                                         f"{small} is not bitwise the row at cap {cap}")
+                cross_rows += 1
         full = torch.full_like(counts, cap)
         n_kept, touched = int(kept.sum()), int((kept > 0).sum())
         b_ms, b_by = bound_ms(2 * (n_kept * K + touched * K * N + E * cap * N),
                               2 * n_kept * K * N, BF16_FLOPS_PER_S)
+        sch = expert_matmul.schedule(E, cap, K, N)
         entries[name] = {
             "ms": timer(lambda: expert_matmul.launch(xe, w, counts)),
             "all_full_ms": timer(lambda: expert_matmul.launch(xe, w, full)),
@@ -3878,13 +3956,30 @@ def check_expert_matmul(torch, dev, timer):
             "library_ms": timer(lambda: torch.bmm(xe, w)), "library": "torch.bmm, whole buffer",
             "bound_ms": b_ms, "bound_by": b_by, "touched_experts": touched,
             "kept_rows": n_kept, "plan": list(expert_matmul.launch_plan(cap, K, N)),
+            "schedule": sch._asdict(),
+            "dense_bits": {"elements": n_el, "differ": differ, "max_ulps": ulps},
             "shape": f"E={E} cap={cap} kept rows {n_kept} in {touched} experts {K}->{N} bf16"}
+        log(f"  expert_matmul {name}: schedule {sch._asdict()}, {entries[name]['ms']:.4g} "
+            f"ms; dense_matmul bits: {differ} of {n_el} elements differ, up to {ulps} ulps")
         del w, xe, got, want
+    # Every count 0: all zeros, no weight read.
+    E, _, _, K, N = EXPERT_CASES[0][1:]
+    xe = torch.full((E, 8, K), float("nan"), dtype=torch.bfloat16, device=dev)
+    w = torch.randn((E, K, N), generator=gen, device=dev, dtype=torch.bfloat16)
+    none = expert_matmul.launch(xe, w, torch.zeros(E, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    if none.count_nonzero():
+        raise AssertionError("expert_matmul: every count 0 but the output is not all zeros")
+    del xe, w, none
     log(f"expert_matmul: {len(EXPERT_CASES)} cases within atol=rtol={ATOL} of the plain "
-        f"version (max |err| {worst:.3g}); {bitwise_rows} kept rows bitwise dense_matmul's, "
-        "rows past the count zero with NaN in their buffer rows")
+        f"version (max |err| {worst:.3g}); rows past the count zero with NaN in their "
+        f"buffer rows; every count 0 all zeros; {cross_rows} rows alone at cap 8 / 16 "
+        f"bitwise their rows in the full buffers; kept rows against dense_matmul: "
+        f"{dense_total['differ']} of {dense_total['elements']} elements differ, up to "
+        f"{dense_total['max_ulps']} ulps")
     head = entries["llama4_decode_gate"]
-    return {**head, "max_abs_err": worst, "entries": entries}
+    return {**head, "max_abs_err": worst, "cross_capacity_rows": cross_rows,
+            "dense_bits": dense_total, "entries": entries}
 
 
 # Mixtral's ring decode rows (window 4096): wrapped once mid-window, just
@@ -4351,13 +4446,12 @@ def card_vs_cpu_moe(torch):
 
 
 def moe_kernel_checks(torch, dev, timer):
-    """The slice's kernel checks: ``expert_matmul``, mixtral's attention
-    shapes, and the fused kernel and Table III leaf at nemotron-4-340b's
-    FFN widths (``check_new_widths`` over NEMOTRON_340B_KN, timed at w_up,
-    M = 4). Returns {"expert_matmul": row, "attention": entries,
-    "fused_340b": check_new_widths' report}."""
-    return {"expert_matmul": check_expert_matmul(torch, dev, timer),
-            "attention": check_mixtral_attention(torch, dev, timer),
+    """The slice's kernel checks beside ``expert_matmul``'s (a phase of its
+    own): mixtral's attention shapes, and the fused kernel and Table III
+    leaf at nemotron-4-340b's FFN widths (``check_new_widths`` over
+    NEMOTRON_340B_KN, timed at w_up, M = 4). Returns {"attention":
+    entries, "fused_340b": check_new_widths' report}."""
+    return {"attention": check_mixtral_attention(torch, dev, timer),
             "fused_340b": check_new_widths(torch, dev, timer, NEMOTRON_340B_KN)}
 
 
@@ -6632,12 +6726,15 @@ def train_phase(torch, dev):
 
 def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6-static")):
     """`chip_smoke.py profile [run ...]`: one warm serve pass of the
-    stream above under torch.profiler, for each named run of SERVE_RUNS
-    (by default the static runs (a) Table III, (b) where every packed
-    leaf runs the fused kernel, and (e) rwkv6-3b). Prints device time by
-    kernel name and the device-busy share of each pass's wall time, and
-    writes the tables to profile.json under $CHIP_SMOKE_OUT. Not part of
-    the default run."""
+    stream above under torch.profiler, for each named run of RUNS (by
+    default the static runs (a) Table III, (b) where every packed leaf
+    runs the fused kernel, and (e) rwkv6-3b; MOE_RUNS' names serve at
+    DEPTH's layers). Prints device time by kernel name, the device-busy
+    share of each pass's wall time and ``expert_matmul``'s device time and
+    share of the busy time, and writes the tables to profile.json under
+    $CHIP_SMOKE_OUT. Not part of the default run."""
+    import gc
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -6659,16 +6756,25 @@ def profile_serve(torch, params_of, names=("a-static", "b-static-int8", "e-rwkv6
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
         busy = sum(r[1] for r in rows) / 1e6
+        expert = [r for r in rows if "expert_kernel" in r[0]]
+        expert_s = sum(r[1] for r in expert) / 1e6
         out[name] = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
                      "tokens": sum(len(r.out_tokens) for r in reqs),
                      "untimed_pass_tok_per_s": report["tok_per_s"],
+                     "expert_matmul": {"device_ms": expert_s * 1e3,
+                                       "calls": sum(r[2] for r in expert),
+                                       "share_of_busy": expert_s / busy if busy else 0.0},
                      "kernels": [{"name": k, "device_ms": us / 1e3, "calls": n}
                                  for k, us, n in rows[:40]]}
         log(f"profiled pass [{name}]: wall {wall:.2f}s, device busy {busy:.2f}s "
-            f"({busy / wall:.0%}), untimed pass {report['tok_per_s']:.1f} tok/s")
+            f"({busy / wall:.0%}), untimed pass {report['tok_per_s']:.1f} tok/s; "
+            f"expert_matmul {expert_s * 1e3:.2f} ms in {out[name]['expert_matmul']['calls']} "
+            f"calls ({out[name]['expert_matmul']['share_of_busy']:.1%} of the busy time)")
         for r in out[name]["kernels"][:20]:
             log(f"  {r['device_ms']:9.1f} ms  {r['calls']:6d}  {r['name'][:90]}")
-        del engine
+        del engine, prof
+        gc.collect()
+        torch.cuda.empty_cache()
     write_detail("profile.json", out)
 
 
@@ -6777,14 +6883,22 @@ def profile_train(torch, dev, arch="olmo-1b"):
     return out
 
 
-# Library → the tensor-core instruction its SASS must hold.
+# Library → the tensor-core instruction its SASS must hold (with the TMA
+# load where the kernel is fed by one).
 TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
                        "paged_prefill": "HMMA", "dense_matmul": "HMMA",
                        "bitplane_matmul": "IMMA", "fused_matmul": "IMMA",
-                       "flash_attention_bwd": "HMMA"}
+                       "flash_attention_bwd": "HMMA", "expert_matmul": ("HGMMA", "UTMALDG")}
+# Libraries whose products run on wgmma alone: no HMMA in their SASS.
+WGMMA_ONLY = ("expert_matmul",)
+# ptxas notes that undo wgmma's overlap: C7518, every wgmma serialized for
+# a wait the compiler put on a divergent path (it cost expert_matmul 5-20 %
+# at prefill on the H100); C7517, a wait the compiler injected before the
+# accumulators are read. No WGMMA_ONLY library may build with either.
+WGMMA_NOTES = ("C7517", "C7518")
 # Libraries whose SASS must hold no atomic (ATOM, RED): their sums run in
 # an order fixed by the shapes.
-NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd")
+NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul")
 
 
 def _sass(paths, name):
@@ -6805,21 +6919,41 @@ def no_atomics(paths, names):
             raise AssertionError(f"{name}: atomics in its SASS: {atomics[:3]}")
 
 
+def wgmma_notes(logs):
+    """Raise if the ptxas log of a WGMMA_ONLY library (`logs`: name → the
+    log of its build in this process) holds a WGMMA_NOTES note. Returns
+    the libraries whose logs were read: one built before this process left
+    none."""
+    read = [name for name in WGMMA_ONLY if name in logs]
+    for name in read:
+        notes = [line.strip() for line in logs[name].splitlines()
+                 if any(code in line for code in WGMMA_NOTES)]
+        if notes:
+            raise AssertionError(f"{name}: ptxas serialized or waited on its wgmma: {notes[:3]}")
+    return read
+
+
 def count_hmma(paths):
     """The bf16 attention tile, the flash backward's bf16 route and
     dense_matmul run on the bf16 tensor cores, bitplane_matmul and the
-    fused matmul on the int8 ones: the SASS of their libraries
-    (``cuobjdump -sass``) must hold HMMA (IMMA) instructions; the
-    backward kernels' (flash, wkv6, RG-LRU) must hold none that is atomic.
-    Returns library → count."""
+    fused matmul on the int8 ones, expert_matmul on wgmma fed by TMA: the
+    SASS of their libraries (``cuobjdump -sass``) must hold HMMA (IMMA;
+    HGMMA and UTMALDG, and no HMMA) instructions; the backward kernels'
+    (flash, wkv6, RG-LRU) and expert_matmul's must hold none that is
+    atomic. Returns library → count of each instruction."""
     counts = {}
-    for name, op in TENSOR_CORE_KERNELS.items():
-        counts[name] = sum(op in line for line in _sass(paths, name))
-        if counts[name] == 0:
-            raise AssertionError(f"{name}: no {op} instruction in its SASS")
+    for name, ops_ in TENSOR_CORE_KERNELS.items():
+        sass = _sass(paths, name)
+        for op in (ops_,) if isinstance(ops_, str) else ops_:
+            n = sum(op in line for line in sass)
+            counts[name if isinstance(ops_, str) else f"{name} {op}"] = n
+            if n == 0:
+                raise AssertionError(f"{name}: no {op} instruction in its SASS")
+        if name in WGMMA_ONLY and any("HMMA" in line for line in sass):
+            raise AssertionError(f"{name}: HMMA in its SASS, which should hold wgmma only")
     no_atomics(paths, NO_ATOMICS)
-    log(f"tensor cores: HMMA / IMMA instructions in the SASS of {counts}; no atomics in "
-        f"{', '.join(NO_ATOMICS)}'s")
+    log(f"tensor cores: HMMA / IMMA / HGMMA / UTMALDG instructions in the SASS of {counts}; "
+        f"no HMMA in {', '.join(WGMMA_ONLY)}'s; no atomics in {', '.join(NO_ATOMICS)}'s")
     return counts
 
 
@@ -6862,6 +6996,20 @@ class Run:
             self.params[arch] = build_model(serve_config(arch)).init(seed=0, device=self.dev)
         return self.params[arch]
 
+    def params_one_arch(self, name):
+        """``params_of(name)``, the other archs' weights dropped first (the
+        MoE archs' do not fit the card together)."""
+        import gc
+
+        from repro_torch.launch import serve
+
+        arch = serve.build_parser().parse_args(serve_argv(name)).arch
+        for other in [a for a in self.params if a != arch]:
+            del self.params[other]
+        gc.collect()
+        self.torch.cuda.empty_cache()
+        return self.params_of(name)
+
     def add(self, counts):
         """A serve phase's launch counts, added to ``counts``."""
         for k, n in counts.items():
@@ -6897,9 +7045,12 @@ def phase_build(r):
         + ", ".join(str(p) for p in paths.values()))
     for name, text in build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or (name.endswith("_bwd")
-                                                          and "smem" in line):
+            if "registers" in line or "spill" in line or "Performance Loss" in line or (
+                    name.endswith("_bwd") and "smem" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+    read = wgmma_notes(build.build_logs)
+    log(f"ptxas notes {', '.join(WGMMA_NOTES)}: none in the build logs of {read or 'no library'}"
+        f" (a library built before this run leaves no log)")
     r.detail["hmma_in_sass"] = count_hmma(paths)
     one = r.torch.zeros(1, device=r.dev)
     r.detail["timer_floor_ms"] = r.timer(lambda: one.zero_())
@@ -6939,7 +7090,6 @@ def phase_new_widths(r):
 
 def phase_moe_kernels(r):
     kern = moe_kernel_checks(*r.kit)
-    r.results["expert_matmul"] = kern["expert_matmul"]
     r.entry("fused_quantize_matmul", "decode_nemotron340b_w_up", kern["fused_340b"]["entry"])
     for what, e in kern["attention"].items():
         r.entry("paged_attention" if what.startswith("ring") else "flash_attention", what, e,
@@ -7124,6 +7274,7 @@ PHASES = (
         head_dims_max_err=check_head_dims(r.torch, r.dev))),
     ("one_order", lambda r: check_one_order(r.torch, r.dev)),
     ("new_widths", phase_new_widths),
+    ("expert", _row("expert_matmul", check_expert_matmul)),
     ("moe_kernels", phase_moe_kernels),
     ("log_rows", phase_log_rows),
     ("new_archs", phase_new_archs),
@@ -7167,9 +7318,10 @@ MODES = {
     "kernels": ("build", "fused", "paged_attention", "paged_prefill", "quantize_rows",
                 "bitplane", "flash", "wkv6", "rglru", "ring", "frontend_flash",
                 "windowed_flash", "mixed_group", "table3_launches", "dense", "norm_rows",
-                "head_dims", "one_order", "new_widths", "moe_kernels", "log_rows"),
-    "moe": ("build", "dense", "head_dims", "moe_kernels", "log_rows", "moe_archs",
+                "head_dims", "one_order", "new_widths", "expert", "moe_kernels", "log_rows"),
+    "moe": ("build", "dense", "head_dims", "expert", "moe_kernels", "log_rows", "moe_archs",
             "card_vs_cpu_archs", "card_vs_cpu_moe"),
+    "expert": ("build", "expert", "log_rows"),
     "archs": ("build", "head_dims", "one_order", "new_widths", "log_rows", "new_archs",
               "registry", "card_vs_cpu_archs"),
     "griffin": ("build", "paged_attention", "rglru", "ring", "windowed_flash", "dense",
@@ -7218,7 +7370,11 @@ def main() -> int:
         return 3
     if mode == "profile":
         r = Run(torch, dev)
-        profile_serve(torch, r.params_of, *([rest] if rest else []))
+        unknown = [n for n in rest if n not in RUNS]
+        if unknown:
+            print(f"profile: unknown runs {unknown}", file=sys.stderr)
+            return 2
+        profile_serve(torch, r.params_one_arch, *([rest] if rest else []))
         return 3
     if mode == "profile-train":
         archs = rest or ["olmo-1b"]

@@ -1,6 +1,8 @@
 // mbarriers, TMA tensor copies and their tensor maps, shared by the RG-LRU
-// kernels (rglru.cu, rglru_bwd.cu): a (B, T, W) tensor streamed in boxes
-// of (channels, positions) of one row.
+// kernels (rglru.cu, rglru_bwd.cu: a (B, T, W) tensor streamed in boxes of
+// (channels, positions) of one row) and expert_matmul.cu (an expert's
+// (cap, K) rows and (K, N) weights, boxes of one expert, 128-byte swizzle;
+// 4-D maps that cut the contiguous dimension in 64-wide chunks).
 #pragma once
 
 #include <cuda.h>
@@ -64,6 +66,16 @@ __device__ __forceinline__ void load(void* dst, const CUtensorMap* map, int c, i
       "r"(b), "r"(smem_u32(bar))
       : "memory");
 }
+// The box of the 4-D `map` at (c0, c1, c2, c3) into shared memory, counted
+// on `bar`.
+__device__ __forceinline__ void load4(void* dst, const CUtensorMap* map, int c0, int c1,
+                                      int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)), "l"(map), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
 // Shared memory to the box of `map` at (c, t, b) (rows past the tensor's
 // end are dropped), in the current bulk group.
 __device__ __forceinline__ void store(const CUtensorMap* map, const void* src, int c, int t,
@@ -101,9 +113,10 @@ inline EncodeTiled encoder() {
 }
 
 // A (B, T, W) tensor of `es`-byte elements, boxes of C channels x `rows`
-// positions of one row.
+// positions of one row, laid out in shared memory by `swizzle`.
 inline bool tensor_map(CUtensorMap* map, const void* p, CUtensorMapDataType type, int es, int B,
-                       int T, int W, int C, int rows) {
+                       int T, int W, int C, int rows,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)T, (cuuint64_t)B};
@@ -111,7 +124,25 @@ inline bool tensor_map(CUtensorMap* map, const void* p, CUtensorMapDataType type
   const cuuint32_t box[3] = {(cuuint32_t)C, (cuuint32_t)rows, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(map, type, 3, const_cast<void*>(p), dims, strides, box, step,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D map of bf16 elements: dims[0] contiguous, strides (bytes) of
+// dims 1-3, boxes of box[0..3], 128-byte swizzle; e.g. a (B, T, W) tensor
+// seen as (B, W / 64, T, 64), so that one box holds several 64-wide
+// column chunks of the same rows, chunk after chunk.
+inline bool tensor_map_4d(CUtensorMap* map, const void* p, const uint64_t (&dims)[4],
+                          const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), d, st, bx, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

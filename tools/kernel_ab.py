@@ -4,7 +4,7 @@ kernels of two checkouts on one GPU, in turns.
 
   python3 tools/kernel_ab.py <other checkout> [<this checkout>] [--only name,...]
 
-Builds ``bitplane_matmul``, ``dense_matmul``, ``fused_matmul``,
+Builds ``bitplane_matmul``, ``dense_matmul``, ``expert_matmul``, ``fused_matmul``,
 ``quantize_rows``, ``wkv6``, ``rglru``, ``flash_attention`` and
 ``flash_attention_bwd`` from each checkout's
 ``src/repro_torch/kernels/csrc`` and times them at the serving path's
@@ -22,7 +22,10 @@ launch under torch.profiler; ``rglru_bwd`` at Griffin's training shape
 each beside a device-to-device copy of its bytes; the ``wkv6`` and the
 two backward kernels' rows with a sha256 of every output; ``quantize_rows`` and
 the Table III leaf through ``ops``, so a checkout whose quantizer reads
-float32 only pays its cast of bfloat16 rows), in four processes on the same
+float32 only pays its cast of bfloat16 rows; ``expert_matmul`` at
+chip_smoke's EXPERT_CASES, NaN in the buffer rows past each count; the
+``dense_matmul`` and ``expert_matmul`` rows with a sha256 of their
+output), in four processes on the same
 card: other, this, this, other (two runs each, so the spread between a
 version's two runs shows beside the difference between versions; the
 digests of all four runs print after the times). Each
@@ -69,13 +72,23 @@ SHAPES += [("wkv6_bwd", B, 512, 40, 64) for B in (8, 1)]
 # with carried h0, and one row.
 SHAPES += [("rglru_bwd", 8, 512, 4096, False), ("rglru_bwd", 8, 512, 4096, True),
            ("rglru_bwd", 1, 512, 4096, False)]
+# (expert_matmul, (E, rows, top-k), K, N, case): chip_smoke's EXPERT_CASES,
+# mixtral's and llama4's expert products at decode and prefill.
+SHAPES += [("expert_matmul", (E, rows, k), K, N, case) for case, E, rows, k, K, N in (
+    ("mixtral_decode_gate", 8, 4, 2, 6144, 16384),
+    ("mixtral_decode_down", 8, 4, 2, 16384, 6144),
+    ("mixtral_prefill_gate", 8, 1280, 2, 6144, 16384),
+    ("mixtral_prefill_down", 8, 1280, 2, 16384, 6144),
+    ("llama4_decode_gate", 128, 4, 1, 5120, 8192),
+    ("llama4_prefill_gate", 128, 1280, 1, 5120, 8192))]
 # The kernels each SHAPES entry builds (--only takes the entries' names).
 BUILDS = {"bitplane_matmul": ("bitplane_matmul",), "fused_matmul": ("fused_matmul",),
           "dense_matmul": ("dense_matmul",), "wkv6": ("wkv6",),
           "quantize_rows": ("quantize_rows",),
           "table3": ("quantize_rows", "bitplane_matmul", "fused_matmul"),
           "rglru": ("rglru",), "flash_bwd": ("flash_attention", "flash_attention_bwd"),
-          "wkv6_bwd": ("wkv6", "wkv6_bwd"), "rglru_bwd": ("rglru", "rglru_bwd")}
+          "wkv6_bwd": ("wkv6", "wkv6_bwd"), "rglru_bwd": ("rglru", "rglru_bwd"),
+          "expert_matmul": ("expert_matmul",)}
 
 
 def _digest(tensors):
@@ -97,13 +110,16 @@ def worker(root: str, only) -> None:
     from repro_torch.core.bitplane import pack_weights
     from repro_torch.core.quant import QuantConfig
     from repro_torch.core.quantized_linear import pack_weight
-    from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, flash_attention,
-                                     flash_attention_bwd, fused_matmul, ops, rglru, wkv6)
+    from repro_torch.kernels import (bitplane_matmul, build, dense_matmul, expert_matmul,
+                                     flash_attention, flash_attention_bwd, fused_matmul, ops,
+                                     rglru, wkv6)
+    from repro_torch.models.moe import capacity
 
     # chip_smoke puts this checkout's src first on sys.path: import it only
     # after the kernels of `root` are loaded.
     sys.path.insert(1, HERE)
-    from chip_smoke import WKV_BWD_LAUNCHES, Timer, copy_time, device_ms_by_group
+    from chip_smoke import (WKV_BWD_LAUNCHES, Timer, _expert_counts, copy_time,
+                            device_ms_by_group)
 
     if not build.__file__.startswith(os.path.join(root, "src")):
         raise RuntimeError(f"imported {build.__file__}, not the checkout {root}")
@@ -129,6 +145,22 @@ def worker(root: str, only) -> None:
             for part, ms in device_ms_by_group(torch, fn, WKV_BWD_LAUNCHES).items():
                 out[f"{key} [{part}, profiler]"] = ms
             sha[key] = _digest(fn())
+            continue
+        if name == "expert_matmul":
+            (E, rows, k), case = M, bits
+            cap = capacity(rows, k, E, 1.25)
+            counts = _expert_counts(torch, torch.Generator().manual_seed(i), E, rows, k,
+                                    skew=rows > 64).to(dev)
+            w = torch.randn((E, K, N), generator=gen, device=dev,
+                            dtype=torch.bfloat16) * K ** -0.5
+            xe = torch.randn((E, cap, K), generator=gen, device=dev, dtype=torch.bfloat16)
+            live = torch.arange(cap, device=dev)[None, :] < counts.clamp(max=cap)[:, None]
+            xe = torch.where(live[..., None], xe, torch.full_like(xe, float("nan")))
+            fn = lambda: expert_matmul.launch(xe, w, counts)  # noqa: E731
+            key = f"expert_matmul {case} E={E} cap={cap} {K}->{N}"
+            out[key] = timer(fn)
+            sha[key] = _digest([fn()])
+            del w, xe, fn
             continue
         if name == "rglru_bwd":
             B, T, W, carried = M, K, N, bits
@@ -207,6 +239,7 @@ def worker(root: str, only) -> None:
             w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
             x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
             fn = lambda: dense_matmul.launch(x, w)  # noqa: E731
+            sha[f"{name} M={M} {K}->{N} bf16"] = _digest([fn()])
         else:
             half = 1 << (bits - 1)
             codes = torch.randint(-half, half, (K, N), generator=gen, device=dev,

@@ -3,15 +3,16 @@
 
   python3 chip_smoke.py
 
-1. Builds the thirteen CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Builds the fourteen CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together): the seven ports of the
    Pallas kernels, ``dense_matmul`` (the batch-invariant bf16 product,
    with a float32 store for Griffin's gate projections), ``expert_matmul``
    (the MoE layers' grouped expert product on ``dense_matmul``'s block
    routine), ``rglru``
    (Griffin's gates and recurrence in one pass) and, for training,
-   ``flash_attention_bwd``, ``wkv6_bwd`` and ``rglru_bwd`` (the gradients
-   of flash attention and of the two recurrences).
+   ``flash_attention_bwd``, ``wkv6_bwd``, ``rglru_bwd`` and
+   ``expert_matmul_bwd`` (the gradients of flash attention, of the two
+   recurrences and of the grouped expert product).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it: integers (codes, accumulators,
    activation scales, int8 pool bytes, scale planes) bitwise; attention
@@ -303,12 +304,22 @@
    the restored step, its greedy tokens those of an in-process engine on
    the restored params; rwkv6-3b at full width, 2 layers, and the
    reduced recurrentgemma-9b restart bitwise the same way through
-   ``wkv6_bwd`` and ``rglru_bwd`` (``check_restart_recurrent``). No serve
-   run launches the backward.
+   ``wkv6_bwd`` and ``rglru_bwd`` (``check_restarts``). MoE training
+   (slice 23): ``expert_matmul_bwd``'s dX and dW within 2e-2 of max |g| of
+   the plain version at mixtral's and llama4's training shapes and a
+   sparse case, a repeat bitwise, NaN past the counts changing no bit
+   (``check_expert_backward``); a full-width bf16 mixtral MoE layer's
+   gradients on the kernels against the plain call
+   (``check_moe_layer_grads``); the reduced float32 mixtral-8x22b and
+   llama4-maverick in the card-vs-CPU training rows; mixtral-8x22b at
+   full width cut to MIXTRAL_TRAIN_LAYERS, QAT w4a8, 10 steps at
+   MIXTRAL_TRAIN_LR, its aux loss printed each step; the reduced bf16 mixtral's bitwise restart.
+   No serve run launches the backward.
 
 Prints ``dense_matmul``'s numbers as one JSON line, the kernel table
 (the seven ports of TPU kernels, then ``rglru``, ``flash_attention_bwd``,
-``wkv6_bwd``, ``rglru_bwd``, ``expert_matmul`` and ``dense_matmul``,
+``wkv6_bwd``, ``rglru_bwd``, ``expert_matmul``, ``expert_matmul_bwd`` and
+``dense_matmul``,
 which replace XLA code,
 with a ``note`` saying so; each row's headline
 times the entry the serve paths launch, so ``bitplane_matmul``'s is its
@@ -329,8 +340,8 @@ serve runs their comparisons need, and those). Three diagnostics exit 3
 too: ``profile [run ...]`` profiles one serve pass per run (see
 ``profile_serve``), ``paths`` measures how far the prefill paths'
 logits part (see ``paths_diagnostic``) and ``profile-train [arch ...]``
-breaks a training step of olmo-1b (the default), rwkv6-3b or
-recurrentgemma-9b down by part and by kernel group (see
+breaks a training step of olmo-1b (the default), rwkv6-3b,
+recurrentgemma-9b or mixtral-8x22b down by part and by kernel group (see
 ``profile_train``).
 """
 from __future__ import annotations
@@ -375,6 +386,7 @@ REPLACES = {
     "wkv6_bwd": "src/repro/models/rwkv6.py:40",
     "rglru_bwd": "src/repro/models/griffin.py:126",
     "expert_matmul": "src/repro/models/moe.py:41",
+    "expert_matmul_bwd": "src/repro/models/moe.py:44",
 }
 NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "rglru": "XLA _rglru_coeffs + associative_scan _rglru_scan (no Pallas "
@@ -386,7 +398,9 @@ NOT_PALLAS = {"dense_matmul": "XLA x @ w in linear (no Pallas kernel)",
               "rglru_bwd": "XLA autodiff of _rglru_coeffs + associative_scan (no "
                            "Pallas kernel)",
               "expert_matmul": "XLA einsum('ecd,edf->ecf') in _expert_ffn (no Pallas "
-                               "kernel)"}
+                               "kernel)",
+              "expert_matmul_bwd": "XLA autodiff of einsum('ecd,edf->ecf') in _expert_ffn "
+                                   "(no Pallas kernel)"}
 SOURCES = {
     "fused_quantize_matmul": "src/repro_torch/kernels/csrc/fused_matmul.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -401,6 +415,7 @@ SOURCES = {
     "wkv6_bwd": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
     "rglru_bwd": "src/repro_torch/kernels/csrc/rglru_bwd.cu",
     "expert_matmul": "src/repro_torch/kernels/csrc/expert_matmul.cu",
+    "expert_matmul_bwd": "src/repro_torch/kernels/csrc/expert_matmul_bwd.cu",
 }
 SHARED_PREFIX = 200
 TIERS = "w8a8,w4a8,w2a8"
@@ -6185,6 +6200,239 @@ def check_rglru_backward(torch, dev, timer):
                      "(W,) gradients)"}
 
 
+# -- training (slice 23): the MoE layers' gradient ------------------------------
+
+# check_expert_backward: tolerance relative to max |g| of the plain version
+# (float32 sums of the same bf16 operands, rounded once to bf16): the
+# kernel's wgmma sums in fp32 in another order, and its outputs round to
+# bf16 (2^-9 of an element).
+EXPERT_BWD_TOL = 2e-2
+# (name, E, tokens, top-k, K, N): the training shapes of 8 x 512 tokens
+# (mixtral's gate/up and down products; llama4's gate/up, at full width
+# alone, since its layer does not train on one card), and a sparse case:
+# 4 live experts of 128 at cap 8 (tokens None).
+EXPERT_BWD_CASES = (("mixtral_train_gate", 8, 4096, 2, 6144, 16384),
+                    ("mixtral_train_down", 8, 4096, 2, 16384, 6144),
+                    ("llama4_train_gate", 128, 4096, 1, 5120, 8192),
+                    ("llama4_sparse_4_live", 128, None, 1, 5120, 8192))
+# Experts a plain-version call takes at once (its float32 copies of W and
+# dW for 128 experts would not fit beside the bf16 ones).
+EXPERT_BWD_PLAIN_ELEMS = 1 << 28
+
+
+def _plain_expert_bwd(xe, w, dy, counts):
+    """``ref.expert_matmul_bwd_ref`` over slices of the experts (each at
+    most EXPERT_BWD_PLAIN_ELEMS of W): yields (slice, dx, dw) a slice."""
+    from repro_torch.kernels import ref
+
+    E, _, K = xe.shape
+    step = max(1, EXPERT_BWD_PLAIN_ELEMS // (K * w.shape[2]))
+    for i in range(0, E, step):
+        s = slice(i, i + step)
+        yield (s, *ref.expert_matmul_bwd_ref(xe[s], w[s], dy[s], counts[s]))
+
+
+def check_expert_backward(torch, dev, timer):
+    """The backward of the grouped expert product (``launch_dx``,
+    ``launch_dw``) at EXPERT_BWD_CASES: dX and dW within EXPERT_BWD_TOL of
+    max |g| of the plain version (``ref.expert_matmul_bwd_ref``, in slices
+    of experts); each launch repeated, bitwise; dX zero past each count and
+    dW zero for an expert with count 0; NaN in the rows of xe and dy past
+    the counts changes no bit of either (the mask is the kernel's own: the
+    first call's rows there hold random finite values). Times each case
+    (both launches, CUDA events, L2 flushed) beside its bound (the kept
+    rows, the touched experts' weights and both outputs, or the kept rows'
+    operations at the bf16 peak), the plain version and ``torch.bmm`` over
+    the whole buffer (both products: the library call), with the card.
+    Returns the mixtral gate case with every case under ``entries``."""
+    from repro_torch.kernels import expert_matmul
+    from repro_torch.models.moe import capacity
+
+    smi = nvidia_smi()
+    gen = torch.Generator(device=dev).manual_seed(35)
+    cpu_gen = torch.Generator().manual_seed(35)
+    entries, worst = {}, 0.0
+    w, w_key = None, None
+    for name, E, tokens, k, K, N in EXPERT_BWD_CASES:
+        if tokens is None:
+            cap = 8
+            counts = torch.zeros(E, dtype=torch.int32)
+            live_e = torch.randperm(E, generator=cpu_gen)[:4]
+            counts[live_e] = torch.tensor([8, 5, 1, 3], dtype=torch.int32)
+            counts = counts.to(dev)
+        else:
+            cap = capacity(tokens, k, E, 1.25)
+            counts = _expert_counts(torch, cpu_gen, E, tokens, k, skew=True).to(dev)
+        kept = counts.clamp(max=cap)
+        if w_key != (E, K, N):
+            w = None
+            w = torch.randn((E, K, N), generator=gen, device=dev,
+                            dtype=torch.bfloat16) * K ** -0.5
+            w_key = (E, K, N)
+        xe = torch.randn((E, cap, K), generator=gen, device=dev, dtype=torch.bfloat16)
+        dy = torch.randn((E, cap, N), generator=gen, device=dev, dtype=torch.bfloat16)
+        live = torch.arange(cap, device=dev)[None, :] < kept[:, None]
+        what = f"expert_matmul_bwd {name} E={E} cap={cap} {K}->{N}"
+        dx = expert_matmul.launch_dx(dy, w, counts)
+        dw = expert_matmul.launch_dw(xe, dy, counts)
+        again = (expert_matmul.launch_dx(dy, w, counts), expert_matmul.launch_dw(xe, dy, counts))
+        nan = torch.tensor(float("nan"), dtype=torch.bfloat16, device=dev)
+        xn, dn = (torch.where(live[..., None], t, nan) for t in (xe, dy))
+        masked = (expert_matmul.launch_dx(dn, w, counts), expert_matmul.launch_dw(xn, dn, counts))
+        del xn, dn
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+            raise AssertionError(f"{what}: a repeated launch is not bitwise the first")
+        if not (torch.equal(dx, masked[0]) and torch.equal(dw, masked[1])):
+            raise AssertionError(f"{what}: NaN in the rows past the counts changed dX or dW")
+        del again, masked
+        if (dx[~live] != 0).any():
+            raise AssertionError(f"{what}: dX rows past the count are not zero")
+        empty = (kept == 0).nonzero().flatten().tolist()
+        if any(dw[e].count_nonzero() for e in empty):
+            raise AssertionError(f"{what}: an expert with count 0 has a nonzero dW")
+        # max |kernel - plain| and max |plain| of each gradient, a slice of
+        # experts at a time.
+        diff, scale = {"dx": 0.0, "dw": 0.0}, {"dx": 0.0, "dw": 0.0}
+        for sl, rdx, rdw in _plain_expert_bwd(xe, w, dy, counts):
+            for g_name, got, want in (("dx", dx[sl], rdx), ("dw", dw[sl], rdw)):
+                want = want.float()
+                diff[g_name] = max(diff[g_name], (got.float() - want).abs().max().item())
+                scale[g_name] = max(scale[g_name], want.abs().max().item())
+        errs = {k: diff[k] / max(scale[k], 1e-30) for k in diff}
+        abs_err = max(diff.values())
+        for g_name, err in errs.items():
+            if not err <= EXPERT_BWD_TOL:
+                raise AssertionError(f"{what}: {g_name} max |err| {err:.3g} of max |g| beyond "
+                                     f"{EXPERT_BWD_TOL}")
+        worst = max(worst, *errs.values())
+        del dx, dw
+        n_kept, touched = int(kept.sum()), int((kept > 0).sum())
+        ops_ = 2 * 2 * n_kept * K * N
+        nbytes = 2 * (2 * n_kept * N + touched * K * N + E * cap * K     # dX
+                      + n_kept * K + E * K * N)                          # dW
+        b_ms, b_by = bound_ms(nbytes, ops_, BF16_FLOPS_PER_S)
+        sx = expert_matmul.schedule_dx(E, cap, K, N)
+        sw = expert_matmul.schedule_dw(E, cap, K, N)
+        entries[name] = {
+            "ms": timer(lambda: (expert_matmul.launch_dx(dy, w, counts),
+                                 expert_matmul.launch_dw(xe, dy, counts))),
+            "dx_ms": timer(lambda: expert_matmul.launch_dx(dy, w, counts)),
+            "dw_ms": timer(lambda: expert_matmul.launch_dw(xe, dy, counts)),
+            "plain_ms": timer(lambda: [None for _ in _plain_expert_bwd(xe, w, dy, counts)],
+                              iters=5),
+            "library_ms": timer(lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                         torch.bmm(xe.transpose(1, 2), dy)), iters=5),
+            "library": "torch.bmm over the whole buffer, dX and dW",
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": abs_err,
+            "rel_err": errs, "kept_rows": n_kept, "touched_experts": touched,
+            "schedule": {"dx": sx._asdict(), "dw": sw._asdict()}, "nvidia_smi": smi,
+            "shape": f"E={E} cap={cap} kept rows {n_kept} in {touched} experts {K}->{N} bf16, "
+                     "dX and dW"}
+        e = entries[name]
+        log(f"  expert_matmul_bwd {name}: {e['ms']:.4g} ms (dX {e['dx_ms']:.4g}, dW "
+            f"{e['dw_ms']:.4g}; bound {b_ms:.3g} ms by {b_by}, plain {e['plain_ms']:.4g} ms, "
+            f"torch.bmm {e['library_ms']:.4g} ms); err dX {errs['dx']:.3g} dW "
+            f"{errs['dw']:.3g} of max |g| [{smi}]")
+        del xe, dy
+    del w
+    torch.cuda.empty_cache()
+    log(f"expert_matmul_bwd: {len(EXPERT_BWD_CASES)} cases within {EXPERT_BWD_TOL} of max |g| "
+        f"of the plain version (worst {worst:.3g}); every launch repeated bitwise; dX zero "
+        f"past the counts, dW zero for an empty expert; NaN past the counts changes no bit")
+    return {**entries["mixtral_train_gate"], "entries": entries}
+
+
+def _routes(torch, seen):
+    """``moe.route`` wrapped to record every call's top-k indices and
+    probabilities (on the CPU) into `seen`; use as ``_swapped(moe, "route",
+    _routes(torch, seen))``."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recording(xt, router, cfg):
+        r = route(xt, router, cfg)
+        with torch.no_grad():
+            probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+        seen.append((r.gate_idx.cpu(), probs.cpu()))
+        return r
+    return recording
+
+
+def _flips(torch, a, b, limit=8):
+    """Tokens whose top-k choice differs between two recorded routings (a
+    list of (indices, probs) a call each): (call, token, the choices and
+    each side's two largest probabilities)."""
+    out = []
+    for call, ((ia, pa), (ib, pb)) in enumerate(zip(a, b)):
+        for t in (ia != ib).any(dim=-1).nonzero().flatten().tolist()[:limit]:
+            out.append({"call": call, "token": t, "experts": [ia[t].tolist(), ib[t].tolist()],
+                        "top2_probs": [pa[t].topk(2).values.tolist(),
+                                       pb[t].topk(2).values.tolist()]})
+    return out
+
+
+def check_moe_layer_grads(torch, dev):
+    """One full-width bf16 mixtral-8x22b MoE layer (seed 7) under autograd
+    on TRAIN_B x TRAIN_T tokens: every leaf's gradient (the router, the
+    three expert leaves, x) of sum(out * g) + aux through the kernels (the
+    ``ExpertMatmul`` Function: three forward launches, six backward ones)
+    within EXPERT_BWD_TOL of max |g| of the same call with
+    ``ops.expert_matmul`` swapped for its plain version (autograd through
+    ``ref.expert_matmul_ref``). Both calls route through the same float32
+    router on the same x before any expert product, so they route alike.
+    Returns the relative error by leaf."""
+    from repro_torch import tree as tr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+
+    cfg = _train_cfg(MIXTRAL)
+    dev = torch.device(dev)
+    stacked = moe.init_moe(cm.generator(dev, 7), cfg, torch.bfloat16, dev, 1)
+    layer = {k: v[0] if isinstance(v, torch.Tensor) else {n: t[0] for n, t in v.items()}
+             for k, v in stacked.items()}
+    gen = torch.Generator(device=dev).manual_seed(36)
+    x = torch.randn((TRAIN_B, TRAIN_T, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    def grads():
+        live = tr.map_tree(lambda t: t.detach().requires_grad_(True), layer)
+        xl = x.detach().requires_grad_(True)
+        out, aux = moe.moe_apply(live, xl, cfg)
+        loss = (out.float() * g.float()).sum() + aux
+        return torch.autograd.grad(loss, [*tr.leaves(live), xl])
+
+    names = [tr.path_str(p) for p, _ in tr.flatten_with_path(layer)] + ["x"]
+    ops.reset_launch_counts()
+    card = grads()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with _swapped(ops, "expert_matmul",
+                  lambda xe, w, c, backend=None: ref.expert_matmul_ref(xe, w, c)):
+        plain = grads()
+    torch.cuda.synchronize()
+    if (counts["expert_matmul"], counts["expert_matmul_bwd"]) != (3, 6):
+        raise AssertionError(f"mixtral MoE layer under autograd: launches {counts}")
+    errs = {}
+    for name, a, b in zip(names, card, plain):
+        errs[name] = (a.float() - b.float()).abs().max().item() / max(
+            b.float().abs().max().item(), 1e-30)
+    bad = {k: v for k, v in errs.items() if not v <= EXPERT_BWD_TOL}
+    if bad:
+        raise AssertionError(f"mixtral MoE layer: gradients beyond {EXPERT_BWD_TOL} of max "
+                             f"|g| of the plain call: {bad}")
+    log(f"{MIXTRAL} MoE layer (full width, bf16, {TRAIN_B}x{TRAIN_T} tokens) under autograd: "
+        f"every leaf's gradient through expert_matmul / expert_matmul_bwd within "
+        f"{EXPERT_BWD_TOL} of max |g| of the plain call ({errs}); launches 3 forward, "
+        f"6 backward")
+    del card, plain, layer
+    torch.cuda.empty_cache()
+    return errs
+
+
 def _train_cfg(arch, reduced=False, qat=None, **over):
     from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.core.precision import parse_quant_token
@@ -6214,7 +6462,8 @@ TRAIN_TOL = {"plain": {"loss": 1e-5, "grad_norm": 1e-4, "params_max": 1e-3},
                            "params_mean": 1e-5}}
 # (arch, TRAIN_TOL key, --qat) of card_vs_cpu_train.
 TRAIN_PARITY = (("olmo-1b", "plain", None), ("olmo-1b", "w4a8", "w4a8"),
-                ("rwkv6-3b", "recurrent", None), (GRIFFIN, "recurrent", None))
+                ("rwkv6-3b", "recurrent", None), (GRIFFIN, "recurrent", None),
+                (MIXTRAL, "plain", None), (LLAMA4, "plain", None))
 # The recurrent rows' watch: a param element that parts by more than the
 # plain row's params_max is named. Its first step's gradient must lie
 # within NEAR_ZERO_ULPS ulps of zero on both devices (ulps of the largest
@@ -6276,8 +6525,11 @@ def card_vs_cpu_train(torch):
     x 64 from the data pipeline, lr 1e-2, warmup 2) on the card and on the
     CPU from the same weights: olmo-1b plain and under ``--qat w4a8``,
     rwkv6-3b and recurrentgemma-9b plain (their recurrences' backward
-    kernels, Griffin's windowed flash backward); losses, grad norms and
-    params within TRAIN_TOL. The recurrent rows also name every param
+    kernels, Griffin's windowed flash backward), the MoE decoders
+    mixtral-8x22b and llama4-maverick plain (the router's aux loss in the
+    loss; the experts on ``torch.einsum`` in float32); losses, grad norms
+    and params within TRAIN_TOL; a row that parts names every token routed
+    to other experts on the two devices. The recurrent rows also name every param
     element apart by more than the plain row's params_max (1e-3): each
     one's first-step gradient within NEAR_ZERO_ULPS of zero on both
     devices, and its first nonzero gradient of opposite signs on the two;
@@ -6285,7 +6537,7 @@ def card_vs_cpu_train(torch):
     from repro_torch import tree as tr
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataIterator
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.train.loop import init_train_state, make_train_step
 
     out = {}
@@ -6295,16 +6547,17 @@ def card_vs_cpu_train(torch):
         tc = TrainConfig(lr=1e-2, warmup_steps=2, total_steps=30)
         data = DataIterator(cfg, global_batch=4, seq_len=64, seed=0, branch=4)
         base = model.init(seed=0, device="cpu")
-        runs, grads = {}, {}
+        runs, grads, routes = {}, {}, {}
         for dev in ("cpu", "cuda"):
             # The optimizer updates in place: each device starts from a copy.
             state = init_train_state(tr.map_tree(lambda t: t.to(dev, copy=True), base), tc)
             step = make_train_step(model, tc)
-            mets, grads[dev] = [], []
+            mets, grads[dev], routes[dev] = [], [], []
             for i in range(3):
                 if mode == "recurrent":
                     grads[dev].append(_step_grads(torch, model, state.params, data.batch_at(i)))
-                state, m = step(state, data.batch_at(i))
+                with _swapped(moe, "route", _routes(torch, routes[dev])):
+                    state, m = step(state, data.batch_at(i))
                 mets.append((float(m["loss"]), float(m["grad_norm"])))
             runs[dev] = (mets, [p.detach().cpu() for p in tr.leaves(state.params)])
         tol = TRAIN_TOL[mode]
@@ -6320,7 +6573,8 @@ def card_vs_cpu_train(torch):
         bad = [k for k, t in tol.items() if not err[k] <= t]
         if bad:
             raise AssertionError(f"reduced fp32 {arch} training ({mode}): card vs CPU "
-                                 f"{err} beyond {tol}")
+                                 f"{err} beyond {tol}; tokens routed to other experts: "
+                                 f"{_flips(torch, routes['cpu'], routes['cuda'])}")
         if mode == "recurrent":
             limit = TRAIN_TOL["plain"]["params_max"]
             named, rest = _named_elements(torch, base, pc, pg, grads["cpu"], grads["cuda"],
@@ -6357,14 +6611,24 @@ RWKV_TRAIN_ARGV = ["--arch", "rwkv6-3b", "--steps", "10", "--global-batch", str(
 # rglru, attn) groups and the 2-layer rem (3.68 B parameters; 38 layers'
 # weights, grads and AdamW moments, about 115 GB, do not fit in 80).
 GRIFFIN_TRAIN_LAYERS, GRIFFIN_TRAIN_STEPS = 8, 10
+# mixtral-8x22b at full width (d 6144, 48/8 heads, 8 experts of 16384,
+# vocab 32768), QAT w4a8, cut in depth: 2.50 B parameters a layer, 12 bytes
+# each with bf16 grads and float32 AdamW moments. 1 layer peaks at 41.97
+# GB; 2 layers' 64.9 GB of state leave too little for the step: they ran
+# out of memory in the clip's norm at 66.5 GB allocated (H100 80GB HBM3,
+# 700 W). lr 3e-4: at 1e-3 the router collapsed within three steps (aux
+# 1.04 -> 6.94 of at most 8) and the loss jumped to 13.03 before the cosine
+# brought it back to 10.77; at 3e-4 it fell every step, 10.91 -> 10.58.
+MIXTRAL_TRAIN_LAYERS, MIXTRAL_TRAIN_STEPS, MIXTRAL_TRAIN_LR = 1, 10, 3e-4
 
 
 def _train_report(torch, name, hist, tokens_per_step, wall, smi, counts, need):
-    """Gate one full-width training run (every logged loss and grad norm
-    finite, the last loss below the first, each kernel of `need` launched)
-    and print s/step, tokens/s and the peak memory beside the card."""
+    """Gate one full-width training run (every logged loss, grad norm and
+    aux loss finite, the last loss below the first, each kernel of `need`
+    launched) and print s/step, tokens/s and the peak memory beside the
+    card."""
     losses = [h["loss"] for h in hist]
-    norms = [h["grad_norm"] for h in hist]
+    norms = [h["grad_norm"] for h in hist] + [h["aux_loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"{name} training: a loss or grad norm is not finite: "
                              f"{losses} {norms}")
@@ -6376,7 +6640,8 @@ def _train_report(torch, name, hist, tokens_per_step, wall, smi, counts, need):
     steps = sorted(h["dt"] for h in hist[1:])
     s_step = steps[len(steps) // 2]
     peak = torch.cuda.max_memory_allocated() / 1e9
-    rep = {"losses": losses, "grad_norms": norms, "s_per_step_median": s_step,
+    rep = {"losses": losses, "grad_norms": norms[:len(hist)],
+           "aux_losses": norms[len(hist):], "s_per_step_median": s_step,
            "first_step_s": hist[0]["dt"], "tokens_per_s": tokens_per_step / s_step,
            "peak_gb": peak, "wall_s": wall, "nvidia_smi": smi,
            "launches": {k: counts[k] for k in need}}
@@ -6397,9 +6662,10 @@ def train_full(torch, dev, smi):
     GRIFFIN_TRAIN_LAYERS (``_train_cfg(GRIFFIN, qat="w4a8",
     num_layers=8)``, 3.68 B, 10 steps of 8 x 512 through
     ``train/loop.py``'s ``run_training``, the CLI's schedule at lr 1e-3:
-    ``rglru``, ``rglru_bwd``, ``flash_attention_bwd`` launched). The
-    launch counts are the training path's: reset just before each run,
-    read just after, summed. Returns (report, counts)."""
+    ``rglru``, ``rglru_bwd``, ``flash_attention_bwd`` launched), and
+    mixtral-8x22b (``train_mixtral``). The launch counts are the training
+    path's: reset just before each run, read just after, summed. Returns
+    (report, counts)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import DataIterator
     from repro_torch.kernels import ops
@@ -6435,14 +6701,60 @@ def train_full(torch, dev, smi):
     tc = TrainConfig(lr=TRAIN_LR_RECURRENT, warmup_steps=min(20, steps // 5),
                      total_steps=steps, log_every=1, checkpoint_every=steps)
     data = DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=tc.seed, branch=8)
-    (_, hist), wall, counts = counted(
+    (state, hist), wall, counts = counted(
         lambda: run_training(build_model(cfg), tc, data, device=dev))
+    del state               # Griffin's 44 GB of state, before mixtral's run
     name = f"{GRIFFIN} ({cfg.num_layers} layers, QAT w4a8)"
     rep[GRIFFIN] = _train_report(torch, name, hist, TRAIN_B * TRAIN_T, wall, smi, counts,
                                  ("rglru", "rglru_bwd", "flash_attention",
                                   "flash_attention_bwd", "dense_matmul"))
     rep[GRIFFIN].update(layers=cfg.num_layers, parameters=cfg.param_count())
+    del data, hist
+    rep[MIXTRAL], counts = train_mixtral(torch, dev, smi)
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
     return rep, total
+
+
+def train_mixtral(torch, dev, smi, layers=None):
+    """mixtral-8x22b at full width cut to `layers` (MIXTRAL_TRAIN_LAYERS
+    unless given), QAT w4a8, MIXTRAL_TRAIN_STEPS steps of 8 x 512 through
+    ``run_training`` at MIXTRAL_TRAIN_LR (the CLI's schedule), its aux
+    loss printed each step, gated by
+    ``_train_report`` (``expert_matmul``, ``expert_matmul_bwd``, the flash
+    pair and ``dense_matmul`` launched). The launch counts are reset just
+    before the run and read just after. Returns (report, counts)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import DataIterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import run_training
+
+    cfg = _train_cfg(MIXTRAL, qat="w4a8", num_layers=layers or MIXTRAL_TRAIN_LAYERS)
+    steps = MIXTRAL_TRAIN_STEPS
+    tc = TrainConfig(lr=MIXTRAL_TRAIN_LR, warmup_steps=min(20, steps // 5),
+                     total_steps=steps, log_every=1, checkpoint_every=steps)
+    data = DataIterator(cfg, global_batch=TRAIN_B, seq_len=TRAIN_T, seed=tc.seed, branch=8)
+
+    def aux_line(step, rec):
+        log(f"  {MIXTRAL} step {step}: loss {rec['loss']:.4f} aux {rec['aux_loss']:.5f} "
+            f"gnorm {rec['grad_norm']:.3f} {rec['dt']:.3f} s")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = run_training(build_model(cfg), tc, data, hooks=aux_line, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    del state
+    name = f"{MIXTRAL} ({cfg.num_layers} layer{'s' if cfg.num_layers > 1 else ''}, QAT w4a8)"
+    rep = _train_report(torch, name, hist, TRAIN_B * TRAIN_T, wall, smi, counts,
+                        ("expert_matmul", "expert_matmul_bwd", "flash_attention",
+                         "flash_attention_bwd", "dense_matmul"))
+    rep.update(layers=cfg.num_layers, parameters=cfg.param_count())
+    return rep, counts
 
 
 def _leaves_equal(torch, a, b):
@@ -6529,15 +6841,20 @@ def check_resume(torch, dev, workdir):
 # untied 256 000-wide embedding and head with their AdamW moments make a
 # 31 GB checkpoint even at 2 layers, whose save and restore took 101-157 s
 # on an H100 host (the script's total 931 s of its 1200).
-RESTART_RUNS = (("rwkv6-3b", 2, None), (GRIFFIN, None, "w4a8"))
+RESTART_RUNS = (("rwkv6-3b", 2, None), (GRIFFIN, None, "w4a8"), (MIXTRAL, None, None))
+# The backward kernel each restart's steps must run.
+RESTART_KERNEL = {"rwkv6-3b": "wkv6_bwd", GRIFFIN: "rglru_bwd", MIXTRAL: "expert_matmul_bwd"}
 RESTART_STEPS, RESTART_SAVE = 4, 2
 
 
-def check_restart_recurrent(torch, dev, workdir):
+def check_restarts(torch, dev, workdir):
     """A bitwise restart of each family of RESTART_RUNS, as
     ``check_resume``'s: rwkv6-3b (plain bf16) at full width cut to 2
-    layers, recurrentgemma-9b (QAT w4a8) reduced, each step through
-    ``wkv6_bwd`` or ``rglru_bwd``. One run of RESTART_STEPS steps
+    layers, recurrentgemma-9b (QAT w4a8) reduced, mixtral-8x22b (plain
+    bf16) reduced, where the expert products run the kernels at d 64, f
+    128; each step through its backward kernel (RESTART_KERNEL): on the
+    MoE steps also autograd's own backward of the dispatch's and the
+    combine's gathers, which sum at most k = 2 terms from zero a row. One run of RESTART_STEPS steps
     saves after step RESTART_SAVE (async, keep 1); a restart
     (``run_training`` with the manager) runs the steps after it and gives
     bitwise the uninterrupted run's losses, grad norms and params. Returns
@@ -6582,7 +6899,7 @@ def check_restart_recurrent(torch, dev, workdir):
         counts = ops.launch_counts()
         again = [(h["loss"], h["grad_norm"]) for h in hist_b]
         same_tree, bad = _leaves_equal(torch, state, resumed)
-        kernel = "wkv6_bwd" if arch == "rwkv6-3b" else "rglru_bwd"
+        kernel = RESTART_KERNEL[arch]
         if again != hist[RESTART_SAVE:] or not same_tree or bad or counts[kernel] <= 0:
             raise AssertionError(f"{arch} restart: steps {RESTART_SAVE}-{RESTART_STEPS - 1} "
                                  f"uninterrupted {hist[RESTART_SAVE:]} vs restarted {again}; "
@@ -6695,8 +7012,10 @@ def train_phase(torch, dev):
     olmo-1b, rwkv6-3b and recurrentgemma-9b at full width
     (``train_full``), checkpoint and resume (``check_resume``) and serve
     --ckpt (``serve_ckpt``), the recurrent families' restarts
-    (``check_restart_recurrent``), each checkpoint in a temporary
-    directory removed after. Returns (report, launch counts of the
+    (``check_restarts``), each checkpoint in a temporary
+    directory removed after. The MoE gates (``check_moe_layer_grads``, the
+    MoE rows of the card-vs-CPU check and of the restarts, mixtral in
+    ``train_full``) run among them. Returns (report, launch counts of the
     full-width training runs)."""
     import tempfile
 
@@ -6704,6 +7023,7 @@ def train_phase(torch, dev):
     t0 = time.perf_counter()
     rep = {"wrappers": check_grad_wrappers(torch, dev),
            "dense_backward": check_dense_backward(torch, dev),
+           "moe_layer_grads": check_moe_layer_grads(torch, dev),
            "card_vs_cpu": card_vs_cpu_train(torch)}
     t_checks = time.perf_counter() - t0
     rep["full"], counts = train_full(torch, dev, smi)
@@ -6714,13 +7034,13 @@ def train_phase(torch, dev):
         del params10
     t_resume = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as workdir:
-        rep["restart_recurrent"] = check_restart_recurrent(torch, dev, workdir)
+        rep["restarts"] = check_restarts(torch, dev, workdir)
     t_full = sum(r["wall_s"] for r in rep["full"].values())
     rep["seconds"] = {"checks": t_checks, "full": t_full, "resume_and_serve": t_resume,
-                      "restart_recurrent": time.perf_counter() - t0 - t_resume}
+                      "restarts": time.perf_counter() - t0 - t_resume}
     log(f"train phase: card-vs-CPU and gradient checks {t_checks:.1f} s, full-width "
         f"training {t_full:.1f} s, resume and serve --ckpt {t_resume:.1f} s, the "
-        f"recurrent restarts {rep['seconds']['restart_recurrent']:.1f} s")
+        f"restarts {rep['seconds']['restarts']:.1f} s")
     return rep, counts
 
 
@@ -6789,17 +7109,22 @@ TRAIN_KERNEL_GROUPS = (
                         "dkdv_kernel", "dq_kernel")),
     ("flash forward", ("flash_mma_kernel", "flash_f32_kernel")),
     ("dense_matmul", ("dense_kernel",)),
+    ("expert_matmul_bwd", ("expert_bwd_kernel",)),
+    ("expert_matmul", ("expert_kernel",)),
     ("torch.matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet")),
 )
 
 
-# profile-train's runs: arch → (config, lr, warmup): the three full-width
-# training runs of train_full (Griffin at GRIFFIN_TRAIN_LAYERS).
+# profile-train's runs: arch → (config, lr, warmup): the four full-width
+# training runs of train_full (Griffin at GRIFFIN_TRAIN_LAYERS, mixtral at
+# MIXTRAL_TRAIN_LAYERS).
 PROFILE_TRAIN = {
     "olmo-1b": (lambda: _train_cfg("olmo-1b", qat="w4a8"), 3e-3, 4),
     "rwkv6-3b": (lambda: _train_cfg("rwkv6-3b"), TRAIN_LR_RECURRENT, 2),
     GRIFFIN: (lambda: _train_cfg(GRIFFIN, qat="w4a8", num_layers=GRIFFIN_TRAIN_LAYERS),
               TRAIN_LR_RECURRENT, 2),
+    MIXTRAL: (lambda: _train_cfg(MIXTRAL, qat="w4a8", num_layers=MIXTRAL_TRAIN_LAYERS),
+              MIXTRAL_TRAIN_LR, 2),
 }
 
 
@@ -6807,7 +7132,7 @@ def profile_train(torch, dev, arch="olmo-1b"):
     """`chip_smoke.py profile-train [arch ...]`: a training step of each
     named arch of PROFILE_TRAIN (by default olmo-1b's QAT step at full
     width and depth; rwkv6-3b at its 32 layers, recurrentgemma-9b at
-    GRIFFIN_TRAIN_LAYERS) on TRAIN_ARGV's 8 x 512 tokens, seed 0: one
+    GRIFFIN_TRAIN_LAYERS, mixtral-8x22b at MIXTRAL_TRAIN_LAYERS) on TRAIN_ARGV's 8 x 512 tokens, seed 0: one
     warmup step, then one step timed in parts on the host clock (the
     loss, its gradients, clipping, AdamW, each synchronized) and two steps
     under torch.profiler: device time a step by kernel group
@@ -6888,9 +7213,10 @@ def profile_train(torch, dev, arch="olmo-1b"):
 TENSOR_CORE_KERNELS = {"flash_attention": "HMMA", "paged_attention": "HMMA",
                        "paged_prefill": "HMMA", "dense_matmul": "HMMA",
                        "bitplane_matmul": "IMMA", "fused_matmul": "IMMA",
-                       "flash_attention_bwd": "HMMA", "expert_matmul": ("HGMMA", "UTMALDG")}
+                       "flash_attention_bwd": "HMMA", "expert_matmul": ("HGMMA", "UTMALDG"),
+                       "expert_matmul_bwd": ("HGMMA", "UTMALDG")}
 # Libraries whose products run on wgmma alone: no HMMA in their SASS.
-WGMMA_ONLY = ("expert_matmul",)
+WGMMA_ONLY = ("expert_matmul", "expert_matmul_bwd")
 # ptxas notes that undo wgmma's overlap: C7518, every wgmma serialized for
 # a wait the compiler put on a divergent path (it cost expert_matmul 5-20 %
 # at prefill on the H100); C7517, a wait the compiler injected before the
@@ -6898,7 +7224,8 @@ WGMMA_ONLY = ("expert_matmul",)
 WGMMA_NOTES = ("C7517", "C7518")
 # Libraries whose SASS must hold no atomic (ATOM, RED): their sums run in
 # an order fixed by the shapes.
-NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul")
+NO_ATOMICS = ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul",
+              "expert_matmul_bwd")
 
 
 def _sass(paths, name):
@@ -7208,7 +7535,7 @@ def phase_launches(r):
     must be there: the whole run only)."""
     counts, results = r.counts, r.results
     if any(counts[k] != r.train_counts[k]
-           for k in ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd")):
+           for k in ("flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul_bwd")):
         raise AssertionError("a serve run launched a backward kernel")
     for k in results:
         results[k]["launches"] = counts[k]
@@ -7275,6 +7602,7 @@ PHASES = (
     ("one_order", lambda r: check_one_order(r.torch, r.dev)),
     ("new_widths", phase_new_widths),
     ("expert", _row("expert_matmul", check_expert_matmul)),
+    ("expert_bwd", _row("expert_matmul_bwd", check_expert_backward)),
     ("moe_kernels", phase_moe_kernels),
     ("log_rows", phase_log_rows),
     ("new_archs", phase_new_archs),
@@ -7319,9 +7647,9 @@ MODES = {
                 "bitplane", "flash", "wkv6", "rglru", "ring", "frontend_flash",
                 "windowed_flash", "mixed_group", "table3_launches", "dense", "norm_rows",
                 "head_dims", "one_order", "new_widths", "expert", "moe_kernels", "log_rows"),
-    "moe": ("build", "dense", "head_dims", "expert", "moe_kernels", "log_rows", "moe_archs",
-            "card_vs_cpu_archs", "card_vs_cpu_moe"),
-    "expert": ("build", "expert", "log_rows"),
+    "moe": ("build", "dense", "head_dims", "expert", "expert_bwd", "moe_kernels", "log_rows",
+            "moe_archs", "card_vs_cpu_archs", "card_vs_cpu_moe"),
+    "expert": ("build", "expert", "expert_bwd", "log_rows"),
     "archs": ("build", "head_dims", "one_order", "new_widths", "log_rows", "new_archs",
               "registry", "card_vs_cpu_archs"),
     "griffin": ("build", "paged_attention", "rglru", "ring", "windowed_flash", "dense",
@@ -7329,8 +7657,8 @@ MODES = {
     "frontends": ("build", "flash", "frontend_flash", "windowed_flash", "norm_rows",
                   "head_dims", "one_order", "log_rows", "frontends", "solo_vs_mid",
                   "card_vs_cpu_frontends"),
-    "train": ("build", "flash", "frontend_flash", "one_order", "log_rows", "backward",
-              "train"),
+    "train": ("build", "flash", "frontend_flash", "one_order", "expert_bwd", "log_rows",
+              "backward", "train"),
     "bwd": ("build", "rglru", "log_rows", "backward"),
     "spec": ("build", "fused", "paged_prefill", "bitplane", "log_rows", "speculation"),
     "tiers": ("build", "tiers", "lifecycle"),

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_matmul", "paged_attention", "paged_prefill", "quantize_rows",
            "bitplane_matmul", "flash_attention", "wkv6", "dense_matmul", "rglru",
-           "flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul")
+           "flash_attention_bwd", "wkv6_bwd", "rglru_bwd", "expert_matmul",
+           "expert_matmul_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

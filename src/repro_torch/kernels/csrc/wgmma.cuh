@@ -1,9 +1,12 @@
 // Hopper warpgroup matrix multiply (wgmma) for bf16 operands with fp32
 // sums, read from shared memory laid out by TMA with the 128-byte swizzle
-// (expert_matmul.cu). A is K-major: rows of 64 K elements, 128 bytes each,
-// 8-row groups 1024 bytes apart. B is N-major (W's rows, N contiguous):
-// 64-column chunks of 64 K rows, 128 bytes a K row, chunks `lbo` bytes
-// apart; the descriptor's transpose bit reads it as the product's B.
+// (expert_matmul.cu, expert_matmul_bwd.cu). A K-major operand: rows of 64
+// K elements, 128 bytes each, 8-row groups 1024 bytes apart (desc_a; the
+// forward's A, and the backward's B = W^T, whose rows are W's). An
+// MN-major operand (N or M contiguous): 64-column chunks of K rows, 128
+// bytes a K row, chunks `lbo` bytes apart (desc_b; the forward's B, and
+// the backward's A = xe^T). The instruction's transpose bits (TA, TB: 1
+// for an MN-major operand) say which of the two each operand is.
 #pragma once
 
 #include <stdint.h>
@@ -21,12 +24,13 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t s
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
-// A (64 x 64 K-major tile): the k16 step `ks` starts 32 bytes further along
-// each row; the swizzle is applied to the address by the hardware.
+// A K-major tile (64 K a row, any multiple of 8 rows): the k16 step `ks`
+// starts 32 bytes further along each row; the swizzle is applied to the
+// address by the hardware.
 __device__ __forceinline__ uint64_t desc_a(const void* tile, int ks) {
   return desc(tile, 16, 1024) + (uint64_t)(ks * 32 >> 4);
 }
-// B (64 K rows x BN, N-major, 64-column chunks `chunk_bytes` apart): the
+// An MN-major tile (64 K rows x 64-column chunks `chunk_bytes` apart): the
 // k16 step `ks` starts 16 rows (2048 bytes) further down.
 __device__ __forceinline__ uint64_t desc_b(const void* tile, int ks, uint32_t chunk_bytes) {
   return desc(tile, chunk_bytes, 1024) + (uint64_t)(ks * 2048 >> 4);
@@ -49,22 +53,24 @@ __device__ __forceinline__ void wait() {
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 // d += a b, one k16 step: a 64 x 64 fp32 tile, 32 registers a thread.
+template <int TA, int TB>
 __device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d += a b, one k16 step: a 64 x 128 fp32 tile, 64 registers a thread.
+template <int TA, int TB>
 __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -73,7 +79,7 @@ __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t a, uint64_t b)
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
@@ -84,10 +90,11 @@ __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t a, uint64_t b)
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // d += a b, one k16 step: a 64 x 192 fp32 tile, 96 registers a thread.
+template <int TA, int TB>
 __device__ __forceinline__ void mma_n192(float (&d)[96], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
@@ -98,7 +105,7 @@ __device__ __forceinline__ void mma_n192(float (&d)[96], uint64_t a, uint64_t b)
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, 1;\n}\n"
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
@@ -113,15 +120,16 @@ __device__ __forceinline__ void mma_n192(float (&d)[96], uint64_t a, uint64_t b)
         "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// The k16 step of a 64 x BN tile (BN 64, 128 or 192).
-template <int BN>
+// The k16 step of a 64 x BN tile (BN 64, 128 or 192); TA / TB: A / B
+// MN-major (the forward reads a K-major A and an MN-major B).
+template <int BN, int TA = 0, int TB = 1>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a, uint64_t b) {
-  if constexpr (BN == 64) mma_n64(d, a, b);
-  else if constexpr (BN == 128) mma_n128(d, a, b);
-  else mma_n192(d, a, b);
+  if constexpr (BN == 64) mma_n64<TA, TB>(d, a, b);
+  else if constexpr (BN == 128) mma_n128<TA, TB>(d, a, b);
+  else mma_n192<TA, TB>(d, a, b);
 }
 
 }  // namespace wgmma

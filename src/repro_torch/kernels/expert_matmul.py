@@ -15,6 +15,12 @@ k16 step rounds as ``mma.sync``'s; ``chip_smoke.check_expert_matmul``
 holds it). Rows past the count are zeros, and an expert without rows
 reads no weight. So a decode step reads only the experts its rows were
 routed to.
+
+Training adds the product's gradient (:class:`ExpertMatmul`, whose
+backward is ``csrc/expert_matmul_bwd.cu``: :func:`launch_dx` for dX = dY
+W^T on the kept rows, :func:`launch_dw` for dW = X^T dY over the kept
+rows only), the counts read on the device there too, every sum one chain
+in a fixed order inside one block, so a repeat gives the same bits.
 """
 from __future__ import annotations
 
@@ -30,11 +36,18 @@ from repro_torch.kernels.common import cdiv
 
 #: Launches of the CUDA kernel since the last reset (see ops.launch_counts).
 launches = 0
+#: Launches of the backward's two entries (dX and dW) since the last reset
+#: (``expert_matmul_bwd`` in ops.launch_counts).
+bwd_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ctypes signature of the C entry ``expert_matmul`` (checked against its
 #: source by the tests).
 ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#: ctypes signatures of the backward's C entries ``expert_matmul_bwd_dx``
+#: and ``expert_matmul_bwd_dw`` (checked against their source by the tests).
+BWD_ARGTYPES = {"expert_matmul_bwd_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                "expert_matmul_bwd_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
 
 SMS = _dense.SMS        # streaming multiprocessors of an H100 SXM
 SMEM = 232448           # shared bytes a block may use on the H100
@@ -116,24 +129,32 @@ def _fn():
     return fn
 
 
+def _check(what, a, b, counts, K: int, N: int, fits: bool):
+    """Validate an entry's operands: bfloat16 3-D CUDA tensors on one
+    device whose shapes fit (`fits`), K and N multiples of 8, counts
+    (E,). Raises ValueError; no entry falls back to the plain version."""
+    if not fits:
+        raise ValueError(f"{what}: operands {tuple(a.shape)} and {tuple(b.shape)} do not fit")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError(f"{what} kernel takes bfloat16, got {a.dtype}, {b.dtype}")
+    if K % 8 or N % 8:
+        raise ValueError(f"{what}: K and N must be multiples of 8, got {K}, {N}")
+    if counts.shape != (a.shape[0],):
+        raise ValueError(f"counts must be ({a.shape[0]},), got {tuple(counts.shape)}")
+    if not (a.is_cuda and b.device == a.device and counts.device == a.device):
+        raise ValueError(f"{what} kernel needs CUDA tensors on one device")
+
+
 def launch(xe: torch.Tensor, w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """xe (E, cap, K) and w (E, K, N) bfloat16, counts (E,) integer, all on
     one CUDA device → (E, cap, N) bfloat16. Rows at or past an expert's
     count are zeros; the counts are never read on the host."""
     global launches
-    if xe.ndim != 3 or w.ndim != 3 or xe.shape[0] != w.shape[0] or xe.shape[2] != w.shape[1]:
-        raise ValueError(f"expert_matmul expects xe (E, cap, K) and w (E, K, N), got "
-                         f"{tuple(xe.shape)} and {tuple(w.shape)}")
+    fits = xe.ndim == 3 and w.ndim == 3 and xe.shape[0] == w.shape[0] and \
+        xe.shape[2] == w.shape[1]
+    _check("expert_matmul", xe, w, counts, xe.shape[-1], w.shape[-1], fits)
     E, cap, K = xe.shape
     N = w.shape[2]
-    if K % 8 or N % 8:
-        raise ValueError(f"K and N must be multiples of 8, got {K}, {N}")
-    if xe.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"expert_matmul kernel takes bfloat16, got {xe.dtype}, {w.dtype}")
-    if counts.shape != (E,):
-        raise ValueError(f"counts must be ({E},), got {tuple(counts.shape)}")
-    if not (xe.is_cuda and w.device == xe.device and counts.device == xe.device):
-        raise ValueError("expert_matmul kernel needs CUDA tensors on one device")
     xe, w = xe.contiguous(), w.contiguous()
     counts = counts.to(torch.int32).contiguous()
     S, sk, bm = launch_plan(cap, K, N)
@@ -145,3 +166,117 @@ def launch(xe: torch.Tensor, w: torch.Tensor, counts: torch.Tensor) -> torch.Ten
     build.check(rc, "expert_matmul")
     launches += 1
     return y
+
+
+# -- the gradient ---------------------------------------------------------------
+
+BWD_BN = 128          # output columns a backward block
+BWD_MAX_STAGES = 8
+
+
+class BwdSchedule(NamedTuple):
+    """How a backward entry covers its output: ``bm`` rows and 128 columns
+    a block, ``stages`` of the TMA ring (64 reduced elements each). The C
+    entry derives its grid (column tiles, row tiles, E) and shared bytes
+    from these and the shape."""
+    bm: int
+    stages: int
+
+
+def bwd_smem_bytes(bm: int, stages: int) -> int:
+    """The backward's dynamic shared memory (``smem_bytes`` in the source):
+    1024 for alignment, then a stage a 64 x 64 bf16 box for each of the bm
+    / 64 consumers, the 128 x 64 B tile and two barriers."""
+    return 1024 + stages * (bm // 64 * 8192 + BWD_BN * 128 + 16)
+
+
+def _bwd_schedule(bm: int) -> BwdSchedule:
+    per = bwd_smem_bytes(bm, 1) - bwd_smem_bytes(bm, 0)
+    return BwdSchedule(bm, min(BWD_MAX_STAGES, (SMEM - bwd_smem_bytes(bm, 0)) // per))
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_dx(E: int, cap: int, K: int, N: int) -> BwdSchedule:
+    """dX's blocks: a row tile of the buffer (64 rows up to cap 64, 128
+    above: the forward's rule) by 128 columns of K, every expert; the tiles
+    past an expert's count store zeros and read nothing. Never the
+    counts."""
+    return _bwd_schedule(_rows(cap))
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_dw(E: int, cap: int, K: int, N: int) -> BwdSchedule:
+    """dW's blocks: 128 rows of K by 128 columns of N, every expert, each
+    summing over the expert's kept rows only. Never the counts."""
+    return _bwd_schedule(128)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(entry: str):
+    fn = getattr(build.load("expert_matmul_bwd"), entry)
+    fn.argtypes = BWD_ARGTYPES[entry]
+    fn.restype = _I
+    return fn
+
+
+def launch_dx(dy: torch.Tensor, w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """dy (E, cap, N) and w (E, K, N) bfloat16, counts (E,) integer, on one
+    CUDA device → dx (E, cap, K) bfloat16: dy[e] w[e]^T on the rows below
+    each expert's count, zeros from it on."""
+    global bwd_launches
+    fits = dy.ndim == 3 and w.ndim == 3 and dy.shape[0] == w.shape[0] and \
+        dy.shape[2] == w.shape[2]
+    _check("expert_matmul_bwd_dx", dy, w, counts, w.shape[1] if fits else 0,
+               dy.shape[-1], fits)
+    dy, w = dy.contiguous(), w.contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    E, cap, N = dy.shape
+    K = w.shape[1]
+    sch = schedule_dx(E, cap, K, N)
+    dx = torch.empty((E, cap, K), dtype=torch.bfloat16, device=dy.device)
+    rc = _bwd_fn("expert_matmul_bwd_dx")(
+        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), counts.data_ptr(), E, cap, K, N, sch.bm,
+        sch.stages, torch.cuda.current_stream(dy.device).cuda_stream)
+    build.check(rc, "expert_matmul_bwd_dx")
+    bwd_launches += 1
+    return dx
+
+
+def launch_dw(xe: torch.Tensor, dy: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """xe (E, cap, K) and dy (E, cap, N) bfloat16, counts (E,) integer, on
+    one CUDA device → dw (E, K, N) bfloat16: xe[e]^T dy[e] over the rows
+    below each expert's count only (the kernel masks the rest, whatever
+    they hold); zeros for an expert with count 0."""
+    global bwd_launches
+    fits = xe.ndim == 3 and dy.ndim == 3 and xe.shape[:2] == dy.shape[:2]
+    _check("expert_matmul_bwd_dw", xe, dy, counts, xe.shape[-1], dy.shape[-1], fits)
+    xe, dy = xe.contiguous(), dy.contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    E, cap, K = xe.shape
+    N = dy.shape[2]
+    sch = schedule_dw(E, cap, K, N)
+    dw = torch.empty((E, K, N), dtype=torch.bfloat16, device=xe.device)
+    rc = _bwd_fn("expert_matmul_bwd_dw")(
+        xe.data_ptr(), dy.data_ptr(), dw.data_ptr(), counts.data_ptr(), E, cap, K, N,
+        sch.stages, torch.cuda.current_stream(xe.device).cuda_stream)
+    build.check(rc, "expert_matmul_bwd_dw")
+    bwd_launches += 1
+    return dw
+
+
+class ExpertMatmul(torch.autograd.Function):
+    """:func:`launch` with its gradient: the backward runs
+    :func:`launch_dx` and :func:`launch_dw` (each only where its input
+    needs a gradient). The counts get none."""
+
+    @staticmethod
+    def forward(ctx, xe, w, counts):
+        ctx.save_for_backward(xe, w, counts)
+        return launch(xe, w, counts)
+
+    @staticmethod
+    def backward(ctx, g):
+        xe, w, counts = ctx.saved_tensors
+        dx = launch_dx(g, w, counts) if ctx.needs_input_grad[0] else None
+        dw = launch_dw(xe, g, counts) if ctx.needs_input_grad[1] else None
+        return dx, dw, None

@@ -26,8 +26,10 @@ sequential pass, and ``expert_matmul``, the MoE layers' grouped expert
 product (``dense_matmul``'s rows, one product an expert, reading only
 the experts with rows). Training adds the gradients JAX gets from XLA's
 autodiff: ``flash_attention_bwd`` (flash attention's), ``wkv6_bwd`` (the
-RWKV-6 recurrence's) and ``rglru_bwd`` (the RG-LRU's), each run by an
-autograd Function on the card when grad is on and an input requires it.
+RWKV-6 recurrence's), ``rglru_bwd`` (the RG-LRU's) and
+``expert_matmul_bwd`` (the grouped expert product's dX and dW), each run
+by an autograd Function on the card when grad is on and an input requires
+it.
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ def launch_counts() -> Dict[str, int]:
     counts = {name: mod.launches for name, mod in _MODULES.items()}
     counts["wkv6_bwd"] = _wkv6.bwd_launches
     counts["rglru_bwd"] = _rglru.bwd_launches
+    counts["expert_matmul_bwd"] = _expert.bwd_launches
     return counts
 
 
@@ -81,6 +84,7 @@ def reset_launch_counts() -> None:
     _rglru.step_launches = 0
     _wkv6.bwd_launches = 0
     _rglru.bwd_launches = 0
+    _expert.bwd_launches = 0
 
 
 def _needs_grad(*ts) -> bool:
@@ -351,11 +355,17 @@ def expert_matmul(xe: torch.Tensor, w: torch.Tensor, counts: torch.Tensor, *,
     ``dense_matmul`` of the row alone against its expert, the counts read
     on the device, and an expert without rows reads no weight. A float32
     xe goes to ``torch.einsum`` in full float32, a dtype route, as
-    :func:`dense_matmul`'s."""
+    :func:`dense_matmul`'s. Under autograd (an input requires grad) the
+    card runs ``expert_matmul.ExpertMatmul``, whose backward is the
+    ``expert_matmul_bwd`` kernel (dX and dW over the kept rows); the CPU's
+    gradient is autograd through the plain version."""
     be = _backend(xe, "expert_matmul", backend)
     if be.is_reference or xe.dtype == torch.float32:
         return _ref.expert_matmul_ref(xe, w, counts)
-    return _expert.launch(xe, w.to(xe.dtype), counts)
+    wx = w.to(xe.dtype)
+    if _needs_grad(xe, wx):
+        return _expert.ExpertMatmul.apply(xe, wx, counts)
+    return _expert.launch(xe, wx, counts)
 
 
 def wkv6_chunked(r, k, v, w, u, state, *, chunk: int = 64, backend=None):

@@ -99,6 +99,23 @@ def expert_matmul_ref(xe: torch.Tensor, w: torch.Tensor, counts) -> torch.Tensor
     return torch.where(live[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
+def expert_matmul_bwd_ref(xe: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, counts):
+    """The gradient of ``expert_matmul`` (the plain version of
+    ``expert_matmul_bwd``): xe (E, cap, K), w (E, K, N), dy (E, cap, N) →
+    (dx (E, cap, K) in xe's dtype, dw (E, K, N) in w's), sums in float32.
+    dx[e, r] = dy[e, r] w[e]^T below the count, zero from it on; dw[e] sums
+    xe[e, r]^T dy[e, r] over r below the count only, whatever the rows
+    past it hold (an expert with count 0 gets zeros)."""
+    rows = torch.arange(xe.shape[1], device=xe.device)
+    live = (rows[None, :] < torch.as_tensor(counts, device=xe.device).reshape(-1, 1))[..., None]
+    zero = torch.zeros((), dtype=torch.float32, device=xe.device)
+    dyl = torch.where(live, dy.to(torch.float32), zero)
+    xl = torch.where(live, xe.to(torch.float32), zero)
+    dx = torch.where(live, torch.einsum("ecn,ekn->eck", dyl, w.to(torch.float32)), zero)
+    dw = torch.einsum("eck,ecn->ekn", xl, dyl)
+    return dx.to(xe.dtype), dw.to(w.dtype)
+
+
 def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0,
                         q_offset: int = 0, prefix_len: int = 0) -> torch.Tensor:
     """Naive float32 softmax attention over (BH, T, D): key j is visible

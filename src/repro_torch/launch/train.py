@@ -14,7 +14,9 @@ with fake-quantized block projections (the straight-through gradient);
 resumes from the newest checkpoint there; ``serve --ckpt DIR`` serves
 it. Weights come from a seed (``model.init(seed)``), not JAX's PRNG. Every
 ported family trains: the transformers (olmo-1b, nemotron-4-15b,
-stablelm-12b, paligemma-3b, hubert-xlarge), rwkv6-3b (``--qat`` leaves it
+stablelm-12b, paligemma-3b, hubert-xlarge; the MoE decoders mixtral-8x22b
+and llama4-maverick-400b-a17b with their router's load-balance loss),
+rwkv6-3b (``--qat`` leaves it
 unquantized, as JAX's raw mixers do) and recurrentgemma-9b, the two
 recurrences on their backward kernels. ``--fake-devices`` and
 ``--mesh-shape`` (JAX's data/model mesh) exit: the port's multi-card

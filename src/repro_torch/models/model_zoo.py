@@ -7,8 +7,8 @@ Port of ``repro.models.model_zoo`` for every family of the JAX package:
 ``models.transformer``, ``ssm``
 (rwkv6-3b) and ``hybrid`` (recurrentgemma-9b, Griffin): ``init(seed,
 device)``, ``prefill``, ``decode_step`` and ``init_cache``, and
-``train_loss`` (every family but ``moe``, whose aux loss and expert
-gradient are not ported); for the transformer also
+``train_loss`` (every family; an MoE model's adds 0.01 of its router's
+load-balance loss, as JAX's does); for the transformer also
 ``init_paged_cache`` and, behind the same eligibility gate as JAX (full
 attention, no MoE, token inputs: no ``vlm`` or ``encoder`` arch passes
 it), ``prefill_chunk``, ``prefill_suffix`` (the

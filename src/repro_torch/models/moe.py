@@ -8,7 +8,13 @@ expert takes the first ``cap`` of its assignments into a fixed (E, cap,
 d) buffer and the rest are dropped (Switch-style); the experts' FFNs run
 on the buffer; each token's output is its kept slots' outputs times
 their gate weights. The Switch load-balance loss ``E·Σ me·ce`` comes out
-beside it (serving discards it).
+beside it: training adds 0.01 of it to the loss (``transformer.
+train_loss``), serving discards it. Under autograd the gradient flows as
+JAX's does: into the router through the softmax, the top-k values, the
+k > 1 renormalisation and ``me`` (not through ``ce``, a one-hot count);
+into the tokens through the dispatch's gather and the combine; into the
+experts through ``ops.expert_matmul`` (on the card its autograd Function,
+whose backward is the ``expert_matmul_bwd`` kernel).
 
 Every product of the expert FFN runs on ``ops.expert_matmul`` with each
 expert's kept count (read on the device, no host sync): on the card the

@@ -25,13 +25,16 @@ path sums in one order. A windowed model's whole-prompt prefill packs
 its K/V into a ring of ``attn_window`` slots (``kv_cache.ring_align``);
 it has no paged pool, as in JAX.
 
-Training (``train_loss``) runs ``forward_hidden`` under autograd: the
-flash kernel and ``dense_matmul`` carry their gradients
-(``ops.flash_attention``'s backward is the ``flash_attention_bwd``
-kernel), a QuantConfig on the config fake-quantizes every block
-projection with the straight-through gradient, and ``cfg.remat``
-checkpoints each block. MoE training (the aux loss, the expert product's
-gradient) is not ported: ``train_loss`` refuses an MoE config.
+Training (``train_loss``) runs the forward under autograd: the flash
+kernel, ``dense_matmul`` and the MoE layers' ``expert_matmul`` carry
+their gradients (``ops.flash_attention``'s backward is the
+``flash_attention_bwd`` kernel, ``ops.expert_matmul``'s the
+``expert_matmul_bwd`` kernel), a QuantConfig on the config fake-quantizes
+every block projection with the straight-through gradient (an MoE
+layer's experts and float32 router stay unquantized, as in JAX), and
+``cfg.remat`` checkpoints each block. The MoE layers' load-balance losses
+are summed over the layers from a float32 zero, layer 0 first (JAX's scan
+carry), and ``train_loss`` adds 0.01 of the sum to the loss.
 """
 from __future__ import annotations
 
@@ -159,15 +162,17 @@ def _attention_qkv(p, cfg: ModelConfig, x, positions):
 
 
 def _block_post_attn(p: dict, cfg: ModelConfig, x, attn):
-    """Output projection + FFN (or MoE) residual, shared by prefill and
-    decode. The MoE layer's aux loss is discarded, as JAX's serving
-    paths discard it."""
+    """Output projection + FFN (or MoE) residual, shared by prefill, decode
+    and training. Returns (x, the MoE layer's aux loss, or None for a
+    dense FFN, whose aux JAX adds as a zero); the serving paths discard
+    the aux, as JAX's do."""
     attn = attn.reshape(*x.shape[:2], cfg.n_heads * cfg.head_dim)
     x = x + cm.linear(attn, p["wo"], *cm.quant_mode(cfg))
     h2 = cm.apply_norm(x, p["ln2"], cfg.norm)
     if cfg.moe_experts:
-        return x + moe.moe_apply(p["moe"], h2, cfg)[0]
-    return x + cm.ffn_apply(p["ffn"], h2, cfg)
+        y, aux = moe.moe_apply(p["moe"], h2, cfg)
+        return x + y, aux
+    return x + cm.ffn_apply(p["ffn"], h2, cfg), None
 
 
 def _kv_attn_view(k, v, kv_quant_attn: bool):
@@ -182,15 +187,17 @@ def _kv_attn_view(k, v, kv_quant_attn: bool):
 
 def block_apply(p: dict, cfg: ModelConfig, x, positions, mask: cm.AttnMask,
                 kv_quant_attn: bool = False):
-    """Full-sequence block (prefill). Returns (x, k, v); the returned k/v
-    are unquantized (the cache quantizes them once, at the end of
-    prefill, with the same ``quantize_kv``)."""
+    """Full-sequence block (prefill, training). Returns (x, k, v, the
+    layer's aux loss or None); the returned k/v are unquantized (the cache
+    quantizes them once, at the end of prefill, with the same
+    ``quantize_kv``)."""
     h = cm.apply_norm(x, p["ln1"], cfg.norm)
     q, k, v = _attention_qkv(p, cfg, h, positions)
     k_att, v_att = _kv_attn_view(k, v, kv_quant_attn)
     attn = cm.chunked_attention(q, k_att, v_att, mask,
                                 softcap=cfg.attn_logit_softcap)
-    return _block_post_attn(p, cfg, x, attn), k, v
+    x, aux = _block_post_attn(p, cfg, x, attn)
+    return x, k, v, aux
 
 
 def block_decode(p: dict, cfg: ModelConfig, x, pos, k_cache, v_cache, slot_pos,
@@ -212,7 +219,7 @@ def block_decode(p: dict, cfg: ModelConfig, x, pos, k_cache, v_cache, slot_pos,
                                 window=cfg.attn_window,
                                 softcap=cfg.attn_logit_softcap,
                                 k_scale=k_scale, v_scale=v_scale)
-    return _block_post_attn(p, cfg, x, attn)
+    return _block_post_attn(p, cfg, x, attn)[0]
 
 
 def block_decode_paged(p: dict, cfg: ModelConfig, x, pos, pool_k, pool_v,
@@ -227,7 +234,7 @@ def block_decode_paged(p: dict, cfg: ModelConfig, x, pos, pool_k, pool_v,
     attn = ops.paged_attention(q, pool_k, pool_v, block_table, pos,
                                k_scale=k_scale, v_scale=v_scale,
                                softcap=cfg.attn_logit_softcap)
-    return _block_post_attn(p, cfg, x, attn)
+    return _block_post_attn(p, cfg, x, attn)[0]
 
 
 def compute_logits(params, cfg: ModelConfig, hidden):
@@ -279,31 +286,42 @@ def _mask_for(cfg: ModelConfig) -> cm.AttnMask:
 
 def _scan_blocks(params, cfg: ModelConfig, x, positions, mask,
                  collect_kv: bool, kv_quant_attn: bool = False):
-    """Every layer's block_apply in order. Returns (x, (k_all, v_all))
-    with k/v stacked (L, B, T, NKV, H) when `collect_kv`, else (x, None).
-    Under autograd with ``cfg.remat`` each block is checkpointed (JAX's
-    ``jax.checkpoint`` of the scan body): its activations are recomputed
-    in the backward pass instead of kept."""
-    ks, vs = [], []
+    """Every layer's block_apply in order. Returns (x, aux, (k_all,
+    v_all)): aux the MoE layers' aux losses summed layer 0 first (JAX's
+    scan carry, whose float32 zero start changes no bit), None without
+    an MoE layer; k/v stacked (L, B, T, NKV, H) when
+    `collect_kv`, else None. Under autograd with ``cfg.remat`` each block
+    is checkpointed (JAX's ``jax.checkpoint`` of the scan body, aux
+    included): its activations are recomputed in the backward pass
+    instead of kept."""
+    ks, vs, aux = [], [], None
     remat = cfg.remat and torch.is_grad_enabled()
     for p in unstack_layers(params["blocks"], cfg.num_layers):
         if remat:
-            x, k, v = torch.utils.checkpoint.checkpoint(
+            x, k, v, a = torch.utils.checkpoint.checkpoint(
                 block_apply, p, cfg, x, positions, mask, kv_quant_attn,
                 use_reentrant=False)
         else:
-            x, k, v = block_apply(p, cfg, x, positions, mask, kv_quant_attn)
+            x, k, v, a = block_apply(p, cfg, x, positions, mask, kv_quant_attn)
+        if a is not None:
+            aux = a if aux is None else aux + a
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+    return x, aux, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
+
+
+def _forward_hidden_aux(params, cfg: ModelConfig, batch):
+    """(final-normed hidden states (B, T, d), the MoE layers' aux loss ()
+    or None)."""
+    x, positions = embed_inputs(params, cfg, batch)
+    x, aux, _ = _scan_blocks(params, cfg, x, positions, _mask_for(cfg), False)
+    return cm.apply_norm(x, params["final_norm"], cfg.norm), aux
 
 
 def forward_hidden(params, cfg: ModelConfig, batch):
     """Full-sequence forward → final-normed hidden states (B, T, d)."""
-    x, positions = embed_inputs(params, cfg, batch)
-    x, _ = _scan_blocks(params, cfg, x, positions, _mask_for(cfg), False)
-    return cm.apply_norm(x, params["final_norm"], cfg.norm)
+    return _forward_hidden_aux(params, cfg, batch)[0]
 
 
 def _on_device(batch: dict, device) -> dict:
@@ -313,17 +331,16 @@ def _on_device(batch: dict, device) -> dict:
 
 
 def train_loss(params, cfg: ModelConfig, batch):
-    """Mean next-token cross-entropy (with z-loss) of a training batch →
-    (loss, {"loss", "aux_loss"}), JAX's three branches: the encoder's
-    per-frame ``labels``; the VLM's text positions after the patches; the
-    decoder's next token. A dense model has no auxiliary loss, so the
-    total is the loss; an MoE config raises (its aux loss and the expert
-    product's gradient are not ported)."""
-    if cfg.moe_experts:
-        raise ValueError(f"{cfg.name}: MoE training is not ported (the router's aux "
-                         "loss and expert_matmul's gradient come later); serve it")
+    """Mean next-token cross-entropy (with z-loss) of a training batch plus
+    0.01 of the MoE layers' load-balance loss → (total, {"loss",
+    "aux_loss"}), JAX's three branches: the encoder's per-frame
+    ``labels``; the VLM's text positions after the patches; the decoder's
+    next token. A dense model's aux loss is zero, so its total is the
+    loss."""
     batch = _on_device(batch, params["embed"].device)
-    hidden = forward_hidden(params, cfg, batch)
+    hidden, aux = _forward_hidden_aux(params, cfg, batch)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     logits = compute_logits(params, cfg, hidden)
     if cfg.family == "encoder":
         loss = cm.cross_entropy(logits, batch["labels"]).mean()
@@ -332,7 +349,6 @@ def train_loss(params, cfg: ModelConfig, batch):
         loss = cm.cross_entropy(logits[:, P:-1], batch["tokens"][:, 1:]).mean()
     else:
         loss = cm.cross_entropy(logits[:, :-1], batch["tokens"][:, 1:]).mean()
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
@@ -361,8 +377,8 @@ def prefill(params, cfg: ModelConfig, batch):
     lengths = batch.get("lengths")
     if lengths is not None:
         lengths = torch.as_tensor(lengths, dtype=torch.int32).to(dev)
-    x, (k_all, v_all) = _scan_blocks(params, cfg, x, positions, _mask_for(cfg),
-                                     True, kv_quant_attn=cfg.kv_cache_quant)
+    x, _, (k_all, v_all) = _scan_blocks(params, cfg, x, positions, _mask_for(cfg),
+                                        True, kv_quant_attn=cfg.kv_cache_quant)
     length = (torch.full((B,), S, dtype=torch.int32, device=dev)
               if lengths is None else lengths)
     if cfg.attn_window:
@@ -407,7 +423,7 @@ def _chunk_forward(params, cfg: ModelConfig, kv: PagedKVCache, tokens, start: in
         attn = ops.paged_prefill(q, k, v, pk, pv, blocks, start, length,
                                  k_scale=ks, v_scale=vs,
                                  softcap=cfg.attn_logit_softcap, store=store)[0]
-        x = _block_post_attn(p, cfg, x, attn)
+        x = _block_post_attn(p, cfg, x, attn)[0]
     return x
 
 
@@ -558,7 +574,7 @@ def prefill_suffix(params, cfg: ModelConfig, batch):
         v_cat = torch.cat([pv[i][None].to(v_att.dtype), v_att], dim=1)
         attn = cm.chunked_attention(q, k_cat, v_cat, mask, q_offset=start,
                                     softcap=cfg.attn_logit_softcap)
-        x = _block_post_attn(p, cfg, x, attn)
+        x = _block_post_attn(p, cfg, x, attn)[0]
         ks.append(k)
         vs.append(v)
     k_all, v_all = torch.stack(ks), torch.stack(vs)

@@ -19,8 +19,8 @@ from repro_torch import tree as tr
 from repro_torch.configs.base import TrainConfig
 
 # Elements of a leaf updated at once: float32 temporaries of a larger
-# leaf stay this size (a stacked leaf goes a slice of its first dim at a
-# time; the update is elementwise, so the values are the same).
+# leaf stay this size (a stacked leaf goes a slice of its leading dims at
+# a time; the update is elementwise, so the values are the same).
 _UPDATE_ELEMS = 1 << 25
 
 
@@ -83,15 +83,25 @@ def _is_matrix(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
-def _slices(p: torch.Tensor):
-    """Index ranges over p's first dim covering at most _UPDATE_ELEMS
-    elements each (the whole leaf, ``...``, for a small one or a scalar)."""
-    if p.ndim == 0 or p.numel() <= _UPDATE_ELEMS:
+def _slices(shape):
+    """Indices over the leading dims of a leaf of `shape` covering at most
+    _UPDATE_ELEMS elements each (the whole leaf, ``...``, for a small one
+    or a scalar). Where one index of the first dim is larger (an MoE
+    expert leaf of one or two layers, (L, E, d, f)), each index of it is
+    cut along the next dims in turn."""
+    n = math.prod(shape)
+    if not shape or n <= _UPDATE_ELEMS:
         yield ...
         return
-    rows = max(1, _UPDATE_ELEMS // (p.numel() // p.shape[0]))
-    for i in range(0, p.shape[0], rows):
-        yield slice(i, i + rows)
+    inner = n // shape[0]
+    if inner > _UPDATE_ELEMS:
+        for i in range(shape[0]):
+            for rest in _slices(shape[1:]):
+                yield (i, rest) if rest is ... else (i, *rest)
+        return
+    rows = max(1, _UPDATE_ELEMS // inner)
+    for i in range(0, shape[0], rows):
+        yield (slice(i, i + rows),)
 
 
 @torch.no_grad()
@@ -109,7 +119,7 @@ def apply_updates(params, grads, state: AdamState, tc: TrainConfig,
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
 
     def upd(p, g, m, v):
-        for s in _slices(p):
+        for s in _slices(tuple(p.shape)):
             gf = g[s].to(torch.float32)
             m2 = b1 * m[s] + (1 - b1) * gf
             v2 = b2 * v[s] + (1 - b2) * torch.square(gf)

@@ -151,12 +151,15 @@ def test_files_and_paths_are_jax_s(tmp_path):
             == (tmp_path / "t" / "3" / "data_state.json").read_text())
 
 
-@pytest.fixture(scope="module", params=["olmo-1b", "rwkv6-3b", "recurrentgemma-9b"])
+@pytest.fixture(scope="module", params=["olmo-1b", "rwkv6-3b", "recurrentgemma-9b",
+                                        "mixtral-8x22b", "llama4-maverick-400b-a17b"])
 def olmo_states(request):
     """A reduced TrainState (bf16 params, two AdamW steps' moments) of each
     family in each package from the same numbers: olmo-1b, rwkv6-3b (its
-    float32 decay_base and u beside bf16 leaves) and recurrentgemma-9b
-    (Griffin's group-stacked tree, its rem layers and float32 gates)."""
+    float32 decay_base and u beside bf16 leaves), recurrentgemma-9b
+    (Griffin's group-stacked tree, its rem layers and float32 gates) and
+    the MoE decoders (the float32 router beside bf16 expert leaves under
+    ``experts_tp`` for mixtral-8x22b, ``experts_ep`` for llama4)."""
     arch = request.param
     params = jax_build(jax_reduced(arch)).init(jax.random.PRNGKey(0))
     jstate = jax_init_state(params, JaxTrainConfig(grad_compress_bits=8))
